@@ -8,20 +8,29 @@ It builds the port's CUDA kernels from csrc/ (into build/kernels/), then:
 
 1. environment: prints the card's name and power limit (nvidia-smi) and the
    kernel build time;
-2. kernels: holds each of the four ported kernels against its plain PyTorch
-   version on the card, in bf16, at the shapes of the main path (masked key
+2. kernels: holds each of the six ported kernels against its plain PyTorch
+   version on the card, in bf16, at the shapes of the main paths (masked key
    tails, non-trivial head gates, a rectangular 8-head A=512 width, the
-   grouped rerank with and without its LayerNorm epilogue);
-3. slice: drives retrieval evaluation at the full width of X-VLM base
-   (CLIP-ViT-B/16 at 384 px, BERT-base, 40 text tokens): the teacher 12L/12L
-   and the student 6L/6L retrieval forward at batch 32, one i2t (grouped)
-   and one t2i (expanded) rerank chunk of 4 rows x 256 candidates, and
-   retrieval_scores -> itm_eval over a synthetic bank; checks the kernel
-   launch counts, finite outputs, and the kernel path against the plain
-   path in f32 params;
+   grouped rerank with and without its LayerNorm epilogue; for the two
+   attention cores a causal + padding matrix bias, the decode mask over a
+   partly filled cache, and grouped K/V with G=3, Tq=1 and G=128, Tq=6);
+3. paths, each driven with every launch count set to 0 just before it and
+   read just after:
+   - retrieval evaluation at the full width of X-VLM base (CLIP-ViT-B/16 at
+     384 px, BERT-base, 40 text tokens): the teacher 12L/12L and the student
+     6L/6L retrieval forward at batch 32, one i2t (grouped) and one t2i
+     (expanded) rerank chunk of 4 rows x 256 candidates, and
+     retrieval_scores -> itm_eval over a synthetic bank;
+   - generation: VQA answer ranking (480 px, batch 16, 25 question tokens,
+     3,128 answers x 6 tokens, k = 128) and captioning (384 px, batch 16,
+     3 beams and greedy, max_length 20, min_length 5, a 4-token prompt), for
+     the teacher and the student;
+   with exact launch counts, finite outputs, and the kernel path against the
+   plain path (f32 params for retrieval; the same bf16 params for
+   generation, with a teacher-forced replay of the generated captions);
 4. times: each kernel's time beside its bound, its plain version's and a
    library yardstick's time (CUDA events, median of runs after warm-up),
-   and pairs/s.
+   pairs/s, questions/s, images/s, and a torch.profiler breakdown.
 
 Weights are random, made from a seed. Any failed check exits non-zero
 before the last line, which is
@@ -143,6 +152,8 @@ def kernel_cases(rnd):
     shapes; the first case of each kernel is the one timed in phase 4."""
     import torch
 
+    from efficientvlm_tpu_torch.ops import attention as A
+    from efficientvlm_tpu_torch.ops import flash_attention as FA
     from efficientvlm_tpu_torch.ops import fused_mha as F
     from efficientvlm_tpu_torch.ops.patch_embed import fused_patch_embed, patch_embed_plain
 
@@ -211,6 +222,46 @@ def kernel_cases(rnd):
     cases.append(grouped_case("i2t_g256_ln", 768, 12, True))
     cases.append(grouped_case("i2t_g256_no_ln", 768, 12, False))
     cases.append(grouped_case("rect_a512_h8_ln", 512, 8, True))
+
+    # 5, 6: bare attention cores of the generation path (teacher, 12 heads,
+    # dh 64, q already scaled); bytes read each input once, bias in f32
+    h, dh = 12, 64
+
+    def flash_case(case, b, tq, tk, kind, filled=0):
+        q, k, v = rnd(b, h, tq, dh, std=dh ** -0.5), rnd(b, h, tk, dh), rnd(b, h, tk, dh)
+        if kind == "key_vector":  # padding mask with masked tails
+            bias = A.make_attention_bias(rnd.mask(b, tk, max(1, tk // 4)))
+        elif kind == "causal_padding":  # decoder self-attention over padded answers
+            bias = A.causal_bias(tq, tk, device="cuda") + A.make_attention_bias(
+                rnd.mask(b, tk, 2))
+        else:  # the decode mask over a cache whose first `filled` slots are written
+            bias = A.decode_bias(tk, filled - tq, q_len=tq, device="cuda")
+            k[:, :, filled:] = 0
+            v[:, :, filled:] = 0
+        flops = 4 * b * h * tq * tk * dh
+        nbytes = 2 * (2 * q.numel() + k.numel() + v.numel()) + 4 * bias[:, 0].numel()
+        return ("flash_attention", case, lambda: FA.flash_attention(q, k, v, bias=bias),
+                lambda: FA.flash_attention_plain(q, k, v, bias), flops, nbytes, (q, k, v, bias))
+
+    cases.append(flash_case("vqa_score_self_b2048_tq6", 2048, 6, 6, "causal_padding"))
+    cases.append(flash_case("vqa_first_cross_b16_tq1_s25", 16, 1, 25, "key_vector"))
+    cases.append(flash_case("caption_step_self_b48_l20", 48, 1, 20, "decode", filled=10))
+    cases.append(flash_case("caption_prefill_self_b48_tq4_l20", 48, 4, 20, "decode", filled=4))
+    cases.append(flash_case("greedy_step_cross_b16_s577", 16, 1, 577, "key_vector"))
+
+    def grouped_flash_case(case, bk, g, tq, s):
+        q, k, v = rnd(bk * g, h, tq, dh, std=dh ** -0.5), rnd(bk, h, s, dh), rnd(bk, h, s, dh)
+        bias = A.make_attention_bias(rnd.mask(bk, s, s // 4))
+        flops = 4 * bk * g * h * tq * s * dh
+        nbytes = 2 * (2 * q.numel() + k.numel() + v.numel()) + 4 * bk * s
+        return ("flash_attention_grouped", case,
+                lambda: FA.flash_attention_grouped(q, k, v, kv_groups=g, bias=bias),
+                lambda: FA.flash_attention_grouped_plain(q, k, v, g, bias), flops, nbytes,
+                (q, k, v, bias, g))
+
+    cases.append(grouped_flash_case("vqa_score_cross_bk16_g128_tq6_s25", 16, 128, 6, 25))
+    cases.append(grouped_flash_case("caption_step_cross_bk16_g3_tq1_s577", 16, 3, 1, 577))
+    cases.append(grouped_flash_case("caption_prefill_cross_bk16_g3_tq4_s577", 16, 3, 4, 577))
     return cases
 
 
@@ -255,16 +306,26 @@ def build_model(layers: int):
 
 
 def wrappers():
+    from efficientvlm_tpu_torch.ops import flash_attention as FA
     from efficientvlm_tpu_torch.ops import fused_mha as F
     from efficientvlm_tpu_torch.ops.patch_embed import fused_patch_embed
 
     return {"patch_embed": fused_patch_embed, "fused_self_attention": F.fused_self_attention,
             "fused_cross_attention": F.fused_cross_attention,
-            "fused_cross_attention_grouped": F.fused_cross_attention_grouped}
+            "fused_cross_attention_grouped": F.fused_cross_attention_grouped,
+            "flash_attention": FA.flash_attention,
+            "flash_attention_grouped": FA.flash_attention_grouped}
 
 
 def counts() -> dict:
     return {k: w.launches for k, w in wrappers().items()}
+
+
+def reset_counts() -> dict:
+    """Every launch count to 0: a main path's run starts here."""
+    for w in wrappers().values():
+        w.launches = 0
+    return counts()
 
 
 def expect_launches(before: dict, expected: tuple, what: str):
@@ -294,25 +355,23 @@ def phase_slice(rnd):
     txt_atts = rnd.mask(rows * k, 40, 8)
     ib_expanded = ib.repeat_interleave(k, 0)
 
-    for w in wrappers().values():  # the main path's run starts here
-        w.launches = 0
-    c = counts()
+    c = reset_counts()
     with torch.inference_mode():
         out = R.retrieval_forward(teacher, t_bf16, image, ids, atts, dtype=bf16)
-        c = expect_launches(c, (1, 24, 6, 0), "teacher forward")
+        c = expect_launches(c, (1, 24, 6, 0, 0, 0), "teacher forward")
         for x, shape in zip(out, [(32, 256), (32, 256), (32, 2)]):
             check(tuple(x.shape) == shape and bool(torch.isfinite(x.float()).all()),
                   f"teacher forward output {tuple(x.shape)} not finite / not {shape}")
         norms = torch.linalg.vector_norm(out[0].float(), dim=-1)
         check(bool(((norms - 1).abs() < 1e-2).all()), "image features are not unit vectors")
         out = R.retrieval_forward(student, s_bf16, image, ids, atts, dtype=bf16)
-        c = expect_launches(c, (1, 12, 3, 0), "student forward")
+        c = expect_launches(c, (1, 12, 3, 0, 0, 0), "student forward")
         check(all(bool(torch.isfinite(x.float()).all()) for x in out), "student not finite")
         i2t = R.itm_rerank_scores(teacher, t_bf16, ib, txt, txt_atts, rows, k, dtype=bf16)
-        c = expect_launches(c, (0, 6, 0, 6), "i2t rerank chunk")
+        c = expect_launches(c, (0, 6, 0, 6, 0, 0), "i2t rerank chunk")
         t2i = R.itm_rerank_scores(teacher, t_bf16, ib_expanded, txt, txt_atts, rows, k,
                                   dtype=bf16)
-        c = expect_launches(c, (0, 6, 6, 0), "t2i rerank chunk")
+        c = expect_launches(c, (0, 6, 6, 0, 0, 0), "t2i rerank chunk")
         for x in (i2t, t2i):
             check(tuple(x.shape) == (rows, k) and bool(torch.isfinite(x.float()).all()),
                   "rerank chunk output not finite / wrong shape")
@@ -340,8 +399,8 @@ def phase_slice(rnd):
     torch.cuda.synchronize()
     scores_s = time.perf_counter() - t0
     chunks_i2t, chunks_t2i = n_img // 4, n_txt // 4
-    c = expect_launches(c, (0, 6 * (chunks_i2t + chunks_t2i), 6 * chunks_t2i, 6 * chunks_i2t),
-                        "retrieval_scores")
+    c = expect_launches(c, (0, 6 * (chunks_i2t + chunks_t2i), 6 * chunks_t2i, 6 * chunks_i2t,
+                            0, 0), "retrieval_scores")
     check(bool(((s_i2t > -100).sum(1) == k_test).all()) and
           bool(((s_t2i > -100).sum(1) == k_test).all()), "rerank filled the wrong entries")
     check(bool(np.isfinite(s_i2t).all() and np.isfinite(s_t2i).all()), "scores not finite")
@@ -370,6 +429,181 @@ def phase_slice(rnd):
     return {"teacher": (teacher, t_bf16), "student": (student, s_bf16), "image": image,
             "ids": ids, "atts": atts, "rerank": (ib, ib_expanded, txt, txt_atts, rows, k),
             "launches": main_launches, "retrieval_scores_s": scores_s}
+
+
+VQA_UNIT = dict(batch=16, res=480, q_len=25, answers=3128, answer_len=6, k=128)
+CAPTION_UNIT = dict(batch=16, res=384, beams=3, max_length=20, min_length=5,
+                    prompt=[101, 1037, 3861, 1997], eos_id=102, pad_id=0)
+
+
+def build_generation(kind: str, layers: int):
+    """VQA or captioning model at the full X-VLM base width, `layers` deep
+    (fusion at half; the VQA answer decoder has layers - fusion layers),
+    params from seed 0 stored in bf16."""
+    import torch
+
+    from efficientvlm_tpu_torch.bridge import cast_floating
+    from efficientvlm_tpu_torch.config import Config, TextConfig, VisionConfig
+    from efficientvlm_tpu_torch.models.model_generation import XVLMForCaptioning, XVLMForVQA
+
+    res = VQA_UNIT["res"] if kind == "vqa" else CAPTION_UNIT["res"]
+    vcfg = VisionConfig.create(num_hidden_layers=layers, image_res=res)
+    tcfg = TextConfig.create(num_hidden_layers=layers, fusion_layer=layers // 2,
+                             encoder_width=768, hidden_dropout_prob=0.0,
+                             attention_probs_dropout_prob=0.0)
+    model = (XVLMForVQA(vcfg, tcfg, Config({"pad_token_id": 0})) if kind == "vqa"
+             else XVLMForCaptioning(vcfg, tcfg, Config({})))
+    return model, cast_floating(model.init(0, device="cuda"), torch.bfloat16)
+
+
+def vqa_first_logits(model, params, states, atts, answer_ids, impl):
+    """rank_answer's first decoder call: the start token over the question
+    states, one row per question, through precomputed cross K/V."""
+    import torch
+
+    from efficientvlm_tpu_torch.models import bert as B
+
+    dec, cfg = params["text_decoder"], model.decoder_cfg
+    kv = B.precompute_cross_kv(dec, cfg, states, dtype=torch.bfloat16)
+    out = B.bert_apply(dec, answer_ids[:1, :1].expand(states.shape[0], 1), cfg,
+                       encoder_hidden=states, encoder_attention_mask=atts, mode="multi_modal",
+                       is_decoder=True, cross_kv=kv, dtype=torch.bfloat16, impl=impl)
+    return B.mlm_head_apply(dec["cls"], out["last_hidden"], cfg, dtype=torch.bfloat16)[:, 0]
+
+
+def caption_replay_logits(model, params, image, tokens, prompt_len, impl):
+    """Teacher-forced logits [B, L, V] of `tokens` [B, L]: impl="fused" runs
+    the cached decoder (the prompt prefill, then one token per step, as
+    generate does); impl="plain" runs the plain decoder without a cache."""
+    import torch
+
+    from efficientvlm_tpu_torch.generation import make_bert_decode_fn
+    from efficientvlm_tpu_torch.models import bert as B
+
+    bf16 = torch.bfloat16
+    dec, cfg = params["text_decoder"], model.text_cfg
+    embeds, atts, _ = model.encode_image(params, image, dtype=bf16, impl=impl)
+    if impl == "plain":
+        out = B.bert_apply(dec, tokens, cfg, encoder_hidden=embeds, encoder_attention_mask=atts,
+                           mode="multi_modal", is_decoder=True, dtype=bf16, impl="plain")
+        return B.mlm_head_apply(dec["cls"], out["last_hidden"], cfg, dtype=bf16)
+    decode_fn = make_bert_decode_fn(dec, cfg, encoder_hidden=embeds, encoder_atts=atts,
+                                    dtype=bf16, impl=impl)
+    cache = B.init_bert_cache(dec, cfg, tokens.shape[0], tokens.shape[1], dtype=bf16)
+    logits, cache = decode_fn(tokens[:, :prompt_len], cache, 0)
+    steps = [logits]
+    for pos in range(prompt_len, tokens.shape[1]):
+        logits, cache = decode_fn(tokens[:, pos:pos + 1], cache, pos)
+        steps.append(logits)
+    return torch.cat(steps, 1)
+
+
+def phase_generation(rnd):
+    """The generation path: VQA answer ranking and captioning, teacher and
+    student, with exact launch counts; then the kernel path against the
+    plain path on the same bf16 params."""
+    import torch
+
+    bf16 = torch.bfloat16
+    u, c_u = VQA_UNIT, CAPTION_UNIT
+    models = {(kind, which): build_generation(kind, layers)
+              for kind in ("vqa", "caption") for which, layers in (("teacher", 12),
+                                                                    ("student", 6))}
+    b = u["batch"]
+    vqa_in = (rnd(b, u["res"], u["res"], 3),
+              torch.randint(0, 30522, (b, u["q_len"]), generator=rnd.g, device="cuda"),
+              torch.ones(b, u["q_len"], dtype=torch.int32, device="cuda"),
+              torch.randint(0, 30522, (u["answers"], u["answer_len"]), generator=rnd.g,
+                            device="cuda"),
+              torch.ones(u["answers"], u["answer_len"], dtype=torch.int32, device="cuda"))
+    image = rnd(c_u["batch"], c_u["res"], c_u["res"], 3)
+    prompt = torch.tensor([c_u["prompt"]] * c_u["batch"], device="cuda")
+    gen_kw = dict(max_length=c_u["max_length"], min_length=c_u["min_length"],
+                  eos_id=c_u["eos_id"], pad_id=c_u["pad_id"], dtype=bf16)
+
+    def check_vqa(ids, probs, what):
+        check(tuple(ids.shape) == (b, u["k"]) and bool(((ids >= 0) & (ids < u["answers"])).all()),
+              f"{what}: answer ids {tuple(ids.shape)} out of range")
+        p = probs.float()
+        check(bool(torch.isfinite(p).all()) and bool((p.sum(1) <= 1 + 1e-3).all())
+              and bool((p[:, 1:] <= p[:, :-1]).all()), f"{what}: probs not a sorted distribution")
+
+    def check_caption(tokens, what):
+        check(tuple(tokens.shape) == (c_u["batch"], c_u["max_length"])
+              and bool(((tokens >= 0) & (tokens < 30522)).all())
+              and bool((tokens[:, :len(c_u["prompt"])] == prompt).all()),
+              f"{what}: tokens {tuple(tokens.shape)} out of range or prompt lost")
+
+    c = reset_counts()  # the generation path's run starts here
+    outs = {}
+    with torch.inference_mode():
+        for which, (dec_layers, lv) in (("teacher", (6, 12)), ("student", (3, 6))):
+            model, params = models[("vqa", which)]
+            ids, probs = model.forward_eval(params, *vqa_in, k=u["k"], dtype=bf16)
+            check_vqa(ids, probs, f"vqa {which}")
+            # ViT + question self (#2), question fusion (#3); the decoder's self and
+            # cross in the first call plus self in the scoring call (#6), its
+            # grouped cross in the scoring call (#5)
+            c = expect_launches(c, (1, 2 * lv, lv // 2, 0, 3 * dec_layers, dec_layers),
+                                f"vqa forward_eval {which}")
+            outs[("vqa", which)] = ids
+            model, params = models[("caption", which)]
+            for beams in (c_u["beams"], 1):
+                stats = {}
+                tokens = model.generate(params, image, prompt, num_beams=beams, stats=stats,
+                                        **gen_kw)
+                check_caption(tokens, f"caption {which} beams={beams}")
+                n = stats["decoder_calls"]
+                check(2 <= n <= c_u["max_length"] - len(c_u["prompt"]) + 1,
+                      f"caption: {n} decoder calls")
+                # per decoder call: cached self in every layer (#6), cross over the
+                # shared image K/V (#5 with beams, #6 greedy)
+                per_call = ((lv, lv // 2) if beams > 1 else (lv + lv // 2, 0))
+                c = expect_launches(c, (1, lv, 0, 0, per_call[0] * n, per_call[1] * n),
+                                    f"caption generate {which} beams={beams} ({n} decoder calls)")
+                outs[("caption", which, beams)] = tokens
+    launches = counts()
+
+    # kernel path against the plain path, the same bf16 params
+    model, params = models[("vqa", "teacher")]
+    image480, q_ids, q_atts, a_ids, a_atts = vqa_in
+    with torch.inference_mode():
+        lk, lp = (vqa_first_logits(model, params, model.encode_question(
+            params, image480, q_ids, q_atts, dtype=bf16, impl=impl)[0]["last_hidden"],
+            q_atts, a_ids, impl).float() for impl in ("fused", "plain"))
+        ids_p, probs_p = model.forward_eval(params, *vqa_in, k=u["k"], dtype=bf16, impl="plain")
+        ids_k, probs_k = model.forward_eval(params, *vqa_in, k=u["k"], dtype=bf16)
+    err, tol = (lk - lp).abs().max().item(), 0.05 * lp.abs().max().item()
+    print(f"vqa kernel path vs plain path, first-call logits: max_abs_err {err:.4e} tol {tol:.4e}")
+    check(err <= tol, "vqa first-call logits: kernel path and plain path disagree")
+    err = (probs_k.float() - probs_p.float()).abs().max().item()
+    tol = 0.1 * probs_p.float().max().item()
+    same_top1 = (ids_k[:, 0] == ids_p[:, 0]).float().mean().item()
+    overlap = sum(len(set(x.tolist()) & set(y.tolist()))
+                  for x, y in zip(ids_k, ids_p)) / ids_k.numel()
+    print(f"vqa kernel path vs plain path, topk_probs: max_abs_err {err:.4e} tol {tol:.4e}; "
+          f"top-1 answer equal in {same_top1:.3f} of questions, top-{u['k']} sets overlap "
+          f"{overlap:.3f} (bf16 near-ties reorder answers)")
+    check(err <= tol, "vqa topk_probs: kernel path and plain path disagree")
+
+    model, params = models[("caption", "teacher")]
+    for beams in (c_u["beams"], 1):
+        tokens = outs[("caption", "teacher", beams)]
+        with torch.inference_mode():
+            kern = caption_replay_logits(model, params, image, tokens, len(c_u["prompt"]),
+                                         "fused").float()
+            plain = caption_replay_logits(model, params, image, tokens, len(c_u["prompt"]),
+                                          "plain").float()
+            plain_tokens = model.generate(params, image, prompt, num_beams=beams, impl="plain",
+                                          **gen_kw)
+        err, tol = (kern - plain).abs().max().item(), 0.05 * plain.abs().max().item()
+        same = (plain_tokens == tokens).all(1).float().mean().item()
+        print(f"caption beams={beams} teacher-forced replay, cached kernel decoder vs plain "
+              f"uncached decoder over all {tokens.shape[1]} positions: max_abs_err {err:.4e} "
+              f"tol {tol:.4e}; identical captions kernel vs plain path: {same:.3f}")
+        check(err <= tol, f"caption beams={beams}: replayed logits disagree")
+    return {"models": models, "vqa_in": vqa_in, "image": image, "prompt": prompt,
+            "gen_kw": gen_kw, "launches": launches}
 
 
 # --------------------------------------------------------------------------
@@ -412,6 +646,16 @@ def library_yardstick(name, args):
         fold = x.shape[0] // enc.shape[0]
         return lambda: Fn.layer_norm(x + attend(prm, x, enc, mask, hz, h, fold), (x.shape[-1],),
                                      ln["scale"].to(x.dtype), ln["bias"].to(x.dtype), 1e-12)
+    if name == "flash_attention":  # q is already scaled
+        q, k, v, bias = args
+        mask = bias.to(q.dtype)
+        return lambda: Fn.scaled_dot_product_attention(q, k, v, attn_mask=mask, scale=1.0)
+    if name == "flash_attention_grouped":  # one call over the group-folded queries
+        from efficientvlm_tpu_torch.ops.flash_attention import _fold
+
+        q, k, v, bias, g = args
+        qf, mask = _fold(q, k.shape[0], g).contiguous(), bias.to(q.dtype)
+        return lambda: Fn.scaled_dot_product_attention(qf, k, v, attn_mask=mask, scale=1.0)
     raise ValueError(name)
 
 
@@ -442,10 +686,14 @@ KERNEL_META = {
                               "efficientvlm_tpu/ops/pallas_fused_mha.py:270"),
     "fused_cross_attention_grouped": ("efficientvlm_tpu_torch/csrc/fused_mha.cu",
                                       "efficientvlm_tpu/ops/pallas_fused_mha.py:624"),
+    "flash_attention": ("efficientvlm_tpu_torch/csrc/flash_attention.cu",
+                        "efficientvlm_tpu/ops/pallas_attention.py:81"),
+    "flash_attention_grouped": ("efficientvlm_tpu_torch/csrc/flash_attention.cu",
+                                "efficientvlm_tpu/ops/pallas_attention.py:118"),
 }
 
 
-def phase_times(cases, errs, slice_state) -> list:
+def phase_times(cases, errs, slice_state, gen_state) -> list:
     import torch
 
     from efficientvlm_tpu_torch.evaluation import retrieval as R
@@ -466,15 +714,19 @@ def phase_times(cases, errs, slice_state) -> list:
               f"{flops / ms / 1e9:.1f} TFLOP/s")
         src, replaces = KERNEL_META[name]
         rows_out.append({"name": name, "route": "cuda", "source": src, "replaces": replaces,
-                         "launches": slice_state["launches"][name],
+                         "launches": slice_state["launches"][name] + gen_state["launches"][name],
                          "max_abs_err": errs[name], "ms": ms, "plain_ms": plain_ms,
                          "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": lib_ms})
-    # the other main-path shapes of the self / cross kernels, for the record
+    # the other main-path shapes, for the record
+    seen = set()
     for name, case, run, plain, flops, nbytes, *extra in cases:
-        if case in ("text_b1024_t40", "t2i_b1024"):
+        first = name not in seen
+        seen.add(name)
+        if case in ("text_b1024_t40", "t2i_b1024") or (name.startswith("flash") and not first):
             with torch.inference_mode():
-                ms = timed_ms(run)
-            print(f"time {name} [{case}]: {ms:.4f} ms, bound {bound(flops, nbytes)[0]:.4f} ms")
+                ms, lib_ms = timed_ms(run), timed_ms(library_yardstick(name, extra[0]))
+            print(f"time {name} [{case}]: {ms:.4f} ms, library {lib_ms:.4f} ms, "
+                  f"bound {bound(flops, nbytes)[0]:.4f} ms")
 
     image, ids, atts = slice_state["image"], slice_state["ids"], slice_state["atts"]
     ib, ib_x, txt, txt_atts, rows, k = slice_state["rerank"]
@@ -496,13 +748,44 @@ def phase_times(cases, errs, slice_state) -> list:
             lambda: R.retrieval_forward(model, params, image, ids, atts, dtype=bf16,
                                         impl="plain"), iters=3, runs=3) * 1e3
     tput["teacher_retrieval_scores_64x320_s"] = slice_state["retrieval_scores_s"]
+
+    # generation: VQA questions/s and caption images/s (device clock of the
+    # whole call, host gaps included: the decode loop reads its condition on
+    # the host every step)
+    models, vqa_in, u = gen_state["models"], gen_state["vqa_in"], VQA_UNIT
+    image, prompt, gen_kw = gen_state["image"], gen_state["prompt"], gen_state["gen_kw"]
+
+    def vqa(which, impl="fused"):
+        model, params = models[("vqa", which)]
+        return lambda: model.forward_eval(params, *vqa_in, k=u["k"], dtype=bf16, impl=impl)
+
+    def caption(which, beams, impl="fused"):
+        model, params = models[("caption", which)]
+        return lambda: model.generate(params, image, prompt, num_beams=beams, impl=impl,
+                                      **gen_kw)
+
+    with torch.inference_mode():
+        for which in ("teacher", "student"):
+            tput[f"vqa_{which}_questions_per_s"] = u["batch"] / timed_ms(
+                vqa(which), iters=3, runs=3, warmup=1) * 1e3
+            for beams in (CAPTION_UNIT["beams"], 1):
+                tput[f"caption_{which}_beams{beams}_images_per_s"] = CAPTION_UNIT["batch"] / \
+                    timed_ms(caption(which, beams), iters=2, runs=3, warmup=1) * 1e3
+        tput["vqa_plain_teacher_questions_per_s"] = u["batch"] / timed_ms(
+            vqa("teacher", "plain"), iters=2, runs=3, warmup=1) * 1e3
+        tput["caption_plain_teacher_beams3_images_per_s"] = CAPTION_UNIT["batch"] / timed_ms(
+            caption("teacher", CAPTION_UNIT["beams"], "plain"), iters=2, runs=3, warmup=1) * 1e3
     print(json.dumps({"throughput": tput}))
     with torch.inference_mode():
         model, params = slice_state["teacher"]
+        image32, ids, atts = slice_state["image"], slice_state["ids"], slice_state["atts"]
         profile("teacher forward b32", lambda: R.retrieval_forward(
-            model, params, image, ids, atts, dtype=bf16))
+            model, params, image32, ids, atts, dtype=bf16))
         profile("teacher i2t rerank chunk 4x256", lambda: R.itm_rerank_scores(
             model, params, ib, txt, txt_atts, rows, k, dtype=bf16))
+        profile("teacher vqa forward_eval b16", vqa("teacher"), calls=2)
+        profile("teacher caption generate b16 beams3", caption("teacher", CAPTION_UNIT["beams"]),
+                calls=2, top=16)
     return rows_out
 
 
@@ -553,7 +836,8 @@ def main() -> int:
     cases = kernel_cases(rnd)
     errs = phase_kernels(cases)
     slice_state = phase_slice(rnd)
-    kernels = phase_times(cases, errs, slice_state)
+    gen_state = phase_generation(rnd)
+    kernels = phase_times(cases, errs, slice_state, gen_state)
     print(f"card: {smi}; total {time.perf_counter() - t0:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -97,3 +97,58 @@ def fused_attention(x: torch.Tensor, enc: torch.Tensor, w: dict, key_bias: torch
         *args, *[None if t is None else t.data_ptr() for t in ws], out.data_ptr(),
         batch, tq, s, d, de, heads, dh, float(ln_eps), _stream(x)), "fused_attention")
     return out
+
+
+def _qkv(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, name: str, kv_shape) -> list:
+    """Pointers of bf16 q [*, H, Tq, dh] and k/v `kv_shape`, each contiguous
+    and 16-byte aligned (the kernels load 8 bf16 at a time)."""
+    dh = q.shape[-1]
+    if dh not in (32, 64, 128):
+        raise ValueError(f"{name}: head dim {dh} (must be 32, 64 or 128)")
+    ptrs = [_ptr(q, BF16, "q", q.shape), _ptr(k, BF16, "k", kv_shape),
+            _ptr(v, BF16, "v", kv_shape)]
+    if any(p % 16 for p in ptrs):
+        raise ValueError(f"{name}: q, k and v must be 16-byte aligned")
+    return ptrs
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                    bias: torch.Tensor) -> torch.Tensor:
+    """softmax(q k^T + bias) v per (batch row, head). q [B,H,Tq,dh] (already
+    scaled), k/v [B,H,Tk,dh] bf16; bias f32, a key vector [1|B, Tk] or a
+    matrix [1|B, Tq, Tk] (batch 1 broadcasts). Returns [B,H,Tq,dh] bf16."""
+    b, h, tq, dh = q.shape
+    tk = k.shape[2]
+    matrix = bias.ndim == 3
+    bb = bias.shape[0]
+    if bb not in (1, b):
+        raise ValueError(f"flash_attention: bias batch {bb} != 1 or {b}")
+    args = _qkv(q, k, v, "flash_attention", (b, h, tk, dh))
+    args.append(_ptr(bias, F32, "bias", (bb, tq, tk) if matrix else (bb, tk)))
+    out = torch.empty_like(q)
+    per_row = tq * tk if matrix else tk
+    _check(library().evlm_flash_attention(
+        *args, out.data_ptr(), b, h, tq, tk, dh, 0 if bb == 1 else per_row,
+        tk if matrix else 0, _stream(q)), "flash_attention")
+    return out
+
+
+def flash_attention_grouped(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                            bias: torch.Tensor, *, groups: int) -> torch.Tensor:
+    """Grouped K/V: q [Bk*G,H,Tq,dh] (already scaled, each group's G rows
+    contiguous), k/v [Bk,H,S,dh] bf16 shared by the group; bias f32 key
+    vector per group [1|Bk, S]. Returns [Bk*G,H,Tq,dh] bf16."""
+    bq, h, tq, dh = q.shape
+    bk, _, s, _ = k.shape
+    if bq != bk * groups:
+        raise ValueError(f"flash_attention_grouped: query batch {bq} != {groups} * kv batch {bk}")
+    bb = bias.shape[0]
+    if bb not in (1, bk):
+        raise ValueError(f"flash_attention_grouped: bias batch {bb} != 1 or {bk}")
+    args = _qkv(q, k, v, "flash_attention_grouped", (bk, h, s, dh))
+    args.append(_ptr(bias, F32, "bias", (bb, s)))
+    out = torch.empty_like(q)
+    _check(library().evlm_flash_attention_grouped(
+        *args, out.data_ptr(), bk, groups, h, tq, s, dh, 0 if bb == 1 else s, _stream(q)),
+        "flash_attention_grouped")
+    return out

@@ -37,6 +37,10 @@ SIGNATURES = {
     # ws_q, ws_k, ws_v, ws_ctx, ws_out, out, batch, tq, s, d, de, heads, head_dim,
     # ln_eps, stream
     "evlm_fused_attention": [_P] * 20 + [_I] * 7 + [_F, _P],
+    # q, k, v, bias, out, batch, heads, tq, tk, head_dim, bias_b, bias_t, stream
+    "evlm_flash_attention": [_P] * 5 + [_I] * 7 + [_P],
+    # q, k, v, bias, out, kv_batch, groups, heads, tq, s, head_dim, bias_b, stream
+    "evlm_flash_attention_grouped": [_P] * 5 + [_I] * 7 + [_P],
 }
 
 

@@ -1,22 +1,31 @@
-"""Fusion BERT in the text and fusion modes, functional and gated (port of
-efficientvlm_tpu/models/bert.py).
+"""Fusion BERT in the text, fusion and decoder modes, functional and gated
+(port of efficientvlm_tpu/models/bert.py).
 
 - layers [0, fusion_layer) are text-only self-attention; layers
   [fusion_layer, N) add image-grounded cross-attention whose K/V width is
   `encoder_width`;
 - modes: 'text' = [0, fusion), 'fusion' = [fusion, N) over precomputed text
-  embeds, 'multi_modal' = all;
+  embeds, 'multi_modal' = all; `is_decoder` adds the causal (or, with a
+  cache, the decode) bias to the padding mask;
 - gates: head_z per layer, cross layers take a (self_z, cross_z) pair
   ([Lc, 2, H]); mlp_z masks FFN intermediate activations after the
-  activation.
+  activation;
+- decoding: a fixed-size per-layer self-attention cache (init_bert_cache,
+  written in place) and cross K/V projected once (precompute_cross_kv);
+- heads: the MLM / LM head and the shift-by-one LM loss.
 
-impl="fused" runs every attention sublayer through the port's fused
-kernels: self-attention (the 40-token text tower included), cross-attention,
-and grouped cross-attention when `encoder_groups` > 1, whose epilogue also
-applies the layer's residual + post-LN. A matrix attention bias has no
-kernel yet and raises under impl="fused"; impl="plain" runs the plain
-PyTorch path. The decoder mode, its KV cache and the MLM / LM losses come
-with later slices.
+impl="fused" dispatch, per attention sublayer:
+- self-attention with a key-vector bias, outside the decoder: the fused
+  self-attention kernel (the 40-token text tower included);
+- decoder self-attention (causal or decode bias, with or without a cache)
+  and any matrix bias: multi_head_attention -> flash_attention;
+- cross-attention over precomputed cross K/V: flash_attention_grouped when
+  `encoder_groups` > 1, flash_attention otherwise;
+- other cross-attention: the fused cross kernel, or the grouped one when
+  `encoder_groups` > 1, whose epilogue also applies the layer's residual +
+  post-LN; a matrix encoder bias has no kernel there and raises.
+impl="plain" runs the plain PyTorch path. Label smoothing in the LM loss
+comes with the training slice.
 """
 
 from __future__ import annotations
@@ -26,7 +35,10 @@ from typing import Optional
 import torch
 
 from ..config import TextConfig
-from ..ops.attention import init_attention, make_attention_bias, multi_head_attention
+from ..ops.attention import (
+    causal_bias, decode_bias, init_attention, init_decode_cache, make_attention_bias,
+    multi_head_attention, project_kv,
+)
 from ..ops.basic import (
     ACT2FN, dense, embedding_lookup, init_dense, init_embedding, init_layer_norm, layer_norm,
 )
@@ -80,9 +92,9 @@ def init_bert(generator, cfg: TextConfig, *, with_mlm_head: bool = False, device
 
 
 def bert_embeddings(params: dict, input_ids: torch.Tensor, cfg: TextConfig, *,
-                    dtype=None) -> torch.Tensor:
+                    position_offset: int = 0, dtype=None) -> torch.Tensor:
     t = input_ids.shape[1]
-    pos_ids = torch.arange(t, device=input_ids.device)[None]
+    pos_ids = torch.arange(t, device=input_ids.device)[None] + position_offset
     h = embedding_lookup(params["word"], input_ids, dtype=dtype)
     h = h + embedding_lookup(params["position"], pos_ids, dtype=dtype)
     h = h + embedding_lookup(params["token_type"], torch.zeros_like(input_ids), dtype=dtype)
@@ -104,35 +116,46 @@ def _key_vector(bias: Optional[torch.Tensor], what: str) -> Optional[torch.Tenso
     return bias[:, 0, 0, :]
 
 
+def _is_key_vector(bias: Optional[torch.Tensor]) -> bool:
+    return bias is None or (bias.ndim == 4 and bias.shape[1] == 1 and bias.shape[2] == 1)
+
+
 def bert_layer_apply(lp: dict, h: torch.Tensor, cfg: TextConfig, *,
                      bias: Optional[torch.Tensor] = None,
                      encoder_hidden: Optional[torch.Tensor] = None,
                      encoder_bias: Optional[torch.Tensor] = None,
                      self_head_z=None, cross_head_z=None, mlp_z=None,
-                     encoder_groups: int = 1, dtype=None, impl: str = "fused"):
-    """Post-LN BERT layer. `encoder_groups` > 1 declares that encoder_hidden
-    rows are shared by groups of contiguous query rows (grouped K/V); a
-    batch mismatch without it is a loud error."""
+                     cache: Optional[dict] = None, cross_kv: Optional[dict] = None,
+                     encoder_groups: int = 1, is_decoder: bool = False, dtype=None,
+                     impl: str = "fused"):
+    """Post-LN BERT layer; returns (h, new_cache). `cross_kv` supplies
+    pre-projected cross K/V (precompute_cross_kv). `encoder_groups` > 1
+    declares that encoder_hidden / cross_kv rows are shared by groups of
+    contiguous query rows (grouped K/V); a batch mismatch without it is a
+    loud error."""
     eps = cfg.get("layer_norm_eps", 1e-12)
     head_dim = cfg["hidden_size"] // cfg["num_attention_heads"]
     act = ACT2FN[cfg.get("hidden_act", "gelu")]
     fused = impl == "fused"
 
+    self_cache = cache.get("self") if cache is not None else None
     if lp.get("attention") is not None:  # fully-pruned self-attn -> identity
         nh = _num_heads(lp["attention"], head_dim)
-        if fused:
+        if fused and self_cache is None and not is_decoder and _is_key_vector(bias):
             attn_out = fused_self_attention(
                 lp["attention"], h.to(dtype) if dtype is not None else h, num_heads=nh,
-                key_bias=_key_vector(bias, "self-attention"), head_z=self_head_z)
+                key_bias=None if bias is None else bias[:, 0, 0, :], head_z=self_head_z)
         else:
-            attn_out, _ = multi_head_attention(
-                lp["attention"], h, num_heads=nh, bias=bias, head_z=self_head_z, dtype=dtype)
+            attn_out, _, self_cache = multi_head_attention(
+                lp["attention"], h, num_heads=nh, bias=bias, head_z=self_head_z, dtype=dtype,
+                cache=self_cache, impl=impl)
         h = layer_norm(lp["attention_ln"], h + attn_out, eps=eps)
 
-    if lp.get("crossattention") is not None and encoder_hidden is not None:
+    if lp.get("crossattention") is not None and (
+            encoder_hidden is not None or cross_kv is not None):
         nh = _num_heads(lp["crossattention"], head_dim)
         hq = h.to(dtype) if dtype is not None else h
-        if fused and encoder_groups > 1:
+        if fused and cross_kv is None and encoder_groups > 1:
             kb = _key_vector(encoder_bias, "grouped cross-attention")
             # the kernel's epilogue applies this layer's residual + post-LN
             h = fused_cross_attention_grouped(
@@ -142,16 +165,16 @@ def bert_layer_apply(lp: dict, h: torch.Tensor, cfg: TextConfig, *,
                     encoder_hidden.shape[0], encoder_hidden.shape[1]),
                 head_z=cross_head_z, ln_params=lp["crossattention_ln"], ln_eps=eps)
         else:
-            if fused:
+            if fused and cross_kv is None:
                 x_out = fused_cross_attention(
                     lp["crossattention"], hq, encoder_hidden, num_heads=nh,
                     key_bias=_key_vector(encoder_bias, "cross-attention"),
                     head_z=cross_head_z)
             else:
-                x_out, _ = multi_head_attention(
-                    lp["crossattention"], h, encoder_hidden, num_heads=nh,
-                    bias=encoder_bias, head_z=cross_head_z, dtype=dtype,
-                    kv_groups=encoder_groups)
+                x_out, _, _ = multi_head_attention(
+                    lp["crossattention"], h, None if cross_kv is not None else encoder_hidden,
+                    num_heads=nh, bias=encoder_bias, head_z=cross_head_z, dtype=dtype,
+                    precomputed_kv=cross_kv, kv_groups=encoder_groups, impl=impl)
             h = layer_norm(lp["crossattention_ln"], h + x_out, eps=eps)
 
     if lp.get("intermediate") is not None:  # fully-pruned FFN -> identity
@@ -160,21 +183,26 @@ def bert_layer_apply(lp: dict, h: torch.Tensor, cfg: TextConfig, *,
             inter = inter * mlp_z.to(inter.dtype)
         out = dense(lp["output"], inter, dtype=dtype)
         h = layer_norm(lp["output_ln"], h + out, eps=eps)
-    return h
+    new_cache = None if cache is None else {**cache, "self": self_cache}
+    return h, new_cache
 
 
 def bert_encoder_apply(params: dict, h: torch.Tensor, cfg: TextConfig, *,
                        bias=None, mode: str = "multi_modal", encoder_hidden=None,
                        encoder_bias=None, text_head_z=None, cross_head_z=None,
-                       text_mlp_z=None, cross_mlp_z=None, encoder_groups: int = 1,
-                       dtype=None, impl: str = "fused") -> dict:
-    """Run the layers of `mode`; returns {"last_hidden": h}."""
+                       text_mlp_z=None, cross_mlp_z=None, cache: Optional[list] = None,
+                       cross_kv: Optional[list] = None, encoder_groups: int = 1,
+                       is_decoder: bool = False, dtype=None, impl: str = "fused") -> dict:
+    """Run the layers of `mode`; returns {"last_hidden": h, "cache": new
+    cache list or None}. `cache` has one entry per layer run, `cross_kv` one
+    per cross layer (precompute_cross_kv)."""
     fusion = cfg["fusion_layer"]
     n = cfg["num_hidden_layers"]
     lo, hi = {"text": (0, fusion), "fusion": (fusion, n), "multi_modal": (0, n)}.get(
         mode, (None, None))
     if lo is None:
         raise ValueError(f"mode {mode} is not supported")
+    new_cache = list(cache) if cache is not None else None
     for i in range(lo, hi):
         is_cross = i >= fusion
         if is_cross:
@@ -185,32 +213,103 @@ def bert_encoder_apply(params: dict, h: torch.Tensor, cfg: TextConfig, *,
             self_z = None if text_head_z is None else text_head_z[i]
             cross_z = None
             mlp_zi = None if text_mlp_z is None else text_mlp_z[i]
-        h = bert_layer_apply(
+        h, layer_cache = bert_layer_apply(
             params["layers"][i], h, cfg, bias=bias,
             encoder_hidden=encoder_hidden if is_cross else None,
             encoder_bias=encoder_bias if is_cross else None,
             self_head_z=self_z, cross_head_z=cross_z, mlp_z=mlp_zi,
-            encoder_groups=encoder_groups if is_cross else 1, dtype=dtype, impl=impl)
-    return {"last_hidden": h}
+            cache=None if cache is None else cache[i - lo],
+            cross_kv=cross_kv[i - fusion] if (is_cross and cross_kv is not None) else None,
+            encoder_groups=encoder_groups if is_cross else 1, is_decoder=is_decoder,
+            dtype=dtype, impl=impl)
+        if new_cache is not None:
+            new_cache[i - lo] = layer_cache
+    return {"last_hidden": h, "cache": new_cache}
 
 
 def bert_apply(params: dict, input_ids: Optional[torch.Tensor], cfg: TextConfig, *,
                attention_mask=None, inputs_embeds=None, encoder_hidden=None,
                encoder_attention_mask=None, mode: str = "multi_modal",
-               encoder_groups: int = 1, text_head_z=None, cross_head_z=None,
+               is_decoder: bool = False, cache: Optional[list] = None,
+               cross_kv: Optional[list] = None, encoder_groups: int = 1,
+               position_offset: int = 0, text_head_z=None, cross_head_z=None,
                text_mlp_z=None, cross_mlp_z=None, dtype=None, impl: str = "fused") -> dict:
-    """BertModel.forward (encoder modes). In 'fusion' mode pass
-    inputs_embeds (the text tower's output)."""
+    """BertModel.forward. In 'fusion' mode pass inputs_embeds (the text
+    tower's output). For cached decode pass `cache` (init_bert_cache) and
+    position_offset = the number of tokens already decoded."""
     if inputs_embeds is None:
-        h = bert_embeddings(params["embeddings"], input_ids, cfg, dtype=dtype)
+        h = bert_embeddings(params["embeddings"], input_ids, cfg,
+                            position_offset=position_offset, dtype=dtype)
     else:
         h = inputs_embeds
-    bias = make_attention_bias(attention_mask) if attention_mask is not None else None
+    t = h.shape[1]
+    if is_decoder:
+        if cache is not None:
+            self_cache = cache[0]["self"]
+            bias = decode_bias(self_cache["k"].shape[2], self_cache["index"], q_len=t,
+                               device=h.device)
+        else:
+            bias = causal_bias(t, t, device=h.device)
+        if attention_mask is not None:
+            bias = bias + make_attention_bias(attention_mask)[:, :, :, : bias.shape[-1]]
+    else:
+        bias = make_attention_bias(attention_mask) if attention_mask is not None else None
     encoder_bias = None
     if encoder_hidden is not None and encoder_attention_mask is not None:
         encoder_bias = make_attention_bias(encoder_attention_mask)
     return bert_encoder_apply(
         params, h, cfg, bias=bias, mode=mode, encoder_hidden=encoder_hidden,
         encoder_bias=encoder_bias, text_head_z=text_head_z, cross_head_z=cross_head_z,
-        text_mlp_z=text_mlp_z, cross_mlp_z=cross_mlp_z, encoder_groups=encoder_groups,
-        dtype=dtype, impl=impl)
+        text_mlp_z=text_mlp_z, cross_mlp_z=cross_mlp_z, cache=cache, cross_kv=cross_kv,
+        encoder_groups=encoder_groups, is_decoder=is_decoder, dtype=dtype, impl=impl)
+
+
+def precompute_cross_kv(params: dict, cfg: TextConfig, encoder_hidden: torch.Tensor, *,
+                        dtype=None) -> list:
+    """The cross-attention K/V of every cross layer, projected once (list
+    indexed by cross layer i - fusion; None for fully-pruned modules): the
+    encoder states are constant across decode steps."""
+    fusion = cfg["fusion_layer"]
+    head_dim = cfg["hidden_size"] // cfg["num_attention_heads"]
+    out = []
+    for i in range(fusion, cfg["num_hidden_layers"]):
+        lp = params["layers"][i]
+        if lp.get("crossattention") is None:
+            out.append(None)
+            continue
+        out.append(project_kv(lp["crossattention"], encoder_hidden,
+                              num_heads=_num_heads(lp["crossattention"], head_dim), dtype=dtype))
+    return out
+
+
+def init_bert_cache(params: dict, cfg: TextConfig, batch: int, max_len: int,
+                    dtype=torch.float32) -> list:
+    """Fixed-size decode cache for the multi_modal decoder, one entry per
+    layer, on the params' device."""
+    head_dim = cfg["hidden_size"] // cfg["num_attention_heads"]
+    device = params["embeddings"]["word"]["embedding"].device
+    return [{"self": init_decode_cache(batch, _num_heads(lp["attention"], head_dim),
+                                       max_len, head_dim, dtype, device)}
+            for lp in params["layers"]]
+
+
+def mlm_head_apply(params: dict, h: torch.Tensor, cfg: TextConfig, *,
+                   dtype=None) -> torch.Tensor:
+    x = dense(params["transform"]["dense"], h, dtype=dtype)
+    x = ACT2FN[cfg.get("hidden_act", "gelu")](x)
+    x = layer_norm(params["transform"]["ln"], x, eps=cfg.get("layer_norm_eps", 1e-12))
+    return dense(params["decoder"], x, dtype=dtype)
+
+
+def lm_loss(logits: torch.Tensor, labels: torch.Tensor, *,
+            reduction: str = "mean") -> torch.Tensor:
+    """Next-token LM loss with shift-by-one, labels -100 ignored;
+    reduction='none' returns the per-sequence summed loss."""
+    labels = labels[:, 1:]
+    valid = labels != -100
+    logp = torch.log_softmax(logits[:, :-1].float(), dim=-1)
+    per_tok = -logp.gather(-1, torch.where(valid, labels, 0)[..., None].long())[..., 0]
+    per_tok = torch.where(valid, per_tok, 0.0)
+    if reduction == "none":
+        return per_tok.sum(1)
+    return per_tok.sum() / valid.sum().clamp(min=1)

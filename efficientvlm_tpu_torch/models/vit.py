@@ -72,7 +72,7 @@ def vit_layer(lp: dict, h: torch.Tensor, *, num_heads: int, act,
                 attn_out = attn_out * torch.as_tensor(
                     head_layer_z, dtype=attn_out.dtype, device=attn_out.device)
         else:
-            attn_out, _ = multi_head_attention(
+            attn_out, _, _ = multi_head_attention(
                 lp["attn"], x, num_heads=num_heads, head_z=head_z,
                 head_layer_z=head_layer_z, dtype=dtype)
         h = h + attn_out

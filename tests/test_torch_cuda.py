@@ -9,6 +9,8 @@ Without a CUDA device every test skips."""
 import pytest
 import torch
 
+from efficientvlm_tpu_torch.ops import attention as A
+from efficientvlm_tpu_torch.ops import flash_attention as FA
 from efficientvlm_tpu_torch.ops import fused_mha as F
 from efficientvlm_tpu_torch.ops.patch_embed import fused_patch_embed, patch_embed_plain
 
@@ -92,7 +94,49 @@ def test_grouped_cross_attention(rnd, with_ln):
            lambda: F.cross_attention_grouped_plain(prm, x, enc, kb, hz, 2, 3, ln))
 
 
+FLASH = {
+    # name: (B, H, Tq, Tk, dh, bias)
+    "key_vector_masked_tail": (3, 2, 37, 70, 64, "vector"),
+    "matrix_causal_padding": (3, 2, 6, 6, 64, "matrix"),
+    "decode_tq1_partly_filled_cache": (6, 2, 1, 20, 64, "decode"),
+    "prefill_tq4_cache20": (6, 2, 4, 20, 32, "decode"),
+    "tq1_over_image_keys": (2, 2, 1, 145, 128, "vector"),
+}
+
+
+@pytest.mark.parametrize("name", sorted(FLASH))
+def test_flash_attention(rnd, name):
+    b, h, tq, tk, dh, kind = FLASH[name]
+    q, k, v = rnd(b, h, tq, dh, std=dh ** -0.5), rnd(b, h, tk, dh), rnd(b, h, tk, dh)
+    if kind == "vector":
+        bias = A.make_attention_bias(_mask(b, tk))
+    elif kind == "matrix":
+        bias = A.causal_bias(tq, tk, device="cuda") + A.make_attention_bias(_mask(b, tk))
+    else:  # 7 of the cache's slots written, the rest zero and masked
+        bias = A.decode_bias(tk, 7 - tq, q_len=tq, device="cuda")
+        k[:, :, 7:] = 0
+        v[:, :, 7:] = 0
+    _agree(FA.flash_attention, lambda: FA.flash_attention(q, k, v, bias=bias),
+           lambda: FA.flash_attention_plain(q, k, v, bias))
+
+
+@pytest.mark.parametrize("bk,g,tq,s", [(4, 3, 1, 145), (2, 128, 6, 25), (2, 3, 4, 70)],
+                         ids=["g3_tq1", "g128_tq6", "g3_tq4"])
+def test_flash_attention_grouped(rnd, bk, g, tq, s):
+    q, k, v = rnd(bk * g, 2, tq, 64, std=0.125), rnd(bk, 2, s, 64), rnd(bk, 2, s, 64)
+    bias = A.make_attention_bias(_mask(bk, s))
+    _agree(FA.flash_attention_grouped,
+           lambda: FA.flash_attention_grouped(q, k, v, kv_groups=g, bias=bias),
+           lambda: FA.flash_attention_grouped_plain(q, k, v, g, bias))
+
+
 def test_cuda_tensors_never_fall_back(rnd):
     prm, x = _attn(rnd, 128, 128), rnd(2, 5, 128).float()
     with pytest.raises(TypeError, match="bfloat16"):
         F.fused_self_attention(prm, x, num_heads=2)
+    q = rnd(2, 2, 3, 64).float()
+    with pytest.raises(TypeError, match="bfloat16"):
+        FA.flash_attention(q, q, q)
+    with pytest.raises(ValueError, match="one key vector per group"):
+        FA.flash_attention_grouped(rnd(4, 2, 3, 64), rnd(2, 2, 3, 64), rnd(2, 2, 3, 64),
+                                   kv_groups=2, bias=torch.zeros(4, 1, 1, 3, device="cuda"))

@@ -97,7 +97,7 @@ def test_multi_head_attention_matches_jax(name):
     ref, ref_p, _ = JA.multi_head_attention(
         p, xq, xkv, num_heads=heads, bias=JA.make_attention_bias(mask), head_z=hz,
         head_layer_z=hlz, output_probs=probs, kv_groups=g)
-    out, out_p = TA.multi_head_attention(
+    out, out_p, _ = TA.multi_head_attention(
         params_from_numpy(p, device="cpu"), _t(xq), None if xkv is None else _t(xkv),
         num_heads=heads, bias=TA.make_attention_bias(_t(mask)),
         head_z=None if hz is None else _t(hz), head_layer_z=hlz, output_probs=probs,
