@@ -13,7 +13,9 @@ It builds the port's CUDA kernels from csrc/ (into build/kernels/), then:
    tails, non-trivial head gates, a rectangular 8-head A=512 width, the
    grouped rerank with and without its LayerNorm epilogue; for the two
    attention cores a causal + padding matrix bias, the decode mask over a
-   partly filled cache, and grouped K/V with G=3, Tq=1 and G=128, Tq=6);
+   partly filled cache, and grouped K/V with G=3, Tq=1 and G=128, Tq=6),
+   and the two device kernels under #1-#4 on their own: gemm_bias at the
+   ViT's fused Q/K/V shape, attn_core at the ViT and fusion shapes;
 3. paths, each driven with every launch count set to 0 just before it and
    read just after:
    - retrieval evaluation at the full width of X-VLM base (CLIP-ViT-B/16 at
@@ -30,7 +32,9 @@ It builds the port's CUDA kernels from csrc/ (into build/kernels/), then:
    generation, with a teacher-forced replay of the generated captions);
 4. times: each kernel's time beside its bound, its plain version's and a
    library yardstick's time (CUDA events, median of runs after warm-up),
-   pairs/s, questions/s, images/s, and a torch.profiler breakdown.
+   the same at the other main-path shapes, gemm_bias and attn_core with
+   their TFLOP/s and share of the bf16 peak, pairs/s, questions/s,
+   images/s, and a torch.profiler breakdown.
 
 Weights are random, made from a seed. Any failed check exits non-zero
 before the last line, which is
@@ -106,7 +110,10 @@ def phase_environment() -> str:
     library()
     print(f"kernels built in {seconds:.1f} s (0 = reused) -> {os.path.relpath(path)}")
     for line in log.splitlines():
-        if "registers" in line or "spill" in line or line.startswith("=="):
+        # registers and spills of every kernel, and any performance warning
+        # (a wgmma serialised by ptxas, a setmaxnreg ignored)
+        if any(w in line for w in ("registers", "spill", "Performance", "warning")) \
+                or line.startswith("=="):
             print("  ptxas:", line.strip())
     return smi
 
@@ -262,6 +269,44 @@ def kernel_cases(rnd):
     cases.append(grouped_flash_case("vqa_score_cross_bk16_g128_tq6_s25", 16, 128, 6, 25))
     cases.append(grouped_flash_case("caption_step_cross_bk16_g3_tq1_s577", 16, 3, 1, 577))
     cases.append(grouped_flash_case("caption_prefill_cross_bk16_g3_tq4_s577", 16, 3, 4, 577))
+    return cases
+
+
+def device_kernel_cases(rnd):
+    """The two device kernels under #1-#4 on their own, through their bare
+    bindings, as (name, case, kernel call, plain call, flops, bytes, library
+    call): gemm_bias at the ViT's fused Q/K/V shape, attn_core at the ViT's
+    self-attention and the fusion layers' cross-attention shapes."""
+    import torch
+    import torch.nn.functional as Fn
+
+    from efficientvlm_tpu_torch.kernels import bindings as K
+    from efficientvlm_tpu_torch.ops import fused_mha as F
+
+    m, d = 32 * 577, 768
+    x, w = rnd(m, d), rnd(d, 3 * d, std=d ** -0.5)
+    bias = rnd(3 * d, std=0.1, dtype=torch.float32)
+    bias16 = bias.to(torch.bfloat16)
+    cases = [("gemm_bias", "vit_qkv_m18464_n2304_k768", lambda: K.gemm_bias(x, w, bias),
+              lambda: F.gemm_bias_plain(x, w, bias), 2 * m * d * 3 * d,
+              2 * (x.numel() + w.numel() + m * 3 * d) + 4 * 3 * d,
+              lambda: torch.addmm(bias16, x, w))]
+
+    def attn_case(case, b, tq, s, h, dh):
+        a = h * dh
+        q, k, v = rnd(b * tq, a), rnd(b * s, a), rnd(b * s, a)
+        kb = F._key_bias(b, s, rnd.mask(b, s, s // 4), None, q.device)
+        hz = rnd.gates(h)
+        split = lambda t, n: t.view(b, n, h, dh).transpose(1, 2)
+        mask = kb.to(torch.bfloat16)[:, None, None, :]
+        return ("attn_core", case, lambda: K.attn_core(q, k, v, kb, hz, batch=b, tq=tq, s=s),
+                lambda: F.attn_core_plain(q, k, v, kb, hz, batch=b, tq=tq, s=s),
+                4 * b * tq * s * a, 2 * (2 * q.numel() + k.numel() + v.numel()) + 4 * b * s,
+                lambda: Fn.scaled_dot_product_attention(split(q, tq), split(k, s), split(v, s),
+                                                        attn_mask=mask))
+
+    cases.append(attn_case("vit_b32_t577_h12", 32, 577, 577, 12, 64))
+    cases.append(attn_case("fusion_b32_tq40_s577_h12", 32, 40, 577, 12, 64))
     return cases
 
 
@@ -644,6 +689,8 @@ def library_yardstick(name, args):
     if name == "fused_cross_attention_grouped":
         prm, x, enc, mask, hz, h, ln = args
         fold = x.shape[0] // enc.shape[0]
+        if ln is None:
+            return lambda: attend(prm, x, enc, mask, hz, h, fold)
         return lambda: Fn.layer_norm(x + attend(prm, x, enc, mask, hz, h, fold), (x.shape[-1],),
                                      ln["scale"].to(x.dtype), ln["bias"].to(x.dtype), 1e-12)
     if name == "flash_attention":  # q is already scaled
@@ -693,7 +740,7 @@ KERNEL_META = {
 }
 
 
-def phase_times(cases, errs, slice_state, gen_state) -> list:
+def phase_times(cases, device_cases, errs, slice_state, gen_state) -> list:
     import torch
 
     from efficientvlm_tpu_torch.evaluation import retrieval as R
@@ -717,16 +764,24 @@ def phase_times(cases, errs, slice_state, gen_state) -> list:
                          "launches": slice_state["launches"][name] + gen_state["launches"][name],
                          "max_abs_err": errs[name], "ms": ms, "plain_ms": plain_ms,
                          "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": lib_ms})
-    # the other main-path shapes, for the record
+    # the other main-path shapes (text, t2i, rect, decode), for the record
     seen = set()
     for name, case, run, plain, flops, nbytes, *extra in cases:
         first = name not in seen
         seen.add(name)
-        if case in ("text_b1024_t40", "t2i_b1024") or (name.startswith("flash") and not first):
+        if not first:
             with torch.inference_mode():
                 ms, lib_ms = timed_ms(run), timed_ms(library_yardstick(name, extra[0]))
             print(f"time {name} [{case}]: {ms:.4f} ms, library {lib_ms:.4f} ms, "
-                  f"bound {bound(flops, nbytes)[0]:.4f} ms")
+                  f"bound {bound(flops, nbytes)[0]:.4f} ms, {flops / ms / 1e9:.1f} TFLOP/s")
+    # the two device kernels under #1-#4 on their own: which one leads
+    for name, case, run, plain, flops, nbytes, lib in device_cases:
+        with torch.inference_mode():
+            ms, lib_ms = timed_ms(run), timed_ms(lib)
+        bound_ms, bound_by = bound(flops, nbytes)
+        print(f"time {name} [{case}]: {ms:.4f} ms, {flops / ms / 1e9:.1f} TFLOP/s = "
+              f"{flops / ms * 1e3 / PEAK_BF16_FLOPS:.1%} of the bf16 peak; bound {bound_ms:.4f} "
+              f"ms ({bound_by}); library {lib_ms:.4f} ms")
 
     image, ids, atts = slice_state["image"], slice_state["ids"], slice_state["atts"]
     ib, ib_x, txt, txt_atts, rows, k = slice_state["rerank"]
@@ -833,11 +888,11 @@ def main() -> int:
     t0 = time.perf_counter()
     smi = phase_environment()
     rnd = Rand(0)
-    cases = kernel_cases(rnd)
-    errs = phase_kernels(cases)
+    cases, device_cases = kernel_cases(rnd), device_kernel_cases(rnd)
+    errs = phase_kernels(cases + device_cases)
     slice_state = phase_slice(rnd)
     gen_state = phase_generation(rnd)
-    kernels = phase_times(cases, errs, slice_state, gen_state)
+    kernels = phase_times(cases, device_cases, errs, slice_state, gen_state)
     print(f"card: {smi}; total {time.perf_counter() - t0:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

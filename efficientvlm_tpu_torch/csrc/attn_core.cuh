@@ -10,18 +10,33 @@
 // memory serves every text of the group and K/V are never repeated.
 //
 // What bounds it on the H100: the two products do 4*Tq*S*DH FLOP per
-// (row, head) against reads of q, k, v once, so at S = 577 it is compute
-// bound on paper; in this simple form it is bound by shared-memory traffic
-// and the f32 softmax between the two WMMA products. Design: one 128-thread
-// block per (64-query tile, head, batch row); K/V stream through shared
-// memory in 64-key tiles with an online softmax in f32, so the [Tq, S]
-// scores never reach device memory. As in the TPU kernel the probabilities
-// are rounded to bf16 before P.V and the sums stay in f32. Keys past S get
-// -inf; masked keys carry the caller's -1e9 bias.
+// (row, head) against reads of q, k, v once, so at S = 577 it is
+// tensor-core bound on paper. What keeps a simple kernel far from that is
+// moving scores and probabilities through shared memory between the two
+// products. Design (FlashAttention-2's forward):
+//   - one block per (query tile, head, batch row); each warp owns 16 query
+//     rows, and the tile is as tall as Tq needs, up to 128 rows (8 warps):
+//     3 warps for the fusion layers' Tq = 40, 8 for the ViT's 577;
+//   - K/V and the key bias stream through shared memory in 64-key tiles,
+//     double-buffered with cp.async, so the next tile loads while this one
+//     computes; rows are padded by 16 bytes so ldmatrix reads hit distinct
+//     banks; a warp whose rows all lie past Tq only loads and syncs;
+//   - Q K^T with mma.sync m16n8k16 (bf16, f32 accumulate) on ldmatrix
+//     fragments: the scores stay in the accumulator registers, where the
+//     online softmax scales, biases and exponentiates them in f32 (row max
+//     and sum across each quad of lanes with shuffles);
+//   - the accumulator layout of the scores is the A-operand layout of P.V,
+//     so P is rounded to bf16 and fed to the second product from registers
+//     (V through ldmatrix.trans), and O is accumulated in registers;
+//   - only the finished context goes through shared memory, to leave the
+//     block as 16-byte stores.
+// As in the TPU kernel the probabilities are rounded to bf16 before P.V
+// (here the un-normalised ones) and the sums stay in f32. Keys past S get
+// -inf; masked keys carry the caller's -1e9 bias. Every key tile starts at a
+// real key, so a row's running max is finite from the first tile on.
 #pragma once
 
 #include <math.h>
-#include <mma.h>
 
 #include "common.cuh"
 
@@ -29,148 +44,241 @@ namespace evlm {
 namespace attn_impl {
 namespace {  // internal linkage: each .cu includes its own copy
 
-using namespace nvcuda;
-
-constexpr int TQ = 64;         // query rows per block (16 per warp)
-constexpr int TK = 64;         // keys per tile
-constexpr int WARPS = 4;
-constexpr int THREADS = WARPS * 32;
+constexpr int TK = 64;          // keys per tile
+constexpr int MAX_WARPS = 8;    // 16 query rows per warp, up to 128 per block
 
 template <int DH>
 struct Layout {
-  static constexpr int QKV_LD = DH + 8;                    // bf16 row stride
-  static constexpr int S_LD = (DH > TK ? DH : TK) + 4;      // f32 scores / P.V rows
-  static constexpr int P_LD = TK + 8;                       // bf16 probabilities
-  static constexpr size_t q_off = 0;
-  static constexpr size_t k_off = q_off + sizeof(__nv_bfloat16) * TQ * QKV_LD;
-  static constexpr size_t v_off = k_off + sizeof(__nv_bfloat16) * TK * QKV_LD;
-  static constexpr size_t s_off = v_off + sizeof(__nv_bfloat16) * TK * QKV_LD;
-  static constexpr size_t p_off = s_off + sizeof(float) * WARPS * 16 * S_LD;
-  static constexpr size_t bytes = p_off + sizeof(__nv_bfloat16) * WARPS * 16 * P_LD;
+  static constexpr int LD = DH + 8;       // bf16 row stride
+  static constexpr int TILE = TK * LD;    // one K or V tile
+  // q rows of the block, K[2], V[2], key bias[2]
+  static constexpr size_t bytes(int warps) {
+    return sizeof(__nv_bfloat16) * (warps * 16 * LD + 4 * TILE) + sizeof(float) * 2 * TK;
+  }
 };
 
-// rows x DH bf16 block of a [*, ld] matrix into shared memory, zero past `valid`
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const __nv_bfloat16* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3]) : "r"(smem_u32(p)));
+}
+
+__device__ __forceinline__ void ldsm_x4_trans(uint32_t (&r)[4], const __nv_bfloat16* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3]) : "r"(smem_u32(p)));
+}
+
+// d[16x8] += a[16x16] . b[16x8], bf16 in, f32 accumulate
+__device__ __forceinline__ void mma16816(float (&d)[4], const uint32_t (&a)[4], uint32_t b0,
+                                         uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// 4-byte asynchronous global->shared copy; src_bytes = 0 writes zero
+__device__ __forceinline__ void cp_async4(void* dst, const void* src, int src_bytes) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n"
+               :: "r"(smem_u32(dst)), "l"(src), "r"(src_bytes));
+}
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  __nv_bfloat162 h = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<uint32_t*>(&h);
+}
+
+// rows x DH bf16 block of a [*, ld] matrix into shared memory (row stride
+// LD) with cp.async, zero past `valid`
 template <int DH>
-__device__ __forceinline__ void load_rows(__nv_bfloat16* dst, const __nv_bfloat16* src,
-                                          int ld, int valid, int rows) {
+__device__ __forceinline__ void load_rows(__nv_bfloat16* dst, const __nv_bfloat16* src, int ld,
+                                          int valid, int rows) {
   constexpr int CH = DH / 8;  // 16-byte chunks per row
-  for (int c = threadIdx.x; c < rows * CH; c += THREADS) {
-    int r = c / CH, d = (c % CH) * 8;
-    uint4 v = make_uint4(0, 0, 0, 0);
-    if (r < valid) v = *reinterpret_cast<const uint4*>(src + (size_t)r * ld + d);
-    *reinterpret_cast<uint4*>(dst + r * Layout<DH>::QKV_LD + d) = v;
+  for (int c = threadIdx.x; c < rows * CH; c += blockDim.x) {
+    const int r = c / CH, d = (c % CH) * 8;
+    const bool ok = r < valid;
+    evlm::cp_async16(dst + r * Layout<DH>::LD + d, ok ? src + (size_t)r * ld + d : src,
+                     ok ? 16 : 0);
   }
 }
 
 template <int DH>
-__global__ void __launch_bounds__(THREADS)
+__global__ void __launch_bounds__(MAX_WARPS * 32, DH == 128 ? 1 : 2)
 attn_core_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
                  const __nv_bfloat16* __restrict__ v, const float* __restrict__ key_bias,
                  const float* __restrict__ gates, __nv_bfloat16* __restrict__ out,
                  int Tq, int S, int ld, float scale) {
   using L = Layout<DH>;
   extern __shared__ __align__(128) unsigned char smem[];
-  __nv_bfloat16* qs = reinterpret_cast<__nv_bfloat16*>(smem + L::q_off);
-  __nv_bfloat16* ks = reinterpret_cast<__nv_bfloat16*>(smem + L::k_off);
-  __nv_bfloat16* vs = reinterpret_cast<__nv_bfloat16*>(smem + L::v_off);
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  float* sw = reinterpret_cast<float*>(smem + L::s_off) + warp * 16 * L::S_LD;
-  __nv_bfloat16* pw = reinterpret_cast<__nv_bfloat16*>(smem + L::p_off) + warp * 16 * L::P_LD;
+  const int warps = blockDim.x / 32, warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  __nv_bfloat16* qs = reinterpret_cast<__nv_bfloat16*>(smem);
+  __nv_bfloat16* ks = qs + warps * 16 * L::LD;
+  __nv_bfloat16* vs = ks + 2 * L::TILE;
+  float* bs = reinterpret_cast<float*>(vs + 2 * L::TILE);
 
-  const int t0 = blockIdx.x * TQ, h = blockIdx.y, b = blockIdx.z;
+  const int t0 = blockIdx.x * warps * 16, h = blockIdx.y, b = blockIdx.z;
   const size_t col = (size_t)h * DH;
-  load_rows<DH>(qs, q + ((size_t)b * Tq + t0) * ld + col, ld, Tq - t0, TQ);
-
-  // each lane owns half of one query row: row r, columns [half*.., +..)
-  const int r = lane / 2, half = lane % 2;
-  float m_i = -INFINITY, l_i = 0.0f;
-  float o[DH / 2];
-#pragma unroll
-  for (int c = 0; c < DH / 2; ++c) o[c] = 0.0f;
+  const __nv_bfloat16* kg = k + (size_t)b * S * ld + col;
+  const __nv_bfloat16* vg = v + (size_t)b * S * ld + col;
   const float* kb = key_bias + (size_t)b * S;
+  const int ntiles = (S + TK - 1) / TK;
 
-  for (int s0 = 0; s0 < S; s0 += TK) {
-    __syncthreads();  // previous tile fully consumed (and q loaded on entry)
-    load_rows<DH>(ks, k + ((size_t)b * S + s0) * ld + col, ld, S - s0, TK);
-    load_rows<DH>(vs, v + ((size_t)b * S + s0) * ld + col, ld, S - s0, TK);
+  // K, V and the key bias of tile j, all asynchronous (a plain load of the
+  // bias would stall its threads, and the barrier after them everyone)
+  auto load_kv = [&](int j, int buf) {
+    const int s0 = j * TK;
+    load_rows<DH>(ks + buf * L::TILE, kg + (size_t)s0 * ld, ld, S - s0, TK);
+    load_rows<DH>(vs + buf * L::TILE, vg + (size_t)s0 * ld, ld, S - s0, TK);
+    for (int i = threadIdx.x; i < TK; i += blockDim.x) {
+      const bool ok = s0 + i < S;
+      cp_async4(bs + buf * TK + i, ok ? kb + s0 + i : kb, ok ? 4 : 0);
+    }
+  };
+  load_rows<DH>(qs, q + ((size_t)b * Tq + t0) * ld + col, ld, Tq - t0, warps * 16);
+  load_kv(0, 0);
+  evlm::cp_async_commit();
+
+  // lane owns rows r = lane / 4 and r + 8 of the warp's 16, and in every
+  // 8-column block the columns c2, c2 + 1
+  const int c2 = 2 * (lane % 4);
+  const bool active = t0 + warp * 16 < Tq;
+  uint32_t qf[DH / 16][4];
+  float o[DH / 8][4];
+#pragma unroll
+  for (int i = 0; i < DH / 8; ++i) o[i][0] = o[i][1] = o[i][2] = o[i][3] = 0.0f;
+  float m0 = -INFINITY, m1 = -INFINITY, l0 = 0.0f, l1 = 0.0f;
+
+  for (int j = 0; j < ntiles; ++j) {
+    const int buf = j & 1;
+    if (j + 1 < ntiles) {
+      load_kv(j + 1, buf ^ 1);
+      evlm::cp_async_commit();
+      evlm::cp_async_wait<1>();
+    } else {
+      evlm::cp_async_wait<0>();
+    }
     __syncthreads();
-
-    // S_w[16, TK] = Q_w[16, DH] . K^T
+    // a warp whose 16 rows all lie past Tq only helps load and sync
+    if (active) {
+      if (j == 0) {
+        const __nv_bfloat16* qw = qs + (warp * 16 + lane % 16) * L::LD + (lane / 16) * 8;
 #pragma unroll
-    for (int j = 0; j < TK / 16; ++j) {
-      wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc;
-      wmma::fill_fragment(acc, 0.0f);
-#pragma unroll
-      for (int kk = 0; kk < DH; kk += 16) {
-        wmma::fragment<wmma::matrix_a, 16, 16, 16, __nv_bfloat16, wmma::row_major> fa;
-        wmma::fragment<wmma::matrix_b, 16, 16, 16, __nv_bfloat16, wmma::col_major> fb;
-        wmma::load_matrix_sync(fa, qs + (warp * 16) * L::QKV_LD + kk, L::QKV_LD);
-        wmma::load_matrix_sync(fb, ks + (j * 16) * L::QKV_LD + kk, L::QKV_LD);
-        wmma::mma_sync(acc, fa, fb, acc);
+        for (int kc = 0; kc < DH / 16; ++kc) ldsm_x4(qf[kc], qw + kc * 16);
       }
-      wmma::store_matrix_sync(sw + j * 16, acc, L::S_LD, wmma::mem_row_major);
-    }
-    __syncwarp();
 
-    // online softmax over this tile, f32
-    constexpr int HC = TK / 2;
-    float sv[HC];
-    float tmax = -INFINITY;
+      // scores [16, TK] = Q K^T, in registers
+      float s[TK / 8][4];
 #pragma unroll
-    for (int c = 0; c < HC; ++c) {
-      int key = s0 + half * HC + c;
-      float x = key < S ? sw[r * L::S_LD + half * HC + c] * scale + kb[key] : -INFINITY;
-      sv[c] = x;
-      tmax = fmaxf(tmax, x);
-    }
-    tmax = fmaxf(tmax, __shfl_xor_sync(0xffffffffu, tmax, 1));
-    const float m_new = fmaxf(m_i, tmax);  // finite: every tile holds a real key
-    const float alpha = __expf(m_i - m_new);
-    float psum = 0.0f;
+      for (int i = 0; i < TK / 8; ++i) s[i][0] = s[i][1] = s[i][2] = s[i][3] = 0.0f;
+      const __nv_bfloat16* kt =
+          ks + buf * L::TILE + ((lane / 16) * 8 + lane % 8) * L::LD + ((lane / 8) % 2) * 8;
 #pragma unroll
-    for (int c = 0; c < HC; ++c) {
-      float p = __expf(sv[c] - m_new);
-      psum += p;
-      pw[r * L::P_LD + half * HC + c] = __float2bfloat16(p);
-    }
-    psum += __shfl_xor_sync(0xffffffffu, psum, 1);
-    l_i = l_i * alpha + psum;
-    m_i = m_new;
-    __syncwarp();
-
-    // PV_w[16, DH] = P_w[16, TK] . V, staged through the score scratch
+      for (int kc = 0; kc < DH / 16; ++kc) {
 #pragma unroll
-    for (int j = 0; j < DH / 16; ++j) {
-      wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc;
-      wmma::fill_fragment(acc, 0.0f);
-#pragma unroll
-      for (int kk = 0; kk < TK; kk += 16) {
-        wmma::fragment<wmma::matrix_a, 16, 16, 16, __nv_bfloat16, wmma::row_major> fa;
-        wmma::fragment<wmma::matrix_b, 16, 16, 16, __nv_bfloat16, wmma::row_major> fb;
-        wmma::load_matrix_sync(fa, pw + kk, L::P_LD);
-        wmma::load_matrix_sync(fb, vs + kk * L::QKV_LD + j * 16, L::QKV_LD);
-        wmma::mma_sync(acc, fa, fb, acc);
+        for (int np = 0; np < TK / 16; ++np) {
+          uint32_t r[4];
+          ldsm_x4(r, kt + np * 16 * L::LD + kc * 16);
+          mma16816(s[2 * np], qf[kc], r[0], r[1]);
+          mma16816(s[2 * np + 1], qf[kc], r[2], r[3]);
+        }
       }
-      wmma::store_matrix_sync(sw + j * 16, acc, L::S_LD, wmma::mem_row_major);
-    }
-    __syncwarp();
+
+      // online softmax over this tile, f32; keys past S (only in the last
+      // tile) get -inf
+      const float* bt = bs + buf * TK + c2;
+      const int valid = S - j * TK;
+      float mx0 = -INFINITY, mx1 = -INFINITY;
 #pragma unroll
-    for (int c = 0; c < DH / 2; ++c) o[c] = o[c] * alpha + sw[r * L::S_LD + half * (DH / 2) + c];
-    __syncwarp();
+      for (int nb = 0; nb < TK / 8; ++nb) {
+        const float2 bb = *reinterpret_cast<const float2*>(bt + nb * 8);
+        s[nb][0] = s[nb][0] * scale + bb.x;
+        s[nb][1] = s[nb][1] * scale + bb.y;
+        s[nb][2] = s[nb][2] * scale + bb.x;
+        s[nb][3] = s[nb][3] * scale + bb.y;
+        if (valid < TK) {
+          if (nb * 8 + c2 >= valid) s[nb][0] = s[nb][2] = -INFINITY;
+          if (nb * 8 + c2 + 1 >= valid) s[nb][1] = s[nb][3] = -INFINITY;
+        }
+        mx0 = fmaxf(mx0, fmaxf(s[nb][0], s[nb][1]));
+        mx1 = fmaxf(mx1, fmaxf(s[nb][2], s[nb][3]));
+      }
+#pragma unroll
+      for (int x = 1; x <= 2; x <<= 1) {
+        mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, x));
+        mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, x));
+      }
+      const float mn0 = fmaxf(m0, mx0), mn1 = fmaxf(m1, mx1);  // finite: the tile holds a real key
+      const float a0 = __expf(m0 - mn0), a1 = __expf(m1 - mn1);
+      m0 = mn0;
+      m1 = mn1;
+      // P in the A-operand layout of P.V: k16 chunk kc is score blocks 2kc, 2kc+1
+      uint32_t pf[TK / 16][4];
+      float ps0 = 0.0f, ps1 = 0.0f;
+#pragma unroll
+      for (int nb = 0; nb < TK / 8; ++nb) {
+        const float p0 = __expf(s[nb][0] - mn0), p1 = __expf(s[nb][1] - mn0);
+        const float p2 = __expf(s[nb][2] - mn1), p3 = __expf(s[nb][3] - mn1);
+        ps0 += p0 + p1;
+        ps1 += p2 + p3;
+        pf[nb / 2][(nb % 2) * 2] = pack_bf16(p0, p1);
+        pf[nb / 2][(nb % 2) * 2 + 1] = pack_bf16(p2, p3);
+      }
+      l0 = l0 * a0 + ps0;
+      l1 = l1 * a1 + ps1;
+#pragma unroll
+      for (int nd = 0; nd < DH / 8; ++nd) {
+        o[nd][0] *= a0;
+        o[nd][1] *= a0;
+        o[nd][2] *= a1;
+        o[nd][3] *= a1;
+      }
+
+      // O [16, DH] += P V
+      const __nv_bfloat16* vt =
+          vs + buf * L::TILE + (lane % 8 + ((lane / 8) % 2) * 8) * L::LD + (lane / 16) * 8;
+#pragma unroll
+      for (int kc = 0; kc < TK / 16; ++kc) {
+#pragma unroll
+        for (int dp = 0; dp < DH / 16; ++dp) {
+          uint32_t r[4];
+          ldsm_x4_trans(r, vt + kc * 16 * L::LD + dp * 16);
+          mma16816(o[2 * dp], pf[kc], r[0], r[1]);
+          mma16816(o[2 * dp + 1], pf[kc], r[2], r[3]);
+        }
+      }
+    }
+    __syncthreads();  // this buffer is the next iteration's load target
   }
 
-  const int t = t0 + warp * 16 + r;
-  if (t < Tq) {
-    const float f = gates[h] / l_i;
-    __nv_bfloat16* dst = out + ((size_t)b * Tq + t) * ld + col + half * (DH / 2);
 #pragma unroll
-    for (int c = 0; c < DH / 2; c += 8) {
-      __align__(16) __nv_bfloat162 hv[4];
+  for (int x = 1; x <= 2; x <<= 1) {
+    l0 += __shfl_xor_sync(0xffffffffu, l0, x);
+    l1 += __shfl_xor_sync(0xffffffffu, l1, x);
+  }
+  const float f0 = gates[h] / l0, f1 = gates[h] / l1;
+  // stage the warp's 16 context rows where its Q rows were, then store
+  // them 16 bytes per lane
+  __nv_bfloat16* ow = qs + warp * 16 * L::LD;
+  const int r = lane / 4;
 #pragma unroll
-      for (int e = 0; e < 4; ++e)
-        hv[e] = __floats2bfloat162_rn(o[c + 2 * e] * f, o[c + 2 * e + 1] * f);
-      *reinterpret_cast<uint4*>(dst + c) = *reinterpret_cast<uint4*>(hv);
-    }
+  for (int nd = 0; nd < DH / 8; ++nd) {
+    *reinterpret_cast<__nv_bfloat162*>(ow + r * L::LD + nd * 8 + c2) =
+        __floats2bfloat162_rn(o[nd][0] * f0, o[nd][1] * f0);
+    *reinterpret_cast<__nv_bfloat162*>(ow + (r + 8) * L::LD + nd * 8 + c2) =
+        __floats2bfloat162_rn(o[nd][2] * f1, o[nd][3] * f1);
+  }
+  __syncwarp();
+  constexpr int CH = DH / 8;
+  for (int c = lane; c < 16 * CH; c += 32) {
+    const int rr = c / CH, d = (c % CH) * 8;
+    const int t = t0 + warp * 16 + rr;
+    if (t < Tq)
+      *reinterpret_cast<uint4*>(out + ((size_t)b * Tq + t) * ld + col + d) =
+          *reinterpret_cast<const uint4*>(ow + rr * L::LD + d);
   }
 }
 
@@ -178,13 +286,14 @@ template <int DH>
 cudaError_t launch(const void* q, const void* k, const void* v, const float* key_bias,
                    const float* gates, void* out, int batch, int Tq, int S, int heads, int ld,
                    float scale, cudaStream_t stream) {
-  const size_t smem = Layout<DH>::bytes;
+  // a 128-row query tile for long query runs, else just enough 16-row warps
+  const int warps = Tq > 64 ? MAX_WARPS : (Tq + 15) / 16;
   cudaError_t e = cudaFuncSetAttribute(attn_core_kernel<DH>,
                                        cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                       static_cast<int>(smem));
+                                       static_cast<int>(Layout<DH>::bytes(MAX_WARPS)));
   if (e != cudaSuccess) return e;
-  dim3 grid((Tq + TQ - 1) / TQ, heads, batch);
-  attn_core_kernel<DH><<<grid, THREADS, smem, stream>>>(
+  dim3 grid((Tq + warps * 16 - 1) / (warps * 16), heads, batch);
+  attn_core_kernel<DH><<<grid, warps * 32, Layout<DH>::bytes(warps), stream>>>(
       static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
       static_cast<const __nv_bfloat16*>(v), key_bias, gates,
       static_cast<__nv_bfloat16*>(out), Tq, S, ld, scale);
@@ -197,13 +306,15 @@ cudaError_t launch(const void* q, const void* k, const void* v, const float* key
 
 namespace evlm {
 
-// q/out [batch*Tq, ld], k/v [batch*S, ld] bf16 with ld = heads*head_dim;
-// key_bias [batch, S] f32; gates [heads] f32. head_dim is 32, 64 or 128.
+// q/out [batch*Tq, ld], k/v [batch*S, ld] bf16 with ld = heads*head_dim,
+// 16-byte aligned; key_bias [batch, S] f32; gates [heads] f32. head_dim is
+// 32, 64 or 128.
 static inline cudaError_t attn_core(const void* q, const void* k, const void* v,
-                             const float* key_bias, const float* gates, void* out,
-                             int batch, int Tq, int S, int heads, int head_dim, float scale,
-                             cudaStream_t s) {
+                                    const float* key_bias, const float* gates, void* out,
+                                    int batch, int Tq, int S, int heads, int head_dim,
+                                    float scale, cudaStream_t s) {
   using attn_impl::launch;
+  if (batch <= 0 || Tq <= 0 || S <= 0 || heads <= 0) return cudaErrorInvalidValue;
   const int ld = heads * head_dim;
   switch (head_dim) {
     case 32: return launch<32>(q, k, v, key_bias, gates, out, batch, Tq, S, heads, ld, scale, s);

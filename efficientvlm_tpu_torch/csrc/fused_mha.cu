@@ -17,10 +17,13 @@
 // against ~60 MB of traffic (0.02 ms). The TPU kernel keeps a batch row's
 // Q/K/V in VMEM and walks the heads in order; a Hopper SM has 227 KB of
 // shared memory and 132 SMs want parallel work, so here the projections are
-// whole-batch GEMMs (gemm_bias, 128x128 tiles) whose bf16 outputs make one
-// round trip through device memory (the L2 holds much of it), and the
-// attention runs one block per (64-query tile, head, batch row) with an
-// online softmax (attn_core), so scores never leave shared memory.
+// whole-batch GEMMs on wgmma fed by TMA (gemm_bias) whose bf16 outputs make
+// one round trip through device memory (the L2 holds much of it), and the
+// attention is a flash kernel with the scores and probabilities in
+// registers (attn_core). A self-attention sublayer is three launches: Q, K
+// and V projected by one gemm_bias launch that reads x once, attn_core, the
+// output projection; a cross-attention sublayer projects Q, then K and V in
+// one launch over the image rows.
 #include "attn_core.cuh"
 #include "gemm_bias.cuh"
 #include "residual_layernorm.cuh"
@@ -30,6 +33,7 @@
 // key_bias [batch, s] f32; gates [heads] f32; ln_gamma/ln_beta [d] f32 or
 // null; workspaces ws_q/ws_ctx [batch*tq, A], ws_k/ws_v [batch*s, A] bf16,
 // ws_out [batch*tq, d] f32 (used only with ln_gamma); out [batch*tq, d] bf16.
+// Every bf16 pointer is 16-byte aligned (TMA).
 extern "C" int evlm_fused_attention(
     const void* x, const void* enc, const void* wq, const float* bq, const void* wk,
     const float* bk, const void* wv, const float* bv, const void* wo, const float* bo,
@@ -40,9 +44,20 @@ extern "C" int evlm_fused_attention(
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const int a = heads * head_dim, rows_q = batch * tq, rows_kv = batch * s;
   cudaError_t e;
-  if ((e = evlm::gemm_bias(x, wq, bq, nullptr, 1, ws_q, false, rows_q, a, d, st))) return e;
-  if ((e = evlm::gemm_bias(enc, wk, bk, nullptr, 1, ws_k, false, rows_kv, a, de, st))) return e;
-  if ((e = evlm::gemm_bias(enc, wv, bv, nullptr, 1, ws_v, false, rows_kv, a, de, st))) return e;
+  if (enc == x && s == tq && de == d) {  // self-attention: Q, K, V in one launch
+    const void* w[3] = {wq, wk, wv};
+    const float* b[3] = {bq, bk, bv};
+    void* c[3] = {ws_q, ws_k, ws_v};
+    e = evlm::gemm_bias_multi(x, 3, w, b, c, nullptr, 1, false, rows_q, a, d, st);
+  } else {
+    const void* w[2] = {wk, wv};
+    const float* b[2] = {bk, bv};
+    void* c[2] = {ws_k, ws_v};
+    e = evlm::gemm_bias(x, wq, bq, nullptr, 1, ws_q, false, rows_q, a, d, st);
+    if (e == cudaSuccess)
+      e = evlm::gemm_bias_multi(enc, 2, w, b, c, nullptr, 1, false, rows_kv, a, de, st);
+  }
+  if (e != cudaSuccess) return e;
   if ((e = evlm::attn_core(ws_q, ws_k, ws_v, key_bias, gates, ws_ctx, batch, tq, s, heads,
                            head_dim, 1.0f / sqrtf(static_cast<float>(head_dim)), st)))
     return e;
@@ -52,4 +67,23 @@ extern "C" int evlm_fused_attention(
   if ((e = evlm::gemm_bias(ws_ctx, wo, bo, nullptr, 1, ws_out, true, rows_q, d, a, st))) return e;
   return static_cast<int>(evlm::residual_layernorm(ws_out, x, ln_gamma, ln_beta, out, rows_q, d,
                                                    ln_eps, rows_q, 0, 0, st));
+}
+
+// The two device kernels on their own, for the card tests and chip_smoke.py.
+// a [m, k], b [k, n] bf16; bias [n] and row_add [period, n] f32 or null;
+// c [m, n] bf16 or f32 (out_f32).
+extern "C" int evlm_gemm_bias(const void* a, const void* b, const float* bias,
+                              const float* row_add, void* c, int period, int out_f32, int m,
+                              int n, int k, void* stream) {
+  return static_cast<int>(evlm::gemm_bias(a, b, bias, row_add, period, c, out_f32 != 0, m, n, k,
+                                          static_cast<cudaStream_t>(stream)));
+}
+
+// q/out [batch*tq, heads*head_dim], k/v [batch*s, heads*head_dim] bf16;
+// key_bias [batch, s], gates [heads] f32.
+extern "C" int evlm_attn_core(const void* q, const void* k, const void* v, const float* key_bias,
+                              const float* gates, void* out, int batch, int tq, int s, int heads,
+                              int head_dim, float scale, void* stream) {
+  return static_cast<int>(evlm::attn_core(q, k, v, key_bias, gates, out, batch, tq, s, heads,
+                                          head_dim, scale, static_cast<cudaStream_t>(stream)));
 }

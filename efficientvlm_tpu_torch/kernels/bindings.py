@@ -41,6 +41,13 @@ def _stream(t: torch.Tensor) -> int:
     return torch.cuda.current_stream(t.device).cuda_stream
 
 
+def _aligned(ptrs: dict, name: str) -> None:
+    """TMA (and the kernels' 16-byte loads) need 16-byte aligned operands."""
+    bad = [k for k, p in ptrs.items() if p is not None and p % 16]
+    if bad:
+        raise ValueError(f"{name}: {', '.join(bad)} must be 16-byte aligned")
+
+
 def patch_embed(patches: torch.Tensor, w: torch.Tensor, bias: Optional[torch.Tensor],
                 pos: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor, eps: float,
                 *, batch: int) -> torch.Tensor:
@@ -55,6 +62,7 @@ def patch_embed(patches: torch.Tensor, w: torch.Tensor, bias: Optional[torch.Ten
             _ptr(w, BF16, "w", (k, d)), _ptr(bias, F32, "bias", (d,)),
             _ptr(pos, F32, "pos", (n_patches, d)), _ptr(gamma, F32, "gamma", (d,)),
             _ptr(beta, F32, "beta", (d,))]
+    _aligned({"patches": args[0], "w": args[1]}, "patch_embed")
     ws = torch.empty(rows, d, dtype=F32, device=patches.device)
     out = torch.empty(batch, 1 + n_patches, d, dtype=BF16, device=patches.device)
     _check(library().evlm_patch_embed(*args, ws.data_ptr(), out.data_ptr(), batch, n_patches,
@@ -88,6 +96,8 @@ def fused_attention(x: torch.Tensor, enc: torch.Tensor, w: dict, key_bias: torch
             _ptr(key_bias, F32, "key_bias", (batch, s)), _ptr(gates, F32, "gates", (heads,)),
             _ptr(ln[0] if ln else None, F32, "ln_gamma", (d,)),
             _ptr(ln[1] if ln else None, F32, "ln_beta", (d,))]
+    _aligned(dict(zip(("x", "enc", "wq", "wk", "wv", "wo"),
+                      (args[0], args[1], args[2], args[4], args[6], args[8]))), "fused_attention")
     dev = x.device
     ws = [torch.empty(rq, a, dtype=BF16, device=dev), torch.empty(rkv, a, dtype=BF16, device=dev),
           torch.empty(rkv, a, dtype=BF16, device=dev), torch.empty(rq, a, dtype=BF16, device=dev),
@@ -96,6 +106,46 @@ def fused_attention(x: torch.Tensor, enc: torch.Tensor, w: dict, key_bias: torch
     _check(library().evlm_fused_attention(
         *args, *[None if t is None else t.data_ptr() for t in ws], out.data_ptr(),
         batch, tq, s, d, de, heads, dh, float(ln_eps), _stream(x)), "fused_attention")
+    return out
+
+
+def gemm_bias(a: torch.Tensor, b: torch.Tensor, bias: Optional[torch.Tensor] = None,
+              row_add: Optional[torch.Tensor] = None, *, out_f32: bool = False) -> torch.Tensor:
+    """The projection kernel on its own: a [M, K] bf16 @ b [K, N] bf16
+    (+ bias [N] f32) (+ row_add[m % period] of [period, N] f32), f32
+    accumulation -> [M, N] bf16, or f32 with out_f32."""
+    (m, k), n = a.shape, b.shape[1]
+    if k % 8 or n % 8:
+        raise ValueError(f"gemm_bias: K={k} and N={n} must be multiples of 8")
+    period = 1 if row_add is None else row_add.shape[0]
+    args = [_ptr(a, BF16, "a", (m, k)), _ptr(b, BF16, "b", (k, n)),
+            _ptr(bias, F32, "bias", (n,)), _ptr(row_add, F32, "row_add", (period, n))]
+    _aligned({"a": args[0], "b": args[1]}, "gemm_bias")
+    c = torch.empty(m, n, dtype=F32 if out_f32 else BF16, device=a.device)
+    _check(library().evlm_gemm_bias(*args, c.data_ptr(), period, int(out_f32), m, n, k,
+                                    _stream(a)), "gemm_bias")
+    return c
+
+
+def attn_core(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, key_bias: torch.Tensor,
+              gates: torch.Tensor, *, batch: int, tq: int, s: int) -> torch.Tensor:
+    """The attention kernel on its own: per head h, softmax(q k^T / sqrt(dh)
+    + key_bias) v * gates[h] over q [batch*tq, H*dh] and k/v [batch*s, H*dh]
+    bf16 (heads side by side), key_bias [batch, s] and gates [H] f32.
+    Returns [batch*tq, H*dh] bf16."""
+    heads = gates.shape[0]
+    a = q.shape[1]
+    dh = a // heads
+    if dh * heads != a or dh not in (32, 64, 128):
+        raise ValueError(f"attn_core: width {a} over {heads} heads "
+                         f"(head dim must be 32, 64 or 128)")
+    args = [_ptr(q, BF16, "q", (batch * tq, a)), _ptr(k, BF16, "k", (batch * s, a)),
+            _ptr(v, BF16, "v", (batch * s, a)), _ptr(key_bias, F32, "key_bias", (batch, s)),
+            _ptr(gates, F32, "gates", (heads,))]
+    _aligned({"q": args[0], "k": args[1], "v": args[2]}, "attn_core")
+    out = torch.empty_like(q)
+    _check(library().evlm_attn_core(*args, out.data_ptr(), batch, tq, s, heads, dh,
+                                    float(dh ** -0.5), _stream(q)), "attn_core")
     return out
 
 

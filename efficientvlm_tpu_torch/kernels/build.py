@@ -37,6 +37,10 @@ SIGNATURES = {
     # ws_q, ws_k, ws_v, ws_ctx, ws_out, out, batch, tq, s, d, de, heads, head_dim,
     # ln_eps, stream
     "evlm_fused_attention": [_P] * 20 + [_I] * 7 + [_F, _P],
+    # a, b, bias, row_add, c, period, out_f32, m, n, k, stream
+    "evlm_gemm_bias": [_P] * 5 + [_I] * 5 + [_P],
+    # q, k, v, key_bias, gates, out, batch, tq, s, heads, head_dim, scale, stream
+    "evlm_attn_core": [_P] * 6 + [_I] * 5 + [_F, _P],
     # q, k, v, bias, out, batch, heads, tq, tk, head_dim, bias_b, bias_t, stream
     "evlm_flash_attention": [_P] * 5 + [_I] * 7 + [_P],
     # q, k, v, bias, out, kv_batch, groups, heads, tq, s, head_dim, bias_b, stream

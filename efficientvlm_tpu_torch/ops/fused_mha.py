@@ -76,6 +76,27 @@ def _attention_plain(q, k, v, kb2, gates1, num_heads: int, groups: int = 1):
     return ctx.reshape(bq, num_heads, tq, dh).transpose(1, 2).reshape(bq, tq, a).to(dt)
 
 
+def gemm_bias_plain(a, b, bias=None, row_add=None, out_f32: bool = False):
+    """Plain version of the projection kernel (bindings.gemm_bias): a [M, K]
+    @ b [K, N] in f32 (+ bias [N]) (+ row_add[m % period]), rounded to a's
+    dtype unless out_f32."""
+    y = a.float() @ b.float()
+    if bias is not None:
+        y = y + bias.float()
+    if row_add is not None:
+        y = y + row_add.float()[torch.arange(y.shape[0], device=y.device) % row_add.shape[0]]
+    return y if out_f32 else y.to(a.dtype)
+
+
+def attn_core_plain(q, k, v, kb2, gates1, *, batch: int, tq: int, s: int):
+    """Plain version of the attention kernel (bindings.attn_core): q [batch*tq,
+    A], k/v [batch*s, A], heads side by side; kb2 [batch, s], gates1 [H]."""
+    a = q.shape[1]
+    ctx = _attention_plain(q.reshape(batch, tq, a), k.reshape(batch, s, a),
+                           v.reshape(batch, s, a), kb2, gates1, gates1.shape[0])
+    return ctx.reshape(batch * tq, a)
+
+
 def self_attention_plain(params, hidden, kb2, gates1, num_heads: int):
     dt = hidden.dtype
     q = _linear_plain(hidden, params["q"], dt)

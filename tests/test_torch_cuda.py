@@ -1,5 +1,7 @@
 """The port's CUDA kernels against their plain versions, on the card, in
-bf16, at small shapes; each wrapper counts one launch per call. Imports no
+bf16, at small shapes; each wrapper counts one launch per call. The two
+device kernels under the attention sublayers, gemm_bias and attn_core, are
+also held on their own at the main path's shapes and ragged edges. Imports no
 jax, so it also runs where only PyTorch is installed:
 
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_cuda.py -q
@@ -9,6 +11,7 @@ Without a CUDA device every test skips."""
 import pytest
 import torch
 
+from efficientvlm_tpu_torch.kernels import bindings as K
 from efficientvlm_tpu_torch.ops import attention as A
 from efficientvlm_tpu_torch.ops import flash_attention as FA
 from efficientvlm_tpu_torch.ops import fused_mha as F
@@ -41,15 +44,20 @@ def _mask(b, s):
     return m
 
 
-def _agree(wrapper, run, plain):
-    before = wrapper.launches
-    out = run().float()
-    assert wrapper.launches == before + 1
-    ref = plain().float()
+def _close(out, ref):
+    out, ref = out.float(), ref.float()
     torch.cuda.synchronize()
+    assert out.shape == ref.shape
     assert torch.isfinite(out).all()
     # 4 bf16 ulps at the output's largest magnitude (see chip_smoke.phase_kernels)
     assert (out - ref).abs().max().item() <= 4 * 2 ** -8 * ref.abs().max().item()
+
+
+def _agree(wrapper, run, plain):
+    before = wrapper.launches
+    out = run()
+    assert wrapper.launches == before + 1
+    _close(out, plain())
 
 
 def test_patch_embed(rnd):
@@ -92,6 +100,69 @@ def test_grouped_cross_attention(rnd, with_ln):
            lambda: F.fused_cross_attention_grouped(prm, x, enc, num_heads=2, kv_groups=3,
                                                    mask=mask, head_z=hz, ln_params=ln),
            lambda: F.cross_attention_grouped_plain(prm, x, enc, kb, hz, 2, 3, ln))
+
+
+GEMM = {
+    # name: (M, N, K, out_f32, with bias, row_add period or 0)
+    "vit_qkv_fused_n2304": (18464, 2304, 768, False, True, 0),
+    "vit_out_n768": (18464, 768, 768, False, True, 0),
+    "fusion_q_m1280": (1280, 768, 768, False, True, 0),
+    "rect_a512_n512": (18464, 512, 768, False, True, 0),
+    "rect_a512_k512": (1280, 768, 512, False, True, 0),
+    "five_heads_n320_no_bias": (1280, 320, 768, False, False, 0),
+    "five_heads_k320": (18464, 768, 320, False, True, 0),
+    "patch_f32_row_add_576": (18464, 768, 768, True, True, 576),
+}
+
+
+@pytest.mark.parametrize("name", sorted(GEMM))
+def test_gemm_bias(rnd, name):
+    m, n, k, out_f32, with_bias, period = GEMM[name]
+    a, b = rnd(m, k), rnd(k, n, std=k ** -0.5)
+    bias = rnd(n, std=0.1, dtype=torch.float32) if with_bias else None
+    row_add = rnd(period, n, dtype=torch.float32) if period else None
+    out = K.gemm_bias(a, b, bias, row_add, out_f32=out_f32)
+    assert out.dtype == (torch.float32 if out_f32 else torch.bfloat16)
+    _close(out, F.gemm_bias_plain(a, b, bias, row_add, out_f32))
+
+
+ATTN = {
+    # name: (batch, Tq, S, heads, dh); row 1 of "last_tile_only" sees only
+    # the keys of the last 64-key tile
+    "vit_t577_dh64": (2, 577, 577, 4, 64),
+    "fusion_tq40_s577": (4, 40, 577, 4, 64),
+    "grouped_tq10240_s577": (2, 10240, 577, 2, 64),
+    "vqa_vit_t901_dh128": (2, 901, 901, 2, 128),
+    "question_t25_dh32": (4, 25, 25, 4, 32),
+    "decode_tq1_s40": (3, 1, 40, 4, 64),
+    "last_tile_only_s577": (2, 40, 577, 2, 64),
+    "last_tile_only_s901_dh128": (2, 128, 901, 2, 128),
+}
+
+
+@pytest.mark.parametrize("name", sorted(ATTN))
+def test_attn_core(rnd, name):
+    b, tq, s, h, dh = ATTN[name]
+    q, k, v = rnd(b * tq, h * dh), rnd(b * s, h * dh), rnd(b * s, h * dh)
+    mask = _mask(b, s)
+    if name.startswith("last_tile_only"):
+        mask[1] = 0
+        mask[1, (s - 1) // 64 * 64:] = 1
+    kb = F._key_bias(b, s, mask, None, q.device)
+    hz = torch.rand(h, device="cuda") + 0.2
+    _close(K.attn_core(q, k, v, kb, hz, batch=b, tq=tq, s=s),
+           F.attn_core_plain(q, k, v, kb, hz, batch=b, tq=tq, s=s))
+
+
+def test_misaligned_operands_raise(rnd):
+    """TMA needs 16-byte aligned operands: the bindings refuse others."""
+    buf = rnd(64 * 128 + 1)
+    a = buf[1:].view(64, 128)  # contiguous, 2 bytes off
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        K.gemm_bias(a, rnd(128, 64))
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        K.attn_core(a, rnd(64, 128), rnd(64, 128), torch.zeros(1, 64, device="cuda"),
+                    torch.ones(2, device="cuda"), batch=1, tq=64, s=64)
 
 
 FLASH = {
