@@ -12,10 +12,16 @@ It builds the port's CUDA kernels from csrc/ (into build/kernels/), then:
    version on the card, in bf16, at the shapes of the main paths (masked key
    tails, non-trivial head gates, a rectangular 8-head A=512 width, the
    grouped rerank with and without its LayerNorm epilogue; for the two
-   attention cores a causal + padding matrix bias, the decode mask over a
-   partly filled cache, and grouped K/V with G=3, Tq=1 and G=128, Tq=6),
-   and the two device kernels under #1-#4 on their own: gemm_bias at the
-   ViT's fused Q/K/V shape, attn_core at the ViT and fusion shapes;
+   bare attention cores every shape the generation path gives them, called
+   as the decoder calls them (q the projection's strided view, unscaled,
+   with the softmax scale), with a causal + padding matrix bias, the decode
+   mask over a partly filled cache, grouped K/V with G=3 and G=128, and
+   edge cases of the split-KV and small-problem regimes: a ragged last
+   split, a split whose keys are all masked, a row whose only key is in the
+   last split, (b, h) counts no block size divides, batch-broadcast biases,
+   dh 32 and 128; misaligned or wrongly shaped operands must raise), and
+   the two device kernels under #1-#4 on their own: gemm_bias at the ViT's
+   fused Q/K/V shape, attn_core at the ViT and fusion shapes;
 3. paths, each driven with every launch count set to 0 just before it and
    read just after:
    - retrieval evaluation at the full width of X-VLM base (CLIP-ViT-B/16 at
@@ -29,12 +35,17 @@ It builds the port's CUDA kernels from csrc/ (into build/kernels/), then:
      the teacher and the student;
    with exact launch counts, finite outputs, and the kernel path against the
    plain path (f32 params for retrieval; the same bf16 params for
-   generation, with a teacher-forced replay of the generated captions);
+   generation, with a teacher-forced replay of the generated captions, and
+   VQA's ranked answer probabilities over nine input draws, held by their
+   medians to the plain bf16 path's own distance from f32 compute);
 4. times: each kernel's time beside its bound, its plain version's and a
    library yardstick's time (CUDA events, median of runs after warm-up),
-   the same at the other main-path shapes, gemm_bias and attn_core with
-   their TFLOP/s and share of the bf16 peak, pairs/s, questions/s,
-   images/s, and a torch.profiler breakdown.
+   the same at the other main-path shapes (for #5 and #6 timed in turns
+   with the library call, and after the profiles their device time per call
+   from torch.profiler, their host time per call, and the device time of
+   the S = 577 split-KV shapes at other keys per split), gemm_bias and
+   attn_core with their TFLOP/s and share of the bf16 peak, pairs/s,
+   questions/s, images/s, and a torch.profiler breakdown.
 
 Weights are random, made from a seed. Any failed check exits non-zero
 before the last line, which is
@@ -44,6 +55,7 @@ Without a CUDA device it exits non-zero and prints no result.
 
 from __future__ import annotations
 
+import contextlib
 import json
 import os
 import statistics
@@ -83,6 +95,28 @@ def timed_ms(fn, *, iters: int = 10, runs: int = 5, warmup: int = 2) -> float:
         end.synchronize()
         times.append(start.elapsed_time(end) / iters)
     return statistics.median(times)
+
+
+def timed_pair_ms(fa, fb, *, iters: int = 20, runs: int = 7, warmup: int = 3) -> tuple:
+    """Medians of alternating runs of fa and fb (each `iters` back-to-back
+    calls, CUDA events), so that a drift of the shared host falls on both."""
+    import torch
+
+    for _ in range(warmup):
+        fa()
+        fb()
+    torch.cuda.synchronize()
+    times = ([], [])
+    for _ in range(runs):
+        for fn, out in zip((fa, fb), times):
+            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            start.record()
+            for _ in range(iters):
+                fn()
+            end.record()
+            end.synchronize()
+            out.append(start.elapsed_time(end) / iters)
+    return statistics.median(times[0]), statistics.median(times[1])
 
 
 def bound(flops: float, nbytes: float):
@@ -231,44 +265,89 @@ def kernel_cases(rnd):
     cases.append(grouped_case("rect_a512_h8_ln", 512, 8, True))
 
     # 5, 6: bare attention cores of the generation path (teacher, 12 heads,
-    # dh 64, q already scaled); bytes read each input once, bias in f32
+    # dh 64), called as ops/attention.py calls them: q is the projection's
+    # [B,T,H,dh] view, unscaled, with scale = dh ** -0.5 applied in the
+    # kernel; bytes read each input once, bias in f32
     h, dh = 12, 64
 
-    def flash_case(case, b, tq, tk, kind, filled=0):
-        q, k, v = rnd(b, h, tq, dh, std=dh ** -0.5), rnd(b, h, tk, dh), rnd(b, h, tk, dh)
+    def heads_view(b, t, hh, d):
+        return rnd(b, t, hh * d).view(b, t, hh, d).transpose(1, 2)
+
+    def flash_bias(kind, b, tq, tk, filled, split):
         if kind == "key_vector":  # padding mask with masked tails
-            bias = A.make_attention_bias(rnd.mask(b, tk, max(1, tk // 4)))
-        elif kind == "causal_padding":  # decoder self-attention over padded answers
-            bias = A.causal_bias(tq, tk, device="cuda") + A.make_attention_bias(
+            return A.make_attention_bias(rnd.mask(b, tk, max(1, tk // 4)))
+        if kind == "key_vector_broadcast":
+            return A.make_attention_bias(rnd.mask(1, tk, max(1, tk // 4)))
+        if kind == "causal_padding":  # decoder self-attention over padded answers
+            return A.causal_bias(tq, tk, device="cuda") + A.make_attention_bias(
                 rnd.mask(b, tk, 2))
-        else:  # the decode mask over a cache whose first `filled` slots are written
-            bias = A.decode_bias(tk, filled - tq, q_len=tq, device="cuda")
+        if kind == "matrix_broadcast":
+            return A.causal_bias(tq, tk, offset=tk - tq, device="cuda")
+        if kind == "decode":  # the decode mask over a cache whose first `filled` slots are written
+            return A.decode_bias(tk, filled - tq, q_len=tq, device="cuda")
+        m = torch.ones(b, tk, dtype=torch.int32, device="cuda")
+        if kind == "all_masked_split":  # every key of the first split masked
+            m[:, :split] = 0
+        elif kind == "last_split_only":  # row 1 sees one key, the last of the ragged last split
+            m[1] = 0
+            m[1, tk - 1] = 1
+        return A.make_attention_bias(m)
+
+    def flash_case(case, b, tq, tk, kind, filled=0, hh=h, d=dh):
+        q = heads_view(b, tq, hh, d)
+        if kind == "causal_padding":  # uncached decoder self-attention: k/v are views too
+            k, v = heads_view(b, tk, hh, d), heads_view(b, tk, hh, d)
+        else:
+            k, v = rnd(b, hh, tk, d), rnd(b, hh, tk, d)
+        bias = flash_bias(kind, b, tq, tk, filled, FA.split_keys(b * hh * -(-tq // 16), tk))
+        if kind == "decode":
             k[:, :, filled:] = 0
             v[:, :, filled:] = 0
-        flops = 4 * b * h * tq * tk * dh
+        scale = d ** -0.5
+        flops = 4 * b * hh * tq * tk * d
         nbytes = 2 * (2 * q.numel() + k.numel() + v.numel()) + 4 * bias[:, 0].numel()
-        return ("flash_attention", case, lambda: FA.flash_attention(q, k, v, bias=bias),
-                lambda: FA.flash_attention_plain(q, k, v, bias), flops, nbytes, (q, k, v, bias))
+        return ("flash_attention", case,
+                lambda: FA.flash_attention(q, k, v, bias=bias, scale=scale),
+                lambda: FA.flash_attention_plain(q, k, v, bias, scale), flops, nbytes,
+                (q, k, v, bias, scale))
 
     cases.append(flash_case("vqa_score_self_b2048_tq6", 2048, 6, 6, "causal_padding"))
     cases.append(flash_case("vqa_first_cross_b16_tq1_s25", 16, 1, 25, "key_vector"))
     cases.append(flash_case("caption_step_self_b48_l20", 48, 1, 20, "decode", filled=10))
+    cases.append(flash_case("greedy_step_self_b16_l20", 16, 1, 20, "decode", filled=10))
     cases.append(flash_case("caption_prefill_self_b48_tq4_l20", 48, 4, 20, "decode", filled=4))
+    cases.append(flash_case("greedy_prefill_self_b16_tq4_l20", 16, 4, 20, "decode", filled=4))
+    cases.append(flash_case("vqa_first_self_b16_tq1_tk1", 16, 1, 1, "decode", filled=1))
     cases.append(flash_case("greedy_step_cross_b16_s577", 16, 1, 577, "key_vector"))
+    cases.append(flash_case("greedy_prefill_cross_b16_tq4_s577", 16, 4, 577, "key_vector"))
+    # edge cases, checked and not timed: a ragged last split, a split whose
+    # keys are all masked, a row whose only key is in the last split, (b, h)
+    # counts that no block size divides, batch-broadcast biases, dh 32 / 128
+    cases.append(flash_case("edge_split_ragged_dh128", 2, 1, 145, "key_vector", hh=3, d=128))
+    cases.append(flash_case("edge_all_masked_split", 2, 1, 577, "all_masked_split"))
+    cases.append(flash_case("edge_last_split_only", 2, 1, 577, "last_split_only", hh=2))
+    cases.append(flash_case("edge_9_pairs_vector_broadcast", 3, 1, 25, "key_vector_broadcast",
+                            hh=3))
+    cases.append(flash_case("edge_15_pairs_matrix_broadcast_dh32", 5, 6, 6, "matrix_broadcast",
+                            hh=3, d=32))
 
-    def grouped_flash_case(case, bk, g, tq, s):
-        q, k, v = rnd(bk * g, h, tq, dh, std=dh ** -0.5), rnd(bk, h, s, dh), rnd(bk, h, s, dh)
-        bias = A.make_attention_bias(rnd.mask(bk, s, s // 4))
-        flops = 4 * bk * g * h * tq * s * dh
-        nbytes = 2 * (2 * q.numel() + k.numel() + v.numel()) + 4 * bk * s
+    def grouped_flash_case(case, bk, g, tq, s, d=dh, broadcast=False):
+        q, k, v = heads_view(bk * g, tq, h, d), rnd(bk, h, s, d), rnd(bk, h, s, d)
+        bias = A.make_attention_bias(rnd.mask(1 if broadcast else bk, s, s // 4))
+        scale = d ** -0.5
+        flops = 4 * bk * g * h * tq * s * d
+        nbytes = 2 * (2 * q.numel() + k.numel() + v.numel()) + 4 * bias.numel()
         return ("flash_attention_grouped", case,
-                lambda: FA.flash_attention_grouped(q, k, v, kv_groups=g, bias=bias),
-                lambda: FA.flash_attention_grouped_plain(q, k, v, g, bias), flops, nbytes,
-                (q, k, v, bias, g))
+                lambda: FA.flash_attention_grouped(q, k, v, kv_groups=g, bias=bias, scale=scale),
+                lambda: FA.flash_attention_grouped_plain(q, k, v, g, bias, scale), flops, nbytes,
+                (q, k, v, bias, g, scale))
 
     cases.append(grouped_flash_case("vqa_score_cross_bk16_g128_tq6_s25", 16, 128, 6, 25))
     cases.append(grouped_flash_case("caption_step_cross_bk16_g3_tq1_s577", 16, 3, 1, 577))
     cases.append(grouped_flash_case("caption_prefill_cross_bk16_g3_tq4_s577", 16, 3, 4, 577))
+    cases.append(grouped_flash_case("edge_g3_split_dh32_broadcast", 3, 3, 1, 577, d=32,
+                                    broadcast=True))
+    cases.append(grouped_flash_case("edge_g128_dh128", 2, 128, 6, 25, d=128))
     return cases
 
 
@@ -308,6 +387,29 @@ def device_kernel_cases(rnd):
     cases.append(attn_case("vit_b32_t577_h12", 32, 577, 577, 12, 64))
     cases.append(attn_case("fusion_b32_tq40_s577_h12", 32, 40, 577, 12, 64))
     return cases
+
+
+def flash_refusals(rnd):
+    """The bare cores raise on operands their kernel cannot read in place: a
+    misaligned q, a row stride that is no multiple of 8, a wrong head dim."""
+    from efficientvlm_tpu_torch.ops import flash_attention as FA
+
+    k = rnd(2, 2, 9, 64)
+    bad = {"misaligned q": rnd(2 * 2 * 3 * 64 + 1)[1:].view(2, 2, 3, 64),
+           "q row stride 132": rnd(2, 3, 132)[..., :128].view(2, 3, 2, 64).transpose(1, 2)}
+    for what, q in bad.items():
+        try:
+            FA.flash_attention(q, k, k)
+        except ValueError:
+            continue
+        fail(f"flash_attention accepted a {what}")
+    try:
+        FA.flash_attention(rnd(2, 2, 3, 64), rnd(2, 2, 9, 32), rnd(2, 2, 9, 32))
+    except ValueError:
+        print("kernel flash_attention: misaligned, badly strided and wrongly shaped operands "
+              "raise")
+        return
+    fail("flash_attention accepted a k of another head dim")
 
 
 def phase_kernels(cases) -> dict:
@@ -543,11 +645,84 @@ def caption_replay_logits(model, params, image, tokens, prompt_len, impl):
     return torch.cat(steps, 1)
 
 
+def vqa_inputs(r):
+    """forward_eval's inputs at VQA_UNIT (image, question ids and mask,
+    answer ids and mask), drawn from the Rand `r`."""
+    import torch
+
+    u, b = VQA_UNIT, VQA_UNIT["batch"]
+    return (r(b, u["res"], u["res"], 3),
+            torch.randint(0, 30522, (b, u["q_len"]), generator=r.g, device="cuda"),
+            torch.ones(b, u["q_len"], dtype=torch.int32, device="cuda"),
+            torch.randint(0, 30522, (u["answers"], u["answer_len"]), generator=r.g,
+                          device="cuda"),
+            torch.ones(u["answers"], u["answer_len"], dtype=torch.int32, device="cuda"))
+
+
+@contextlib.contextmanager
+def plain_cores():
+    """The fused path with #5 and #6 on their plain twins and the rest of it
+    unchanged, to tell which part of the path a difference comes from."""
+    from efficientvlm_tpu_torch.ops import attention as A
+    from efficientvlm_tpu_torch.ops import flash_attention as FA
+
+    saved = A.flash_attention, A.flash_attention_grouped
+    A.flash_attention = lambda q, k, v, *, bias=None, scale=1.0: FA._bthd(
+        FA.flash_attention_plain(q, k, v, bias, scale))
+    A.flash_attention_grouped = lambda q, k, v, *, kv_groups, bias=None, scale=1.0: FA._bthd(
+        FA.flash_attention_grouped_plain(q, k, v, kv_groups, bias, scale))
+    try:
+        yield
+    finally:
+        A.flash_attention, A.flash_attention_grouped = saved
+
+
+# the VQA kernel-vs-plain check: input draws beside the main one, and the
+# bound on its medians in units of the plain bf16 path's distance from f32
+# compute (over the 9 draws on the H100 the ratio of the kernel path's
+# distance from f32 to the plain path's ranged 0.34-2.02 per draw, with a
+# median of 1.00; the ratio of the two medians was 0.82)
+VQA_SEEDS = (10, 11, 12, 13, 14, 15, 16, 17)
+VQA_MEDIAN_FACTOR = 1.5
+
+
+def vqa_agreement(model, params, params32, vqa_in, draw: str) -> dict:
+    """forward_eval's topk_probs four ways on one input: the kernel path,
+    the fused path with #5/#6 on their plain twins (plain_cores), the plain
+    path, all in bf16, and the plain path in f32 compute on the same params
+    upcast (exact). Prints their max abs differences and top-1 agreement."""
+    import torch
+
+    bf16, k = torch.bfloat16, VQA_UNIT["k"]
+    with torch.inference_mode():
+        ids_k, p_k = model.forward_eval(params, *vqa_in, k=k, dtype=bf16)
+        with plain_cores():
+            ids_t, p_t = model.forward_eval(params, *vqa_in, k=k, dtype=bf16)
+        ids_p, p_p = model.forward_eval(params, *vqa_in, k=k, dtype=bf16, impl="plain")
+        ids_32, p_32 = model.forward_eval(params32, vqa_in[0].float(), *vqa_in[1:], k=k,
+                                          dtype=torch.float32, impl="plain")
+
+    def err(a, b):
+        return (a.float() - b.float()).abs().max().item()
+
+    def top1(a, b):
+        return (a[:, 0] == b[:, 0]).float().mean().item()
+
+    out = {"kernel_vs_plain": err(p_k, p_p), "twins_vs_plain": err(p_t, p_p),
+           "kernel_vs_f32": err(p_k, p_32), "plain_vs_f32": err(p_p, p_32),
+           "max_prob": p_p.float().max().item(), "top1_kernel_plain": top1(ids_k, ids_p),
+           "top1_kernel_f32": top1(ids_k, ids_32), "top1_plain_f32": top1(ids_p, ids_32)}
+    print(f"vqa topk_probs [{draw}]: " + ", ".join(f"{a} {b:.4e}" for a, b in out.items()))
+    return out
+
+
 def phase_generation(rnd):
     """The generation path: VQA answer ranking and captioning, teacher and
     student, with exact launch counts; then the kernel path against the
     plain path on the same bf16 params."""
     import torch
+
+    from efficientvlm_tpu_torch.bridge import cast_floating
 
     bf16 = torch.bfloat16
     u, c_u = VQA_UNIT, CAPTION_UNIT
@@ -555,12 +730,7 @@ def phase_generation(rnd):
               for kind in ("vqa", "caption") for which, layers in (("teacher", 12),
                                                                     ("student", 6))}
     b = u["batch"]
-    vqa_in = (rnd(b, u["res"], u["res"], 3),
-              torch.randint(0, 30522, (b, u["q_len"]), generator=rnd.g, device="cuda"),
-              torch.ones(b, u["q_len"], dtype=torch.int32, device="cuda"),
-              torch.randint(0, 30522, (u["answers"], u["answer_len"]), generator=rnd.g,
-                            device="cuda"),
-              torch.ones(u["answers"], u["answer_len"], dtype=torch.int32, device="cuda"))
+    vqa_in = vqa_inputs(rnd)
     image = rnd(c_u["batch"], c_u["res"], c_u["res"], 3)
     prompt = torch.tensor([c_u["prompt"]] * c_u["batch"], device="cuda")
     gen_kw = dict(max_length=c_u["max_length"], min_length=c_u["min_length"],
@@ -616,20 +786,28 @@ def phase_generation(rnd):
         lk, lp = (vqa_first_logits(model, params, model.encode_question(
             params, image480, q_ids, q_atts, dtype=bf16, impl=impl)[0]["last_hidden"],
             q_atts, a_ids, impl).float() for impl in ("fused", "plain"))
-        ids_p, probs_p = model.forward_eval(params, *vqa_in, k=u["k"], dtype=bf16, impl="plain")
-        ids_k, probs_k = model.forward_eval(params, *vqa_in, k=u["k"], dtype=bf16)
     err, tol = (lk - lp).abs().max().item(), 0.05 * lp.abs().max().item()
     print(f"vqa kernel path vs plain path, first-call logits: max_abs_err {err:.4e} tol {tol:.4e}")
     check(err <= tol, "vqa first-call logits: kernel path and plain path disagree")
-    err = (probs_k.float() - probs_p.float()).abs().max().item()
-    tol = 0.1 * probs_p.float().max().item()
-    same_top1 = (ids_k[:, 0] == ids_p[:, 0]).float().mean().item()
-    overlap = sum(len(set(x.tolist()) & set(y.tolist()))
-                  for x, y in zip(ids_k, ids_p)) / ids_k.numel()
-    print(f"vqa kernel path vs plain path, topk_probs: max_abs_err {err:.4e} tol {tol:.4e}; "
-          f"top-1 answer equal in {same_top1:.3f} of questions, top-{u['k']} sets overlap "
-          f"{overlap:.3f} (bf16 near-ties reorder answers)")
-    check(err <= tol, "vqa topk_probs: kernel path and plain path disagree")
+    # topk_probs: near-tied answers reorder under any bf16 rounding, so a
+    # single input's max difference says little (on some draws the plain
+    # twins of #5/#6 inside the fused path differ from the plain path as
+    # much as the kernels do). The yardstick is the plain bf16 path's own
+    # distance from f32 compute, and both checks take medians over draws.
+    params32 = cast_floating(params, torch.float32)
+    runs = [vqa_agreement(model, params, params32, inputs, draw)
+            for draw, inputs in [("main", vqa_in)] + [(f"seed {s}", vqa_inputs(Rand(s)))
+                                                      for s in VQA_SEEDS]]
+    del params32
+    med = {key: statistics.median(r[key] for r in runs) for key in runs[0]}
+    tol = VQA_MEDIAN_FACTOR * med["plain_vs_f32"]
+    print(f"vqa topk_probs over {len(runs)} draws, medians: kernel vs f32 "
+          f"{med['kernel_vs_f32']:.4e}, kernel vs plain {med['kernel_vs_plain']:.4e}, plain #5/#6 "
+          f"twins vs plain {med['twins_vs_plain']:.4e}; tol {tol:.4e} = {VQA_MEDIAN_FACTOR} x "
+          f"plain bf16 vs f32 {med['plain_vs_f32']:.4e}")
+    check(med["kernel_vs_f32"] <= tol, "vqa topk_probs: the kernel path is further from f32 "
+                                       "compute than the plain bf16 path")
+    check(med["kernel_vs_plain"] <= tol, "vqa topk_probs: kernel path and plain path disagree")
 
     model, params = models[("caption", "teacher")]
     for beams in (c_u["beams"], 1):
@@ -693,16 +871,16 @@ def library_yardstick(name, args):
             return lambda: attend(prm, x, enc, mask, hz, h, fold)
         return lambda: Fn.layer_norm(x + attend(prm, x, enc, mask, hz, h, fold), (x.shape[-1],),
                                      ln["scale"].to(x.dtype), ln["bias"].to(x.dtype), 1e-12)
-    if name == "flash_attention":  # q is already scaled
-        q, k, v, bias = args
+    if name == "flash_attention":  # on the same views, scaled by SDPA
+        q, k, v, bias, scale = args
         mask = bias.to(q.dtype)
-        return lambda: Fn.scaled_dot_product_attention(q, k, v, attn_mask=mask, scale=1.0)
+        return lambda: Fn.scaled_dot_product_attention(q, k, v, attn_mask=mask, scale=scale)
     if name == "flash_attention_grouped":  # one call over the group-folded queries
         from efficientvlm_tpu_torch.ops.flash_attention import _fold
 
-        q, k, v, bias, g = args
+        q, k, v, bias, g, scale = args
         qf, mask = _fold(q, k.shape[0], g).contiguous(), bias.to(q.dtype)
-        return lambda: Fn.scaled_dot_product_attention(qf, k, v, attn_mask=mask, scale=1.0)
+        return lambda: Fn.scaled_dot_product_attention(qf, k, v, attn_mask=mask, scale=scale)
     raise ValueError(name)
 
 
@@ -764,16 +942,25 @@ def phase_times(cases, device_cases, errs, slice_state, gen_state) -> list:
                          "launches": slice_state["launches"][name] + gen_state["launches"][name],
                          "max_abs_err": errs[name], "ms": ms, "plain_ms": plain_ms,
                          "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": lib_ms})
-    # the other main-path shapes (text, t2i, rect, decode), for the record
-    seen = set()
+    # the other main-path shapes (text, t2i, rect, decode), for the record;
+    # the two bare cores (#5, #6) at every shape, with the library call timed
+    # in turns (the host sets the pace at the decode shapes)
+    seen, flash_cases = set(), []
     for name, case, run, plain, flops, nbytes, *extra in cases:
         first = name not in seen
         seen.add(name)
-        if not first:
-            with torch.inference_mode():
-                ms, lib_ms = timed_ms(run), timed_ms(library_yardstick(name, extra[0]))
-            print(f"time {name} [{case}]: {ms:.4f} ms, library {lib_ms:.4f} ms, "
-                  f"bound {bound(flops, nbytes)[0]:.4f} ms, {flops / ms / 1e9:.1f} TFLOP/s")
+        if case.startswith("edge_"):
+            continue
+        flash = name.startswith("flash_attention")
+        if first and not flash:
+            continue
+        lib = library_yardstick(name, extra[0])
+        with torch.inference_mode():
+            ms, lib_ms = timed_pair_ms(run, lib) if flash else (timed_ms(run), timed_ms(lib))
+        if flash:
+            flash_cases.append((name, case, run, lib))
+        print(f"time {name} [{case}]: {ms:.4f} ms, library {lib_ms:.4f} ms, "
+              f"bound {bound(flops, nbytes)[0]:.4f} ms, {flops / ms / 1e9:.1f} TFLOP/s")
     # the two device kernels under #1-#4 on their own: which one leads
     for name, case, run, plain, flops, nbytes, lib in device_cases:
         with torch.inference_mode():
@@ -841,7 +1028,81 @@ def phase_times(cases, device_cases, errs, slice_state, gen_state) -> list:
         profile("teacher vqa forward_eval b16", vqa("teacher"), calls=2)
         profile("teacher caption generate b16 beams3", caption("teacher", CAPTION_UNIT["beams"]),
                 calls=2, top=16)
+        # the device time per call of #5 / #6 at every shape, to tell the
+        # wrapper's host work from the kernel (after the throughputs: the
+        # profiler's sessions can slow the host work that follows them)
+        for name, case, run, lib in flash_cases:
+            print(f"device {name} [{case}]: {fmt_us(device_us(run)[0])} us/call, library "
+                  f"{fmt_us(device_us(lib)[0])} us/call; host {host_us(run):.2f} us/call, "
+                  f"library {host_us(lib):.2f}")
+        split_sweep(cases)
     return rows_out
+
+
+def host_us(fn, calls: int = 200) -> float:
+    """Host time per call: the host clock over `calls` back-to-back calls
+    that only queue work (no synchronisation inside), after a warm-up. Where
+    the device takes less per call than the host, this sets the call rate."""
+    import torch
+
+    for _ in range(5):
+        fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        fn()
+    t1 = time.perf_counter()
+    torch.cuda.synchronize()
+    return (t1 - t0) / calls * 1e6
+
+
+SPLIT_SWEEP = (32, 64, 128, 192, 289)
+
+
+def split_sweep(cases):
+    """Device time per call of the split-KV cores at the S = 577 decode
+    shapes over other keys per split (the bindings called directly; 577 is
+    no split), the measurement behind ops/flash_attention.SPLIT_KEYS."""
+    from efficientvlm_tpu_torch.kernels import bindings as K
+
+    for name, case, run, plain, flops, nbytes, args in cases:
+        if not name.startswith("flash_attention") or case.startswith("edge_") or \
+                args[1].shape[2] != 577:
+            continue
+        q, k, v, bias = args[:4]
+        groups, scale = (args[4], args[5]) if name == "flash_attention_grouped" else (1, args[4])
+        times = {n: device_us(lambda: K.flash_attention(q, k, v, bias, groups=groups, scale=scale,
+                                                        split_keys=n))[0]
+                 for n in SPLIT_SWEEP + (577,)}
+        print(f"split sweep {name} [{case}]: device us/call by keys per split: " +
+              ", ".join(f"{n} {fmt_us(t)}" for n, t in times.items()))
+
+
+def device_us(fn, calls: int = 20) -> tuple:
+    """Device time per call (kernels and copies) and device launches per
+    call, from torch.profiler's device-side events."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity
+
+    fn()
+    torch.cuda.synchronize()
+    for _ in range(3):  # a profiler session now and then records no device event
+        with torch.profiler.profile(activities=[ProfilerActivity.CPU,
+                                                ProfilerActivity.CUDA]) as prof:
+            for _ in range(calls):
+                fn()
+            torch.cuda.synchronize()
+        ev = [e for e in prof.key_averages()
+              if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0]
+        if ev:
+            return (sum(e.self_device_time_total for e in ev) / calls,
+                    sum(e.count for e in ev) / calls)
+    return None, None
+
+
+def fmt_us(us) -> str:
+    return "not measured" if us is None else f"{us:.2f}"
 
 
 def profile(what: str, fn, calls: int = 3, top: int = 12):
@@ -866,9 +1127,10 @@ def profile(what: str, fn, calls: int = 3, top: int = 12):
                if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0]
     busy_us = sum(e.self_device_time_total for e in kernels)
     check(busy_us > 0, f"profile {what}: no device time recorded")
+    launches = sum(e.count for e in kernels) / calls
     print(f"profile {what}: {calls} calls, device busy {busy_us / calls / 1e3:.3f} ms/call "
           f"of {wall_us / calls / 1e3:.3f} ms/call host clock, idle share "
-          f"{1 - busy_us / wall_us:.3f}")
+          f"{1 - busy_us / wall_us:.3f}, {launches:.0f} device launches/call")
     for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:top]:
         print(f"  {e.self_device_time_total / busy_us:6.1%} {e.self_device_time_total / calls / 1e3:8.3f}"
               f" ms/call {e.count // calls:5d}x  {e.key[:90]}")
@@ -890,6 +1152,7 @@ def main() -> int:
     rnd = Rand(0)
     cases, device_cases = kernel_cases(rnd), device_kernel_cases(rnd)
     errs = phase_kernels(cases + device_cases)
+    flash_refusals(rnd)
     slice_state = phase_slice(rnd)
     gen_state = phase_generation(rnd)
     kernels = phase_times(cases, device_cases, errs, slice_state, gen_state)

@@ -1,12 +1,15 @@
 """Typed Python calls for the C entries in csrc/*.cu.
 
-Each call checks device, dtype, shape and contiguity, allocates the output
-and the workspaces with torch.empty (the kernels allocate nothing), launches
-on the current stream and raises when the C entry returns a CUDA error.
+Each call checks device, dtype, shape and layout (contiguous, or for the
+flash core the strides it reads in place), allocates the output and the
+workspaces with torch.empty (the kernels allocate nothing; the flash core's
+split workspace is cached per device and stream), launches on the current stream and
+raises when the C entry returns a CUDA error.
 """
 
 from __future__ import annotations
 
+import struct
 from typing import Optional
 
 import torch
@@ -21,24 +24,29 @@ def _check(rc: int, name: str) -> None:
         raise RuntimeError(f"{name}: CUDA error {rc}")
 
 
-def _ptr(t: Optional[torch.Tensor], dtype, name: str, shape) -> Optional[int]:
-    if t is None:
-        return None
+def _operand(t: torch.Tensor, dtype, name: str) -> None:
     if not t.is_cuda:
         raise ValueError(f"{name} must be a CUDA tensor, got {t.device}")
     if t.dtype != dtype:
         raise TypeError(f"{name} must be {dtype}, got {t.dtype}")
-    if not t.is_contiguous():
-        raise ValueError(f"{name} must be contiguous")
     if t.requires_grad and torch.is_grad_enabled():
         raise RuntimeError(f"{name} requires grad: the CUDA kernels have no backward yet")
+
+
+def _ptr(t: Optional[torch.Tensor], dtype, name: str, shape) -> Optional[int]:
+    if t is None:
+        return None
+    _operand(t, dtype, name)
+    if not t.is_contiguous():
+        raise ValueError(f"{name} must be contiguous")
     if tuple(t.shape) != tuple(shape):
         raise ValueError(f"{name} shape {tuple(t.shape)} != {tuple(shape)}")
     return t.data_ptr()
 
 
 def _stream(t: torch.Tensor) -> int:
-    return torch.cuda.current_stream(t.device).cuda_stream
+    """The raw handle of the current stream of t's device (no Stream object)."""
+    return torch._C._cuda_getCurrentRawStream(t.device.index)
 
 
 def _aligned(ptrs: dict, name: str) -> None:
@@ -149,56 +157,82 @@ def attn_core(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, key_bias: torch
     return out
 
 
-def _qkv(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, name: str, kv_shape) -> list:
-    """Pointers of bf16 q [*, H, Tq, dh] and k/v `kv_shape`, each contiguous
-    and 16-byte aligned (the kernels load 8 bf16 at a time)."""
-    dh = q.shape[-1]
-    if dh not in (32, 64, 128):
-        raise ValueError(f"{name}: head dim {dh} (must be 32, 64 or 128)")
-    ptrs = [_ptr(q, BF16, "q", q.shape), _ptr(k, BF16, "k", kv_shape),
-            _ptr(v, BF16, "v", kv_shape)]
-    if any(p % 16 for p in ptrs):
-        raise ValueError(f"{name}: q, k and v must be 16-byte aligned")
-    return ptrs
+def _strides(t: torch.Tensor, name: str) -> tuple:
+    """Element strides of dims 0-2 of a bf16 [N, H, T, dh] CUDA operand read
+    in place (0 for a dim of size 1). The kernel loads 8 bf16 at a time: the
+    columns must be contiguous, the base 16-byte aligned and every stride a
+    multiple of 8."""
+    n, h, t_, _ = t.shape
+    sn, sh, st, sd = t.stride()
+    st3 = (0 if n == 1 else sn, 0 if h == 1 else sh, 0 if t_ == 1 else st)
+    if sd != 1:
+        raise ValueError(f"flash_attention: {name} must have contiguous columns")
+    if t.data_ptr() % 16:
+        raise ValueError(f"flash_attention: {name} must be 16-byte aligned")
+    if (st3[0] | st3[1] | st3[2]) % 8 or max(st3) >= 2 ** 31:
+        raise ValueError(f"flash_attention: {name} strides {tuple(t.stride())} must be "
+                         f"multiples of 8 below 2**31")
+    return st3
+
+
+_WORKSPACE: dict = {}  # (device index, raw stream) -> (split partials f32, tickets int32)
+
+
+def _workspace(device: torch.device, stream: int, floats: int, pieces: int) -> tuple:
+    """The split workspace and ticket buffer of `stream` on `device`, grown
+    on demand and reused by every later launch on that stream (launches on
+    one stream run in order, and the kernel leaves every ticket at 0; two
+    streams never share tickets)."""
+    ws, tickets = _WORKSPACE.get((device.index, stream), (None, None))
+    if ws is None or ws.numel() < floats:
+        ws = torch.empty(floats, dtype=F32, device=device)
+    if tickets is None or tickets.numel() < pieces:
+        tickets = torch.zeros(pieces, dtype=torch.int32, device=device)
+    _WORKSPACE[(device.index, stream)] = (ws, tickets)
+    return ws, tickets
+
+
+_DIMS = struct.Struct("18i")
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                    bias: torch.Tensor) -> torch.Tensor:
-    """softmax(q k^T + bias) v per (batch row, head). q [B,H,Tq,dh] (already
-    scaled), k/v [B,H,Tk,dh] bf16; bias f32, a key vector [1|B, Tk] or a
-    matrix [1|B, Tq, Tk] (batch 1 broadcasts). Returns [B,H,Tq,dh] bf16."""
-    b, h, tq, dh = q.shape
-    tk = k.shape[2]
-    matrix = bias.ndim == 3
-    bb = bias.shape[0]
-    if bb not in (1, b):
-        raise ValueError(f"flash_attention: bias batch {bb} != 1 or {b}")
-    args = _qkv(q, k, v, "flash_attention", (b, h, tk, dh))
-    args.append(_ptr(bias, F32, "bias", (bb, tq, tk) if matrix else (bb, tk)))
-    out = torch.empty_like(q)
-    per_row = tq * tk if matrix else tk
-    _check(library().evlm_flash_attention(
-        *args, out.data_ptr(), b, h, tq, tk, dh, 0 if bb == 1 else per_row,
-        tk if matrix else 0, _stream(q)), "flash_attention")
-    return out
-
-
-def flash_attention_grouped(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                            bias: torch.Tensor, *, groups: int) -> torch.Tensor:
-    """Grouped K/V: q [Bk*G,H,Tq,dh] (already scaled, each group's G rows
-    contiguous), k/v [Bk,H,S,dh] bf16 shared by the group; bias f32 key
-    vector per group [1|Bk, S]. Returns [Bk*G,H,Tq,dh] bf16."""
+                    bias: Optional[torch.Tensor], *, groups: int, scale: float,
+                    split_keys: int) -> torch.Tensor:
+    """softmax(bf16(q * scale) k^T + bias) v per (batch row, head), with G =
+    `groups` contiguous query rows sharing one K/V row. q [Bk*G,H,Tq,dh],
+    k/v [Bk,H,Tk,dh] bf16, each read in place through its strides (the
+    projection's [B,T,H,dh] view included); bias None or f32 [1|Bk,1,1|Tq,Tk]
+    with contiguous keys, read in place (a key vector per group when G > 1);
+    keys in splits of `split_keys`. The caller (ops/flash_attention.py)
+    checks the shapes. Returns [Bk*G,H,Tq,dh] bf16 as a view of a contiguous
+    [Bk*G,Tq,H,dh] tensor, so merging the heads is a view."""
     bq, h, tq, dh = q.shape
-    bk, _, s, _ = k.shape
-    if bq != bk * groups:
-        raise ValueError(f"flash_attention_grouped: query batch {bq} != {groups} * kv batch {bk}")
-    bb = bias.shape[0]
-    if bb not in (1, bk):
-        raise ValueError(f"flash_attention_grouped: bias batch {bb} != 1 or {bk}")
-    args = _qkv(q, k, v, "flash_attention_grouped", (bk, h, s, dh))
-    args.append(_ptr(bias, F32, "bias", (bb, s)))
-    out = torch.empty_like(q)
-    _check(library().evlm_flash_attention_grouped(
-        *args, out.data_ptr(), bk, groups, h, tq, s, dh, 0 if bb == 1 else s, _stream(q)),
-        "flash_attention_grouped")
+    bk, _, tk, _ = k.shape
+    for t, name in ((q, "q"), (k, "k"), (v, "v")):
+        _operand(t, BF16, name)
+    if dh not in (32, 64, 128):
+        raise ValueError(f"flash_attention: head dim {dh} (must be 32, 64 or 128)")
+    qs, ks, vs = _strides(q, "q"), _strides(k, "k"), _strides(v, "v")
+    bias_ptr, bias_b, bias_t = None, 0, 0
+    if bias is not None:
+        _operand(bias, F32, "bias")
+        if bias.stride(3) != 1 and tk > 1:
+            raise ValueError("flash_attention: the bias must have contiguous keys")
+        bias_ptr = bias.data_ptr()
+        bias_b = 0 if bias.shape[0] == 1 else bias.stride(0)
+        bias_t = 0 if bias.shape[2] == 1 else bias.stride(2)
+    out = torch.empty_strided((bq, h, tq, dh), (tq * h * dh, dh, h * dh, 1), dtype=BF16,
+                              device=q.device)
+    stream = _stream(q)
+    ws = tickets = None
+    if tk > split_keys:
+        pieces = bk * h * -(-groups * tq // 16)  # of 16 query rows, one ticket each
+        ws, tickets = _workspace(q.device, stream, pieces * -(-tk // split_keys) * 16 * (dh + 2),
+                                 pieces)
+    _check(library().evlm_flash_attention(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), bias_ptr, out.data_ptr(),
+        None if ws is None else ws.data_ptr(), None if tickets is None else tickets.data_ptr(),
+        _DIMS.pack(bk, groups, h, tq, tk, dh, qs[0], qs[1], qs[2], ks[0], ks[1], ks[2],
+                   vs[0], vs[1], vs[2], bias_b, bias_t, split_keys),
+        float(scale), stream), "flash_attention")
     return out

@@ -41,10 +41,8 @@ SIGNATURES = {
     "evlm_gemm_bias": [_P] * 5 + [_I] * 5 + [_P],
     # q, k, v, key_bias, gates, out, batch, tq, s, heads, head_dim, scale, stream
     "evlm_attn_core": [_P] * 6 + [_I] * 5 + [_F, _P],
-    # q, k, v, bias, out, batch, heads, tq, tk, head_dim, bias_b, bias_t, stream
-    "evlm_flash_attention": [_P] * 5 + [_I] * 7 + [_P],
-    # q, k, v, bias, out, kv_batch, groups, heads, tq, s, head_dim, bias_b, stream
-    "evlm_flash_attention_grouped": [_P] * 5 + [_I] * 7 + [_P],
+    # q, k, v, bias, out, ws, tickets, dims (18 ints), scale, stream
+    "evlm_flash_attention": [_P] * 8 + [_F, _P],
 }
 
 

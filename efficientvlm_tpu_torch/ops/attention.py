@@ -6,7 +6,9 @@ checked against. Under `impl="fused"` the attention core between the
 projections runs through ops/flash_attention.py (csrc/flash_attention.cu on
 CUDA): `flash_attention` for ordinary and cached attention,
 `flash_attention_grouped` for grouped K/V; the q/k/v/out projections stay
-`F.linear` around it. Gates:
+`F.linear` around it. The core takes the projections' [B,T,H,dh] views and
+the softmax scale as they are and returns its context in the layout that
+`_merge_heads` turns into a view, so no copy surrounds it. Gates:
 
 - head_z [H]: multiplies each head's context before the output projection;
 - head_layer_z (scalar): scales the attention output.
@@ -170,7 +172,8 @@ def multi_head_attention(
 
     scale = 1.0 / math.sqrt(q.shape[-1])
     if impl == "fused" and not output_probs:
-        ctx, probs = flash_attention(q * scale, k, v, bias=bias), None
+        # q and k/v go in as the projections' views, scaled in the kernel
+        ctx, probs = flash_attention(q, k, v, bias=bias, scale=scale), None
     else:
         scores = (q.float() @ k.float().transpose(-1, -2)) * scale
         if bias is not None:
@@ -205,7 +208,7 @@ def _grouped_kv_attention(
     g = bq // bk
     scale = 1.0 / math.sqrt(dh)
     if impl == "fused" and not output_probs:
-        ctx = flash_attention_grouped(q * scale, k, v, kv_groups=g, bias=bias)
+        ctx = flash_attention_grouped(q, k, v, kv_groups=g, bias=bias, scale=scale)
         return _gate_and_project(params, ctx, head_z, head_layer_z, dtype), None
     qg = q.reshape(bk, g, h, tq, dh)
     scores = (qg.float() @ k.float().transpose(-1, -2)[:, None]) * scale

@@ -165,40 +165,143 @@ def test_misaligned_operands_raise(rnd):
                     torch.ones(2, device="cuda"), batch=1, tq=64, s=64)
 
 
+def _heads_view(r, b, t, h, dh, std=1.0):
+    """[B,H,T,dh] as the projection gives it: a view of [B,T,H*dh]."""
+    return r(b, t, h * dh, std=std).view(b, t, h, dh).transpose(1, 2)
+
+
+def _flash_bias(kind, b, tq, tk):
+    if kind == "vector":
+        return A.make_attention_bias(_mask(b, tk))
+    if kind == "vector_broadcast":
+        return A.make_attention_bias(_mask(1, tk))
+    if kind == "matrix":
+        return A.causal_bias(tq, tk, device="cuda") + A.make_attention_bias(_mask(b, tk))
+    if kind == "matrix_broadcast":
+        return A.causal_bias(tq, tk, offset=tk - tq, device="cuda")
+    if kind == "all_masked_split":  # the whole first split of every row masked
+        m = torch.ones(b, tk, dtype=torch.int32, device="cuda")
+        m[:, :FA.split_keys(b * 2, tk)] = 0
+        return A.make_attention_bias(m)
+    if kind == "last_split_only":  # row 1 sees only the last key, in the ragged last split
+        m = _mask(b, tk)
+        m[1] = 0
+        m[1, tk - 1] = 1
+        return A.make_attention_bias(m)
+    raise ValueError(kind)
+
+
 FLASH = {
-    # name: (B, H, Tq, Tk, dh, bias)
+    # name: (B, H, Tq, Tk, dh, bias); q is the projection's strided view,
+    # unscaled, with scale = dh ** -0.5
     "key_vector_masked_tail": (3, 2, 37, 70, 64, "vector"),
     "matrix_causal_padding": (3, 2, 6, 6, 64, "matrix"),
     "decode_tq1_partly_filled_cache": (6, 2, 1, 20, 64, "decode"),
     "prefill_tq4_cache20": (6, 2, 4, 20, 32, "decode"),
     "tq1_over_image_keys": (2, 2, 1, 145, 128, "vector"),
+    # split-KV: 145 keys in a split of 128 and a ragged one of 17
+    "split_ragged_last_dh32": (2, 2, 1, 145, 32, "vector"),
+    "split_ragged_last_dh64": (2, 3, 1, 145, 64, "vector"),
+    "split_all_masked_split": (2, 2, 1, 145, 64, "all_masked_split"),
+    "split_last_split_only": (2, 2, 1, 145, 64, "last_split_only"),
+    "split_tq4_matrix_broadcast": (2, 2, 4, 145, 64, "matrix_broadcast"),
+    # small problems: 9 and 15 (b, h) pairs, not a multiple of 4 warps a block
+    "small_9_pairs_vector_broadcast": (3, 3, 1, 25, 64, "vector_broadcast"),
+    "small_15_pairs_matrix_dh128": (5, 3, 6, 6, 128, "matrix"),
+    "small_matrix_broadcast_dh32": (3, 5, 6, 6, 32, "matrix_broadcast"),
+    # enough units that every warp walks several of them
+    "many_units_matrix": (512, 12, 6, 6, 64, "matrix"),
+    "many_units_split": (64, 12, 1, 577, 64, "vector"),
 }
 
 
 @pytest.mark.parametrize("name", sorted(FLASH))
 def test_flash_attention(rnd, name):
     b, h, tq, tk, dh, kind = FLASH[name]
-    q, k, v = rnd(b, h, tq, dh, std=dh ** -0.5), rnd(b, h, tk, dh), rnd(b, h, tk, dh)
-    if kind == "vector":
-        bias = A.make_attention_bias(_mask(b, tk))
-    elif kind == "matrix":
-        bias = A.causal_bias(tq, tk, device="cuda") + A.make_attention_bias(_mask(b, tk))
-    else:  # 7 of the cache's slots written, the rest zero and masked
+    q, k, v = _heads_view(rnd, b, tq, h, dh), rnd(b, h, tk, dh), rnd(b, h, tk, dh)
+    if kind == "decode":  # 7 of the cache's slots written, the rest zero and masked
         bias = A.decode_bias(tk, 7 - tq, q_len=tq, device="cuda")
         k[:, :, 7:] = 0
         v[:, :, 7:] = 0
-    _agree(FA.flash_attention, lambda: FA.flash_attention(q, k, v, bias=bias),
-           lambda: FA.flash_attention_plain(q, k, v, bias))
+    else:
+        bias = _flash_bias(kind, b, tq, tk)
+    scale = dh ** -0.5
+    if "split" in name:  # the case runs the split-KV path
+        assert FA.split_keys(b * h * -(-tq // 16), tk) < tk
+    _agree(FA.flash_attention, lambda: FA.flash_attention(q, k, v, bias=bias, scale=scale),
+           lambda: FA.flash_attention_plain(q, k, v, bias, scale))
+    out = FA.flash_attention(q, k, v, bias=bias, scale=scale)
+    assert out.transpose(1, 2).is_contiguous()  # merging the heads is a view
 
 
-@pytest.mark.parametrize("bk,g,tq,s", [(4, 3, 1, 145), (2, 128, 6, 25), (2, 3, 4, 70)],
-                         ids=["g3_tq1", "g128_tq6", "g3_tq4"])
-def test_flash_attention_grouped(rnd, bk, g, tq, s):
-    q, k, v = rnd(bk * g, 2, tq, 64, std=0.125), rnd(bk, 2, s, 64), rnd(bk, 2, s, 64)
-    bias = A.make_attention_bias(_mask(bk, s))
-    _agree(FA.flash_attention_grouped,
-           lambda: FA.flash_attention_grouped(q, k, v, kv_groups=g, bias=bias),
-           lambda: FA.flash_attention_grouped_plain(q, k, v, g, bias))
+def test_flash_attention_splits_reset_their_tickets(rnd):
+    """Three launches through the split path give one result, and the
+    kernel leaves every ticket of the cached buffer at 0."""
+    q, k, v = _heads_view(rnd, 4, 1, 12, 64), rnd(4, 12, 577, 64), rnd(4, 12, 577, 64)
+    bias = A.make_attention_bias(_mask(4, 577))
+    assert FA.split_keys(4 * 12, 577) < 577
+    outs = [FA.flash_attention(q, k, v, bias=bias, scale=0.125) for _ in range(3)]
+    torch.cuda.synchronize()
+    assert all(torch.equal(outs[0], o) for o in outs[1:])
+    assert int(K._WORKSPACE[(q.device.index, K._stream(q))][1].abs().sum()) == 0
+
+
+def test_flash_attention_splits_on_two_streams(rnd):
+    """Split launches queued on two streams at once each merge through the
+    tickets and workspace of their own stream, and agree with the plain
+    version."""
+    shapes = [(16, 12, 577), (4, 12, 577)]
+    runs = []
+    for b, h, tk in shapes:
+        q, k, v = _heads_view(rnd, b, 1, h, 64), rnd(b, h, tk, 64), rnd(b, h, tk, 64)
+        bias = A.make_attention_bias(_mask(b, tk))
+        assert FA.split_keys(b * h, tk) < tk
+        runs.append((q, k, v, bias))
+    streams = [torch.cuda.Stream() for _ in shapes]
+    torch.cuda.synchronize()
+    outs = [[] for _ in shapes]
+    for _ in range(8):  # interleaved, so that the two streams' launches overlap
+        for (q, k, v, bias), st, out in zip(runs, streams, outs):
+            with torch.cuda.stream(st):
+                out.append(FA.flash_attention(q, k, v, bias=bias, scale=0.125))
+    torch.cuda.synchronize()
+    for (q, k, v, bias), st, out in zip(runs, streams, outs):
+        for o in out:
+            _close(o, FA.flash_attention_plain(q, k, v, bias, 0.125))
+        assert int(K._WORKSPACE[(q.device.index, st.cuda_stream)][1].abs().sum()) == 0
+
+
+@pytest.mark.parametrize("bk,g,tq,s,dh", [(4, 3, 1, 145, 64), (2, 128, 6, 25, 64),
+                                          (2, 3, 4, 70, 64), (3, 3, 1, 577, 32),
+                                          (2, 3, 4, 145, 128), (3, 128, 6, 25, 32),
+                                          (64, 128, 6, 25, 64)],
+                         ids=["g3_tq1_split", "g128_tq6", "g3_tq4", "g3_s577_dh32",
+                              "g3_tq4_split_dh128", "g128_tq6_dh32", "g128_many_units"])
+def test_flash_attention_grouped(rnd, bk, g, tq, s, dh):
+    h = 2
+    q, k, v = _heads_view(rnd, bk * g, tq, h, dh), rnd(bk, h, s, dh), rnd(bk, h, s, dh)
+    for bias in (A.make_attention_bias(_mask(bk, s)), A.make_attention_bias(_mask(1, s))):
+        _agree(FA.flash_attention_grouped,
+               lambda: FA.flash_attention_grouped(q, k, v, kv_groups=g, bias=bias,
+                                                  scale=dh ** -0.5),
+               lambda: FA.flash_attention_grouped_plain(q, k, v, g, bias, dh ** -0.5))
+
+
+def test_flash_attention_refuses_bad_operands(rnd):
+    q, k = rnd(2, 2, 3, 64), rnd(2, 2, 9, 64)
+    buf = rnd(2 * 2 * 3 * 64 + 1)
+    with pytest.raises(ValueError, match="16-byte aligned"):  # 2 bytes off
+        FA.flash_attention(buf[1:].view(2, 2, 3, 64), k, k)
+    odd = rnd(2, 3, 2 * 64 + 4)[..., :128].view(2, 3, 2, 64).transpose(1, 2)
+    with pytest.raises(ValueError, match="multiples of 8"):  # a row stride of 132
+        FA.flash_attention(odd, k, k)
+    with pytest.raises(ValueError, match="contiguous columns"):
+        FA.flash_attention(rnd(2, 2, 64, 3).transpose(2, 3), k, k)
+    with pytest.raises(ValueError, match="flash attention: q"):  # a wrong head dim
+        FA.flash_attention(q, rnd(2, 2, 9, 32), rnd(2, 2, 9, 32))
+    with pytest.raises(TypeError, match="float32"):
+        FA.flash_attention(q, k, k, bias=torch.zeros(2, 1, 1, 9, device="cuda",
+                                                     dtype=torch.bfloat16))
 
 
 def test_cuda_tensors_never_fall_back(rnd):
