@@ -20,8 +20,10 @@ It builds the port's CUDA kernels from csrc/ (into build/kernels/), then:
    split, a split whose keys are all masked, a row whose only key is in the
    last split, (b, h) counts no block size divides, batch-broadcast biases,
    dh 32 and 128; misaligned or wrongly shaped operands must raise), and
-   the two device kernels under #1-#4 on their own: gemm_bias at the ViT's
-   fused Q/K/V shape, attn_core at the ViT and fusion shapes;
+   the device kernels under #1-#4 on their own: gemm_bias at the ViT's
+   fused Q/K/V shape, gemm_ln (the LayerNorm epilogue over a cluster) at
+   #4's output projection, attn_core and attn_wgmma (the wgmma core of #4)
+   at the i2t rerank, ViT and fusion shapes;
 3. paths, each driven with every launch count set to 0 just before it and
    read just after:
    - retrieval evaluation at the full width of X-VLM base (CLIP-ViT-B/16 at
@@ -43,9 +45,11 @@ It builds the port's CUDA kernels from csrc/ (into build/kernels/), then:
    the same at the other main-path shapes (for #5 and #6 timed in turns
    with the library call, and after the profiles their device time per call
    from torch.profiler, their host time per call, and the device time of
-   the S = 577 split-KV shapes at other keys per split), gemm_bias and
-   attn_core with their TFLOP/s and share of the bf16 peak, pairs/s,
-   questions/s, images/s, and a torch.profiler breakdown.
+   the S = 577 split-KV shapes at other keys per split; for #1 and #4 the
+   device time, device launches and host time per call), the device kernels
+   with their TFLOP/s and share of the bf16 peak, gemm_ln's resident
+   clusters (cudaOccupancyMaxActiveClusters), pairs/s, questions/s,
+   images/s, and a torch.profiler breakdown.
 
 Weights are random, made from a seed. Any failed check exits non-zero
 before the last line, which is
@@ -140,9 +144,14 @@ def phase_environment() -> str:
           f"device {torch.cuda.get_device_name(0)} count {torch.cuda.device_count()}")
     from efficientvlm_tpu_torch.kernels.build import build, library
 
+    from efficientvlm_tpu_torch.kernels.bindings import gemm_ln_clusters
+
     path, log, seconds = build()
     library()
     print(f"kernels built in {seconds:.1f} s (0 = reused) -> {os.path.relpath(path)}")
+    print(f"gemm_ln resident clusters (cudaOccupancyMaxActiveClusters) at width 768, 6 blocks "
+          f"each: {gemm_ln_clusters(768)}, gather form {gemm_ln_clusters(768, gather=True)}; "
+          f"{torch.cuda.get_device_properties(0).multi_processor_count} SMs")
     for line in log.splitlines():
         # registers and spills of every kernel, and any performance warning
         # (a wgmma serialised by ptxas, a setmaxnreg ignored)
@@ -248,14 +257,14 @@ def kernel_cases(rnd):
         bk, g, t, s = 4, 256, 40, 577
         prm, x, enc = rnd.attn(d, a), rnd(bk * g, t, d), rnd(bk, s, d)
         mask, hz = rnd.mask(bk, s, s // 4), rnd.gates(heads)
-        ln = {"scale": rnd(d, std=0.1, mean=1.0, dtype=torch.float32),
-              "bias": rnd(d, std=0.1, dtype=torch.float32)} if with_ln else None
+        # bf16 LN params and the f32 key bias, as models/bert.py passes them
+        ln = {"scale": rnd(d, std=0.1, mean=1.0), "bias": rnd(d, std=0.1)} if with_ln else None
         kb = F._key_bias(bk, s, mask, None, x.device)
         flops = 2 * bk * g * t * d * a * 2 + 2 * bk * s * d * a * 2 + 4 * bk * g * t * s * a
         nbytes = 2 * (2 * x.numel() + enc.numel() + 4 * d * a) + 4 * bk * s
         return ("fused_cross_attention_grouped", case,
                 lambda: F.fused_cross_attention_grouped(prm, x, enc, num_heads=heads,
-                                                        kv_groups=g, mask=mask, head_z=hz,
+                                                        kv_groups=g, key_bias=kb, head_z=hz,
                                                         ln_params=ln),
                 lambda: F.cross_attention_grouped_plain(prm, x, enc, kb, hz, heads, g, ln),
                 flops, nbytes, (prm, x, enc, mask, hz, heads, ln))
@@ -352,10 +361,14 @@ def kernel_cases(rnd):
 
 
 def device_kernel_cases(rnd):
-    """The two device kernels under #1-#4 on their own, through their bare
+    """The device kernels under #1-#4 on their own, through their bare
     bindings, as (name, case, kernel call, plain call, flops, bytes, library
-    call): gemm_bias at the ViT's fused Q/K/V shape, attn_core at the ViT's
-    self-attention and the fusion layers' cross-attention shapes."""
+    call): gemm_bias at the ViT's fused Q/K/V shape; gemm_ln at #4's output
+    projection with the residual and post-LN (the i2t rerank chunk's 10,240
+    query rows per image); attn_core and attn_wgmma at the i2t rerank's
+    folded rows, the ViT's self-attention and the fusion layers'
+    cross-attention shapes (attn_wgmma's plain twin is attn_core_plain: the
+    same function)."""
     import torch
     import torch.nn.functional as Fn
 
@@ -371,6 +384,21 @@ def device_kernel_cases(rnd):
               2 * (x.numel() + w.numel() + m * 3 * d) + 4 * 3 * d,
               lambda: torch.addmm(bias16, x, w))]
 
+    m4 = 4 * 256 * 40  # #4's output projection over the i2t chunk's rows
+    ctx, wo, res = rnd(m4, d), rnd(d, d, std=d ** -0.5), rnd(m4, d)
+    bo, g, bt = rnd(d, std=0.1), rnd(d, std=0.1, mean=1.0), rnd(d, std=0.1)
+    # the route gemm_ln replaces: gemm_bias into f32 (then residual_layernorm)
+    cases.append(("gemm_bias", "i2t_out_f32_m40960_n768_k768",
+                  lambda: K.gemm_bias(ctx, wo, bo, out_f32=True),
+                  lambda: F.gemm_bias_plain(ctx, wo, bo, out_f32=True), 2 * m4 * d * d,
+                  2 * (ctx.numel() + wo.numel() + d) + 4 * m4 * d,
+                  lambda: torch.addmm(bo, ctx, wo)))
+    cases.append(("gemm_ln", "i2t_out_ln_m40960_n768_k768",
+                  lambda: K.gemm_ln(ctx, wo, g, bt, 1e-12, bias=bo, residual=res),
+                  lambda: F.gemm_ln_plain(ctx, wo, g, bt, 1e-12, bias=bo, residual=res),
+                  2 * m4 * d * d, 2 * (ctx.numel() + wo.numel() + 2 * res.numel() + 3 * d),
+                  lambda: Fn.layer_norm(torch.addmm(bo, ctx, wo) + res, (d,), g, bt, 1e-12)))
+
     def attn_case(case, b, tq, s, h, dh):
         a = h * dh
         q, k, v = rnd(b * tq, a), rnd(b * s, a), rnd(b * s, a)
@@ -384,8 +412,26 @@ def device_kernel_cases(rnd):
                 lambda: Fn.scaled_dot_product_attention(split(q, tq), split(k, s), split(v, s),
                                                         attn_mask=mask))
 
+    def wgmma_case(case, b, tq, s, h):
+        a = h * 64
+        q, k, v = rnd(b * tq, a), rnd(b * s, a), rnd(b * s, a)
+        mask = rnd.mask(b, s, s // 4)
+        kb, hz = F._key_bias(b, s, mask, None, q.device), rnd.gates(h)
+        split = lambda t, n: t.view(b, n, h, 64).transpose(1, 2)
+        bias16 = kb.to(torch.bfloat16)[:, None, None, :]
+        return ("attn_wgmma", case,
+                lambda: K.attn_wgmma(q, k, v, kb, hz, batch=b, tq=tq, s=s),
+                lambda: F.attn_core_plain(q, k, v, kb, hz, batch=b, tq=tq, s=s),
+                4 * b * tq * s * a, 2 * (2 * q.numel() + k.numel() + v.numel()) + 4 * b * s,
+                lambda: Fn.scaled_dot_product_attention(split(q, tq), split(k, s), split(v, s),
+                                                        attn_mask=bias16))
+
+    cases.append(attn_case("i2t_rerank_b4_tq10240_s577_h12", 4, 10240, 577, 12, 64))
+    cases.append(wgmma_case("i2t_rerank_b4_tq10240_s577_h12", 4, 10240, 577, 12))
     cases.append(attn_case("vit_b32_t577_h12", 32, 577, 577, 12, 64))
+    cases.append(wgmma_case("vit_b32_t577_h12", 32, 577, 577, 12))
     cases.append(attn_case("fusion_b32_tq40_s577_h12", 32, 40, 577, 12, 64))
+    cases.append(wgmma_case("fusion_b32_tq40_s577_h12", 32, 40, 577, 12))
     return cases
 
 
@@ -924,11 +970,13 @@ def phase_times(cases, device_cases, errs, slice_state, gen_state) -> list:
     from efficientvlm_tpu_torch.evaluation import retrieval as R
 
     bf16 = torch.bfloat16
-    rows_out, seen = [], set()
+    rows_out, seen, redesigned = [], set(), []
     for name, case, run, plain, flops, nbytes, *extra in cases:
         if name in seen:
             continue
         seen.add(name)
+        if name in ("patch_embed", "fused_cross_attention_grouped"):
+            redesigned.append((name, case, run, bound(flops, nbytes)[0]))
         lib = (patch_yardstick(*extra[0]) if name == "patch_embed"
                else library_yardstick(name, extra[0]))
         with torch.inference_mode():
@@ -1035,6 +1083,12 @@ def phase_times(cases, device_cases, errs, slice_state, gen_state) -> list:
             print(f"device {name} [{case}]: {fmt_us(device_us(run)[0])} us/call, library "
                   f"{fmt_us(device_us(lib)[0])} us/call; host {host_us(run):.2f} us/call, "
                   f"library {host_us(lib):.2f}")
+        # #1 and #4 (redesigned in one launch / four launches per call)
+        for name, case, run, bound_ms in redesigned:
+            us, launches = device_us(run)
+            print(f"device {name} [{case}]: {fmt_us(us)} us/call, "
+                  f"{'not measured' if launches is None else f'{launches:g}'} device launches/call "
+                  f"(bound {bound_ms * 1e3:.2f} us); host {host_us(run):.2f} us/call")
         split_sweep(cases)
     return rows_out
 

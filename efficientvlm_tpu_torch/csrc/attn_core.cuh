@@ -81,7 +81,7 @@ template <int DH>
 __global__ void __launch_bounds__(MAX_WARPS * 32, DH == 128 ? 1 : 2)
 attn_core_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
                  const __nv_bfloat16* __restrict__ v, const float* __restrict__ key_bias,
-                 const float* __restrict__ gates, __nv_bfloat16* __restrict__ out,
+                 const void* __restrict__ gates, bool gates16, __nv_bfloat16* __restrict__ out,
                  int Tq, int S, int ld, float scale) {
   using L = Layout<DH>;
   extern __shared__ __align__(128) unsigned char smem[];
@@ -230,7 +230,8 @@ attn_core_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __res
     l0 += __shfl_xor_sync(0xffffffffu, l0, x);
     l1 += __shfl_xor_sync(0xffffffffu, l1, x);
   }
-  const float f0 = gates[h] / l0, f1 = gates[h] / l1;
+  const float gate = gates ? load1(gates, gates16, h) : 1.0f;
+  const float f0 = gate / l0, f1 = gate / l1;
   // stage the warp's 16 context rows where its Q rows were, then store
   // them 16 bytes per lane
   __nv_bfloat16* ow = qs + warp * 16 * L::LD;
@@ -255,8 +256,8 @@ attn_core_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __res
 
 template <int DH>
 cudaError_t launch(const void* q, const void* k, const void* v, const float* key_bias,
-                   const float* gates, void* out, int batch, int Tq, int S, int heads, int ld,
-                   float scale, cudaStream_t stream) {
+                   const void* gates, bool gates16, void* out, int batch, int Tq, int S,
+                   int heads, int ld, float scale, cudaStream_t stream) {
   // a 128-row query tile for long query runs, else just enough 16-row warps
   const int warps = Tq > 64 ? MAX_WARPS : (Tq + 15) / 16;
   cudaError_t e = cudaFuncSetAttribute(attn_core_kernel<DH>,
@@ -266,7 +267,7 @@ cudaError_t launch(const void* q, const void* k, const void* v, const float* key
   dim3 grid((Tq + warps * 16 - 1) / (warps * 16), heads, batch);
   attn_core_kernel<DH><<<grid, warps * 32, Layout<DH>::bytes(warps), stream>>>(
       static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
-      static_cast<const __nv_bfloat16*>(v), key_bias, gates,
+      static_cast<const __nv_bfloat16*>(v), key_bias, gates, gates16,
       static_cast<__nv_bfloat16*>(out), Tq, S, ld, scale);
   return cudaGetLastError();
 }
@@ -278,19 +279,22 @@ cudaError_t launch(const void* q, const void* k, const void* v, const float* key
 namespace evlm {
 
 // q/out [batch*Tq, ld], k/v [batch*S, ld] bf16 with ld = heads*head_dim,
-// 16-byte aligned; key_bias [batch, S] f32; gates [heads] f32. head_dim is
-// 32, 64 or 128.
+// 16-byte aligned; key_bias [batch, S] f32; gates [heads] bf16 (gates16)
+// or f32, or null for all ones. head_dim is 32, 64 or 128.
 static inline cudaError_t attn_core(const void* q, const void* k, const void* v,
-                                    const float* key_bias, const float* gates, void* out,
-                                    int batch, int Tq, int S, int heads, int head_dim,
+                                    const float* key_bias, const void* gates, bool gates16,
+                                    void* out, int batch, int Tq, int S, int heads, int head_dim,
                                     float scale, cudaStream_t s) {
   using attn_impl::launch;
   if (batch <= 0 || Tq <= 0 || S <= 0 || heads <= 0) return cudaErrorInvalidValue;
   const int ld = heads * head_dim;
   switch (head_dim) {
-    case 32: return launch<32>(q, k, v, key_bias, gates, out, batch, Tq, S, heads, ld, scale, s);
-    case 64: return launch<64>(q, k, v, key_bias, gates, out, batch, Tq, S, heads, ld, scale, s);
-    case 128: return launch<128>(q, k, v, key_bias, gates, out, batch, Tq, S, heads, ld, scale, s);
+    case 32:
+      return launch<32>(q, k, v, key_bias, gates, gates16, out, batch, Tq, S, heads, ld, scale, s);
+    case 64:
+      return launch<64>(q, k, v, key_bias, gates, gates16, out, batch, Tq, S, heads, ld, scale, s);
+    case 128:
+      return launch<128>(q, k, v, key_bias, gates, gates16, out, batch, Tq, S, heads, ld, scale, s);
     default: return cudaErrorInvalidValue;
   }
 }

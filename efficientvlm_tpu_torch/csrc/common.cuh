@@ -28,6 +28,22 @@ __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" :: "n"(N));
 }
 
+// Small parameter vectors (biases, LayerNorm scale and shift, positional
+// rows, head gates) are read as stored, bf16 or f32, so that no wrapper
+// converts them per call. `bf16` selects the type; i is an element index.
+__device__ __forceinline__ float load1(const void* p, bool bf16, size_t i) {
+  return bf16 ? __bfloat162float(static_cast<const __nv_bfloat16*>(p)[i])
+              : static_cast<const float*>(p)[i];
+}
+
+// elements i and i + 1 (i even; the base is 8-byte aligned for f32)
+__device__ __forceinline__ float2 load2(const void* p, bool bf16, size_t i) {
+  if (bf16)
+    return __bfloat1622float2(
+        *reinterpret_cast<const __nv_bfloat162*>(static_cast<const __nv_bfloat16*>(p) + i));
+  return *reinterpret_cast<const float2*>(static_cast<const float*>(p) + i);
+}
+
 __device__ __forceinline__ float warp_sum(float v) {
 #pragma unroll
   for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);

@@ -14,76 +14,140 @@
 //
 // What bounds it on the H100: tensor-core operations. One teacher ViT
 // sublayer (B=32, T=577, D=A=768) is 0.12 TFLOP, 0.12 ms at the bf16 peak,
-// against ~60 MB of traffic (0.02 ms). The TPU kernel keeps a batch row's
+// against ~60 MB of traffic (0.02 ms); the grouped i2t rerank sublayer (Bk
+// 4, G 256, T 40, S 577) is 0.17 TFLOP. The TPU kernel keeps a batch row's
 // Q/K/V in VMEM and walks the heads in order; a Hopper SM has 227 KB of
 // shared memory and 132 SMs want parallel work, so here the projections are
 // whole-batch GEMMs on wgmma fed by TMA (gemm_bias) whose bf16 outputs make
-// one round trip through device memory (the L2 holds much of it), and the
-// attention is a flash kernel with the scores and probabilities in
-// registers (attn_core). A self-attention sublayer is three launches: Q, K
-// and V projected by one gemm_bias launch that reads x once, attn_core, the
-// output projection; a cross-attention sublayer projects Q, then K and V in
-// one launch over the image rows.
+// one round trip through device memory (the L2 holds much of it), then an
+// attention core, then the output projection:
+//   - self-attention: Q, K and V in one gemm_bias launch that reads x once,
+//     attn_core (mma.sync), the output projection: three launches;
+//   - cross-attention: Q, then K and V in one launch over the image rows,
+//     attn_core, the output projection: four launches;
+//   - grouped cross-attention: the same four launches, with the wgmma core
+//     attn_wgmma (head dim 64; 32 and 128 stay on attn_core) and, with the
+//     LayerNorm, the output projection through gemm_ln, which adds the
+//     residual and normalises in its epilogue across a thread-block cluster
+//     (D a multiple of 128 up to 1024; other widths keep gemm_bias into an
+//     f32 workspace + residual_layernorm).
+// The caller chooses the core and the LayerNorm route by those shape rules
+// (kernels/bindings.py) and passes them as `core` and `ln_route`; a route
+// the shape does not allow is refused here. Biases and the LN parameters are
+// read as stored, all bf16 (vec16) or all f32; the gates likewise (gates16).
 #include "attn_core.cuh"
+#include "attn_wgmma.cuh"
 #include "gemm_bias.cuh"
+#include "gemm_ln.cuh"
 #include "residual_layernorm.cuh"
 
+namespace {
+
+enum { CORE_MMA = 0, CORE_WGMMA = 1 };
+enum { LN_NONE = 0, LN_CLUSTER = 1, LN_SEPARATE = 2 };
+
+}  // namespace
+
 // x [batch*tq, d] bf16; enc [batch*s, de] bf16 (== x for self-attention);
-// wq [d, A], wk/wv [de, A], wo [A, d] bf16; bq/bk/bv [A], bo [d] f32;
-// key_bias [batch, s] f32; gates [heads] f32; ln_gamma/ln_beta [d] f32 or
-// null; workspaces ws_q/ws_ctx [batch*tq, A], ws_k/ws_v [batch*s, A] bf16,
-// ws_out [batch*tq, d] f32 (used only with ln_gamma); out [batch*tq, d] bf16.
-// Every bf16 pointer is 16-byte aligned (TMA).
+// wq [d, A], wk/wv [de, A], wo [A, d] bf16; bq/bk/bv [A], bo [d],
+// ln_gamma/ln_beta [d] (or null): bf16 (vec16) or f32; gates [heads] bf16
+// (gates16) or f32, or null; key_bias [batch, s] f32; workspaces ws_q/ws_ctx
+// [batch*tq, A], ws_k/ws_v [batch*s, A] bf16, ws_out [batch*tq, d] f32
+// (ln_route 2 only); out [batch*tq, d] bf16. Every bf16 pointer is 16-byte
+// aligned (TMA).
 extern "C" int evlm_fused_attention(
-    const void* x, const void* enc, const void* wq, const float* bq, const void* wk,
-    const float* bk, const void* wv, const float* bv, const void* wo, const float* bo,
-    const float* key_bias, const float* gates, const float* ln_gamma, const float* ln_beta,
-    void* ws_q, void* ws_k, void* ws_v, void* ws_ctx, float* ws_out, void* out,
-    int batch, int tq, int s, int d, int de, int heads, int head_dim, float ln_eps,
-    void* stream) {
+    const void* x, const void* enc, const void* wq, const void* bq, const void* wk,
+    const void* bk, const void* wv, const void* bv, const void* wo, const void* bo,
+    const float* key_bias, const void* gates, const void* ln_gamma, const void* ln_beta,
+    void* ws_q, void* ws_k, void* ws_v, void* ws_ctx, float* ws_out, void* out, int batch, int tq,
+    int s, int d, int de, int heads, int head_dim, int core, int ln_route, int vec16, int gates16,
+    float ln_eps, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const int a = heads * head_dim, rows_q = batch * tq, rows_kv = batch * s;
+  const bool with_ln = ln_route != LN_NONE, v16 = vec16 != 0, g16 = gates16 != 0;
+  if ((core == CORE_WGMMA && head_dim != 64) || (core != CORE_MMA && core != CORE_WGMMA) ||
+      !key_bias || (with_ln && !(ln_gamma && ln_beta)) ||
+      (ln_route == LN_CLUSTER && !evlm::gemm_ln_impl::width_ok(d)) ||
+      (ln_route == LN_SEPARATE && !ws_out) || ln_route < LN_NONE || ln_route > LN_SEPARATE)
+    return cudaErrorInvalidValue;
   cudaError_t e;
   if (enc == x && s == tq && de == d) {  // self-attention: Q, K, V in one launch
     const void* w[3] = {wq, wk, wv};
-    const float* b[3] = {bq, bk, bv};
+    const void* b[3] = {bq, bk, bv};
     void* c[3] = {ws_q, ws_k, ws_v};
-    e = evlm::gemm_bias_multi(x, 3, w, b, c, nullptr, 1, false, rows_q, a, d, st);
+    e = evlm::gemm_bias_multi(x, 3, w, b, c, nullptr, 1, v16, false, rows_q, a, d, st);
   } else {
     const void* w[2] = {wk, wv};
-    const float* b[2] = {bk, bv};
+    const void* b[2] = {bk, bv};
     void* c[2] = {ws_k, ws_v};
-    e = evlm::gemm_bias(x, wq, bq, nullptr, 1, ws_q, false, rows_q, a, d, st);
+    e = evlm::gemm_bias(x, wq, bq, nullptr, 1, v16, ws_q, false, rows_q, a, d, st);
     if (e == cudaSuccess)
-      e = evlm::gemm_bias_multi(enc, 2, w, b, c, nullptr, 1, false, rows_kv, a, de, st);
+      e = evlm::gemm_bias_multi(enc, 2, w, b, c, nullptr, 1, v16, false, rows_kv, a, de, st);
   }
   if (e != cudaSuccess) return e;
-  if ((e = evlm::attn_core(ws_q, ws_k, ws_v, key_bias, gates, ws_ctx, batch, tq, s, heads,
-                           head_dim, 1.0f / sqrtf(static_cast<float>(head_dim)), st)))
+  const float scale = 1.0f / sqrtf(static_cast<float>(head_dim));
+  e = core == CORE_WGMMA
+          ? evlm::attn_wgmma(ws_q, ws_k, ws_v, key_bias, gates, g16, ws_ctx, batch, tq, s, heads,
+                             scale, st)
+          : evlm::attn_core(ws_q, ws_k, ws_v, key_bias, gates, g16, ws_ctx, batch, tq, s, heads,
+                            head_dim, scale, st);
+  if (e != cudaSuccess) return e;
+  if (ln_route == LN_NONE)
+    return static_cast<int>(evlm::gemm_bias(ws_ctx, wo, bo, nullptr, 1, v16, out, false, rows_q,
+                                            d, a, st));
+  if (ln_route == LN_CLUSTER)
+    return static_cast<int>(evlm::gemm_ln(ws_ctx, wo, bo, nullptr, 1, x, ln_gamma, ln_beta, v16,
+                                          out, rows_q, rows_q, 0, rows_q, d, a, ln_eps, st));
+  if ((e = evlm::gemm_bias(ws_ctx, wo, bo, nullptr, 1, v16, ws_out, true, rows_q, d, a, st)))
     return e;
-  if (ln_gamma == nullptr)
-    return static_cast<int>(evlm::gemm_bias(ws_ctx, wo, bo, nullptr, 1, out, false, rows_q, d,
-                                            a, st));
-  if ((e = evlm::gemm_bias(ws_ctx, wo, bo, nullptr, 1, ws_out, true, rows_q, d, a, st))) return e;
-  return static_cast<int>(evlm::residual_layernorm(ws_out, x, ln_gamma, ln_beta, out, rows_q, d,
-                                                   ln_eps, rows_q, 0, 0, st));
+  return static_cast<int>(evlm::residual_layernorm(ws_out, x, ln_gamma, ln_beta, v16, out, rows_q,
+                                                   d, ln_eps, rows_q, 0, 0, st));
 }
 
-// The two device kernels on their own, for the card tests and chip_smoke.py.
-// a [m, k], b [k, n] bf16; bias [n] and row_add [period, n] f32 or null;
-// c [m, n] bf16 or f32 (out_f32).
-extern "C" int evlm_gemm_bias(const void* a, const void* b, const float* bias,
-                              const float* row_add, void* c, int period, int out_f32, int m,
-                              int n, int k, void* stream) {
-  return static_cast<int>(evlm::gemm_bias(a, b, bias, row_add, period, c, out_f32 != 0, m, n, k,
+// The device kernels on their own, for the card tests and chip_smoke.py.
+// a [m, k], b [k, n] bf16; bias [n] and row_add [period, n] or null, bf16
+// (vec16) or f32; c [m, n] bf16 or f32 (out_f32).
+extern "C" int evlm_gemm_bias(const void* a, const void* b, const void* bias, const void* row_add,
+                              void* c, int period, int out_f32, int vec16, int m, int n, int k,
+                              void* stream) {
+  return static_cast<int>(evlm::gemm_bias(a, b, bias, row_add, period, vec16 != 0, c,
+                                          out_f32 != 0, m, n, k,
                                           static_cast<cudaStream_t>(stream)));
 }
 
+// out[map(row)] = LN(a @ b + bias + row_add[row % period] + residual[row]);
+// a [m, k], b [k, n], residual [m, n] (or null) bf16; bias, row_add, gamma,
+// beta bf16 (vec16) or f32; n a multiple of 128 up to 1024.
+extern "C" int evlm_gemm_ln(const void* a, const void* b, const void* bias, const void* row_add,
+                            const void* residual, const void* gamma, const void* beta, void* out,
+                            int period, int group, int out_group_stride, int out_offset,
+                            int vec16, int m, int n, int k, float eps, void* stream) {
+  return static_cast<int>(evlm::gemm_ln(a, b, bias, row_add, period, residual, gamma, beta,
+                                        vec16 != 0, out, group, out_group_stride, out_offset, m,
+                                        n, k, eps, static_cast<cudaStream_t>(stream)));
+}
+
+// the clusters of gemm_ln (gather = its patch-embedding form) the card keeps
+// resident at width n; negative when n is outside the rule or on an error
+extern "C" int evlm_gemm_ln_clusters(int n, int gather) {
+  return evlm::gemm_ln_clusters(n, gather != 0);
+}
+
 // q/out [batch*tq, heads*head_dim], k/v [batch*s, heads*head_dim] bf16;
-// key_bias [batch, s], gates [heads] f32.
+// key_bias [batch, s] f32; gates [heads] bf16 (gates16) or f32, or null.
 extern "C" int evlm_attn_core(const void* q, const void* k, const void* v, const float* key_bias,
-                              const float* gates, void* out, int batch, int tq, int s, int heads,
-                              int head_dim, float scale, void* stream) {
-  return static_cast<int>(evlm::attn_core(q, k, v, key_bias, gates, out, batch, tq, s, heads,
-                                          head_dim, scale, static_cast<cudaStream_t>(stream)));
+                              const void* gates, void* out, int batch, int tq, int s, int heads,
+                              int head_dim, int gates16, float scale, void* stream) {
+  return static_cast<int>(evlm::attn_core(q, k, v, key_bias, gates, gates16 != 0, out, batch, tq,
+                                          s, heads, head_dim, scale,
+                                          static_cast<cudaStream_t>(stream)));
+}
+
+// the same function and arguments as evlm_attn_core, for head dim 64
+extern "C" int evlm_attn_wgmma(const void* q, const void* k, const void* v, const float* key_bias,
+                               const void* gates, void* out, int batch, int tq, int s, int heads,
+                               int gates16, float scale, void* stream) {
+  return static_cast<int>(evlm::attn_wgmma(q, k, v, key_bias, gates, gates16 != 0, out, batch,
+                                           tq, s, heads, scale,
+                                           static_cast<cudaStream_t>(stream)));
 }

@@ -1,5 +1,7 @@
 // gemm_bias: C[M,N] = A[M,K] @ B[K,N] (+ bias[N]) (+ row_add[m % period, N]),
-// bf16 operands, f32 accumulation, C written as bf16 or f32. One launch may
+// bf16 operands, f32 accumulation, C written as bf16 or f32; bias and
+// row_add are read as stored, both bf16 or both f32 (the kernel is built for
+// each, so the epilogue's loads carry no type test). One launch may
 // serve up to three GEMMs over the same A (the Q, K and V projections of a
 // self-attention sublayer, or K and V of a cross-attention one), each with
 // its own B, bias and C.
@@ -68,8 +70,8 @@ struct Params {
   CUtensorMap a;                  // A [M, K], box 64 (K) x 128 (rows)
   CUtensorMap b[MAX_GEMMS];       // B_g [K, N], box 64 (N) x 64 (K rows)
   CUtensorMap c[MAX_GEMMS];       // C_g [M, N], box 128 bytes of columns x 64 rows
-  const float* bias[MAX_GEMMS];
-  const float* row_add;
+  const void* bias[MAX_GEMMS];
+  const void* row_add;
   int period, m, n, k, gemms, out_f32;
 };
 
@@ -196,8 +198,10 @@ __device__ __forceinline__ void wgmma_m64n128k16(float (&d)[64], uint64_t da, ui
 // there in the C map's 128-byte swizzled boxes (conflict-free: the 8 rows a
 // store instruction touches land in 8 different 16-byte chunks) and stored
 // by TMA, which writes whole lines and clips the ragged edge. All loads
-// come before the first store, so their latencies overlap.
-__device__ __forceinline__ void epilogue(float (&acc)[64], const Params& p, const float* bias,
+// come before the first store, so their latencies overlap. V16: bias and
+// row_add are bf16 (else f32).
+template <bool V16>
+__device__ __forceinline__ void epilogue(float (&acc)[64], const Params& p, const void* bias,
                                          const CUtensorMap* map, unsigned char* buf, int row0,
                                          int col0, int wg, int tid) {
   const int r = (tid / 32) * 16 + (tid % 32) / 4, q = tid % 4;
@@ -206,7 +210,7 @@ __device__ __forceinline__ void epilogue(float (&acc)[64], const Params& p, cons
 #pragma unroll
     for (int i = 0; i < BN / 8; ++i) {
       if (col + 8 * i >= p.n) continue;  // N is a multiple of 8, so col + 1 < N too
-      const float2 bb = *reinterpret_cast<const float2*>(bias + col + 8 * i);
+      const float2 bb = load2(bias, V16, col + 8 * i);
       acc[4 * i] += bb.x;
       acc[4 * i + 1] += bb.y;
       acc[4 * i + 2] += bb.x;
@@ -216,11 +220,11 @@ __device__ __forceinline__ void epilogue(float (&acc)[64], const Params& p, cons
   if (p.row_add) {
 #pragma unroll
     for (int h = 0; h < 2; ++h) {
-      const float* ra = p.row_add + (size_t)((row0 + r + 8 * h) % p.period) * p.n;
+      const size_t ra = (size_t)((row0 + r + 8 * h) % p.period) * p.n;
 #pragma unroll
       for (int i = 0; i < BN / 8; ++i) {
         if (col + 8 * i >= p.n) continue;
-        const float2 v = *reinterpret_cast<const float2*>(ra + col + 8 * i);
+        const float2 v = load2(p.row_add, V16, ra + col + 8 * i);
         acc[4 * i + 2 * h] += v.x;
         acc[4 * i + 2 * h + 1] += v.y;
       }
@@ -261,6 +265,7 @@ __device__ __forceinline__ void epilogue(float (&acc)[64], const Params& p, cons
   }
 }
 
+template <bool V16>
 __global__ void __launch_bounds__(THREADS, 1) gemm_bias_kernel(const __grid_constant__ Params p) {
   extern __shared__ unsigned char smem_raw[];
   // 128-byte swizzle atoms must start on 1024-byte boundaries
@@ -361,11 +366,11 @@ __global__ void __launch_bounds__(THREADS, 1) gemm_bias_kernel(const __grid_cons
     fence_acc(hi);
     if (tid == 0) mbar_arrive(&empty[prev]);
 
-    const float* bias = g == 0 ? p.bias[0] : (g == 1 ? p.bias[1] : p.bias[2]);
+    const void* bias = g == 0 ? p.bias[0] : (g == 1 ? p.bias[1] : p.bias[2]);
     const CUtensorMap* mc = g == 0 ? &p.c[0] : (g == 1 ? &p.c[1] : &p.c[2]);
     unsigned char* buf = out_buf + wg * OUT_BYTES;
-    epilogue(lo, p, bias, mc, buf, tm * BM, tn * BN, wg, tid);
-    epilogue(hi, p, bias, mc, buf, tm * BM + 64, tn * BN, wg, tid);
+    epilogue<V16>(lo, p, bias, mc, buf, tm * BM, tn * BN, wg, tid);
+    epilogue<V16>(hi, p, bias, mc, buf, tm * BM + 64, tn * BN, wg, tid);
   }
   // shared memory must outlive the last stores' reads of it
   if (tid == 0) asm volatile("cp.async.bulk.wait_group.read 0;\n" ::: "memory");
@@ -421,11 +426,12 @@ namespace evlm {
 // A [M,K] bf16 row-major, B_g [K,N] bf16 row-major (a dense kernel's [in,
 // out] layout), C_g [M,N] contiguous, bf16 or f32 (out_f32). K and N must be
 // multiples of 8 and every pointer 16-byte aligned (TMA); the caller checks
-// this. bias_g [N] and row_add [period, N] (f32) may be null.
+// this. bias_g [N] and row_add [period, N] may be null; vec16: they are
+// bf16 (else f32).
 static inline cudaError_t gemm_bias_multi(const void* A, int count, const void* const* B,
-                                          const float* const* bias, void* const* C,
-                                          const float* row_add, int period, bool out_f32,
-                                          int M, int N, int K, cudaStream_t s) {
+                                          const void* const* bias, void* const* C,
+                                          const void* row_add, int period, bool vec16,
+                                          bool out_f32, int M, int N, int K, cudaStream_t s) {
   using namespace gemm_impl;
   if (count < 1 || count > MAX_GEMMS || M <= 0 || N <= 0 || K <= 0 || N % 8 || K % 8)
     return cudaErrorInvalidValue;
@@ -443,22 +449,23 @@ static inline cudaError_t gemm_bias_multi(const void* A, int count, const void* 
   p.k = K;
   p.gemms = count;
   p.out_f32 = out_f32;
+  auto kernel = vec16 ? gemm_bias_kernel<true> : gemm_bias_kernel<false>;
   int dev = 0, sms = 0;
   cudaError_t e = cudaGetDevice(&dev);
   if (e == cudaSuccess) e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
   if (e == cudaSuccess)
-    e = cudaFuncSetAttribute(gemm_bias_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+    e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                              static_cast<int>(SMEM_BYTES));
   if (e != cudaSuccess) return e;
   const int tiles = ((M + BM - 1) / BM) * ((N + BN - 1) / BN) * count;
-  gemm_bias_kernel<<<tiles < sms ? tiles : sms, THREADS, SMEM_BYTES, s>>>(p);
+  kernel<<<tiles < sms ? tiles : sms, THREADS, SMEM_BYTES, s>>>(p);
   return cudaGetLastError();
 }
 
-static inline cudaError_t gemm_bias(const void* A, const void* B, const float* bias,
-                                    const float* row_add, int period, void* C, bool out_f32,
-                                    int M, int N, int K, cudaStream_t s) {
-  return gemm_bias_multi(A, 1, &B, &bias, &C, row_add, period, out_f32, M, N, K, s);
+static inline cudaError_t gemm_bias(const void* A, const void* B, const void* bias,
+                                    const void* row_add, int period, bool vec16, void* C,
+                                    bool out_f32, int M, int N, int K, cudaStream_t s) {
+  return gemm_bias_multi(A, 1, &B, &bias, &C, row_add, period, vec16, out_f32, M, N, K, s);
 }
 
 }  // namespace evlm

@@ -4,7 +4,11 @@ Each call checks device, dtype, shape and layout (contiguous, or for the
 flash core the strides it reads in place), allocates the output and the
 workspaces with torch.empty (the kernels allocate nothing; the flash core's
 split workspace is cached per device and stream), launches on the current stream and
-raises when the C entry returns a CUDA error.
+raises when the C entry returns a CUDA error. Small parameter vectors
+(biases, LayerNorm scale and shift, positional rows, head gates) are passed
+as stored with one flag per kernel call: all bf16, or all f32, so that no
+call converts params stored in one dtype. The shape rules that choose between device kernels live here too
+(gemm_ln_fits, wgmma_core_fits, patch_gather_fits).
 """
 
 from __future__ import annotations
@@ -56,91 +60,233 @@ def _aligned(ptrs: dict, name: str) -> None:
         raise ValueError(f"{name}: {', '.join(bad)} must be 16-byte aligned")
 
 
-def patch_embed(patches: torch.Tensor, w: torch.Tensor, bias: Optional[torch.Tensor],
-                pos: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor, eps: float,
-                *, batch: int) -> torch.Tensor:
-    """patches [batch*Np, K] bf16 @ w [K, D] bf16 + bias [D] + pos [Np, D],
-    LayerNorm(gamma, beta) in f32 -> [batch, 1+Np, D] bf16 with row 0 of each
-    image left for the caller's CLS row."""
+# --------------------------------------------------------------------------
+# shape rules: which device kernel a shape takes (each side tested)
+# --------------------------------------------------------------------------
+
+LN_TILE, LN_MAX_CLUSTER = 128, 8
+
+
+def gemm_ln_fits(d: int) -> bool:
+    """A LayerNorm over rows of width d runs in gemm_ln's epilogue (one
+    cluster of d / 128 blocks per row tile) when d is a multiple of 128 up to
+    1024. Other widths keep gemm_bias into an f32 workspace and
+    residual_layernorm."""
+    return d > 0 and d % LN_TILE == 0 and d // LN_TILE <= LN_MAX_CLUSTER
+
+
+def wgmma_core_fits(head_dim: int, grouped: bool) -> bool:
+    """The grouped cross-attention's core is attn_wgmma at head dim 64;
+    other head dims, and the self- and cross-attention sublayers, take
+    attn_core."""
+    return grouped and head_dim == 64
+
+
+def patch_gather_fits(patch: int) -> bool:
+    """gemm_ln's gather reads 16-byte pieces of the image: the P*3 values of
+    one patch row must be a multiple of 8."""
+    return patch > 0 and patch * 3 % 8 == 0
+
+
+def as_stored(t: Optional[torch.Tensor]) -> Optional[torch.Tensor]:
+    """A small parameter vector as the kernels read it: as stored when bf16
+    or f32 (no copy), else as f32; contiguous."""
+    if t is None:
+        return None
+    return (t if t.dtype in (BF16, F32) else t.float()).contiguous()
+
+
+def _vecs(specs) -> tuple:
+    """The small parameter vectors of one kernel call: [(name, tensor or
+    None, shape)] -> (tensors as the kernel reads them, vec16), each bf16 or
+    f32, contiguous, of its shape and aligned for pairwise loads. vec16 = 1
+    when every one is bf16 (read as stored); when they mix, the bf16 ones are
+    widened to f32 (exact; a copy that params stored in one dtype never
+    need) and vec16 = 0. Keep the tensors alive until the launch."""
+    out = []
+    for name, t, shape in specs:
+        if t is not None:
+            if t.dtype not in (BF16, F32):
+                raise TypeError(f"{name} must be bfloat16 or float32, got {t.dtype}")
+            _ptr(t, t.dtype, name, shape)
+        out.append(t)
+    vec16 = all(t.dtype == BF16 for t in out if t is not None)
+    if not vec16:
+        out = [None if t is None else t.float() for t in out]
+    for (name, *_), t in zip(specs, out):
+        if t is not None and t.data_ptr() % (2 * t.element_size()):
+            raise ValueError(f"{name} must be {2 * t.element_size()}-byte aligned")
+    return out, int(vec16)
+
+
+def _addr(t: Optional[torch.Tensor]) -> Optional[int]:
+    return None if t is None else t.data_ptr()
+
+
+def patch_embed(images: torch.Tensor, w: torch.Tensor, bias: Optional[torch.Tensor],
+                pos: torch.Tensor, cls: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor,
+                eps: float, *, patch: int) -> torch.Tensor:
+    """The ViT input stage in one launch: images [B, H, W, 3] bf16 (NHWC),
+    gathered patch by patch; w [P*P*3, D] bf16; bias [D] (or None), pos
+    [1+Np, D], cls [D], gamma/beta [D] as stored (bf16 or f32). Returns [B,
+    1+Np, D] bf16: LN(cls + pos[0]) then LN(patch @ w + bias + pos[1+n]) per
+    patch, f32 statistics. D must fit gemm_ln_fits, P patch_gather_fits."""
+    b, hh, ww, c = images.shape
+    d = w.shape[1]
+    if c != 3 or hh % patch or ww % patch:
+        raise ValueError(f"patch_embed: image {tuple(images.shape)} is not tiled by patch {patch}")
+    if not patch_gather_fits(patch):
+        raise ValueError(f"patch_embed: patch {patch} (the gather needs patch * 3 % 8 == 0)")
+    if not gemm_ln_fits(d):
+        raise ValueError(f"patch_embed: width {d} (a multiple of 128 up to 1024)")
+    n_patches = (hh // patch) * (ww // patch)
+    img_ptr = _ptr(images, BF16, "images", (b, hh, ww, 3))
+    w_ptr = _ptr(w, BF16, "w", (patch * patch * 3, d))
+    _aligned({"images": img_ptr, "w": w_ptr}, "patch_embed")
+    vecs, vec16 = _vecs([("bias", bias, (d,)), ("pos", pos, (1 + n_patches, d)),
+                         ("cls", cls, (d,)), ("gamma", gamma, (d,)), ("beta", beta, (d,))])
+    out = torch.empty(b, 1 + n_patches, d, dtype=BF16, device=images.device)
+    _check(library().evlm_patch_embed(img_ptr, w_ptr, *map(_addr, vecs), out.data_ptr(), b, hh,
+                                      ww, patch, d, vec16, float(eps), _stream(images)),
+           "patch_embed")
+    return out
+
+
+def patch_embed_im2col(patches: torch.Tensor, w: torch.Tensor, bias: Optional[torch.Tensor],
+                       pos: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor, eps: float,
+                       *, batch: int) -> torch.Tensor:
+    """The route of widths outside gemm_ln_fits: patches [batch*Np, K] bf16
+    (im2col'd) @ w [K, D] bf16 + bias [D] + pos [Np, D] into an f32
+    workspace, then the f32 LayerNorm -> [batch, 1+Np, D] bf16 with row 0 of
+    each image left for the caller's CLS row. Vectors as stored."""
     rows, k = patches.shape
     n_patches, d = rows // batch, w.shape[1]
     if k % 8 or d % 8:
         raise ValueError(f"patch_embed: K={k} and D={d} must be multiples of 8")
-    args = [_ptr(patches, BF16, "patches", (batch * n_patches, k)),
-            _ptr(w, BF16, "w", (k, d)), _ptr(bias, F32, "bias", (d,)),
-            _ptr(pos, F32, "pos", (n_patches, d)), _ptr(gamma, F32, "gamma", (d,)),
-            _ptr(beta, F32, "beta", (d,))]
-    _aligned({"patches": args[0], "w": args[1]}, "patch_embed")
+    p_ptr = _ptr(patches, BF16, "patches", (batch * n_patches, k))
+    w_ptr = _ptr(w, BF16, "w", (k, d))
+    _aligned({"patches": p_ptr, "w": w_ptr}, "patch_embed")
+    vecs, vec16 = _vecs([("bias", bias, (d,)), ("pos", pos, (n_patches, d)),
+                         ("gamma", gamma, (d,)), ("beta", beta, (d,))])
     ws = torch.empty(rows, d, dtype=F32, device=patches.device)
     out = torch.empty(batch, 1 + n_patches, d, dtype=BF16, device=patches.device)
-    _check(library().evlm_patch_embed(*args, ws.data_ptr(), out.data_ptr(), batch, n_patches,
-                                      k, d, float(eps), _stream(patches)), "patch_embed")
+    _check(library().evlm_patch_embed_im2col(p_ptr, w_ptr, *map(_addr, vecs), ws.data_ptr(),
+                                             out.data_ptr(), batch, n_patches, k, d, vec16,
+                                             float(eps), _stream(patches)), "patch_embed")
     return out
 
 
 def fused_attention(x: torch.Tensor, enc: torch.Tensor, w: dict, key_bias: torch.Tensor,
-                    gates: torch.Tensor, *, batch: int, tq: int, s: int,
-                    ln: Optional[tuple] = None, ln_eps: float = 0.0) -> torch.Tensor:
+                    gates: Optional[torch.Tensor], *, heads: int, batch: int, tq: int, s: int,
+                    grouped: bool = False, ln: Optional[tuple] = None,
+                    ln_eps: float = 0.0) -> torch.Tensor:
     """One attention sublayer. x [batch*tq, D] bf16 queries, enc [batch*s,
     De] bf16 keys/values source (x itself for self-attention), w holds
-    wq/wk/wv/wo (bf16, [in, out]) and bq/bk/bv/bo (f32); key_bias [batch, s]
-    f32, gates [H] f32; ln = (gamma, beta) f32 adds the residual + post-LN
-    epilogue. Returns [batch*tq, D] bf16."""
+    wq/wk/wv/wo (bf16, [in, out]) and bq/bk/bv/bo; key_bias [batch, s] f32;
+    gates [H] or None (all ones); ln = (gamma, beta) adds the residual +
+    post-LN epilogue; vectors as stored (bf16 or f32). Returns [batch*tq, D]
+    bf16."""
     d, de = x.shape[1], enc.shape[1]
     a = w["wq"].shape[1]
-    heads = gates.shape[0]
     dh = a // heads
     if dh * heads != a or dh not in (32, 64, 128):
         raise ValueError(f"fused_attention: width {a} over {heads} heads "
                          f"(head dim must be 32, 64 or 128)")
     if d % 8 or de % 8:
         raise ValueError(f"fused_attention: widths {d}, {de} must be multiples of 8")
+    core = 1 if wgmma_core_fits(dh, grouped) else 0
+    ln_route = 0 if ln is None else (1 if gemm_ln_fits(d) else 2)
     rq, rkv = batch * tq, batch * s
-    args = [_ptr(x, BF16, "x", (rq, d)), _ptr(enc, BF16, "enc", (rkv, de)),
-            _ptr(w["wq"], BF16, "wq", (d, a)), _ptr(w["bq"], F32, "bq", (a,)),
-            _ptr(w["wk"], BF16, "wk", (de, a)), _ptr(w["bk"], F32, "bk", (a,)),
-            _ptr(w["wv"], BF16, "wv", (de, a)), _ptr(w["bv"], F32, "bv", (a,)),
-            _ptr(w["wo"], BF16, "wo", (a, d)), _ptr(w["bo"], F32, "bo", (d,)),
-            _ptr(key_bias, F32, "key_bias", (batch, s)), _ptr(gates, F32, "gates", (heads,)),
-            _ptr(ln[0] if ln else None, F32, "ln_gamma", (d,)),
-            _ptr(ln[1] if ln else None, F32, "ln_beta", (d,))]
-    _aligned(dict(zip(("x", "enc", "wq", "wk", "wv", "wo"),
-                      (args[0], args[1], args[2], args[4], args[6], args[8]))), "fused_attention")
+    mats = [_ptr(x, BF16, "x", (rq, d)), _ptr(enc, BF16, "enc", (rkv, de)),
+            _ptr(w["wq"], BF16, "wq", (d, a)), _ptr(w["wk"], BF16, "wk", (de, a)),
+            _ptr(w["wv"], BF16, "wv", (de, a)), _ptr(w["wo"], BF16, "wo", (a, d))]
+    _aligned(dict(zip(("x", "enc", "wq", "wk", "wv", "wo"), mats)), "fused_attention")
+    vecs, vec16 = _vecs([("bq", w["bq"], (a,)), ("bk", w["bk"], (a,)), ("bv", w["bv"], (a,)),
+                         ("bo", w["bo"], (d,)), ("ln_gamma", ln[0] if ln else None, (d,)),
+                         ("ln_beta", ln[1] if ln else None, (d,))])
+    (g,), gates16 = _vecs([("gates", gates, (heads,))])
+    bq, bk, bv, bo, lg, lb = map(_addr, vecs)
+    kb = _ptr(key_bias, F32, "key_bias", (batch, s))
     dev = x.device
     ws = [torch.empty(rq, a, dtype=BF16, device=dev), torch.empty(rkv, a, dtype=BF16, device=dev),
           torch.empty(rkv, a, dtype=BF16, device=dev), torch.empty(rq, a, dtype=BF16, device=dev),
-          torch.empty(rq, d, dtype=F32, device=dev) if ln else None]
+          torch.empty(rq, d, dtype=F32, device=dev) if ln_route == 2 else None]
     out = torch.empty(rq, d, dtype=BF16, device=dev)
     _check(library().evlm_fused_attention(
-        *args, *[None if t is None else t.data_ptr() for t in ws], out.data_ptr(),
-        batch, tq, s, d, de, heads, dh, float(ln_eps), _stream(x)), "fused_attention")
+        mats[0], mats[1], mats[2], bq, mats[3], bk, mats[4], bv, mats[5], bo, kb, _addr(g), lg,
+        lb, *map(_addr, ws), out.data_ptr(), batch, tq, s, d, de, heads, dh, core, ln_route,
+        vec16, gates16, float(ln_eps), _stream(x)),
+        "fused_attention")
     return out
 
 
 def gemm_bias(a: torch.Tensor, b: torch.Tensor, bias: Optional[torch.Tensor] = None,
               row_add: Optional[torch.Tensor] = None, *, out_f32: bool = False) -> torch.Tensor:
     """The projection kernel on its own: a [M, K] bf16 @ b [K, N] bf16
-    (+ bias [N] f32) (+ row_add[m % period] of [period, N] f32), f32
-    accumulation -> [M, N] bf16, or f32 with out_f32."""
+    (+ bias [N]) (+ row_add[m % period] of [period, N]), vectors bf16 or f32
+    as stored, f32 accumulation -> [M, N] bf16, or f32 with out_f32."""
     (m, k), n = a.shape, b.shape[1]
     if k % 8 or n % 8:
         raise ValueError(f"gemm_bias: K={k} and N={n} must be multiples of 8")
     period = 1 if row_add is None else row_add.shape[0]
-    args = [_ptr(a, BF16, "a", (m, k)), _ptr(b, BF16, "b", (k, n)),
-            _ptr(bias, F32, "bias", (n,)), _ptr(row_add, F32, "row_add", (period, n))]
+    args = [_ptr(a, BF16, "a", (m, k)), _ptr(b, BF16, "b", (k, n))]
     _aligned({"a": args[0], "b": args[1]}, "gemm_bias")
+    vecs, vec16 = _vecs([("bias", bias, (n,)), ("row_add", row_add, (period, n))])
     c = torch.empty(m, n, dtype=F32 if out_f32 else BF16, device=a.device)
-    _check(library().evlm_gemm_bias(*args, c.data_ptr(), period, int(out_f32), m, n, k,
-                                    _stream(a)), "gemm_bias")
+    _check(library().evlm_gemm_bias(*args, *map(_addr, vecs), c.data_ptr(), period, int(out_f32),
+                                    vec16, m, n, k, _stream(a)), "gemm_bias")
     return c
+
+
+def gemm_ln(a: torch.Tensor, b: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor,
+            eps: float, *, bias: Optional[torch.Tensor] = None,
+            row_add: Optional[torch.Tensor] = None, residual: Optional[torch.Tensor] = None,
+            out: Optional[torch.Tensor] = None, group: Optional[int] = None,
+            out_group_stride: Optional[int] = None, out_offset: int = 0) -> torch.Tensor:
+    """The GEMM with the LayerNorm epilogue on its own: LN(a [M, K] bf16 @ b
+    [K, N] bf16 + bias [N] + row_add[m % period] + residual [M, N] bf16) *
+    gamma + beta, f32 statistics, bf16 out; vectors as stored. Row m lands
+    at (m // group) * out_group_stride + out_offset + m % group of `out`
+    (default: a new [M, N], rows in order). N must fit gemm_ln_fits."""
+    (m, k), n = a.shape, b.shape[1]
+    if not gemm_ln_fits(n) or k % 8:
+        raise ValueError(f"gemm_ln: N={n} (a multiple of 128 up to 1024), K={k} (of 8)")
+    group = m if group is None else group
+    out_group_stride = group if out_group_stride is None else out_group_stride
+    if out is None:
+        out = torch.empty(m, n, dtype=BF16, device=a.device)
+    rows_needed = (m - 1) // group * out_group_stride + out_offset + min(m, group)
+    if out.dim() != 2 or out.shape[1] != n or out.shape[0] < rows_needed:
+        raise ValueError(f"gemm_ln: out {tuple(out.shape)} holds fewer than {rows_needed} rows")
+    period = 1 if row_add is None else row_add.shape[0]
+    args = [_ptr(a, BF16, "a", (m, k)), _ptr(b, BF16, "b", (k, n)),
+            _ptr(residual, BF16, "residual", (m, n)), _ptr(out, BF16, "out", tuple(out.shape))]
+    _aligned(dict(zip(("a", "b", "residual", "out"), args)), "gemm_ln")
+    vecs, vec16 = _vecs([("bias", bias, (n,)), ("row_add", row_add, (period, n)),
+                         ("gamma", gamma, (n,)), ("beta", beta, (n,))])
+    bias_p, ra_p, g_p, b_p = map(_addr, vecs)
+    _check(library().evlm_gemm_ln(args[0], args[1], bias_p, ra_p, args[2], g_p, b_p, args[3],
+                                  period, group, out_group_stride, out_offset, vec16, m, n, k,
+                                  float(eps), _stream(a)), "gemm_ln")
+    return out
+
+
+def gemm_ln_clusters(n: int, gather: bool = False) -> int:
+    """The clusters of gemm_ln (of n / 128 blocks) the current card keeps
+    resident, from cudaOccupancyMaxActiveClusters; the persistent grid's
+    size."""
+    got = library().evlm_gemm_ln_clusters(n, int(gather))
+    if got <= 0:
+        raise RuntimeError(f"gemm_ln_clusters: width {n} gave {got}")
+    return got
 
 
 def attn_core(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, key_bias: torch.Tensor,
               gates: torch.Tensor, *, batch: int, tq: int, s: int) -> torch.Tensor:
     """The attention kernel on its own: per head h, softmax(q k^T / sqrt(dh)
     + key_bias) v * gates[h] over q [batch*tq, H*dh] and k/v [batch*s, H*dh]
-    bf16 (heads side by side), key_bias [batch, s] and gates [H] f32.
-    Returns [batch*tq, H*dh] bf16."""
+    bf16 (heads side by side), key_bias [batch, s] f32 and gates [H] (bf16
+    or f32). Returns [batch*tq, H*dh] bf16."""
     heads = gates.shape[0]
     a = q.shape[1]
     dh = a // heads
@@ -148,12 +294,30 @@ def attn_core(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, key_bias: torch
         raise ValueError(f"attn_core: width {a} over {heads} heads "
                          f"(head dim must be 32, 64 or 128)")
     args = [_ptr(q, BF16, "q", (batch * tq, a)), _ptr(k, BF16, "k", (batch * s, a)),
-            _ptr(v, BF16, "v", (batch * s, a)), _ptr(key_bias, F32, "key_bias", (batch, s)),
-            _ptr(gates, F32, "gates", (heads,))]
+            _ptr(v, BF16, "v", (batch * s, a)), _ptr(key_bias, F32, "key_bias", (batch, s))]
     _aligned({"q": args[0], "k": args[1], "v": args[2]}, "attn_core")
+    (g,), gates16 = _vecs([("gates", gates, (heads,))])
     out = torch.empty_like(q)
-    _check(library().evlm_attn_core(*args, out.data_ptr(), batch, tq, s, heads, dh,
-                                    float(dh ** -0.5), _stream(q)), "attn_core")
+    _check(library().evlm_attn_core(*args, g.data_ptr(), out.data_ptr(), batch, tq, s, heads, dh,
+                                    gates16, float(dh ** -0.5), _stream(q)), "attn_core")
+    return out
+
+
+def attn_wgmma(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, key_bias: torch.Tensor,
+               gates: torch.Tensor, *, batch: int, tq: int, s: int) -> torch.Tensor:
+    """The wgmma attention core on its own: attn_core's function and
+    arguments at head dim 64 (q [batch*tq, H*64], k/v [batch*s, H*64] bf16,
+    key_bias [batch, s] f32, gates [H] bf16 or f32)."""
+    heads, a = gates.shape[0], q.shape[1]
+    if a != heads * 64:
+        raise ValueError(f"attn_wgmma: width {a} is not {heads} heads of 64")
+    args = [_ptr(q, BF16, "q", (batch * tq, a)), _ptr(k, BF16, "k", (batch * s, a)),
+            _ptr(v, BF16, "v", (batch * s, a)), _ptr(key_bias, F32, "key_bias", (batch, s))]
+    _aligned({"q": args[0], "k": args[1], "v": args[2]}, "attn_wgmma")
+    (g,), gates16 = _vecs([("gates", gates, (heads,))])
+    out = torch.empty_like(q)
+    _check(library().evlm_attn_wgmma(*args, g.data_ptr(), out.data_ptr(), batch, tq, s, heads,
+                                     gates16, float(64 ** -0.5), _stream(q)), "attn_wgmma")
     return out
 
 

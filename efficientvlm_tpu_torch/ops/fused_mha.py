@@ -9,10 +9,15 @@ Ports of efficientvlm_tpu/ops/pallas_fused_mha.py:
   K/V; K/V are projected once per image; optional residual + post-LN).
 
 On a CUDA tensor each wrapper runs csrc/fused_mha.cu, whose hand-written
-kernels are gemm_bias for every projection, attn_core for the attention of
-all heads, and (grouped, with ln_params) residual_layernorm. It computes in bfloat16
-with f32 accumulation and raises on anything else. On a CPU tensor it runs
-the plain PyTorch version below, which does the same arithmetic. The
+kernels are gemm_bias for the projections, an attention core for all heads
+(attn_core; for the grouped sublayer at head dim 64 attn_wgmma) and, for
+the grouped sublayer with ln_params, gemm_ln: the output projection with the
+residual + post-LN in its epilogue (widths outside bindings.gemm_ln_fits:
+gemm_bias into f32 + residual_layernorm). Four device launches per grouped
+call with the f32 key bias the models pass: biases, gates and LN params are
+read as stored (bf16 or f32; see bindings._vecs). It computes in bfloat16 with f32
+accumulation and raises on anything else. On a CPU tensor it runs the plain
+PyTorch version below, which does the same arithmetic. The
 arithmetic follows the TPU kernels: projections accumulate in f32, add the
 bias in f32 and round to the compute dtype; scores and softmax are f32;
 probabilities are rounded before P.V; each head's f32 context is scaled by
@@ -89,12 +94,41 @@ def gemm_bias_plain(a, b, bias=None, row_add=None, out_f32: bool = False):
 
 
 def attn_core_plain(q, k, v, kb2, gates1, *, batch: int, tq: int, s: int):
-    """Plain version of the attention kernel (bindings.attn_core): q [batch*tq,
-    A], k/v [batch*s, A], heads side by side; kb2 [batch, s], gates1 [H]."""
+    """Plain version of both attention kernels, bindings.attn_core and
+    bindings.attn_wgmma (the same function): q [batch*tq, A], k/v [batch*s,
+    A], heads side by side; kb2 [batch, s], gates1 [H]."""
     a = q.shape[1]
     ctx = _attention_plain(q.reshape(batch, tq, a), k.reshape(batch, s, a),
                            v.reshape(batch, s, a), kb2, gates1, gates1.shape[0])
     return ctx.reshape(batch * tq, a)
+
+
+def gemm_ln_plain(a, b, gamma, beta, eps: float, *, bias=None, row_add=None, residual=None,
+                  out=None, group=None, out_group_stride=None, out_offset: int = 0):
+    """Plain version of the GEMM with the LayerNorm epilogue
+    (bindings.gemm_ln): y = a [M, K] @ b [K, N] + bias + row_add[m % period]
+    + residual, all in f32; the mean, then the mean of (y - mean)^2; (y -
+    mean) * rsqrt(var + eps) * gamma + beta rounded to a's dtype, row m
+    written at (m // group) * out_group_stride + out_offset + m % group of
+    `out` (default: a new [M, N], rows in order)."""
+    y = a.float() @ b.float()
+    if bias is not None:
+        y = y + bias.float()
+    if row_add is not None:
+        y = y + row_add.float()[torch.arange(y.shape[0], device=y.device) % row_add.shape[0]]
+    if residual is not None:
+        y = y + residual.float()
+    mean = y.mean(-1, keepdim=True)
+    c = y - mean
+    var = (c * c).mean(-1, keepdim=True)
+    y = (c * torch.rsqrt(var + eps) * gamma.float() + beta.float()).to(a.dtype)
+    group = y.shape[0] if group is None else group
+    out_group_stride = group if out_group_stride is None else out_group_stride
+    if out is None:
+        out = torch.empty_like(y)
+    rows = torch.arange(y.shape[0], device=y.device)
+    out[rows // group * out_group_stride + out_offset + rows % group] = y
+    return out
 
 
 def self_attention_plain(params, hidden, kb2, gates1, num_heads: int):
@@ -140,12 +174,18 @@ def cross_attention_grouped_plain(params, hidden, enc, kb2, gates1, num_heads: i
 
 
 def _weights(params: dict) -> dict:
-    """bf16 [in, out] kernels and f32 biases, as csrc/fused_mha.cu takes them."""
+    """bf16 [in, out] kernels and the biases as stored, as csrc/fused_mha.cu
+    takes them (no copy for bf16 params)."""
     w = {}
     for name, key in (("q", "q"), ("k", "k"), ("v", "v"), ("out", "o")):
         w["w" + key] = params[name]["kernel"].to(torch.bfloat16).contiguous()
-        w["b" + key] = params[name]["bias"].float().contiguous()
+        w["b" + key] = bindings.as_stored(params[name]["bias"])
     return w
+
+
+def _kernel_gates(num_heads: int, head_z) -> Optional[torch.Tensor]:
+    """head_z as the kernels read it, or None for all ones."""
+    return None if head_z is None else bindings.as_stored(head_z.reshape(num_heads))
 
 
 def _rows(x: torch.Tensor) -> torch.Tensor:
@@ -168,11 +208,12 @@ def fused_self_attention(params: dict, hidden: torch.Tensor, *, num_heads: int,
     The projection width A = H*dh may be below D (pruned exports)."""
     b, t, d = hidden.shape
     kb2 = _key_bias(b, t, mask, key_bias, hidden.device)
-    gates1 = _gates(num_heads, head_z, hidden.device)
     if not hidden.is_cuda:
-        return self_attention_plain(params, hidden, kb2, gates1, num_heads)
+        return self_attention_plain(params, hidden, kb2, _gates(num_heads, head_z, "cpu"),
+                                    num_heads)
     x = _rows(hidden)
-    out = bindings.fused_attention(x, x, _weights(params), kb2, gates1, batch=b, tq=t, s=t)
+    out = bindings.fused_attention(x, x, _weights(params), kb2, _kernel_gates(num_heads, head_z),
+                                   heads=num_heads, batch=b, tq=t, s=t)
     fused_self_attention.launches += 1
     return out.reshape(b, t, d)
 
@@ -188,11 +229,12 @@ def fused_cross_attention(params: dict, hidden: torch.Tensor, encoder_hidden: to
     if encoder_hidden.shape[0] != b:
         raise ValueError(f"fused cross: query batch {b} != kv batch {encoder_hidden.shape[0]}")
     kb2 = _key_bias(b, s, mask, key_bias, hidden.device)
-    gates1 = _gates(num_heads, head_z, hidden.device)
     if not hidden.is_cuda:
-        return cross_attention_plain(params, hidden, encoder_hidden, kb2, gates1, num_heads)
+        return cross_attention_plain(params, hidden, encoder_hidden, kb2,
+                                     _gates(num_heads, head_z, "cpu"), num_heads)
     out = bindings.fused_attention(_rows(hidden), _rows(encoder_hidden.to(hidden.dtype)),
-                                   _weights(params), kb2, gates1, batch=b, tq=t, s=s)
+                                   _weights(params), kb2, _kernel_gates(num_heads, head_z),
+                                   heads=num_heads, batch=b, tq=t, s=s)
     fused_cross_attention.launches += 1
     return out.reshape(b, t, d)
 
@@ -215,17 +257,18 @@ def fused_cross_attention_grouped(params: dict, hidden: torch.Tensor,
     if b != bk * g:
         raise ValueError(f"fused grouped cross: query batch {b} != {g} * kv batch {bk}")
     kb2 = _key_bias(bk, s, mask, key_bias, hidden.device)
-    gates1 = _gates(num_heads, head_z, hidden.device)
     if not hidden.is_cuda:
-        return cross_attention_grouped_plain(params, hidden, encoder_hidden, kb2, gates1,
-                                             num_heads, g, ln_params, ln_eps)
-    ln = None if ln_params is None else (ln_params["scale"].float().contiguous(),
-                                         ln_params["bias"].float().contiguous())
+        return cross_attention_grouped_plain(params, hidden, encoder_hidden, kb2,
+                                             _gates(num_heads, head_z, "cpu"), num_heads, g,
+                                             ln_params, ln_eps)
+    ln = None if ln_params is None else (bindings.as_stored(ln_params["scale"]),
+                                         bindings.as_stored(ln_params["bias"]))
     # a group's G*T query rows are contiguous, so the kernel sees Bk batch
     # rows of G*T queries each: K/V are projected for the Bk images only and
-    # one K/V tile in shared memory serves the whole group
+    # one (image, head)'s K/V serve the whole group
     out = bindings.fused_attention(_rows(hidden), _rows(encoder_hidden.to(hidden.dtype)),
-                                   _weights(params), kb2, gates1, batch=bk, tq=g * t, s=s,
+                                   _weights(params), kb2, _kernel_gates(num_heads, head_z),
+                                   heads=num_heads, batch=bk, tq=g * t, s=s, grouped=True,
                                    ln=ln, ln_eps=ln_eps)
     fused_cross_attention_grouped.launches += 1
     return out.reshape(b, t, d)

@@ -4,12 +4,19 @@ Port of efficientvlm_tpu/ops/pallas_patch_embed.py (fused_patch_embed,
 TPU kernel `_patch_embed_padded` / `_kernel`). images [B,H,W,3] (NHWC) ->
 pre-LN'd hidden [B, 1+Np, D], CLS row first.
 
-On a CUDA tensor `fused_patch_embed` runs csrc/patch_embed.cu: the patch
-matmul with the bias and positional rows added in its f32 epilogue, then the
-f32 LayerNorm, which writes each patch row straight behind its image's CLS
-row. The CLS row
-LN(cls + pos[0]) is the same for every image and is computed outside the
-kernels, as on the TPU. On a CPU tensor it runs `patch_embed_plain`.
+On a CUDA tensor `fused_patch_embed` runs csrc/patch_embed.cu: one launch
+of gemm_ln in its gather form, which reads the patches straight from the
+NHWC image (no im2col copy), adds the bias and positional rows, normalises
+each row in f32 in its epilogue (no f32 round trip) and writes every
+image's CLS row LN(cls + pos[0]). The small parameters are read as stored
+(bf16 or f32): with bf16 images and bf16 params nothing is converted or
+copied per call. f32 images are rounded to bf16 by the wrapper first (one
+conversion launch); the gather reads bf16 only. The patch size must satisfy
+bindings.patch_gather_fits (P*3 % 8 == 0: 8 and 16), else it raises. Widths
+outside bindings.gemm_ln_fits (not a multiple of 128, or above 1024) keep
+the earlier route: im2col here, then gemm_bias into f32 and
+residual_layernorm, with the CLS row filled here. On a CPU tensor it runs
+`patch_embed_plain`.
 """
 
 from __future__ import annotations
@@ -63,16 +70,23 @@ def patch_embed_plain(params: dict, images: torch.Tensor, *, patch_size: int,
 def _patch_embed_cuda(params, images, patch_size, eps, dtype):
     if dtype != torch.bfloat16:
         raise TypeError(f"fused_patch_embed on CUDA computes in bfloat16, got {dtype}")
-    x = _im2col(images, patch_size, dtype)
-    b, n_patches, k = x.shape
-    bias = params["patch_embed"].get("bias")
-    out = bindings.patch_embed(
-        x.reshape(b * n_patches, k).contiguous(),
-        params["patch_embed"]["kernel"].to(dtype).reshape(k, -1).contiguous(),
-        None if bias is None else bias.float().contiguous(),
-        params["pos_embed"]["embedding"][1:1 + n_patches].float().contiguous(),
-        params["pre_ln"]["scale"].float().contiguous(),
-        params["pre_ln"]["bias"].float().contiguous(), eps, batch=b)
+    b, hh, ww, _ = images.shape
+    p = patch_size
+    if hh % p or ww % p:
+        raise ValueError(f"image {hh}x{ww} is not tiled by patch {p}")
+    n_patches = (hh // p) * (ww // p)
+    k = p * p * 3
+    w = params["patch_embed"]["kernel"].to(dtype).reshape(k, -1).contiguous()
+    stored = bindings.as_stored
+    bias, pos = stored(params["patch_embed"].get("bias")), params["pos_embed"]["embedding"]
+    gamma, beta = stored(params["pre_ln"]["scale"]), stored(params["pre_ln"]["bias"])
+    if bindings.gemm_ln_fits(w.shape[1]):
+        return bindings.patch_embed(images.to(dtype).contiguous(), w, bias,
+                                    stored(pos[:1 + n_patches]), stored(params["class_embedding"]),
+                                    gamma, beta, eps, patch=p)
+    x = _im2col(images, p, dtype)
+    out = bindings.patch_embed_im2col(x.reshape(b * n_patches, k).contiguous(), w, bias,
+                                      stored(pos[1:1 + n_patches]), gamma, beta, eps, batch=b)
     out[:, 0] = _cls_row(params, eps).to(dtype)
     return out
 

@@ -1,8 +1,10 @@
 """The port's CUDA kernels against their plain versions, on the card, in
-bf16, at small shapes; each wrapper counts one launch per call. The two
-device kernels under the attention sublayers, gemm_bias and attn_core, are
-also held on their own at the main path's shapes and ragged edges. Imports no
-jax, so it also runs where only PyTorch is installed:
+bf16, at small shapes; each wrapper counts one launch per call. The device
+kernels under the attention sublayers and the patch embedding (gemm_bias,
+gemm_ln, attn_core, attn_wgmma) are also held on their own at the main
+path's shapes and ragged edges, and the shape rules that keep a shape on an
+older route are checked on both sides by the kernels the profiler sees.
+Imports no jax, so it also runs where only PyTorch is installed:
 
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_cuda.py -q
 
@@ -152,6 +154,164 @@ def test_attn_core(rnd, name):
     hz = torch.rand(h, device="cuda") + 0.2
     _close(K.attn_core(q, k, v, kb, hz, batch=b, tq=tq, s=s),
            F.attn_core_plain(q, k, v, kb, hz, batch=b, tq=tq, s=s))
+
+
+GEMM_LN = {
+    # name: (M, N, K, residual, row_add period or 0, (group, stride, offset)
+    # or None, vector dtype); M ragged against the 128-row tile, and with a
+    # row mapping the images' boundaries fall inside row tiles
+    "d768_cluster6_residual": (1000, 768, 768, True, 0, None, torch.float32),
+    "d768_patch_rows_196_pos": (3 * 196, 768, 768, False, 196, (196, 197, 1), torch.bfloat16),
+    "d768_residual_and_rows": (700, 768, 512, True, 100, (100, 103, 2), torch.bfloat16),
+    "d128_cluster1_residual": (300, 128, 192, True, 0, None, torch.bfloat16),
+    "d128_cluster1_pos_mapping": (50, 128, 768, False, 25, (25, 26, 1), torch.float32),
+    "d1024_cluster8_plain": (333, 1024, 256, False, 0, None, torch.float32),
+}
+
+
+@pytest.mark.parametrize("name", sorted(GEMM_LN))
+def test_gemm_ln(rnd, name):
+    m, n, k, with_res, period, mapping, vdt = GEMM_LN[name]
+    a, b = rnd(m, k), rnd(k, n, std=k ** -0.5)
+    vec = dict(bias=rnd(n, std=0.1, dtype=vdt),
+               row_add=rnd(period, n, std=0.5, dtype=vdt) if period else None,
+               residual=rnd(m, n) if with_res else None)
+    gamma, beta = rnd(n, mean=1.0, std=0.1, dtype=vdt), rnd(n, std=0.1, dtype=vdt)
+    kw = {}
+    if mapping:
+        group, stride, offset = mapping
+        rows = (m - 1) // group * stride + offset + group
+        kw = dict(group=group, out_group_stride=stride, out_offset=offset)
+        out, ref = (torch.zeros(rows, n, dtype=torch.bfloat16, device="cuda") for _ in range(2))
+    else:
+        out = ref = None
+    got = K.gemm_ln(a, b, gamma, beta, 1e-5, out=out, **vec, **kw)
+    _close(got, F.gemm_ln_plain(a, b, gamma, beta, 1e-5, out=ref, **vec, **kw))
+
+
+def test_gemm_ln_widths_in_any_order(rnd):
+    """Each width launches with its own cluster's shared memory, whatever
+    width ran before it in the process: 1024 (8 blocks), 768, then 1024."""
+    for n in (1024, 768, 1024):
+        a, b = rnd(300, 256), rnd(256, n, std=256 ** -0.5)
+        gamma, beta, res = rnd(n, mean=1.0, std=0.1), rnd(n, std=0.1), rnd(300, n)
+        _close(K.gemm_ln(a, b, gamma, beta, 1e-5, residual=res),
+               F.gemm_ln_plain(a, b, gamma, beta, 1e-5, residual=res))
+
+
+def _kernel_names(fn):
+    """Names of the device kernels fn launches (torch.profiler)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return [e.key for e in prof.key_averages() if e.device_type.name == "CUDA"
+            for _ in range(e.count)]
+
+
+@pytest.mark.parametrize("d", [768, 200], ids=["d768_cluster_epilogue", "d200_separate_ln"])
+def test_grouped_ln_route_follows_the_width_rule(rnd, d):
+    """D a multiple of 128 (up to 1024) normalises in gemm_ln's epilogue:
+    four device launches (Q, K/V, core, output). Other widths keep gemm_bias
+    into f32 + residual_layernorm, and never take gemm_ln. The key bias is
+    the f32 [Bk, S] one models/bert.py passes (a 0/1 mask would add the
+    launches that turn it into one)."""
+    prm, x, enc = _attn(rnd, d, 128, 192), rnd(6, 9, d), rnd(2, 70, 192)
+    kb = F._key_bias(2, 70, _mask(2, 70), None, x.device)
+    ln = {"scale": rnd(d, mean=1.0, std=0.1), "bias": rnd(d, std=0.1)}
+    run = lambda: F.fused_cross_attention_grouped(prm, x, enc, num_heads=2, kv_groups=3,
+                                                  key_bias=kb, ln_params=ln)
+    names = _kernel_names(run)
+    fused = K.gemm_ln_fits(d)
+    assert fused == (d == 768)
+    assert any("gemm_ln_kernel" in n for n in names) == fused
+    assert any("residual_layernorm" in n for n in names) == (not fused)
+    assert any("attn_wgmma_kernel" in n for n in names)
+    if fused:
+        assert len(names) == 4, names
+    _close(run(), F.cross_attention_grouped_plain(prm, x, enc, kb, torch.ones(2, device="cuda"),
+                                                  2, 3, ln))
+
+
+@pytest.mark.parametrize("res,p,d", [(384, 16, 768), (224, 16, 768), (32, 8, 128),
+                                     (48, 16, 200)],
+                         ids=["384_p16_576_patches", "224_p16_196_patches", "32_p8",
+                              "d200_im2col_route"])
+def test_patch_embed_one_launch(rnd, res, p, d):
+    """The gather + gemm_ln route in one device launch, CLS rows included;
+    a width outside gemm_ln's rule takes the im2col route."""
+    n = (res // p) ** 2
+    pp = {"patch_embed": {"kernel": rnd(p, p, 3, d, std=(p * p * 3) ** -0.5),
+                          "bias": rnd(d, std=0.1)},
+          "class_embedding": rnd(d, std=0.5), "pos_embed": {"embedding": rnd(n + 1, d, std=0.5)},
+          "pre_ln": {"scale": rnd(d, std=0.1, mean=1.0), "bias": rnd(d, std=0.1)}}
+    img = rnd(3, res, res, 3)
+    run = lambda: fused_patch_embed(pp, img, patch_size=p)
+    names = _kernel_names(run)
+    if K.gemm_ln_fits(d):
+        assert len(names) == 1 and "gemm_ln_kernel" in names[0], names
+    else:
+        assert any("residual_layernorm" in n for n in names)
+    _agree(fused_patch_embed, run, lambda: patch_embed_plain(pp, img, patch_size=p))
+
+
+def test_patch_embed_refuses_a_patch_the_gather_cannot_read(rnd):
+    pp = {"patch_embed": {"kernel": rnd(4, 4, 3, 128)}, "class_embedding": rnd(128),
+          "pos_embed": {"embedding": rnd(17, 128)},
+          "pre_ln": {"scale": rnd(128), "bias": rnd(128)}}
+    assert not K.patch_gather_fits(4)
+    with pytest.raises(ValueError, match="patch 4"):
+        fused_patch_embed(pp, rnd(2, 16, 16, 3), patch_size=4)
+
+
+WGMMA = {
+    # name: (batch, Tq, S, heads, key bias: from a 0/1 mask, an arbitrary
+    # f32 bias over the mask's, or none); the i2t rerank folds 256 texts x 40
+    # tokens into 10,240 query rows per image
+    "rerank_tq10240_s577_mask": (4, 10240, 577, 12, "mask"),
+    "rerank_tq10240_s577_key_bias": (4, 10240, 577, 12, "key_bias"),
+    "ragged_s145_key_bias": (3, 200, 145, 2, "key_bias"),
+    "s901_more_tiles_than_stages": (2, 300, 901, 2, "mask"),
+    "rect_a512_h8": (4, 1000, 577, 8, "mask"),
+    "no_bias_tq1": (5, 1, 70, 2, None),
+    "last_tile_only_s577": (2, 129, 577, 2, "last_tile_only"),
+}
+
+
+@pytest.mark.parametrize("name", sorted(WGMMA))
+def test_attn_wgmma(rnd, name):
+    b, tq, s, h, terms = WGMMA[name]
+    q, k, v = rnd(b * tq, h * 64), rnd(b * s, h * 64), rnd(b * s, h * 64)
+    mask = _mask(b, s)
+    if terms == "last_tile_only":  # row 1 sees only the keys of the last 128-key tile
+        mask[1] = 0
+        mask[1, (s - 1) // 128 * 128:] = 1
+    hz = torch.rand(h, device="cuda") + 0.2
+    kb = F._key_bias(b, s, mask if terms else None, None, q.device)
+    if terms == "key_bias":
+        kb = kb + rnd(b, s, dtype=torch.float32)
+    gates = hz.to(torch.bfloat16) if terms == "mask" else hz  # read as stored
+    got = K.attn_wgmma(q, k, v, kb, gates, batch=b, tq=tq, s=s)
+    _close(got, F.attn_core_plain(q, k, v, kb, gates.float(), batch=b, tq=tq, s=s))
+
+
+@pytest.mark.parametrize("dh", [64, 32], ids=["dh64_wgmma", "dh32_attn_core"])
+def test_grouped_core_follows_the_head_dim_rule(rnd, dh):
+    """The grouped sublayer takes the wgmma core at head dim 64 only."""
+    h = 128 // dh
+    prm, x, enc, mask = _attn(rnd, 128, 128, 192), rnd(6, 9, 128), rnd(2, 70, 192), _mask(2, 70)
+    hz = torch.rand(h, device="cuda") + 0.2
+    run = lambda: F.fused_cross_attention_grouped(prm, x, enc, num_heads=h, kv_groups=3,
+                                                  mask=mask, head_z=hz)
+    names = _kernel_names(run)
+    assert K.wgmma_core_fits(dh, True) == (dh == 64)
+    assert any("attn_wgmma_kernel" in n for n in names) == (dh == 64)
+    assert any("attn_core_kernel" in n for n in names) == (dh != 64)
+    kb = F._key_bias(2, 70, mask, None, x.device)
+    _close(run(), F.cross_attention_grouped_plain(prm, x, enc, kb, hz, h, 3))
 
 
 def test_misaligned_operands_raise(rnd):
