@@ -48,3 +48,24 @@ def cast_floating(tree, dtype):
     if isinstance(tree, torch.Tensor) and tree.is_floating_point():
         return tree.to(dtype)
     return tree
+
+
+def l0_params_from_numpy(tree, device=None) -> dict:
+    """The JAX L0Module's params ({"loga": {group: [L, size]}, "lambda_1",
+    "lambda_2"}, leaves as numpy or anything np.asarray reads) -> the port's,
+    f32 on `device` (default cuda)."""
+    return params_from_numpy({"loga": dict(tree["loga"]), "lambda_1": tree["lambda_1"],
+                              "lambda_2": tree["lambda_2"]}, device=device, dtype=torch.float32)
+
+
+def train_state_from_numpy(state, optimizers, device=None):
+    """A JAX TrainState (params, loga, lam, step; leaves read with
+    np.asarray) -> the port's train.steps.TrainState on `device`, with every
+    optimizer's moments at zero (as JAX's are at init)."""
+    from .train.steps import init_train_state
+
+    params = params_from_numpy(state.params, device=device)
+    l0 = l0_params_from_numpy({"loga": state.loga, **state.lam}, device=device)
+    out = init_train_state(params, l0, optimizers)
+    out.step = int(np.asarray(state.step))
+    return out

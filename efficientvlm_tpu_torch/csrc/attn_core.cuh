@@ -34,6 +34,21 @@
 // (here the un-normalised ones) and the sums stay in f32. Keys past S get
 // -inf; masked keys carry the caller's -1e9 bias. Every key tile starts at a
 // real key, so a row's running max is finite from the first tile on.
+//
+// The probs form (PROBS, the emit_probs=True instances of _fused_kernel and
+// _fused_cross_kernel, which the KD taps read) also writes the normalised,
+// pre-gate f32 probabilities [B, H, Tq, S] (rows `pitch` floats apart). An
+// online softmax cannot write normalised maps in one sweep, so the block
+// walks the key tiles twice: sweep 1 computes Q K^T and keeps only each
+// row's max and sum; sweep 2 recomputes each score tile, writes p = exp(s -
+// m) / l, rounds the normalised p to bf16 for P.V (where the TPU kernel
+// rounds) and accumulates O, which then needs no final division. Sweep 1
+// skips V's loads. At the ViT shape the maps are ~3x the bytes of
+// everything else the sublayer moves, so the store bounds it; each lane
+// writes its two columns of a row as one 8-byte store (4-byte at an odd S's
+// last key), and keys past S are never written. The exp is expf in both
+// sweeps, so a row sums to 1 within f32 rounding; masked keys come out as
+// exact zeros (exp of about -1e9).
 #pragma once
 
 #include <math.h>
@@ -77,12 +92,12 @@ __device__ __forceinline__ void load_rows(__nv_bfloat16* dst, const __nv_bfloat1
   }
 }
 
-template <int DH>
+template <int DH, bool PROBS>
 __global__ void __launch_bounds__(MAX_WARPS * 32, DH == 128 ? 1 : 2)
 attn_core_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
                  const __nv_bfloat16* __restrict__ v, const float* __restrict__ key_bias,
                  const void* __restrict__ gates, bool gates16, __nv_bfloat16* __restrict__ out,
-                 int Tq, int S, int ld, float scale) {
+                 float* __restrict__ probs, int pitch, int Tq, int S, int ld, float scale) {
   using L = Layout<DH>;
   extern __shared__ __align__(128) unsigned char smem[];
   const int warps = blockDim.x / 32, warp = threadIdx.x / 32, lane = threadIdx.x % 32;
@@ -97,13 +112,17 @@ attn_core_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __res
   const __nv_bfloat16* vg = v + (size_t)b * S * ld + col;
   const float* kb = key_bias + (size_t)b * S;
   const int ntiles = (S + TK - 1) / TK;
+  // the probs form walks the key tiles twice (see the note at the top)
+  const int steps = PROBS ? 2 * ntiles : ntiles;
 
-  // K, V and the key bias of tile j, all asynchronous (a plain load of the
-  // bias would stall its threads, and the barrier after them everyone)
-  auto load_kv = [&](int j, int buf) {
-    const int s0 = j * TK;
+  // K, V and the key bias of step it's tile, all asynchronous (a plain load
+  // of the bias would stall its threads, and the barrier after them
+  // everyone); the probs form's first sweep needs no V
+  auto load_kv = [&](int it, int buf) {
+    const int s0 = (PROBS ? it % ntiles : it) * TK;
     load_rows<DH>(ks + buf * L::TILE, kg + (size_t)s0 * ld, ld, S - s0, TK);
-    load_rows<DH>(vs + buf * L::TILE, vg + (size_t)s0 * ld, ld, S - s0, TK);
+    if (!PROBS || it >= ntiles)
+      load_rows<DH>(vs + buf * L::TILE, vg + (size_t)s0 * ld, ld, S - s0, TK);
     for (int i = threadIdx.x; i < TK; i += blockDim.x) {
       const bool ok = s0 + i < S;
       cp_async4(bs + buf * TK + i, ok ? kb + s0 + i : kb, ok ? 4 : 0);
@@ -122,11 +141,16 @@ attn_core_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __res
 #pragma unroll
   for (int i = 0; i < DH / 8; ++i) o[i][0] = o[i][1] = o[i][2] = o[i][3] = 0.0f;
   float m0 = -INFINITY, m1 = -INFINITY, l0 = 0.0f, l1 = 0.0f;
+  // the probs form: this lane's rows of the maps (r = lane / 4, r + 8)
+  const int pr = t0 + warp * 16 + lane / 4;
+  float* prow0 = PROBS ? probs + ((size_t)(b * gridDim.y + h) * Tq + pr) * pitch : nullptr;
+  float* prow1 = PROBS ? prow0 + (size_t)8 * pitch : nullptr;
 
-  for (int j = 0; j < ntiles; ++j) {
-    const int buf = j & 1;
-    if (j + 1 < ntiles) {
-      load_kv(j + 1, buf ^ 1);
+  for (int it = 0; it < steps; ++it) {
+    const int buf = it & 1;
+    const int j = PROBS ? it % ntiles : it;
+    if (it + 1 < steps) {
+      load_kv(it + 1, buf ^ 1);
       evlm::cp_async_commit();
       evlm::cp_async_wait<1>();
     } else {
@@ -135,7 +159,7 @@ attn_core_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __res
     __syncthreads();
     // a warp whose 16 rows all lie past Tq only helps load and sync
     if (active) {
-      if (j == 0) {
+      if (it == 0) {
         const __nv_bfloat16* qw = qs + (warp * 16 + lane % 16) * L::LD + (lane / 16) * 8;
 #pragma unroll
         for (int kc = 0; kc < DH / 16; ++kc) ldsm_x4(qf[kc], qw + kc * 16);
@@ -182,6 +206,64 @@ attn_core_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __res
         mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, x));
         mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, x));
       }
+      if constexpr (PROBS) {
+        if (it < ntiles) {
+          // sweep 1: each row's running max and (lane-partial) sum only
+          const float mn0 = fmaxf(m0, mx0), mn1 = fmaxf(m1, mx1);
+          float ps0 = 0.0f, ps1 = 0.0f;
+#pragma unroll
+          for (int nb = 0; nb < TK / 8; ++nb) {
+            ps0 += expf(s[nb][0] - mn0) + expf(s[nb][1] - mn0);
+            ps1 += expf(s[nb][2] - mn1) + expf(s[nb][3] - mn1);
+          }
+          l0 = l0 * expf(m0 - mn0) + ps0;
+          l1 = l1 * expf(m1 - mn1) + ps1;
+          m0 = mn0;
+          m1 = mn1;
+          if (it == ntiles - 1) {  // the rows' sums, then their inverses
+#pragma unroll
+            for (int x = 1; x <= 2; x <<= 1) {
+              l0 += __shfl_xor_sync(0xffffffffu, l0, x);
+              l1 += __shfl_xor_sync(0xffffffffu, l1, x);
+            }
+            l0 = 1.0f / l0;
+            l1 = 1.0f / l1;
+          }
+        } else {
+          // sweep 2: the normalised p, written in f32 and rounded to bf16
+          // for P.V; l0 / l1 hold the inverse sums
+          uint32_t pf[TK / 16][4];
+          const int c0 = j * TK + c2;
+          const bool row0 = pr < Tq, row1 = pr + 8 < Tq;
+#pragma unroll
+          for (int nb = 0; nb < TK / 8; ++nb) {
+            const float p0 = expf(s[nb][0] - m0) * l0, p1 = expf(s[nb][1] - m0) * l0;
+            const float p2 = expf(s[nb][2] - m1) * l1, p3 = expf(s[nb][3] - m1) * l1;
+            const int c = c0 + nb * 8;
+            if (c + 1 < S) {
+              if (row0) *reinterpret_cast<float2*>(prow0 + c) = make_float2(p0, p1);
+              if (row1) *reinterpret_cast<float2*>(prow1 + c) = make_float2(p2, p3);
+            } else if (c < S) {
+              if (row0) prow0[c] = p0;
+              if (row1) prow1[c] = p2;
+            }
+            pf[nb / 2][(nb % 2) * 2] = pack_bf16(p0, p1);
+            pf[nb / 2][(nb % 2) * 2 + 1] = pack_bf16(p2, p3);
+          }
+          const __nv_bfloat16* vt =
+              vs + buf * L::TILE + (lane % 8 + ((lane / 8) % 2) * 8) * L::LD + (lane / 16) * 8;
+#pragma unroll
+          for (int kc = 0; kc < TK / 16; ++kc) {
+#pragma unroll
+            for (int dp = 0; dp < DH / 16; ++dp) {
+              uint32_t r[4];
+              ldsm_x4_trans(r, vt + kc * 16 * L::LD + dp * 16);
+              mma16816(o[2 * dp], pf[kc], r[0], r[1]);
+              mma16816(o[2 * dp + 1], pf[kc], r[2], r[3]);
+            }
+          }
+        }
+      } else {
       const float mn0 = fmaxf(m0, mx0), mn1 = fmaxf(m1, mx1);  // finite: the tile holds a real key
       const float a0 = __expf(m0 - mn0), a1 = __expf(m1 - mn1);
       m0 = mn0;
@@ -221,17 +303,22 @@ attn_core_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __res
           mma16816(o[2 * dp + 1], pf[kc], r[2], r[3]);
         }
       }
+      }  // !PROBS
     }
     __syncthreads();  // this buffer is the next iteration's load target
   }
 
-#pragma unroll
-  for (int x = 1; x <= 2; x <<= 1) {
-    l0 += __shfl_xor_sync(0xffffffffu, l0, x);
-    l1 += __shfl_xor_sync(0xffffffffu, l1, x);
-  }
   const float gate = gates ? load1(gates, gates16, h) : 1.0f;
-  const float f0 = gate / l0, f1 = gate / l1;
+  float f0 = gate, f1 = gate;  // the probs form's O is normalised already
+  if constexpr (!PROBS) {
+#pragma unroll
+    for (int x = 1; x <= 2; x <<= 1) {
+      l0 += __shfl_xor_sync(0xffffffffu, l0, x);
+      l1 += __shfl_xor_sync(0xffffffffu, l1, x);
+    }
+    f0 = gate / l0;
+    f1 = gate / l1;
+  }
   // stage the warp's 16 context rows where its Q rows were, then store
   // them 16 bytes per lane
   __nv_bfloat16* ow = qs + warp * 16 * L::LD;
@@ -254,22 +341,34 @@ attn_core_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __res
   }
 }
 
-template <int DH>
+template <int DH, bool PROBS>
 cudaError_t launch(const void* q, const void* k, const void* v, const float* key_bias,
-                   const void* gates, bool gates16, void* out, int batch, int Tq, int S,
-                   int heads, int ld, float scale, cudaStream_t stream) {
+                   const void* gates, bool gates16, void* out, float* probs, int pitch,
+                   int batch, int Tq, int S, int heads, int ld, float scale,
+                   cudaStream_t stream) {
   // a 128-row query tile for long query runs, else just enough 16-row warps
   const int warps = Tq > 64 ? MAX_WARPS : (Tq + 15) / 16;
-  cudaError_t e = cudaFuncSetAttribute(attn_core_kernel<DH>,
+  cudaError_t e = cudaFuncSetAttribute(attn_core_kernel<DH, PROBS>,
                                        cudaFuncAttributeMaxDynamicSharedMemorySize,
                                        static_cast<int>(Layout<DH>::bytes(MAX_WARPS)));
   if (e != cudaSuccess) return e;
   dim3 grid((Tq + warps * 16 - 1) / (warps * 16), heads, batch);
-  attn_core_kernel<DH><<<grid, warps * 32, Layout<DH>::bytes(warps), stream>>>(
+  attn_core_kernel<DH, PROBS><<<grid, warps * 32, Layout<DH>::bytes(warps), stream>>>(
       static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
       static_cast<const __nv_bfloat16*>(v), key_bias, gates, gates16,
-      static_cast<__nv_bfloat16*>(out), Tq, S, ld, scale);
+      static_cast<__nv_bfloat16*>(out), probs, pitch, Tq, S, ld, scale);
   return cudaGetLastError();
+}
+
+template <int DH>
+cudaError_t launch_dh(const void* q, const void* k, const void* v, const float* key_bias,
+                      const void* gates, bool gates16, void* out, float* probs, int pitch,
+                      int batch, int Tq, int S, int heads, int ld, float scale,
+                      cudaStream_t stream) {
+  return probs ? launch<DH, true>(q, k, v, key_bias, gates, gates16, out, probs, pitch, batch,
+                                  Tq, S, heads, ld, scale, stream)
+               : launch<DH, false>(q, k, v, key_bias, gates, gates16, out, nullptr, 0, batch,
+                                   Tq, S, heads, ld, scale, stream);
 }
 
 }  // namespace
@@ -280,21 +379,29 @@ namespace evlm {
 
 // q/out [batch*Tq, ld], k/v [batch*S, ld] bf16 with ld = heads*head_dim,
 // 16-byte aligned; key_bias [batch, S] f32; gates [heads] bf16 (gates16)
-// or f32, or null for all ones. head_dim is 32, 64 or 128.
+// or f32, or null for all ones. head_dim is 32, 64 or 128. probs (or null):
+// the probs form also writes the pre-gate f32 probabilities [batch, heads,
+// Tq, S] with rows `pitch` floats apart (pitch >= S, even; 8-byte aligned).
 static inline cudaError_t attn_core(const void* q, const void* k, const void* v,
                                     const float* key_bias, const void* gates, bool gates16,
                                     void* out, int batch, int Tq, int S, int heads, int head_dim,
-                                    float scale, cudaStream_t s) {
-  using attn_impl::launch;
-  if (batch <= 0 || Tq <= 0 || S <= 0 || heads <= 0) return cudaErrorInvalidValue;
+                                    float scale, cudaStream_t s, float* probs = nullptr,
+                                    int pitch = 0) {
+  using attn_impl::launch_dh;
+  if (batch <= 0 || Tq <= 0 || S <= 0 || heads <= 0 ||
+      (probs && (pitch < S || pitch % 2 || reinterpret_cast<uintptr_t>(probs) % 8)))
+    return cudaErrorInvalidValue;
   const int ld = heads * head_dim;
   switch (head_dim) {
     case 32:
-      return launch<32>(q, k, v, key_bias, gates, gates16, out, batch, Tq, S, heads, ld, scale, s);
+      return launch_dh<32>(q, k, v, key_bias, gates, gates16, out, probs, pitch, batch, Tq, S,
+                           heads, ld, scale, s);
     case 64:
-      return launch<64>(q, k, v, key_bias, gates, gates16, out, batch, Tq, S, heads, ld, scale, s);
+      return launch_dh<64>(q, k, v, key_bias, gates, gates16, out, probs, pitch, batch, Tq, S,
+                           heads, ld, scale, s);
     case 128:
-      return launch<128>(q, k, v, key_bias, gates, gates16, out, batch, Tq, S, heads, ld, scale, s);
+      return launch_dh<128>(q, k, v, key_bias, gates, gates16, out, probs, pitch, batch, Tq, S,
+                            heads, ld, scale, s);
     default: return cudaErrorInvalidValue;
   }
 }

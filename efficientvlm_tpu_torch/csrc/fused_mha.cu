@@ -33,7 +33,10 @@
 //     f32 workspace + residual_layernorm).
 // The caller chooses the core and the LayerNorm route by those shape rules
 // (kernels/bindings.py) and passes them as `core` and `ln_route`; a route
-// the shape does not allow is refused here. Biases and the LN parameters are
+// the shape does not allow is refused here. With `probs` (the emit_probs
+// forms of _fused_kernel and _fused_cross_kernel, the training path's KD
+// taps) attn_core also writes the pre-gate f32 softmax maps; only attn_core
+// has that form, and the grouped sublayer (eval-only) never asks for it. Biases and the LN parameters are
 // read as stored, all bf16 (vec16) or all f32; the gates likewise (gates16).
 #include "attn_core.cuh"
 #include "attn_wgmma.cuh"
@@ -53,19 +56,21 @@ enum { LN_NONE = 0, LN_CLUSTER = 1, LN_SEPARATE = 2 };
 // ln_gamma/ln_beta [d] (or null): bf16 (vec16) or f32; gates [heads] bf16
 // (gates16) or f32, or null; key_bias [batch, s] f32; workspaces ws_q/ws_ctx
 // [batch*tq, A], ws_k/ws_v [batch*s, A] bf16, ws_out [batch*tq, d] f32
-// (ln_route 2 only); out [batch*tq, d] bf16. Every bf16 pointer is 16-byte
-// aligned (TMA).
+// (ln_route 2 only); out [batch*tq, d] bf16; probs (or null) [batch, heads,
+// tq, pitch] f32, the first s of each row written. Every bf16 pointer is
+// 16-byte aligned (TMA).
 extern "C" int evlm_fused_attention(
     const void* x, const void* enc, const void* wq, const void* bq, const void* wk,
     const void* bk, const void* wv, const void* bv, const void* wo, const void* bo,
     const float* key_bias, const void* gates, const void* ln_gamma, const void* ln_beta,
-    void* ws_q, void* ws_k, void* ws_v, void* ws_ctx, float* ws_out, void* out, int batch, int tq,
-    int s, int d, int de, int heads, int head_dim, int core, int ln_route, int vec16, int gates16,
-    float ln_eps, void* stream) {
+    void* ws_q, void* ws_k, void* ws_v, void* ws_ctx, float* ws_out, void* out, float* probs,
+    int pitch, int batch, int tq, int s, int d, int de, int heads, int head_dim, int core,
+    int ln_route, int vec16, int gates16, float ln_eps, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const int a = heads * head_dim, rows_q = batch * tq, rows_kv = batch * s;
   const bool with_ln = ln_route != LN_NONE, v16 = vec16 != 0, g16 = gates16 != 0;
   if ((core == CORE_WGMMA && head_dim != 64) || (core != CORE_MMA && core != CORE_WGMMA) ||
+      (probs && core != CORE_MMA) ||
       !key_bias || (with_ln && !(ln_gamma && ln_beta)) ||
       (ln_route == LN_CLUSTER && !evlm::gemm_ln_impl::width_ok(d)) ||
       (ln_route == LN_SEPARATE && !ws_out) || ln_route < LN_NONE || ln_route > LN_SEPARATE)
@@ -90,7 +95,7 @@ extern "C" int evlm_fused_attention(
           ? evlm::attn_wgmma(ws_q, ws_k, ws_v, key_bias, gates, g16, ws_ctx, batch, tq, s, heads,
                              scale, st)
           : evlm::attn_core(ws_q, ws_k, ws_v, key_bias, gates, g16, ws_ctx, batch, tq, s, heads,
-                            head_dim, scale, st);
+                            head_dim, scale, st, probs, pitch);
   if (e != cudaSuccess) return e;
   if (ln_route == LN_NONE)
     return static_cast<int>(evlm::gemm_bias(ws_ctx, wo, bo, nullptr, 1, v16, out, false, rows_q,
@@ -134,13 +139,15 @@ extern "C" int evlm_gemm_ln_clusters(int n, int gather) {
 }
 
 // q/out [batch*tq, heads*head_dim], k/v [batch*s, heads*head_dim] bf16;
-// key_bias [batch, s] f32; gates [heads] bf16 (gates16) or f32, or null.
+// key_bias [batch, s] f32; gates [heads] bf16 (gates16) or f32, or null;
+// probs (or null) [batch, heads, tq, pitch] f32, the probs form.
 extern "C" int evlm_attn_core(const void* q, const void* k, const void* v, const float* key_bias,
-                              const void* gates, void* out, int batch, int tq, int s, int heads,
-                              int head_dim, int gates16, float scale, void* stream) {
+                              const void* gates, void* out, float* probs, int pitch, int batch,
+                              int tq, int s, int heads, int head_dim, int gates16, float scale,
+                              void* stream) {
   return static_cast<int>(evlm::attn_core(q, k, v, key_bias, gates, gates16 != 0, out, batch, tq,
                                           s, heads, head_dim, scale,
-                                          static_cast<cudaStream_t>(stream)));
+                                          static_cast<cudaStream_t>(stream), probs, pitch));
 }
 
 // the same function and arguments as evlm_attn_core, for head dim 64

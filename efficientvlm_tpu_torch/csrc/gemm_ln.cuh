@@ -614,17 +614,20 @@ static inline cudaError_t gemm_ln(const void* A, const void* B, const void* bias
 // The patch embedding in one launch: image [batch, H, W, 3] bf16 (NHWC),
 // w [P*P*3, D] bf16 ((ph, pw, c) rows: the HWIO conv kernel flattened);
 // out [batch, 1 + Np, D] = CLS row LN(cls + pos[0]), then per patch
-// LN(patch . w + bias + pos[1 + patch]). P*3 % 8 == 0, H and W multiples of
-// P, D under gemm_ln's rule; image, w and out 16-byte aligned; vec16: bias,
-// pos, cls, gamma and beta are bf16 (else f32).
+// LN(patch . w + bias + pos[1 + patch]). The patches tile the top-left
+// floor(H/P)*P x floor(W/P)*P of the image (a VALID convolution drops the
+// rest), read in place with the full row stride W*3: Np = floor(H/P) *
+// floor(W/P). P*3 % 8 == 0 and W*3 % 8 == 0 (16-byte pieces), D under
+// gemm_ln's rule; image, w and out 16-byte aligned; vec16: bias, pos, cls,
+// gamma and beta are bf16 (else f32).
 static inline cudaError_t patch_embed_ln(const void* image, const void* w, const void* bias,
                                          const void* pos, const void* cls, const void* gamma,
                                          const void* beta, bool vec16, void* out, int batch,
                                          int height, int width, int patch, int D, float eps,
                                          cudaStream_t s) {
   using namespace gemm_ln_impl;
-  if (!width_ok(D) || batch <= 0 || patch <= 0 || patch * 3 % 8 || height % patch ||
-      width % patch || (long)batch * height * width * 3 >= (1L << 31))
+  if (!width_ok(D) || batch <= 0 || patch <= 0 || patch * 3 % 8 || width * 3 % 8 ||
+      height < patch || width < patch || (long)batch * height * width * 3 >= (1L << 31))
     return cudaErrorInvalidValue;
   const int n_patches = (height / patch) * (width / patch), K = patch * patch * 3;
   LnParams p{};

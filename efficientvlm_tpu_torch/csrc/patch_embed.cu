@@ -23,8 +23,10 @@
 
 // image [batch, height, width, 3] bf16 (NHWC), w [patch*patch*3, d] bf16;
 // bias [d] (or null), pos [1 + Np, d], cls [d], gamma/beta [d] bf16 (vec16)
-// or f32; out [batch, 1 + Np, d] bf16. patch*3 % 8 == 0, d a multiple of
-// 128 up to 1024.
+// or f32; out [batch, 1 + Np, d] bf16. The patches tile the image's
+// top-left floor(H/P)*P x floor(W/P)*P (Np = floor(H/P) * floor(W/P)), as
+// a VALID convolution does. patch*3 % 8 == 0, width*3 % 8 == 0, d a
+// multiple of 128 up to 1024.
 extern "C" int evlm_patch_embed(const void* image, const void* w, const void* bias,
                                 const void* pos, const void* cls, const void* gamma,
                                 const void* beta, void* out, int batch, int height, int width,

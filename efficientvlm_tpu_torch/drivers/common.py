@@ -1,0 +1,48 @@
+"""Model configs and the optimizer trio of a fine-tune (port of the model
+and optimizer parts of efficientvlm_tpu/drivers/common.py)."""
+
+from __future__ import annotations
+
+from typing import Tuple
+
+from ..config import Config, TextConfig, VisionConfig
+from ..train.optim import create_l0_optimizer, create_lagrangian_optimizer, create_optimizer
+from ..train.scheduler import create_scheduler
+
+
+def model_configs(config: Config) -> Tuple[VisionConfig, TextConfig]:
+    """The student's towers: config["vision"] (the vision config file's
+    keys) or a default ViT at image_res, and config["text"] or BERT-base
+    with text_num_hidden_layers layers over the vision width."""
+    vision = config.get("vision") or VisionConfig.create(image_res=config.get("image_res", 224))
+    text = config.get("text") or TextConfig.create(
+        num_hidden_layers=config.get("text_num_hidden_layers", 12),
+        encoder_width=vision["vision_width"])
+    return VisionConfig(vision), TextConfig(text)
+
+
+def teacher_configs(config: Config) -> Tuple[VisionConfig, TextConfig]:
+    """The teacher: 12L ViT + 12L BERT unless the config carries
+    teacher_vision / teacher_text."""
+    tv = config.get("teacher_vision") or VisionConfig.create(
+        image_res=config.get("image_res", 224), num_hidden_layers=12, local_attn_depth=4)
+    tt = config.get("teacher_text") or TextConfig.create(num_hidden_layers=12,
+                                                         encoder_width=tv["vision_width"])
+    return VisionConfig(tv), TextConfig(tt)
+
+
+def build_optimizers(params, config: Config, total_steps: int, *, init_param_paths=()):
+    """(main, L0, Lagrangian) AdamWs from the config's optimizer, schedular
+    and accelerator sections (gradient accumulation comes later)."""
+    opt_cfg = config.get("optimizer", Config())
+    sched_cfg = config.get("schedular", Config())
+    sched = create_scheduler(lr=float(opt_cfg.get("lr", 1e-4)),
+                             num_training_steps=max(total_steps, 1),
+                             num_warmup_steps=sched_cfg.get("num_warmup_steps", 0))
+    clip = float(config.get("accelerator", {}).get("CLIP_GRAD_NORM", 1.0) or 0) or None
+    main = create_optimizer(params, lr=sched,
+                            weight_decay=float(opt_cfg.get("weight_decay", 0.01)),
+                            lr_mult=float(opt_cfg.get("lr_mult", 1.0)),
+                            init_param_paths=init_param_paths, grad_clip=clip)
+    reg_lr = float(opt_cfg.get("reg_learning_rate", 0.01))
+    return main, create_l0_optimizer(reg_lr=reg_lr), create_lagrangian_optimizer(reg_lr=reg_lr)

@@ -30,16 +30,17 @@ def _numpy(t: torch.Tensor) -> np.ndarray:
     return t.float().cpu().numpy()
 
 
-def retrieval_forward(model: XVLM, params, image, text_ids, text_atts, *, dtype=None,
+def retrieval_forward(model: XVLM, params, image, text_ids, text_atts, *, zs=None, dtype=None,
                       impl: str = "fused"):
     """The eval unit of work: image encode + text encode + ITC features +
     fusion encode + ITM head. Returns (image_feat, text_feat, itm_logits)."""
-    image_embeds, image_atts, _ = model.get_vision_embeds(params, image, dtype=dtype, impl=impl)
-    text_embeds = model.get_text_embeds(params, text_ids, text_atts, dtype=dtype,
+    image_embeds, image_atts, _ = model.get_vision_embeds(params, image, zs=zs, dtype=dtype,
+                                                          impl=impl)
+    text_embeds = model.get_text_embeds(params, text_ids, text_atts, zs=zs, dtype=dtype,
                                         impl=impl)["last_hidden"]
     image_feat, text_feat = model.get_features(params, image_embeds, text_embeds, dtype=dtype)
     cross = model.get_cross_embeds(params, image_embeds, image_atts, text_embeds=text_embeds,
-                                   text_atts=text_atts, dtype=dtype, impl=impl)
+                                   text_atts=text_atts, zs=zs, dtype=dtype, impl=impl)
     itm = mlp_head_apply(params["itm_head"], cross["last_hidden"][:, 0], dtype=dtype)
     return image_feat, text_feat, itm
 

@@ -34,7 +34,8 @@ def _operand(t: torch.Tensor, dtype, name: str) -> None:
     if t.dtype != dtype:
         raise TypeError(f"{name} must be {dtype}, got {t.dtype}")
     if t.requires_grad and torch.is_grad_enabled():
-        raise RuntimeError(f"{name} requires grad: the CUDA kernels have no backward yet")
+        raise RuntimeError(f"{name} requires grad: a kernel call has no backward (the "
+                           f"wrappers' differentiable forms run it inside an autograd Function)")
 
 
 def _ptr(t: Optional[torch.Tensor], dtype, name: str, shape) -> Optional[int]:
@@ -130,11 +131,15 @@ def patch_embed(images: torch.Tensor, w: torch.Tensor, bias: Optional[torch.Tens
     gathered patch by patch; w [P*P*3, D] bf16; bias [D] (or None), pos
     [1+Np, D], cls [D], gamma/beta [D] as stored (bf16 or f32). Returns [B,
     1+Np, D] bf16: LN(cls + pos[0]) then LN(patch @ w + bias + pos[1+n]) per
-    patch, f32 statistics. D must fit gemm_ln_fits, P patch_gather_fits."""
+    patch, f32 statistics. The patches tile the top-left floor(H/P)*P x
+    floor(W/P)*P of the image, read in place (Np = floor(H/P) * floor(W/P)).
+    D must fit gemm_ln_fits, P patch_gather_fits, and W*3 % 8 == 0 (rows of
+    whole 16-byte pieces)."""
     b, hh, ww, c = images.shape
     d = w.shape[1]
-    if c != 3 or hh % patch or ww % patch:
-        raise ValueError(f"patch_embed: image {tuple(images.shape)} is not tiled by patch {patch}")
+    if c != 3 or hh < patch or ww < patch or ww * 3 % 8:
+        raise ValueError(f"patch_embed: image {tuple(images.shape)} at patch {patch} (3 "
+                         f"channels, at least one patch, W * 3 % 8 == 0)")
     if not patch_gather_fits(patch):
         raise ValueError(f"patch_embed: patch {patch} (the gather needs patch * 3 % 8 == 0)")
     if not gemm_ln_fits(d):
@@ -179,13 +184,15 @@ def patch_embed_im2col(patches: torch.Tensor, w: torch.Tensor, bias: Optional[to
 def fused_attention(x: torch.Tensor, enc: torch.Tensor, w: dict, key_bias: torch.Tensor,
                     gates: Optional[torch.Tensor], *, heads: int, batch: int, tq: int, s: int,
                     grouped: bool = False, ln: Optional[tuple] = None,
-                    ln_eps: float = 0.0) -> torch.Tensor:
+                    ln_eps: float = 0.0, probs: bool = False):
     """One attention sublayer. x [batch*tq, D] bf16 queries, enc [batch*s,
     De] bf16 keys/values source (x itself for self-attention), w holds
     wq/wk/wv/wo (bf16, [in, out]) and bq/bk/bv/bo; key_bias [batch, s] f32;
     gates [H] or None (all ones); ln = (gamma, beta) adds the residual +
     post-LN epilogue; vectors as stored (bf16 or f32). Returns [batch*tq, D]
-    bf16."""
+    bf16; with probs, (that, the pre-gate f32 softmax maps [batch, H, tq,
+    s]) where the maps are a view of rows padded to a multiple of 4 floats
+    (the kernel's 8-byte stores), as JAX returns its padded maps trimmed."""
     d, de = x.shape[1], enc.shape[1]
     a = w["wq"].shape[1]
     dh = a // heads
@@ -194,6 +201,8 @@ def fused_attention(x: torch.Tensor, enc: torch.Tensor, w: dict, key_bias: torch
                          f"(head dim must be 32, 64 or 128)")
     if d % 8 or de % 8:
         raise ValueError(f"fused_attention: widths {d}, {de} must be multiples of 8")
+    if probs and grouped:
+        raise ValueError("fused_attention: the grouped sublayer has no probs form")
     core = 1 if wgmma_core_fits(dh, grouped) else 0
     ln_route = 0 if ln is None else (1 if gemm_ln_fits(d) else 2)
     rq, rkv = batch * tq, batch * s
@@ -212,12 +221,14 @@ def fused_attention(x: torch.Tensor, enc: torch.Tensor, w: dict, key_bias: torch
           torch.empty(rkv, a, dtype=BF16, device=dev), torch.empty(rq, a, dtype=BF16, device=dev),
           torch.empty(rq, d, dtype=F32, device=dev) if ln_route == 2 else None]
     out = torch.empty(rq, d, dtype=BF16, device=dev)
+    pitch = -(-s // 4) * 4
+    maps = torch.empty(batch, heads, tq, pitch, dtype=F32, device=dev) if probs else None
     _check(library().evlm_fused_attention(
         mats[0], mats[1], mats[2], bq, mats[3], bk, mats[4], bv, mats[5], bo, kb, _addr(g), lg,
-        lb, *map(_addr, ws), out.data_ptr(), batch, tq, s, d, de, heads, dh, core, ln_route,
-        vec16, gates16, float(ln_eps), _stream(x)),
+        lb, *map(_addr, ws), out.data_ptr(), _addr(maps), pitch, batch, tq, s, d, de, heads, dh,
+        core, ln_route, vec16, gates16, float(ln_eps), _stream(x)),
         "fused_attention")
-    return out
+    return (out, maps[..., :s]) if probs else out
 
 
 def gemm_bias(a: torch.Tensor, b: torch.Tensor, bias: Optional[torch.Tensor] = None,
@@ -282,11 +293,13 @@ def gemm_ln_clusters(n: int, gather: bool = False) -> int:
 
 
 def attn_core(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, key_bias: torch.Tensor,
-              gates: torch.Tensor, *, batch: int, tq: int, s: int) -> torch.Tensor:
+              gates: torch.Tensor, *, batch: int, tq: int, s: int, probs: bool = False):
     """The attention kernel on its own: per head h, softmax(q k^T / sqrt(dh)
     + key_bias) v * gates[h] over q [batch*tq, H*dh] and k/v [batch*s, H*dh]
     bf16 (heads side by side), key_bias [batch, s] f32 and gates [H] (bf16
-    or f32). Returns [batch*tq, H*dh] bf16."""
+    or f32). Returns [batch*tq, H*dh] bf16; with probs (its probs form),
+    also the pre-gate f32 maps [batch, H, tq, s] (a view, as
+    fused_attention's)."""
     heads = gates.shape[0]
     a = q.shape[1]
     dh = a // heads
@@ -298,9 +311,12 @@ def attn_core(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, key_bias: torch
     _aligned({"q": args[0], "k": args[1], "v": args[2]}, "attn_core")
     (g,), gates16 = _vecs([("gates", gates, (heads,))])
     out = torch.empty_like(q)
-    _check(library().evlm_attn_core(*args, g.data_ptr(), out.data_ptr(), batch, tq, s, heads, dh,
-                                    gates16, float(dh ** -0.5), _stream(q)), "attn_core")
-    return out
+    pitch = -(-s // 4) * 4
+    maps = torch.empty(batch, heads, tq, pitch, dtype=F32, device=q.device) if probs else None
+    _check(library().evlm_attn_core(*args, g.data_ptr(), out.data_ptr(), _addr(maps), pitch, batch,
+                                    tq, s, heads, dh, gates16, float(dh ** -0.5), _stream(q)),
+           "attn_core")
+    return (out, maps[..., :s]) if probs else out
 
 
 def attn_wgmma(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, key_bias: torch.Tensor,

@@ -25,7 +25,17 @@ impl="fused" dispatch, per attention sublayer:
   `encoder_groups` > 1, whose epilogue also applies the layer's residual +
   post-LN; a matrix encoder bias has no kernel there and raises.
 impl="plain" runs the plain PyTorch path. Label smoothing in the LM loss
-comes with the training slice.
+comes with the captioning training slice.
+
+Training (train=True with a torch.Generator): dropout after the embeddings,
+on the attention probabilities and after each attention and FFN output, as
+in JAX; the PAD embedding row gets no gradient (nn.Embedding's padding_idx).
+A sublayer takes its fused kernel in training only through the kernel's
+differentiable form and only when the layer's dropout rates are 0, as JAX
+dispatches; otherwise it runs multi_head_attention, whose plain core serves
+any forward that autograd records. output_attentions / output_hidden_states
+collect the KD taps: each layer's input and the last output, and the
+pre-dropout probabilities (the fused kernels' probs forms where they run).
 """
 
 from __future__ import annotations
@@ -40,7 +50,8 @@ from ..ops.attention import (
     multi_head_attention, project_kv,
 )
 from ..ops.basic import (
-    ACT2FN, dense, embedding_lookup, init_dense, init_embedding, init_layer_norm, layer_norm,
+    ACT2FN, dense, dropout, embedding_lookup, init_dense, init_embedding, init_layer_norm,
+    layer_norm,
 )
 from ..ops.fused_mha import (
     fused_cross_attention, fused_cross_attention_grouped, fused_self_attention,
@@ -92,13 +103,20 @@ def init_bert(generator, cfg: TextConfig, *, with_mlm_head: bool = False, device
 
 
 def bert_embeddings(params: dict, input_ids: torch.Tensor, cfg: TextConfig, *,
-                    position_offset: int = 0, dtype=None) -> torch.Tensor:
+                    position_offset: int = 0, train: bool = False, generator=None,
+                    dtype=None) -> torch.Tensor:
     t = input_ids.shape[1]
     pos_ids = torch.arange(t, device=input_ids.device)[None] + position_offset
     h = embedding_lookup(params["word"], input_ids, dtype=dtype)
+    # nn.Embedding(padding_idx=pad) gives the PAD row no gradient; the KD
+    # hidden taps see padded positions, so without this the row would drift
+    pad = cfg.get("pad_token_id", 0)
+    if pad is not None:
+        h = torch.where((input_ids == pad)[..., None], h.detach(), h)
     h = h + embedding_lookup(params["position"], pos_ids, dtype=dtype)
     h = h + embedding_lookup(params["token_type"], torch.zeros_like(input_ids), dtype=dtype)
-    return layer_norm(params["ln"], h, eps=cfg.get("layer_norm_eps", 1e-12))
+    h = layer_norm(params["ln"], h, eps=cfg.get("layer_norm_eps", 1e-12))
+    return dropout(h, cfg.get("hidden_dropout_prob", 0.0), generator=generator, train=train)
 
 
 def _num_heads(attn_params: dict, head_dim: int) -> int:
@@ -126,36 +144,47 @@ def bert_layer_apply(lp: dict, h: torch.Tensor, cfg: TextConfig, *,
                      encoder_bias: Optional[torch.Tensor] = None,
                      self_head_z=None, cross_head_z=None, mlp_z=None,
                      cache: Optional[dict] = None, cross_kv: Optional[dict] = None,
-                     encoder_groups: int = 1, is_decoder: bool = False, dtype=None,
-                     impl: str = "fused"):
-    """Post-LN BERT layer; returns (h, new_cache). `cross_kv` supplies
-    pre-projected cross K/V (precompute_cross_kv). `encoder_groups` > 1
-    declares that encoder_hidden / cross_kv rows are shared by groups of
-    contiguous query rows (grouped K/V); a batch mismatch without it is a
-    loud error."""
+                     encoder_groups: int = 1, is_decoder: bool = False,
+                     output_probs: bool = False, train: bool = False, generator=None,
+                     dtype=None, impl: str = "fused"):
+    """Post-LN BERT layer; returns (h, self_probs, cross_probs, new_cache).
+    `cross_kv` supplies pre-projected cross K/V (precompute_cross_kv).
+    `encoder_groups` > 1 declares that encoder_hidden / cross_kv rows are
+    shared by groups of contiguous query rows (grouped K/V); a batch mismatch
+    without it is a loud error."""
     eps = cfg.get("layer_norm_eps", 1e-12)
     head_dim = cfg["hidden_size"] // cfg["num_attention_heads"]
     act = ACT2FN[cfg.get("hidden_act", "gelu")]
-    fused = impl == "fused"
+    hdrop = cfg.get("hidden_dropout_prob", 0.0)
+    adrop = cfg.get("attention_probs_dropout_prob", 0.0)
+    # in training a sublayer fuses only through the kernel's differentiable
+    # form, which computes no dropout
+    fused = impl == "fused" and (not train or (adrop == 0.0 and hdrop == 0.0))
+    drop = dict(generator=generator, train=train)
 
+    self_probs = cross_probs = None
     self_cache = cache.get("self") if cache is not None else None
     if lp.get("attention") is not None:  # fully-pruned self-attn -> identity
         nh = _num_heads(lp["attention"], head_dim)
         if fused and self_cache is None and not is_decoder and _is_key_vector(bias):
-            attn_out = fused_self_attention(
+            res = fused_self_attention(
                 lp["attention"], h.to(dtype) if dtype is not None else h, num_heads=nh,
-                key_bias=None if bias is None else bias[:, 0, 0, :], head_z=self_head_z)
+                key_bias=None if bias is None else bias[:, 0, 0, :], head_z=self_head_z,
+                return_probs=output_probs, differentiable=train)
+            attn_out, self_probs = res if output_probs else (res, None)
         else:
-            attn_out, _, self_cache = multi_head_attention(
-                lp["attention"], h, num_heads=nh, bias=bias, head_z=self_head_z, dtype=dtype,
-                cache=self_cache, impl=impl)
+            attn_out, self_probs, self_cache = multi_head_attention(
+                lp["attention"], h, num_heads=nh, bias=bias, head_z=self_head_z,
+                output_probs=output_probs, dropout_rate=adrop, dtype=dtype, cache=self_cache,
+                impl=impl, **drop)
+            attn_out = dropout(attn_out, hdrop, **drop)
         h = layer_norm(lp["attention_ln"], h + attn_out, eps=eps)
 
     if lp.get("crossattention") is not None and (
             encoder_hidden is not None or cross_kv is not None):
         nh = _num_heads(lp["crossattention"], head_dim)
         hq = h.to(dtype) if dtype is not None else h
-        if fused and cross_kv is None and encoder_groups > 1:
+        if fused and cross_kv is None and encoder_groups > 1 and not train and not output_probs:
             kb = _key_vector(encoder_bias, "grouped cross-attention")
             # the kernel's epilogue applies this layer's residual + post-LN
             h = fused_cross_attention_grouped(
@@ -165,26 +194,29 @@ def bert_layer_apply(lp: dict, h: torch.Tensor, cfg: TextConfig, *,
                     encoder_hidden.shape[0], encoder_hidden.shape[1]),
                 head_z=cross_head_z, ln_params=lp["crossattention_ln"], ln_eps=eps)
         else:
-            if fused and cross_kv is None:
-                x_out = fused_cross_attention(
+            if fused and cross_kv is None and encoder_groups == 1:
+                res = fused_cross_attention(
                     lp["crossattention"], hq, encoder_hidden, num_heads=nh,
                     key_bias=_key_vector(encoder_bias, "cross-attention"),
-                    head_z=cross_head_z)
+                    head_z=cross_head_z, return_probs=output_probs, differentiable=train)
+                x_out, cross_probs = res if output_probs else (res, None)
             else:
-                x_out, _, _ = multi_head_attention(
+                x_out, cross_probs, _ = multi_head_attention(
                     lp["crossattention"], h, None if cross_kv is not None else encoder_hidden,
-                    num_heads=nh, bias=encoder_bias, head_z=cross_head_z, dtype=dtype,
-                    precomputed_kv=cross_kv, kv_groups=encoder_groups, impl=impl)
+                    num_heads=nh, bias=encoder_bias, head_z=cross_head_z,
+                    output_probs=output_probs, dropout_rate=adrop, dtype=dtype,
+                    precomputed_kv=cross_kv, kv_groups=encoder_groups, impl=impl, **drop)
+                x_out = dropout(x_out, hdrop, **drop)
             h = layer_norm(lp["crossattention_ln"], h + x_out, eps=eps)
 
     if lp.get("intermediate") is not None:  # fully-pruned FFN -> identity
         inter = act(dense(lp["intermediate"], h, dtype=dtype))
         if mlp_z is not None:
             inter = inter * mlp_z.to(inter.dtype)
-        out = dense(lp["output"], inter, dtype=dtype)
+        out = dropout(dense(lp["output"], inter, dtype=dtype), hdrop, **drop)
         h = layer_norm(lp["output_ln"], h + out, eps=eps)
     new_cache = None if cache is None else {**cache, "self": self_cache}
-    return h, new_cache
+    return h, self_probs, cross_probs, new_cache
 
 
 def bert_encoder_apply(params: dict, h: torch.Tensor, cfg: TextConfig, *,
@@ -192,10 +224,13 @@ def bert_encoder_apply(params: dict, h: torch.Tensor, cfg: TextConfig, *,
                        encoder_bias=None, text_head_z=None, cross_head_z=None,
                        text_mlp_z=None, cross_mlp_z=None, cache: Optional[list] = None,
                        cross_kv: Optional[list] = None, encoder_groups: int = 1,
-                       is_decoder: bool = False, dtype=None, impl: str = "fused") -> dict:
-    """Run the layers of `mode`; returns {"last_hidden": h, "cache": new
-    cache list or None}. `cache` has one entry per layer run, `cross_kv` one
-    per cross layer (precompute_cross_kv)."""
+                       is_decoder: bool = False, output_attentions: bool = False,
+                       output_hidden_states: bool = False, train: bool = False,
+                       generator=None, dtype=None, impl: str = "fused") -> dict:
+    """Run the layers of `mode`; returns {"last_hidden": h, "hidden_states",
+    "attentions", "cross_attentions" (lists, or None when not asked for),
+    "cache": new cache list or None}. `cache` has one entry per layer run,
+    `cross_kv` one per cross layer (precompute_cross_kv)."""
     fusion = cfg["fusion_layer"]
     n = cfg["num_hidden_layers"]
     lo, hi = {"text": (0, fusion), "fusion": (fusion, n), "multi_modal": (0, n)}.get(
@@ -203,7 +238,12 @@ def bert_encoder_apply(params: dict, h: torch.Tensor, cfg: TextConfig, *,
     if lo is None:
         raise ValueError(f"mode {mode} is not supported")
     new_cache = list(cache) if cache is not None else None
+    all_hidden = [] if output_hidden_states else None
+    all_probs = [] if output_attentions else None
+    all_cross = [] if output_attentions else None
     for i in range(lo, hi):
+        if output_hidden_states:
+            all_hidden.append(h)
         is_cross = i >= fusion
         if is_cross:
             z = None if cross_head_z is None else cross_head_z[i - fusion]
@@ -213,7 +253,7 @@ def bert_encoder_apply(params: dict, h: torch.Tensor, cfg: TextConfig, *,
             self_z = None if text_head_z is None else text_head_z[i]
             cross_z = None
             mlp_zi = None if text_mlp_z is None else text_mlp_z[i]
-        h, layer_cache = bert_layer_apply(
+        h, sp, cp, layer_cache = bert_layer_apply(
             params["layers"][i], h, cfg, bias=bias,
             encoder_hidden=encoder_hidden if is_cross else None,
             encoder_bias=encoder_bias if is_cross else None,
@@ -221,10 +261,18 @@ def bert_encoder_apply(params: dict, h: torch.Tensor, cfg: TextConfig, *,
             cache=None if cache is None else cache[i - lo],
             cross_kv=cross_kv[i - fusion] if (is_cross and cross_kv is not None) else None,
             encoder_groups=encoder_groups if is_cross else 1, is_decoder=is_decoder,
-            dtype=dtype, impl=impl)
+            output_probs=output_attentions, train=train, generator=generator, dtype=dtype,
+            impl=impl)
+        if output_attentions:
+            all_probs.append(sp)
+            if cp is not None:
+                all_cross.append(cp)
         if new_cache is not None:
             new_cache[i - lo] = layer_cache
-    return {"last_hidden": h, "cache": new_cache}
+    if output_hidden_states:
+        all_hidden.append(h)
+    return {"last_hidden": h, "hidden_states": all_hidden, "attentions": all_probs,
+            "cross_attentions": all_cross, "cache": new_cache}
 
 
 def bert_apply(params: dict, input_ids: Optional[torch.Tensor], cfg: TextConfig, *,
@@ -233,13 +281,16 @@ def bert_apply(params: dict, input_ids: Optional[torch.Tensor], cfg: TextConfig,
                is_decoder: bool = False, cache: Optional[list] = None,
                cross_kv: Optional[list] = None, encoder_groups: int = 1,
                position_offset: int = 0, text_head_z=None, cross_head_z=None,
-               text_mlp_z=None, cross_mlp_z=None, dtype=None, impl: str = "fused") -> dict:
+               text_mlp_z=None, cross_mlp_z=None, output_attentions: bool = False,
+               output_hidden_states: bool = False, train: bool = False, generator=None,
+               dtype=None, impl: str = "fused") -> dict:
     """BertModel.forward. In 'fusion' mode pass inputs_embeds (the text
     tower's output). For cached decode pass `cache` (init_bert_cache) and
     position_offset = the number of tokens already decoded."""
     if inputs_embeds is None:
         h = bert_embeddings(params["embeddings"], input_ids, cfg,
-                            position_offset=position_offset, dtype=dtype)
+                            position_offset=position_offset, train=train, generator=generator,
+                            dtype=dtype)
     else:
         h = inputs_embeds
     t = h.shape[1]
@@ -261,7 +312,9 @@ def bert_apply(params: dict, input_ids: Optional[torch.Tensor], cfg: TextConfig,
         params, h, cfg, bias=bias, mode=mode, encoder_hidden=encoder_hidden,
         encoder_bias=encoder_bias, text_head_z=text_head_z, cross_head_z=cross_head_z,
         text_mlp_z=text_mlp_z, cross_mlp_z=cross_mlp_z, cache=cache, cross_kv=cross_kv,
-        encoder_groups=encoder_groups, is_decoder=is_decoder, dtype=dtype, impl=impl)
+        encoder_groups=encoder_groups, is_decoder=is_decoder,
+        output_attentions=output_attentions, output_hidden_states=output_hidden_states,
+        train=train, generator=generator, dtype=dtype, impl=impl)
 
 
 def precompute_cross_kv(params: dict, cfg: TextConfig, encoder_hidden: torch.Tensor, *,
@@ -299,6 +352,16 @@ def mlm_head_apply(params: dict, h: torch.Tensor, cfg: TextConfig, *,
     x = ACT2FN[cfg.get("hidden_act", "gelu")](x)
     x = layer_norm(params["transform"]["ln"], x, eps=cfg.get("layer_norm_eps", 1e-12))
     return dense(params["decoder"], x, dtype=dtype)
+
+
+def cross_entropy_ignore_index(logits: torch.Tensor, labels: torch.Tensor,
+                               ignore_index: int = -100) -> torch.Tensor:
+    """Mean cross-entropy over labels != ignore_index, in f32
+    (CrossEntropyLoss semantics)."""
+    valid = labels != ignore_index
+    logp = torch.log_softmax(logits.float(), dim=-1)
+    nll = -logp.gather(-1, torch.where(valid, labels, 0)[..., None].long())[..., 0]
+    return torch.where(valid, nll, 0.0).sum() / valid.sum().clamp(min=1)
 
 
 def lm_loss(logits: torch.Tensor, labels: torch.Tensor, *,

@@ -9,6 +9,13 @@ self-attention sublayer through fused_self_attention (hand-written kernels
 on CUDA, their plain versions on the CPU); impl="plain" runs the plain
 PyTorch path. Region batches (local attention for general distillation)
 come with that slice.
+
+Training (train=True): a layer fuses through the kernels' differentiable
+forms, and only while attention_dropout is 0 (CLIP's is); otherwise
+multi_head_attention runs with dropout on the probabilities.
+output_attentions / output_hidden_states collect the KD taps: each layer's
+input and the last layer's output (before the post-LN), and each layer's
+pre-gate f32 probabilities.
 """
 
 from __future__ import annotations
@@ -61,20 +68,27 @@ def _num_heads(layer_params: dict, head_dim: int) -> int:
 
 def vit_layer(lp: dict, h: torch.Tensor, *, num_heads: int, act,
               head_z: Optional[torch.Tensor] = None, head_layer_z=None,
-              mlp_z: Optional[torch.Tensor] = None, dtype=None, impl: str = "fused"):
+              mlp_z: Optional[torch.Tensor] = None, output_probs: bool = False,
+              dropout_rate: float = 0.0, train: bool = False, generator=None, dtype=None,
+              impl: str = "fused"):
+    """Pre-LN CLIP layer; returns (h, probs or None)."""
+    probs = None
     if lp.get("attn") is not None:  # fully-pruned attention -> identity
         x = layer_norm(lp["ln1"], h, eps=1e-5)
-        if impl == "fused":
-            attn_out = fused_self_attention(
+        if impl == "fused" and (not train or dropout_rate == 0.0):
+            res = fused_self_attention(
                 lp["attn"], x.to(dtype) if dtype is not None else x,
-                num_heads=num_heads, head_z=head_z)
+                num_heads=num_heads, head_z=head_z, return_probs=output_probs,
+                differentiable=train)
+            attn_out, probs = res if output_probs else (res, None)
             if head_layer_z is not None:
                 attn_out = attn_out * torch.as_tensor(
                     head_layer_z, dtype=attn_out.dtype, device=attn_out.device)
         else:
-            attn_out, _, _ = multi_head_attention(
+            attn_out, probs, _ = multi_head_attention(
                 lp["attn"], x, num_heads=num_heads, head_z=head_z,
-                head_layer_z=head_layer_z, dtype=dtype)
+                head_layer_z=head_layer_z, output_probs=output_probs,
+                dropout_rate=dropout_rate, generator=generator, train=train, dtype=dtype)
         h = h + attn_out
 
     if lp.get("mlp") is not None:  # fully-pruned FFN -> identity
@@ -86,27 +100,44 @@ def vit_layer(lp: dict, h: torch.Tensor, *, num_heads: int, act,
             x = x * mlp_z.to(x.dtype)
         x = act(x)
         h = h + dense(lp["mlp"]["fc2"], x, dtype=dtype)
-    return h
+    return h, probs
 
 
 def vit_apply(params: dict, images: torch.Tensor, cfg: VisionConfig, *,
               idx_to_group_img=None, head_z=None, head_layer_z=None, mlp_z=None,
-              dtype=None, impl: str = "fused") -> dict:
+              output_attentions: bool = False, output_hidden_states: bool = False,
+              train: bool = False, generator=None, dtype=None, impl: str = "fused") -> dict:
     """images [B,H,W,3] NHWC; head_z/mlp_z [L,H] / [L,I] stacked per-layer
-    gates (None = dense). Returns {"last_hidden": [B, 1+Np, D]}."""
+    gates (None = dense). Returns {"last_hidden": [B, 1+Np, D],
+    "hidden_states", "attentions"} (the lists None unless asked for)."""
     if idx_to_group_img is not None:
         raise NotImplementedError(
             "region batches (local attention) come with the general-distillation slice")
     act = ACT2FN[cfg["hidden_act"]]
     head_dim = cfg["vision_width"] // cfg["num_attention_heads"]
-    embed = fused_patch_embed if impl == "fused" else patch_embed_plain
-    h = embed(params, images, patch_size=cfg["patch_size"], eps=1e-5,
-              dtype=dtype or torch.promote_types(images.dtype,
-                                                 params["patch_embed"]["kernel"].dtype))
+    embed_dtype = dtype or torch.promote_types(images.dtype,
+                                               params["patch_embed"]["kernel"].dtype)
+    if impl == "fused":
+        h = fused_patch_embed(params, images, patch_size=cfg["patch_size"], eps=1e-5,
+                              dtype=embed_dtype, differentiable=train)
+    else:
+        h = patch_embed_plain(params, images, patch_size=cfg["patch_size"], eps=1e-5,
+                              dtype=embed_dtype)
+    all_hidden = [] if output_hidden_states else None
+    all_probs = [] if output_attentions else None
     for i, lp in enumerate(params["layers"]):
-        h = vit_layer(
+        if output_hidden_states:
+            all_hidden.append(h)
+        h, probs = vit_layer(
             lp, h, num_heads=_num_heads(lp, head_dim), act=act,
             head_z=None if head_z is None else head_z[i],
             head_layer_z=None if head_layer_z is None else head_layer_z[i],
-            mlp_z=None if mlp_z is None else mlp_z[i], dtype=dtype, impl=impl)
-    return {"last_hidden": layer_norm(params["post_ln"], h, eps=1e-5)}
+            mlp_z=None if mlp_z is None else mlp_z[i], output_probs=output_attentions,
+            dropout_rate=cfg.get("attention_dropout", 0.0), train=train, generator=generator,
+            dtype=dtype, impl=impl)
+        if output_attentions:
+            all_probs.append(probs)
+    if output_hidden_states:
+        all_hidden.append(h)
+    return {"last_hidden": layer_norm(params["post_ln"], h, eps=1e-5),
+            "hidden_states": all_hidden, "attentions": all_probs}

@@ -1,10 +1,16 @@
 """X-VLM composite base: vision + text towers, ITC projections, ITM head
-(port of the evaluation half of efficientvlm_tpu/models/xvlm.py).
+and the retrieval losses (port of efficientvlm_tpu/models/xvlm.py):
+
+- get_contrastive_loss: ITC with idx-aware soft labels, on one device (the
+  all-gather across devices comes with the distribution slice);
+- get_matching_loss: ITM with in-batch hard negatives drawn from the softmax
+  of the similarities (`sample_hard_negatives`, torch.multinomial with the
+  step's generator; a method, so a test can pin the draw).
 
 Gates arrive as a `zs` dict (vision_head_z [Lv,H], vision_intermediate_z
 [Lv,I], text_head_z [Lt,H], text_intermediate_z [Lt,I], cross_head_z
 [Lc,2,H], cross_intermediate_z [Lc,I]); zs=None runs the dense teacher.
-The losses come with the training slice.
+The MLM and bbox losses come with their slices.
 """
 
 from __future__ import annotations
@@ -86,26 +92,34 @@ class XVLM:
                          embed_dim=self.embed_dim, temp=self.config.get("temp", 0.07),
                          device=device, **kw)
 
-    def get_vision_embeds(self, params, image, *, zs=None, dtype=None, impl="fused"):
+    def get_vision_embeds(self, params, image, *, zs=None, output_attentions=False,
+                          output_hidden_states=False, train=False, generator=None, dtype=None,
+                          impl="fused"):
         """Returns (embeds [B,S,D], atts [B,S] ones, tower outputs)."""
         vz, _ = split_zs(zs)
-        out = V.vit_apply(params["vision"], image, self.vision_cfg, dtype=dtype,
-                          impl=impl, **vz)
+        out = V.vit_apply(params["vision"], image, self.vision_cfg,
+                          output_attentions=output_attentions,
+                          output_hidden_states=output_hidden_states, train=train,
+                          generator=generator, dtype=dtype, impl=impl, **vz)
         embeds = out["last_hidden"]
         atts = torch.ones(embeds.shape[:2], dtype=torch.int32, device=embeds.device)
         return embeds, atts, out
 
-    def get_text_embeds(self, params, text_ids, text_atts, *, zs=None, dtype=None,
-                        impl="fused"):
+    def get_text_embeds(self, params, text_ids, text_atts, *, zs=None,
+                        output_attentions=False, output_hidden_states=False, train=False,
+                        generator=None, dtype=None, impl="fused"):
         """mode='text'."""
         _, tz = split_zs(zs)
         return B.bert_apply(
             params["text"], text_ids, self.text_cfg, attention_mask=text_atts, mode="text",
-            dtype=dtype, impl=impl, text_head_z=tz.get("text_head_z"),
-            text_mlp_z=tz.get("text_mlp_z"))
+            output_attentions=output_attentions, output_hidden_states=output_hidden_states,
+            train=train, generator=generator, dtype=dtype, impl=impl,
+            text_head_z=tz.get("text_head_z"), text_mlp_z=tz.get("text_mlp_z"))
 
     def get_cross_embeds(self, params, image_embeds, image_atts, *, text_embeds, text_atts,
-                         zs=None, encoder_groups=1, dtype=None, impl="fused"):
+                         zs=None, encoder_groups=1, output_attentions=False,
+                         output_hidden_states=False, train=False, generator=None, dtype=None,
+                         impl="fused"):
         """mode='fusion'. encoder_groups > 1 declares image rows shared by
         groups of contiguous text rows (grouped K/V, the i2t rerank)."""
         _, tz = split_zs(zs)
@@ -113,8 +127,9 @@ class XVLM:
             params["text"], None, self.text_cfg, inputs_embeds=text_embeds,
             attention_mask=text_atts, encoder_hidden=image_embeds,
             encoder_attention_mask=image_atts, mode="fusion", encoder_groups=encoder_groups,
-            dtype=dtype, impl=impl, cross_head_z=tz.get("cross_head_z"),
-            cross_mlp_z=tz.get("cross_mlp_z"))
+            output_attentions=output_attentions, output_hidden_states=output_hidden_states,
+            train=train, generator=generator, dtype=dtype, impl=impl,
+            cross_head_z=tz.get("cross_head_z"), cross_mlp_z=tz.get("cross_mlp_z"))
 
     def get_features(self, params, image_embeds=None, text_embeds=None, *, dtype=None):
         """CLS projections, L2-normalized."""
@@ -126,3 +141,77 @@ class XVLM:
             t = dense(params["text_proj"], text_embeds[:, 0], dtype=dtype)
             outs.append(t / torch.linalg.vector_norm(t, dim=-1, keepdim=True))
         return outs[0] if len(outs) == 1 else tuple(outs)
+
+    # -- losses --------------------------------------------------------------
+
+    def get_contrastive_loss(self, params, image_feat, text_feat, *, idx=None):
+        """ITC over this device's batch, with idx-aware soft labels (texts of
+        one image are all positives)."""
+        logits = (image_feat @ text_feat.t()).float() / params["temp"]
+        bsz = logits.shape[0]
+        if idx is None:
+            labels = torch.eye(bsz, device=logits.device)
+        else:
+            idx = idx.reshape(-1, 1)
+            pos = (idx == idx.t()).float()
+            labels = pos / pos.sum(1, keepdim=True)
+        loss_i2t = -(torch.log_softmax(logits, dim=1) * labels).sum(1).mean()
+        loss_t2i = -(torch.log_softmax(logits.t(), dim=1) * labels).sum(1).mean()
+        return (loss_i2t + loss_t2i) / 2
+
+    def sample_hard_negatives(self, generator, image_feat, text_feat, *, idx=None, temp):
+        """(neg_image_idx, neg_text_idx) [B]: for each image a text and for
+        each text an image, drawn with weights softmax(sim / temp) + 1e-5,
+        positives zeroed (torch.multinomial with `generator`)."""
+        sim_i2t = (image_feat @ text_feat.t()).float() / temp
+        sim_t2i = (text_feat @ image_feat.t()).float() / temp
+        bs = sim_i2t.shape[0]
+        if idx is None:
+            mask = torch.eye(bs, dtype=torch.bool, device=sim_i2t.device)
+        else:
+            idx = idx.reshape(-1, 1)
+            mask = idx == idx.t()
+        w_i2t = torch.where(mask, 0.0, torch.softmax(sim_i2t, dim=1) + 1e-5)
+        w_t2i = torch.where(mask, 0.0, torch.softmax(sim_t2i, dim=1) + 1e-5)
+        neg_text_idx = torch.multinomial(w_i2t, 1, generator=generator)[:, 0]
+        neg_image_idx = torch.multinomial(w_t2i, 1, generator=generator)[:, 0]
+        return neg_image_idx, neg_text_idx
+
+    def get_matching_loss(self, params, generator, image_embeds, image_atts, image_feat,
+                          text_embeds, text_atts, text_feat, *, idx=None, zs=None,
+                          output_attentions=False, output_hidden_states=False, train=False,
+                          dtype=None, impl="fused"):
+        """ITM over B positives and 2B in-batch hard negatives. Returns the
+        loss, or (loss, the KD taps and logits) with output_hidden_states.
+        The fusion passes get no generator, as in JAX: no dropout there."""
+        bs = image_embeds.shape[0]
+        neg_image_idx, neg_text_idx = self.sample_hard_negatives(
+            generator, image_feat.detach(), text_feat.detach(), idx=idx,
+            temp=params["temp"].detach())
+        text_embeds_all = torch.cat([text_embeds, text_embeds[neg_text_idx]], 0)
+        text_atts_all = torch.cat([text_atts, text_atts[neg_text_idx]], 0)
+        image_embeds_all = torch.cat([image_embeds[neg_image_idx], image_embeds], 0)
+        image_atts_all = torch.cat([image_atts[neg_image_idx], image_atts], 0)
+        kw = dict(zs=zs, output_attentions=output_attentions,
+                  output_hidden_states=output_hidden_states, train=train, dtype=dtype,
+                  impl=impl)
+        pos = self.get_cross_embeds(params, image_embeds, image_atts, text_embeds=text_embeds,
+                                    text_atts=text_atts, **kw)
+        neg = self.get_cross_embeds(params, image_embeds_all, image_atts_all,
+                                    text_embeds=text_embeds_all, text_atts=text_atts_all, **kw)
+        cls = torch.cat([pos["last_hidden"][:, 0], neg["last_hidden"][:, 0]], 0)
+        logits = mlp_head_apply(params["itm_head"], cls, dtype=dtype)
+        labels = torch.cat([torch.ones(bs, dtype=torch.long, device=cls.device),
+                            torch.zeros(2 * bs, dtype=torch.long, device=cls.device)])
+        loss = B.cross_entropy_ignore_index(logits, labels)
+        if not output_hidden_states:
+            return loss
+        return loss, {
+            "pos_hidden_states": pos["hidden_states"],
+            "neg_hidden_states": neg["hidden_states"],
+            "pos_attentions": pos["attentions"],
+            "neg_attentions": neg["attentions"],
+            "pos_cross_attentions": pos["cross_attentions"],
+            "neg_cross_attentions": neg["cross_attentions"],
+            "logits": logits,
+        }

@@ -6,9 +6,12 @@ checked against. Under `impl="fused"` the attention core between the
 projections runs through ops/flash_attention.py (csrc/flash_attention.cu on
 CUDA): `flash_attention` for ordinary and cached attention,
 `flash_attention_grouped` for grouped K/V; the q/k/v/out projections stay
-`F.linear` around it. The core takes the projections' [B,T,H,dh] views and
-the softmax scale as they are and returns its context in the layout that
-`_merge_heads` turns into a view, so no copy surrounds it. Gates:
+`F.linear` around it. Those cores have no backward and no probs, so the
+plain core runs instead whenever probs are asked for, dropout is active, or
+autograd records the projections (a training forward). The core takes the
+projections' [B,T,H,dh] views and the softmax scale as they are and returns
+its context in the layout that `_merge_heads` turns into a view, so no copy
+surrounds it. Gates:
 
 - head_z [H]: multiplies each head's context before the output projection;
 - head_layer_z (scalar): scales the attention output.
@@ -30,7 +33,7 @@ from typing import Optional
 
 import torch
 
-from .basic import dense, init_dense
+from .basic import dense, dropout, init_dense
 from .flash_attention import flash_attention, flash_attention_grouped
 
 NEG_INF = -1e9  # additive-bias masking value (f32)
@@ -111,6 +114,9 @@ def multi_head_attention(
     head_z: Optional[torch.Tensor] = None,
     head_layer_z=None,
     output_probs: bool = False,
+    dropout_rate: float = 0.0,
+    generator=None,
+    train: bool = False,
     dtype=None,
     cache: Optional[dict] = None,
     precomputed_kv: Optional[dict] = None,
@@ -118,6 +124,9 @@ def multi_head_attention(
     impl: str = "plain",
 ):
     """Returns (attn_output [B,Tq,D], probs [B,H,Tq,Tk] f32 or None, cache).
+    The probs are the pre-dropout softmax; in training (train=True, a
+    generator) dropout at `dropout_rate` acts on the probabilities before
+    P.V.
 
     cache (see init_decode_cache): new keys/values are written at `index`
     (in place) and attention spans the whole cache; the bias must mask the
@@ -154,7 +163,8 @@ def multi_head_attention(
                 f"{kv_groups} * kv batch {k.shape[0]}")
         out, probs = _grouped_kv_attention(
             params, q, k, v, bias=bias, head_z=head_z, head_layer_z=head_layer_z,
-            output_probs=output_probs, dtype=dtype, impl=impl)
+            output_probs=output_probs, dropout_rate=dropout_rate, generator=generator,
+            train=train, dtype=dtype, impl=impl)
         return out, probs, cache
     if k.shape[0] != q.shape[0]:
         raise ValueError(
@@ -171,7 +181,7 @@ def multi_head_attention(
         new_cache = {"k": k, "v": v, "index": idx + t}
 
     scale = 1.0 / math.sqrt(q.shape[-1])
-    if impl == "fused" and not output_probs:
+    if _kernel_core(impl, output_probs, dropout_rate, train, generator, q, k, v):
         # q and k/v go in as the projections' views, scaled in the kernel
         ctx, probs = flash_attention(q, k, v, bias=bias, scale=scale), None
     else:
@@ -179,9 +189,18 @@ def multi_head_attention(
         if bias is not None:
             scores = scores + bias.float()
         probs = torch.softmax(scores, dim=-1)
-        ctx = probs.to(v.dtype) @ v
+        probs_d = dropout(probs, dropout_rate, generator=generator, train=train)
+        ctx = probs_d.to(v.dtype) @ v
     out = _gate_and_project(params, ctx, head_z, head_layer_z, dtype)
     return out, (probs if output_probs else None), new_cache
+
+
+def _kernel_core(impl, output_probs, dropout_rate, train, generator, *tensors) -> bool:
+    """The flash cores serve impl="fused" only where they compute all that
+    is asked: no probs, no active dropout, and no autograd through them."""
+    dropout_on = train and dropout_rate > 0.0 and generator is not None
+    graded = torch.is_grad_enabled() and any(t.requires_grad for t in tensors)
+    return impl == "fused" and not output_probs and not dropout_on and not graded
 
 
 def _grouped_kv_attention(
@@ -194,6 +213,9 @@ def _grouped_kv_attention(
     head_z: Optional[torch.Tensor] = None,
     head_layer_z=None,
     output_probs: bool = False,
+    dropout_rate: float = 0.0,
+    generator=None,
+    train: bool = False,
     dtype=None,
     impl: str = "plain",
 ):
@@ -207,7 +229,7 @@ def _grouped_kv_attention(
         raise ValueError(f"grouped K/V: query batch {bq} not a multiple of kv batch {bk}")
     g = bq // bk
     scale = 1.0 / math.sqrt(dh)
-    if impl == "fused" and not output_probs:
+    if _kernel_core(impl, output_probs, dropout_rate, train, generator, q, k, v):
         ctx = flash_attention_grouped(q, k, v, kv_groups=g, bias=bias, scale=scale)
         return _gate_and_project(params, ctx, head_z, head_layer_z, dtype), None
     qg = q.reshape(bk, g, h, tq, dh)
@@ -222,7 +244,8 @@ def _grouped_kv_attention(
                              f"matches neither query ({bq}) nor kv ({bk}) batch")
         scores = scores + bias.float()
     probs = torch.softmax(scores, dim=-1)
-    ctx = (probs.to(v.dtype) @ v[:, None]).reshape(bq, h, tq, dh)
+    probs_d = dropout(probs, dropout_rate, generator=generator, train=train)
+    ctx = (probs_d.to(v.dtype) @ v[:, None]).reshape(bq, h, tq, dh)
     out = _gate_and_project(params, ctx, head_z, head_layer_z, dtype)
     return out, (probs.reshape(bq, h, tq, s) if output_probs else None)
 

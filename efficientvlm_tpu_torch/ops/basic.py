@@ -3,6 +3,8 @@
 - Dense kernels are stored [in, out]; `dense` computes x @ kernel + bias.
 - `dtype` is the compute dtype; params may be stored in another one.
 - LayerNorm computes its statistics in f32 and casts back.
+- `dropout` draws from an explicit torch.Generator (JAX's explicit keys);
+  without one it is the identity, as JAX's is without a key.
 """
 
 from __future__ import annotations
@@ -70,3 +72,32 @@ def gelu(x: torch.Tensor) -> torch.Tensor:
 
 
 ACT2FN = {"gelu": gelu, "quick_gelu": quick_gelu}
+
+
+def recompute_grads(fn, saved, needs, cotangents) -> tuple:
+    """The backward of a kernel run inside a torch.autograd.Function:
+    recompute fn(*saved) (the kernel's plain version) under autograd from the
+    saved inputs and return the gradient of each input that needs one (None
+    for the others); cotangents pair with fn's outputs in order, None where
+    an output got none."""
+    with torch.enable_grad():
+        inputs = [None if t is None else t.detach().requires_grad_(n)
+                  for t, n in zip(saved, needs)]
+        outs = fn(*inputs)
+        outs = outs if isinstance(outs, tuple) else (outs,)
+        pairs = [(o, c) for o, c in zip(outs, cotangents) if c is not None]
+        wrt = [t for t, n in zip(inputs, needs) if n and t is not None]
+        grads = iter(torch.autograd.grad([o for o, _ in pairs], wrt, [c for _, c in pairs],
+                                         allow_unused=True))
+    return tuple(next(grads) if n and t is not None else None for t, n in zip(inputs, needs))
+
+
+def dropout(x: torch.Tensor, rate: float, *, generator=None, train: bool = False) -> torch.Tensor:
+    """Inverted dropout: keep each element with probability 1 - rate and
+    scale it by 1 / (1 - rate). The identity outside training, at rate 0 and
+    without a generator (on x's device)."""
+    if not train or rate == 0.0 or generator is None:
+        return x
+    keep = 1.0 - rate
+    mask = torch.rand(x.shape, generator=generator, device=x.device) < keep
+    return torch.where(mask, x / keep, torch.zeros((), dtype=x.dtype, device=x.device))

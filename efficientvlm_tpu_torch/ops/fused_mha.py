@@ -22,6 +22,17 @@ arithmetic follows the TPU kernels: projections accumulate in f32, add the
 bias in f32 and round to the compute dtype; scores and softmax are f32;
 probabilities are rounded before P.V; each head's f32 context is scaled by
 head_z[h] and rounded before the output projection.
+
+The training forms (ports of `_dv_self` / `_dv_cross` and the emit_probs
+instances of the TPU kernels): `return_probs=True` also returns the pre-gate
+f32 softmax maps [B, H, Tq, Tk] that the KD taps read (on CUDA the probs
+form of attn_core, which writes them while it attends; counted in
+`probs_launches`); `differentiable=True` runs the kernel inside a
+torch.autograd.Function that saves its inputs only and whose backward
+recomputes the plain version under autograd and takes its gradients, as
+JAX's custom_vjp recomputes its XLA reference. Cotangents flow into both
+outputs, and the gradient of head_z is how the losses reach the L0 gates.
+On a CPU tensor autograd runs straight through the plain versions.
 """
 
 from __future__ import annotations
@@ -31,6 +42,7 @@ from typing import Optional
 import torch
 
 from ..kernels import bindings
+from .basic import recompute_grads
 
 NEG = -1e9
 
@@ -66,19 +78,24 @@ def _linear_plain(x: torch.Tensor, p: dict, dt, out_f32: bool = False) -> torch.
     return y if out_f32 else y.to(dt)
 
 
-def _attention_plain(q, k, v, kb2, gates1, num_heads: int, groups: int = 1):
-    """q [Bk*G, Tq, A], k/v [Bk, S, A] (dt), kb2 [Bk, S] f32 -> ctx [Bk*G, Tq, A]."""
+def _attention_plain(q, k, v, kb2, gates1, num_heads: int, groups: int = 1,
+                     return_probs: bool = False):
+    """q [Bk*G, Tq, A], k/v [Bk, S, A] (dt), kb2 [Bk, S] f32 -> ctx [Bk*G, Tq, A]
+    (and the pre-gate f32 probabilities [Bk*G, H, Tq, S] with return_probs)."""
     dt = q.dtype
     bq, tq, a = q.shape
-    bk = k.shape[0]
+    bk, s = k.shape[:2]
     dh = a // num_heads
     qh = _split(q, num_heads).float().reshape(bk, groups, num_heads, tq, dh)
     kh = _split(k, num_heads).float()[:, None]
     vh = _split(v, num_heads).float()[:, None]
     scores = qh @ kh.transpose(-1, -2) * dh ** -0.5 + kb2[:, None, None, None, :]
-    probs = torch.softmax(scores, dim=-1).to(dt)
-    ctx = (probs.float() @ vh) * gates1.reshape(1, 1, num_heads, 1, 1)
-    return ctx.reshape(bq, num_heads, tq, dh).transpose(1, 2).reshape(bq, tq, a).to(dt)
+    probs = torch.softmax(scores, dim=-1)
+    ctx = (probs.to(dt).float() @ vh) * gates1.reshape(1, 1, num_heads, 1, 1)
+    ctx = ctx.reshape(bq, num_heads, tq, dh).transpose(1, 2).reshape(bq, tq, a).to(dt)
+    if return_probs:
+        return ctx, probs.reshape(bq, num_heads, tq, s)
+    return ctx
 
 
 def gemm_bias_plain(a, b, bias=None, row_add=None, out_f32: bool = False):
@@ -93,14 +110,19 @@ def gemm_bias_plain(a, b, bias=None, row_add=None, out_f32: bool = False):
     return y if out_f32 else y.to(a.dtype)
 
 
-def attn_core_plain(q, k, v, kb2, gates1, *, batch: int, tq: int, s: int):
+def attn_core_plain(q, k, v, kb2, gates1, *, batch: int, tq: int, s: int,
+                    probs: bool = False):
     """Plain version of both attention kernels, bindings.attn_core and
     bindings.attn_wgmma (the same function): q [batch*tq, A], k/v [batch*s,
-    A], heads side by side; kb2 [batch, s], gates1 [H]."""
+    A], heads side by side; kb2 [batch, s], gates1 [H]; with probs also the
+    f32 maps [batch, H, tq, s] (attn_core's probs form)."""
     a = q.shape[1]
-    ctx = _attention_plain(q.reshape(batch, tq, a), k.reshape(batch, s, a),
-                           v.reshape(batch, s, a), kb2, gates1, gates1.shape[0])
-    return ctx.reshape(batch * tq, a)
+    res = _attention_plain(q.reshape(batch, tq, a), k.reshape(batch, s, a),
+                           v.reshape(batch, s, a), kb2, gates1, gates1.shape[0],
+                           return_probs=probs)
+    ctx, maps = res if probs else (res, None)
+    ctx = ctx.reshape(batch * tq, a)
+    return (ctx, maps) if probs else ctx
 
 
 def gemm_ln_plain(a, b, gamma, beta, eps: float, *, bias=None, row_add=None, residual=None,
@@ -131,23 +153,24 @@ def gemm_ln_plain(a, b, gamma, beta, eps: float, *, bias=None, row_add=None, res
     return out
 
 
-def self_attention_plain(params, hidden, kb2, gates1, num_heads: int):
-    dt = hidden.dtype
-    q = _linear_plain(hidden, params["q"], dt)
-    k = _linear_plain(hidden, params["k"], dt)
-    v = _linear_plain(hidden, params["v"], dt)
-    ctx = _attention_plain(q, k, v, kb2, gates1, num_heads)
-    return _linear_plain(ctx, params["out"], dt)
+def self_attention_plain(params, hidden, kb2, gates1, num_heads: int,
+                         return_probs: bool = False):
+    return cross_attention_plain(params, hidden, hidden, kb2, gates1, num_heads, return_probs)
 
 
-def cross_attention_plain(params, hidden, enc, kb2, gates1, num_heads: int):
+def cross_attention_plain(params, hidden, enc, kb2, gates1, num_heads: int,
+                          return_probs: bool = False):
+    """Plain version of #2 (enc = hidden) and #3: the output [B, Tq, D] in
+    hidden's dtype, and with return_probs the pre-gate f32 maps."""
     dt = hidden.dtype
     enc = enc.to(dt)
     q = _linear_plain(hidden, params["q"], dt)
     k = _linear_plain(enc, params["k"], dt)
     v = _linear_plain(enc, params["v"], dt)
-    ctx = _attention_plain(q, k, v, kb2, gates1, num_heads)
-    return _linear_plain(ctx, params["out"], dt)
+    res = _attention_plain(q, k, v, kb2, gates1, num_heads, return_probs=return_probs)
+    ctx, probs = res if return_probs else (res, None)
+    out = _linear_plain(ctx, params["out"], dt)
+    return (out, probs) if return_probs else out
 
 
 def cross_attention_grouped_plain(params, hidden, enc, kb2, gates1, num_heads: int,
@@ -195,6 +218,77 @@ def _rows(x: torch.Tensor) -> torch.Tensor:
 
 
 # --------------------------------------------------------------------------
+# the training forms: kernel forward, plain-recompute backward
+# --------------------------------------------------------------------------
+
+_LEAVES = (("q", "kernel"), ("q", "bias"), ("k", "kernel"), ("k", "bias"), ("v", "kernel"),
+           ("v", "bias"), ("out", "kernel"), ("out", "bias"))
+
+
+def _tree(leaves) -> dict:
+    params: dict = {}
+    for (name, leaf), t in zip(_LEAVES, leaves):
+        params.setdefault(name, {})[leaf] = t
+    return params
+
+
+def _attention_cuda(params, hidden, enc, kb2, head_z, num_heads: int, return_probs: bool):
+    """One launch of #2 (enc None) or #3 on CUDA tensors; counted."""
+    b, t, d = hidden.shape
+    s = t if enc is None else enc.shape[1]
+    x = _rows(hidden)
+    e = x if enc is None else _rows(enc.to(hidden.dtype))
+    res = bindings.fused_attention(x, e, _weights(params), kb2, _kernel_gates(num_heads, head_z),
+                                   heads=num_heads, batch=b, tq=t, s=s, probs=return_probs)
+    wrapper = fused_self_attention if enc is None else fused_cross_attention
+    if return_probs:
+        wrapper.probs_launches += 1
+        return res[0].reshape(b, t, d), res[1]
+    wrapper.launches += 1
+    return res.reshape(b, t, d)
+
+
+class _AttentionFn(torch.autograd.Function):
+    """Port of _dv_self / _dv_cross: the forward launches the kernel (with
+    probs when asked) and saves its inputs only; the backward recomputes
+    cross_attention_plain with the same bf16 casts under autograd and returns
+    the gradients of every weight and bias, of hidden, of the encoder hidden
+    and of the gates. Inputs: the key bias [B, S] f32, head_z (or None),
+    hidden, enc (None for self-attention), then the eight leaves of _LEAVES
+    (f32 masters are cast inside, so their gradients come back in f32)."""
+
+    @staticmethod
+    def forward(ctx, num_heads, return_probs, kb2, head_z, hidden, enc, *leaves):
+        ctx.num_heads, ctx.return_probs = num_heads, return_probs
+        ctx.save_for_backward(kb2, head_z, hidden, enc, *leaves)
+        return _attention_cuda(_tree(leaves), hidden, enc, kb2, head_z, num_heads, return_probs)
+
+    @staticmethod
+    def backward(ctx, *cotangents):
+        h = ctx.num_heads
+
+        def plain(kb2, head_z, hidden, enc, *leaves):
+            return cross_attention_plain(_tree(leaves), hidden, hidden if enc is None else enc,
+                                         kb2, _gates(h, head_z, hidden.device), h,
+                                         ctx.return_probs)
+
+        return (None, None) + recompute_grads(plain, ctx.saved_tensors,
+                                              ctx.needs_input_grad[2:], cotangents)
+
+
+def _attention(params, hidden, enc, kb2, head_z, num_heads, return_probs, differentiable):
+    if not hidden.is_cuda:  # the plain version, autograd straight through it
+        return cross_attention_plain(params, hidden, hidden if enc is None else enc, kb2,
+                                     _gates(num_heads, head_z, hidden.device), num_heads,
+                                     return_probs)
+    if differentiable:
+        return _AttentionFn.apply(num_heads, return_probs, kb2,
+                                  None if head_z is None else head_z.reshape(num_heads), hidden,
+                                  enc, *(params[n][l] for n, l in _LEAVES))
+    return _attention_cuda(params, hidden, enc, kb2, head_z, num_heads, return_probs)
+
+
+# --------------------------------------------------------------------------
 # wrappers
 # --------------------------------------------------------------------------
 
@@ -202,41 +296,34 @@ def _rows(x: torch.Tensor) -> torch.Tensor:
 def fused_self_attention(params: dict, hidden: torch.Tensor, *, num_heads: int,
                          mask: Optional[torch.Tensor] = None,
                          key_bias: Optional[torch.Tensor] = None,
-                         head_z: Optional[torch.Tensor] = None) -> torch.Tensor:
+                         head_z: Optional[torch.Tensor] = None, return_probs: bool = False,
+                         differentiable: bool = False):
     """Self-attention sublayer over params {'q','k','v','out'}; hidden
     [B,T,D]; mask [B,T] (1 = attend) or key_bias [B,T] additive; head_z [H].
-    The projection width A = H*dh may be below D (pruned exports)."""
-    b, t, d = hidden.shape
+    The projection width A = H*dh may be below D (pruned exports). Returns
+    [B,T,D], or (that, probs [B,H,T,T] f32) with return_probs;
+    differentiable=True is the training form (see the module note)."""
+    b, t, _ = hidden.shape
     kb2 = _key_bias(b, t, mask, key_bias, hidden.device)
-    if not hidden.is_cuda:
-        return self_attention_plain(params, hidden, kb2, _gates(num_heads, head_z, "cpu"),
-                                    num_heads)
-    x = _rows(hidden)
-    out = bindings.fused_attention(x, x, _weights(params), kb2, _kernel_gates(num_heads, head_z),
-                                   heads=num_heads, batch=b, tq=t, s=t)
-    fused_self_attention.launches += 1
-    return out.reshape(b, t, d)
+    return _attention(params, hidden, None, kb2, head_z, num_heads, return_probs,
+                      differentiable)
 
 
 def fused_cross_attention(params: dict, hidden: torch.Tensor, encoder_hidden: torch.Tensor,
                           *, num_heads: int, mask: Optional[torch.Tensor] = None,
                           key_bias: Optional[torch.Tensor] = None,
-                          head_z: Optional[torch.Tensor] = None) -> torch.Tensor:
+                          head_z: Optional[torch.Tensor] = None, return_probs: bool = False,
+                          differentiable: bool = False):
     """Cross-attention sublayer: queries from hidden [B,T,D], keys/values
-    from encoder_hidden [B,S,De]; mask / key_bias [B,S]; head_z [H]."""
-    b, t, d = hidden.shape
+    from encoder_hidden [B,S,De]; mask / key_bias [B,S]; head_z [H]. Returns
+    [B,T,D], or (that, probs [B,H,T,S] f32) with return_probs."""
+    b = hidden.shape[0]
     s = encoder_hidden.shape[1]
     if encoder_hidden.shape[0] != b:
         raise ValueError(f"fused cross: query batch {b} != kv batch {encoder_hidden.shape[0]}")
     kb2 = _key_bias(b, s, mask, key_bias, hidden.device)
-    if not hidden.is_cuda:
-        return cross_attention_plain(params, hidden, encoder_hidden, kb2,
-                                     _gates(num_heads, head_z, "cpu"), num_heads)
-    out = bindings.fused_attention(_rows(hidden), _rows(encoder_hidden.to(hidden.dtype)),
-                                   _weights(params), kb2, _kernel_gates(num_heads, head_z),
-                                   heads=num_heads, batch=b, tq=t, s=s)
-    fused_cross_attention.launches += 1
-    return out.reshape(b, t, d)
+    return _attention(params, hidden, encoder_hidden, kb2, head_z, num_heads, return_probs,
+                      differentiable)
 
 
 def fused_cross_attention_grouped(params: dict, hidden: torch.Tensor,
@@ -275,5 +362,7 @@ def fused_cross_attention_grouped(params: dict, hidden: torch.Tensor,
 
 
 fused_self_attention.launches = 0
+fused_self_attention.probs_launches = 0
 fused_cross_attention.launches = 0
+fused_cross_attention.probs_launches = 0
 fused_cross_attention_grouped.launches = 0

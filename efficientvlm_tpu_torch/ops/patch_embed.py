@@ -17,6 +17,18 @@ outside bindings.gemm_ln_fits (not a multiple of 128, or above 1024) keep
 the earlier route: im2col here, then gemm_bias into f32 and
 residual_layernorm, with the CLS row filled here. On a CPU tensor it runs
 `patch_embed_plain`.
+
+An image whose sides the patch does not tile is cropped to its top-left
+floor(H/P)*P x floor(W/P)*P, and the positional rows are pos[:1+Np'] for
+its Np' patches, as JAX's VALID convolution does (models/vit.py). The gather
+reads the cropped patches in place with the full row stride; only a width
+whose rows are no whole number of 16-byte pieces (W*3 % 8) is copied
+cropped first.
+
+`differentiable=True` is the training form (port of `_diff_embed`): the
+kernel runs inside a torch.autograd.Function that saves its inputs, and the
+backward recomputes patch_embed_plain under autograd, as JAX's custom_vjp
+recomputes its XLA reference.
 """
 
 from __future__ import annotations
@@ -24,18 +36,20 @@ from __future__ import annotations
 import torch
 
 from ..kernels import bindings
+from .basic import recompute_grads
 
 
 def _im2col(images: torch.Tensor, patch_size: int, dtype) -> torch.Tensor:
-    """[B,H,W,C] -> [B, Np, P*P*C], flattened (ph, pw, c) to match the HWIO
-    conv kernel's (H, W, I) order."""
+    """[B,H,W,C] -> [B, Np, P*P*C] over the patches that tile the image's
+    top-left floor(H/P)*P x floor(W/P)*P, flattened (ph, pw, c) to match the
+    HWIO conv kernel's (H, W, I) order."""
     b, hh, ww, c = images.shape
     p = patch_size
-    if hh % p or ww % p:
-        raise ValueError(f"image {hh}x{ww} is not tiled by patch {p}")
     hp, wp = hh // p, ww // p
-    x = images.to(dtype).reshape(b, hp, p, wp, p, c).permute(0, 1, 3, 2, 4, 5)
-    return x.reshape(b, hp * wp, p * p * c)
+    if not hp or not wp:
+        raise ValueError(f"image {hh}x{ww} is smaller than patch {p}")
+    x = images[:, :hp * p, :wp * p].to(dtype).reshape(b, hp, p, wp, p, c)
+    return x.permute(0, 1, 3, 2, 4, 5).reshape(b, hp * wp, p * p * c)
 
 
 def _cls_row(params: dict, eps: float) -> torch.Tensor:
@@ -72,8 +86,6 @@ def _patch_embed_cuda(params, images, patch_size, eps, dtype):
         raise TypeError(f"fused_patch_embed on CUDA computes in bfloat16, got {dtype}")
     b, hh, ww, _ = images.shape
     p = patch_size
-    if hh % p or ww % p:
-        raise ValueError(f"image {hh}x{ww} is not tiled by patch {p}")
     n_patches = (hh // p) * (ww // p)
     k = p * p * 3
     w = params["patch_embed"]["kernel"].to(dtype).reshape(k, -1).contiguous()
@@ -81,6 +93,8 @@ def _patch_embed_cuda(params, images, patch_size, eps, dtype):
     bias, pos = stored(params["patch_embed"].get("bias")), params["pos_embed"]["embedding"]
     gamma, beta = stored(params["pre_ln"]["scale"]), stored(params["pre_ln"]["bias"])
     if bindings.gemm_ln_fits(w.shape[1]):
+        if ww * 3 % 8:  # rows of no whole 16-byte pieces: gather from a cropped copy
+            images = images[:, :, :ww // p * p]
         return bindings.patch_embed(images.to(dtype).contiguous(), w, bias,
                                     stored(pos[:1 + n_patches]), stored(params["class_embedding"]),
                                     gamma, beta, eps, patch=p)
@@ -91,13 +105,57 @@ def _patch_embed_cuda(params, images, patch_size, eps, dtype):
     return out
 
 
+_LEAVES = (("patch_embed", "kernel"), ("patch_embed", "bias"), ("class_embedding", None),
+           ("pos_embed", "embedding"), ("pre_ln", "scale"), ("pre_ln", "bias"))
+
+
+def _tree(leaves) -> dict:
+    params: dict = {}
+    for (name, leaf), t in zip(_LEAVES, leaves):
+        if leaf is None:
+            params[name] = t
+        elif t is not None:
+            params.setdefault(name, {})[leaf] = t
+    return params
+
+
+class _PatchEmbedFn(torch.autograd.Function):
+    """Port of _diff_embed: the forward launches the kernel and saves its
+    inputs; the backward recomputes patch_embed_plain (the same casts) under
+    autograd and returns the gradients of the images and of every param
+    leaf (_LEAVES; the patch bias may be None)."""
+
+    @staticmethod
+    def forward(ctx, patch_size, eps, dtype, images, *leaves):
+        ctx.args = (patch_size, eps, dtype)
+        ctx.save_for_backward(images, *leaves)
+        out = _patch_embed_cuda(_tree(leaves), images, patch_size, eps, dtype)
+        fused_patch_embed.launches += 1
+        return out
+
+    @staticmethod
+    def backward(ctx, cotangent):
+        patch_size, eps, dtype = ctx.args
+
+        def plain(images, *leaves):
+            return patch_embed_plain(_tree(leaves), images, patch_size=patch_size, eps=eps,
+                                     dtype=dtype)
+
+        return (None, None, None) + recompute_grads(plain, ctx.saved_tensors,
+                                                    ctx.needs_input_grad[3:], (cotangent,))
+
+
 def fused_patch_embed(params: dict, images: torch.Tensor, *, patch_size: int,
-                      eps: float = 1e-5, dtype=None) -> torch.Tensor:
-    """images [B,H,W,3] -> [B, 1+Np, D]. CUDA tensors launch the kernels
-    (bfloat16 only); CPU tensors run patch_embed_plain."""
+                      eps: float = 1e-5, dtype=None, differentiable: bool = False) -> torch.Tensor:
+    """images [B,H,W,3] -> [B, 1+Np, D]. CUDA tensors launch the kernel
+    (bfloat16 only; differentiable=True: the training form); CPU tensors run
+    patch_embed_plain, autograd straight through it."""
     dtype = dtype or images.dtype
     if not images.is_cuda:
         return patch_embed_plain(params, images, patch_size=patch_size, eps=eps, dtype=dtype)
+    if differentiable:
+        leaves = [params[n] if l is None else params[n].get(l) for n, l in _LEAVES]
+        return _PatchEmbedFn.apply(patch_size, eps, dtype, images, *leaves)
     out = _patch_embed_cuda(params, images, patch_size, eps, dtype)
     fused_patch_embed.launches += 1
     return out

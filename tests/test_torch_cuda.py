@@ -10,6 +10,7 @@ Imports no jax, so it also runs where only PyTorch is installed:
 
 Without a CUDA device every test skips."""
 
+import numpy as np
 import pytest
 import torch
 
@@ -474,3 +475,243 @@ def test_cuda_tensors_never_fall_back(rnd):
     with pytest.raises(ValueError, match="one key vector per group"):
         FA.flash_attention_grouped(rnd(4, 2, 3, 64), rnd(2, 2, 3, 64), rnd(2, 2, 3, 64),
                                    kv_groups=2, bias=torch.zeros(4, 1, 1, 3, device="cuda"))
+
+
+# --------------------------------------------------------------------------
+# the training slice: probs forms, differentiable forms, crop, train step
+# --------------------------------------------------------------------------
+
+
+def _probs_close(probs, ref, mask):
+    """Maps within 4 bf16 ulps of the largest probability (q and k come out
+    of the projections rounded to bf16 in another summation order), rows
+    summing to 1 within f32 rounding, masked keys exactly 0."""
+    probs, ref = probs.float(), ref.float()
+    torch.cuda.synchronize()
+    assert probs.shape == ref.shape
+    assert (probs - ref).abs().max().item() <= 4 * 2 ** -8 * ref.abs().max().item()
+    assert (probs.sum(-1) - 1).abs().max().item() <= 1e-4
+    assert bool((probs.masked_select(mask[:, None, None, :] == 0) == 0).all())
+
+
+@pytest.mark.parametrize("heads", [2, 4, 6, 8, 10, 12])
+@pytest.mark.parametrize("kind", ["self", "cross"])
+def test_probs_forms_at_the_exported_head_counts(rnd, kind, heads):
+    """#2 and #3 with return_probs at every head count the export gives with
+    head_gate_group 2 (A 128-768), masked key tails; counted as probs
+    launches, the non-probs count unchanged."""
+    a, b, t = 64 * heads, 5, 40
+    s = t if kind == "self" else 77
+    prm, x, enc = _attn(rnd, 768, a), rnd(b, t, 768), rnd(b, s, 768)
+    mask = _mask(b, s)
+    hz = torch.rand(heads, device="cuda") + 0.2
+    kb = F._key_bias(b, s, mask, None, x.device)
+    wrapper = F.fused_self_attention if kind == "self" else F.fused_cross_attention
+    before = (wrapper.launches, wrapper.probs_launches)
+    if kind == "self":
+        out, probs = F.fused_self_attention(prm, x, num_heads=heads, mask=mask, head_z=hz,
+                                            return_probs=True)
+        ref, ref_probs = F.self_attention_plain(prm, x, kb, hz, heads, return_probs=True)
+    else:
+        out, probs = F.fused_cross_attention(prm, x, enc, num_heads=heads, mask=mask, head_z=hz,
+                                             return_probs=True)
+        ref, ref_probs = F.cross_attention_plain(prm, x, enc, kb, hz, heads, return_probs=True)
+    assert (wrapper.launches, wrapper.probs_launches) == (before[0], before[1] + 1)
+    _close(out, ref)
+    _probs_close(probs, ref_probs, mask)
+
+
+def test_attn_core_probs_form_at_the_vit_shape(rnd):
+    """The core alone at 577 keys (an odd S: the last key of each row is a
+    4-byte store) with masked tails."""
+    b, s, h = 2, 577, 12
+    q, k, v = rnd(b * s, h * 64), rnd(b * s, h * 64), rnd(b * s, h * 64)
+    mask = _mask(b, s)
+    kb = F._key_bias(b, s, mask, None, q.device)
+    hz = torch.rand(h, device="cuda") + 0.2
+    out, probs = K.attn_core(q, k, v, kb, hz, batch=b, tq=s, s=s, probs=True)
+    ref, ref_probs = F.attn_core_plain(q, k, v, kb, hz, batch=b, tq=s, s=s, probs=True)
+    _close(out, ref)
+    _probs_close(probs, ref_probs, mask)
+
+
+def _grad_agree(run_kernel, run_plain, inputs, cotangents):
+    """The differentiable form's gradients against the plain version's own
+    autograd on the same bf16 inputs: its backward recomputes that version,
+    so they agree to within 1e-5 of the largest gradient (the recompute runs
+    the same ops; only reduction order may differ)."""
+    grads = []
+    for run in (run_kernel, run_plain):
+        for t in inputs:
+            t.grad = None
+        outs = run()
+        torch.autograd.backward(list(outs), cotangents[:len(outs)])
+        grads.append([t.grad.float().clone() for t in inputs])
+    torch.cuda.synchronize()
+    for g, r in zip(*grads):
+        assert torch.isfinite(g).all()
+        assert (g - r).abs().max().item() <= 1e-5 * max(r.abs().max().item(), 1e-30)
+
+
+@pytest.mark.parametrize("kind", ["self", "cross"])
+def test_differentiable_attention_forms(rnd, kind):
+    """#2 / #3 differentiable, with probs: every weight and bias (f32
+    masters), hidden, the encoder hidden and head_z."""
+    d, b, t, h = 256, 3, 40, 4
+    s = t if kind == "self" else 77
+    prm = {n: {kk: v.float().requires_grad_(True) for kk, v in p.items()}
+           for n, p in _attn(rnd, d, d).items()}
+    x, enc = rnd(b, t, d).requires_grad_(True), rnd(b, s, d).requires_grad_(True)
+    hz = (torch.rand(h, device="cuda") + 0.2).requires_grad_(True)
+    mask = _mask(b, s)
+    kb = F._key_bias(b, s, mask, None, x.device)
+    ins = [x, hz] + [prm[n][kk] for n in prm for kk in prm[n]] + ([enc] if kind == "cross" else [])
+    cts = [rnd(b, t, d), torch.randn(b, h, t, s, device="cuda")]
+    before = F.fused_self_attention.probs_launches + F.fused_cross_attention.probs_launches
+    if kind == "self":
+        kern = lambda: F.fused_self_attention(prm, x, num_heads=h, mask=mask, head_z=hz,  # noqa
+                                              return_probs=True, differentiable=True)
+        plain = lambda: F.self_attention_plain(prm, x, kb, hz, h, return_probs=True)  # noqa
+    else:
+        kern = lambda: F.fused_cross_attention(prm, x, enc, num_heads=h, mask=mask,  # noqa
+                                               head_z=hz, return_probs=True,
+                                               differentiable=True)
+        plain = lambda: F.cross_attention_plain(prm, x, enc, kb, hz, h,  # noqa: E731
+                                                return_probs=True)
+    _grad_agree(kern, plain, ins, cts)
+    assert F.fused_self_attention.probs_launches + F.fused_cross_attention.probs_launches == \
+        before + 1
+    with pytest.raises(RuntimeError, match="requires grad"):  # the kernel without a backward
+        F.fused_self_attention(prm, x, num_heads=h, mask=mask, head_z=hz)
+
+
+def test_differentiable_patch_embed(rnd):
+    d, p, res = 256, 16, 64
+    n = (res // p) ** 2
+    pp = {"patch_embed": {"kernel": rnd(p, p, 3, d, std=(p * p * 3) ** -0.5).float()},
+          "class_embedding": rnd(d, std=0.5).float(),
+          "pos_embed": {"embedding": rnd(n + 1, d, std=0.5).float()},
+          "pre_ln": {"scale": rnd(d, std=0.1, mean=1.0).float(), "bias": rnd(d, std=0.1).float()}}
+    leaves = [pp["patch_embed"]["kernel"], pp["class_embedding"], pp["pos_embed"]["embedding"],
+              pp["pre_ln"]["scale"], pp["pre_ln"]["bias"]]
+    for t in leaves:
+        t.requires_grad_(True)
+    img = rnd(3, res, res, 3)
+    before = fused_patch_embed.launches
+    _grad_agree(lambda: (fused_patch_embed(pp, img, patch_size=p, dtype=torch.bfloat16,
+                                           differentiable=True),),
+                lambda: (patch_embed_plain(pp, img, patch_size=p, dtype=torch.bfloat16),),
+                leaves, [rnd(3, n + 1, d)])
+    assert fused_patch_embed.launches == before + 1
+
+
+def test_patch_embed_crops_an_image_the_patch_does_not_tile(rnd):
+    """392 x 388 at patch 16: the gather reads the 24 x 24 patches of the
+    top-left 384 x 384 in place (388 * 3 % 8 != 0, so from a cropped copy)
+    and 392 x 392 in place (the rows are whole 16-byte pieces)."""
+    d, p = 768, 16
+    pp = {"patch_embed": {"kernel": rnd(p, p, 3, d, std=(p * p * 3) ** -0.5)},
+          "class_embedding": rnd(d, std=0.5), "pos_embed": {"embedding": rnd(577, d, std=0.5)},
+          "pre_ln": {"scale": rnd(d, std=0.1, mean=1.0), "bias": rnd(d, std=0.1)}}
+    for hw in ((392, 388), (392, 392)):
+        img = rnd(2, *hw, 3)
+        out = fused_patch_embed(pp, img, patch_size=p)
+        assert tuple(out.shape) == (2, 577, d)
+        _close(out, patch_embed_plain(pp, img, patch_size=p))
+        _close(out, patch_embed_plain(pp, img[:, :384, :384].contiguous(), patch_size=p))
+
+
+def _train_setup(impl, dtype, seed=0):
+    """A 2L/2L student and a 4L/4L teacher at width 256 (4 heads of 64),
+    64 px images at patch 16, batch 6 x 12 tokens, with the slice's gates
+    and optimizers; the hard negatives pinned to a fixed derangement."""
+    from efficientvlm_tpu_torch.config import Config, TextConfig, VisionConfig
+    from efficientvlm_tpu_torch.drivers.common import build_optimizers
+    from efficientvlm_tpu_torch.drivers.retrieval import build_l0, build_models
+    from efficientvlm_tpu_torch.train.steps import init_train_state, make_retrieval_train_step
+
+    v = dict(vision_width=256, num_attention_heads=4, intermediate_size=512, image_res=64,
+             patch_size=16)
+    t = dict(vocab_size=500, hidden_size=256, num_attention_heads=4, intermediate_size=512,
+             encoder_width=256, max_position_embeddings=64)
+    config = Config({
+        "embed_dim": 64, "sparsity": 0.25, "head_gate_group": 2,
+        "vision": VisionConfig.create(**v, num_hidden_layers=2),
+        "text": TextConfig.create(**t, num_hidden_layers=2),
+        "teacher_vision": VisionConfig.create(**v, num_hidden_layers=4),
+        "teacher_text": TextConfig.create(**t, num_hidden_layers=4),
+        "optimizer": {"lr": 3e-5, "reg_learning_rate": 0.01, "weight_decay": 0.01},
+        "schedular": {"num_warmup_steps": 0}})
+    student, teacher = build_models(config)
+    for m in (student, teacher):
+        m.sample_hard_negatives = lambda g, i, t_, *, idx=None, temp: (  # noqa: E731
+            (torch.arange(len(i), device=i.device) + 2) % len(i),
+            (torch.arange(len(i), device=i.device) + 3) % len(i))
+    l0 = build_l0(config)
+    params = student.init(seed, device="cuda")
+    opts = build_optimizers(params, config, 100)
+    state = init_train_state(params, l0.init(seed, device="cuda"), opts)
+    step = make_retrieval_train_step(student, teacher, l0, opts,
+                                     teacher_params=teacher.init(seed + 1, device="cuda"),
+                                     dtype=dtype, impl=impl)
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    batch = {"image": torch.randn(6, 64, 64, 3, generator=g, device="cuda"),
+             "text_ids": torch.randint(1, 500, (6, 12), generator=g, device="cuda"),
+             "text_atts": torch.ones(6, 12, dtype=torch.int32, device="cuda"),
+             "idx": torch.tensor([0, 1, 1, 2, 3, 4], device="cuda")}
+    batch["text_atts"][1, 8:] = 0
+    if dtype is not None:
+        batch["image"] = batch["image"].to(dtype)
+    noise = {k: torch.rand(gr["shape"], generator=g, device="cuda") * 0.99 + 0.005
+             for k, gr in l0.groups.items()}
+    return step, state, batch, noise
+
+
+def test_two_train_steps_kernel_path_against_plain_path(rnd):
+    """Two steps from one state on the kernel path and on the plain path
+    (bf16 compute), and on the plain path in f32: per-step launch counts,
+    finite metrics, and each loss of the kernel path within 3x the plain
+    bf16 path's largest relative distance from f32 compute over the steps."""
+    from efficientvlm_tpu_torch.train.optim import tree_leaves
+
+    runs = {}
+    for name, impl, dtype in (("kernel", "fused", torch.bfloat16),
+                              ("plain", "plain", torch.bfloat16), ("f32", "plain", None)):
+        step, state, batch, noise = _train_setup(impl, dtype)
+        gen = torch.Generator(device="cuda").manual_seed(1)
+        metrics = []
+        for _ in range(2):
+            c = (fused_patch_embed.launches, F.fused_self_attention.probs_launches,
+                 F.fused_cross_attention.probs_launches)
+            metrics.append({k: float(v) for k, v in step(state, batch, gen, noise=noise).items()})
+            now = (fused_patch_embed.launches, F.fused_self_attention.probs_launches,
+                   F.fused_cross_attention.probs_launches)
+            got = tuple(a - b for a, b in zip(now, c))
+            # teacher 4 ViT + 2 text + 2x2 fusion self, student 2 ViT; teacher 2x2 cross
+            assert got == ((2, 12, 4) if impl == "fused" else (0, 0, 0)), got
+        runs[name] = (metrics, state)
+        assert all(np.isfinite(v) for m in metrics for v in m.values())
+        assert all(bool(torch.isfinite(t).all()) for t in tree_leaves(state.params))
+    # the yardstick: the plain bf16 path's largest relative distance from f32
+    # over every loss of both steps (one scalar's own distance may cancel)
+    f32, kern, plain = (runs[n][0] for n in ("f32", "kernel", "plain"))
+    rel = max(abs(plain[i][k] - f32[i][k]) / max(abs(f32[i][k]), 1e-3)
+              for i in range(2) for k in f32[i])
+    for i in range(2):
+        for k in f32[i]:
+            assert abs(kern[i][k] - plain[i][k]) <= 3 * rel * max(abs(f32[i][k]), 1e-3), (k, rel)
+    assert runs["kernel"][1].step == 2
+
+
+@pytest.mark.parametrize("heads", [2, 4, 6, 8, 10, 12])
+def test_grouped_cross_attention_at_the_exported_head_counts(rnd, heads):
+    """#4 at every head count the export gives with head_gate_group 2."""
+    a, bk, g, t, s = 64 * heads, 2, 8, 40, 77
+    prm, x, enc = _attn(rnd, 768, a), rnd(bk * g, t, 768), rnd(bk, s, 768)
+    mask, hz = _mask(bk, s), torch.rand(heads, device="cuda") + 0.2
+    ln = {"scale": rnd(768, std=0.1, mean=1.0), "bias": rnd(768, std=0.1)}
+    kb = F._key_bias(bk, s, mask, None, x.device)
+    _agree(F.fused_cross_attention_grouped,
+           lambda: F.fused_cross_attention_grouped(prm, x, enc, num_heads=heads, kv_groups=g,
+                                                   key_bias=kb, head_z=hz, ln_params=ln),
+           lambda: F.cross_attention_grouped_plain(prm, x, enc, kb, hz, heads, g, ln))
