@@ -48,6 +48,13 @@ It builds the port's CUDA kernels from csrc/ (into build/kernels/), then:
      prune_xvlm_params (for the trained gates and for gates drawn from a
      seed; FFN widths rounded up to multiples of EXPORT_ALIGN) and the
      pruned student's retrieval forward and rerank chunks;
+   - general distillation (configs/Pretrain_XVLM_small_4m.yaml: the 6L/6L
+     student with local_attn_depth 2, the 12L/12L teacher): three general
+     steps at batch 128 (uint8 images of 257 x 257 -> preprocess_train on
+     the card -> ITC + ITM + MLM + KD) and three region steps (48 images,
+     128 region texts: local attention over 176 rows, + bbox L1 / GIoU) on
+     the kernel path, the plain path and the plain path in f32 from one
+     init, and one plain pretrain step (no teacher) at chance;
    with exact launch counts, finite outputs, and the kernel path against the
    plain path (f32 params for retrieval; the same bf16 params for
    generation, with a teacher-forced replay of the generated captions, and
@@ -69,7 +76,9 @@ It builds the port's CUDA kernels from csrc/ (into build/kernels/), then:
    the train step's ms split into teacher forward, student forward +
    backward and optimizer, samples/s, peak memory and its profile, and the
    probs forms' times beside their bounds and a library composition that
-   also returns the maps.
+   also returns the maps; the same for the general and region GD steps
+   (with the general step's preprocessing) and the probs forms at the GD
+   shapes, each with the card's name and power limit.
 
 Weights are random, made from a seed. Any failed check exits non-zero
 before the last line, which is
@@ -242,6 +251,14 @@ def kernel_cases(rnd):
                   lambda: patch_embed_plain(pp, img, patch_size=p),
                   2 * b * n * k * d,
                   2 * (img.numel() + k * d + b * (n + 1) * d) + 4 * n * d, (pp, img, p)))
+    # general distillation's batch: 128 images at 224 px (196 patches)
+    pp224 = dict(pp, pos_embed={"embedding": pp["pos_embed"]["embedding"][:197]})
+    img224 = rnd(128, 224, 224, 3)
+    cases.append(("patch_embed", "gd_b128_224",
+                  lambda: fused_patch_embed(pp224, img224, patch_size=p),
+                  lambda: patch_embed_plain(pp224, img224, patch_size=p),
+                  2 * 128 * 196 * k * d,
+                  2 * (img224.numel() + k * d + 128 * 197 * d) + 4 * 196 * d, (pp224, img224, p)))
 
     def self_case(case, bsz, t, a, heads):
         prm, x = rnd.attn(d, a), rnd(bsz, t, d)
@@ -257,6 +274,8 @@ def kernel_cases(rnd):
     cases.append(self_case("vit_b32_t577", 32, 577, 768, 12))
     cases.append(self_case("text_b1024_t40", 1024, 40, 768, 12))
     cases.append(self_case("rect_a512_h8", 32, 577, 512, 8))
+    # general distillation's plain pretrain step: the student ViT without maps
+    cases.append(self_case("gd_vit_b128_t197", 128, 197, 768, 12))
 
     def cross_case(case, bsz, t, s, a, heads):
         prm, x, enc = rnd.attn(d, a), rnd(bsz, t, d), rnd(bsz, s, d)
@@ -938,51 +957,97 @@ def probs_yardstick(prm, x, enc, mask, hz, h):
     return run
 
 
-def probs_cases(rnd):
+def region_mask(rnd, b: int, s: int, sizes=(1, 8), full=None) -> tuple:
+    """(key masks [b, s] int32 of a region batch's local layers, boxes [b, 4]
+    (cx, cy, w, h) on the 0..1 scale): every row keeps the CLS key and a box
+    of sizes[0]-sizes[1] x sizes[0]-sizes[1] patches of the square patch
+    grid; the rows where `full` (bool [b]; default rows 0, 3, 6, ...) keep
+    all keys (the full images, box (0.5, 0.5, 1, 1))."""
+    import torch
+
+    g = int(round((s - 1) ** 0.5))
+    if full is None:
+        full = torch.arange(b, device="cuda") % 3 == 0
+    wh = torch.randint(sizes[0], sizes[1] + 1, (b, 2), generator=rnd.g, device="cuda")
+    wh = torch.where(full[:, None], g, wh)
+    x0 = (torch.rand(b, generator=rnd.g, device="cuda") * (g - wh[:, 0] + 1)).long()
+    y0 = (torch.rand(b, generator=rnd.g, device="cuda") * (g - wh[:, 1] + 1)).long()
+    ar = torch.arange(g, device="cuda")
+    rows = (ar >= y0[:, None]) & (ar < (y0 + wh[:, 1])[:, None])
+    cols = (ar >= x0[:, None]) & (ar < (x0 + wh[:, 0])[:, None])
+    inside = rows[:, :, None] & cols[:, None, :]
+    m = torch.cat([torch.ones(b, 1, dtype=torch.bool, device="cuda"), inside.reshape(b, -1)], 1)
+    box = torch.stack([(x0 + wh[:, 0] / 2) / g, (y0 + wh[:, 1] / 2) / g, wh[:, 0] / g,
+                       wh[:, 1] / g], 1).float()
+    return m.to(torch.int32), box
+
+
+def probs_case(rnd, kind, name, b, t, s, heads, min_len=None, mask=None):
     """(name, case, kernel call, plain call -> (out, probs), flops, bytes,
-    mask, library call): the probs forms of #2 at the ViT shape of the
-    training batch (B 24, 577 tokens) and the text / fusion self shape (B
-    48, 40 tokens), of #3 at the fusion cross shape (B 48 x 40 x 577), with
-    masked key tails, and at the pruned widths the export gives (head pairs:
-    2-12 heads, A 128-768). The first case of each name is timed. Bytes:
-    hidden in and out, the weights, the key bias and the f32 maps."""
+    mask, library call) of #2 (kind "self") or #3 with return_probs, masked
+    key tails (or `mask`). Bytes: hidden in and out, the weights, the key
+    bias and the f32 maps."""
     from efficientvlm_tpu_torch.ops import fused_mha as F
 
-    d, cases = 768, []
+    d, a = 768, 64 * heads
+    prm, x, enc = rnd.attn(d, a), rnd(b, t, d), rnd(b, s, d)
+    mask = rnd.mask(b, s, min_len) if mask is None else mask
+    hz = rnd.gates(heads)
+    kb = F._key_bias(b, s, mask, None, x.device)
+    flops = 2 * b * t * d * a * 2 + 2 * b * s * d * a * 2 + 4 * b * t * s * a
+    nbytes = 2 * (2 * x.numel() + 4 * d * a) + 4 * b * s + 4 * b * heads * t * s
+    if kind == "self":
+        enc = x
+        run = lambda: F.fused_self_attention(prm, x, num_heads=heads, mask=mask,  # noqa: E731
+                                             head_z=hz, return_probs=True)
+        plain = lambda: F.self_attention_plain(prm, x, kb, hz, heads,  # noqa: E731
+                                               return_probs=True)
+    else:
+        nbytes += 2 * enc.numel()
+        run = lambda: F.fused_cross_attention(prm, x, enc, num_heads=heads, mask=mask,  # noqa
+                                              head_z=hz, return_probs=True)
+        plain = lambda: F.cross_attention_plain(prm, x, enc, kb, hz, heads,  # noqa: E731
+                                                return_probs=True)
+    return (f"fused_{kind}_attention_probs", name, run, plain, flops, nbytes, mask,
+            probs_yardstick(prm, x, enc, mask, hz, heads))
 
-    def case(kind, name, b, t, s, heads, min_len):
-        a = 64 * heads
-        prm, x, enc = rnd.attn(d, a), rnd(b, t, d), rnd(b, s, d)
-        mask, hz = rnd.mask(b, s, min_len), rnd.gates(heads)
-        kb = F._key_bias(b, s, mask, None, x.device)
-        flops = 2 * b * t * d * a * 2 + 2 * b * s * d * a * 2 + 4 * b * t * s * a
-        nbytes = 2 * (2 * x.numel() + 4 * d * a) + 4 * b * s + 4 * b * heads * t * s
-        if kind == "self":
-            enc = x
-            run = lambda: F.fused_self_attention(prm, x, num_heads=heads, mask=mask,  # noqa
-                                                 head_z=hz, return_probs=True)
-            plain = lambda: F.self_attention_plain(prm, x, kb, hz, heads,  # noqa: E731
-                                                   return_probs=True)
-        else:
-            nbytes += 2 * enc.numel()
-            run = lambda: F.fused_cross_attention(prm, x, enc, num_heads=heads, mask=mask,  # noqa
-                                                  head_z=hz, return_probs=True)
-            plain = lambda: F.cross_attention_plain(prm, x, enc, kb, hz, heads,  # noqa: E731
-                                                    return_probs=True)
-        return (f"fused_{kind}_attention_probs", name, run, plain, flops, nbytes, mask,
-                probs_yardstick(prm, x, enc, mask, hz, heads))
 
-    cases.append(case("self", "vit_b24_t577_h12", 24, 577, 577, 12, 577 // 4))
-    cases.append(case("self", "text_fusion_b48_t40_h12", 48, 40, 40, 12, 8))
+def probs_cases(rnd):
+    """The probs forms of #2 at the ViT shape of the retrieval training batch
+    (B 24, 577 tokens) and the text / fusion self shape (B 48, 40 tokens),
+    of #3 at the fusion cross shape (B 48 x 40 x 577), with masked key
+    tails, and at the pruned widths the export gives (head pairs: 2-12
+    heads, A 128-768). The first case of each name is timed."""
+    cases = [probs_case(rnd, "self", "vit_b24_t577_h12", 24, 577, 577, 12, 577 // 4),
+             probs_case(rnd, "self", "text_fusion_b48_t40_h12", 48, 40, 40, 12, 8)]
     for heads in (2, 8):  # A 128, 512 at the ViT shape
-        cases.append(case("self", f"vit_b24_t577_h{heads}", 24, 577, 577, heads, 577 // 4))
+        cases.append(probs_case(rnd, "self", f"vit_b24_t577_h{heads}", 24, 577, 577, heads,
+                                577 // 4))
     for heads in (4, 6, 10):
-        cases.append(case("self", f"text_fusion_b48_t40_h{heads}", 48, 40, 40, heads, 8))
-    cases.append(case("cross", "fusion_b48_tq40_s577_h12", 48, 40, 577, 12, 577 // 4))
+        cases.append(probs_case(rnd, "self", f"text_fusion_b48_t40_h{heads}", 48, 40, 40, heads,
+                                8))
+    cases.append(probs_case(rnd, "cross", "fusion_b48_tq40_s577_h12", 48, 40, 577, 12, 577 // 4))
     for heads in (2, 8):
-        cases.append(case("cross", f"fusion_b48_tq40_s577_h{heads}", 48, 40, 577, heads,
-                          577 // 4))
+        cases.append(probs_case(rnd, "cross", f"fusion_b48_tq40_s577_h{heads}", 48, 40, 577,
+                                heads, 577 // 4))
     return cases
+
+
+def gd_probs_cases(rnd):
+    """The probs forms at general distillation's shapes (224 px: 197 tokens,
+    the maps' rows padded to 200 floats): #2 over the ViT batch of 128, over
+    the 176 rows of a region batch's local layers with their key masks, and
+    the 40-token text tower at 128 and the ITM-negative fusion pass at 256;
+    #3 at the ITM-negative fusion pass (256 x 40 x 197, region masks on the
+    image keys) and at the bbox / MLM pass (128 x 40 x 197)."""
+    return [probs_case(rnd, "self", "gd_vit_b128_t197_h12", 128, 197, 197, 12, 197 // 4),
+            probs_case(rnd, "self", "gd_region_local_b176_t197_h12", 176, 197, 197, 12,
+                       mask=region_mask(rnd, 176, 197)[0]),
+            probs_case(rnd, "self", "gd_text_b128_t40_h12", 128, 40, 40, 12, 8),
+            probs_case(rnd, "self", "gd_itm_neg_b256_t40_h12", 256, 40, 40, 12, 8),
+            probs_case(rnd, "cross", "gd_itm_neg_b256_tq40_s197_h12", 256, 40, 197, 12,
+                       mask=region_mask(rnd, 256, 197)[0]),
+            probs_case(rnd, "cross", "gd_bbox_b128_tq40_s197_h12", 128, 40, 197, 12, 197 // 4)]
 
 
 def phase_probs(cases) -> dict:
@@ -1029,28 +1094,36 @@ def grad_cases(rnd):
 
     d, h, cases = 768, 12, []
     master = lambda t: t.float().requires_grad_(True)  # noqa: E731
-    for kind, b, t, s in (("self", 4, 577, 577), ("cross", 8, 40, 577)):
+    # with maps: the ViT at 577 tokens, the fusion cross-attention, and a
+    # region batch's local layer at 197 tokens with its key masks; without:
+    # the ViT of general distillation's plain pretrain step (B 128 at 224 px)
+    for kind, b, t, s, region, probs in (
+            ("self", 4, 577, 577, False, True), ("cross", 8, 40, 577, False, True),
+            ("self", 8, 197, 197, True, True), ("self", 128, 197, 197, False, False)):
         prm = {n: {k: master(v) for k, v in p.items()} for n, p in rnd.attn(d, d).items()}
         x, enc = rnd(b, t, d).requires_grad_(True), rnd(b, s, d).requires_grad_(True)
         hz = master(rnd.gates(h))
-        mask = rnd.mask(b, s, s // 4)
+        mask = region_mask(rnd, b, s)[0] if region else rnd.mask(b, s, s // 4)
         kb = F._key_bias(b, s, mask, None, x.device)
         ins = [x, hz] + [prm[n][k] for n in prm for k in prm[n]] + (
             [enc] if kind == "cross" else [])
-        cts = [rnd(b, t, d), rnd(b, h, t, s, dtype=torch.float32)]
+        cts = [rnd(b, t, d)] + ([rnd(b, h, t, s, dtype=torch.float32)] if probs else [])
+        # each call returns a tuple: (out, probs) or (out,)
+        tup = (lambda y: y) if probs else (lambda y: (y,))
         if kind == "self":
-            run = lambda prm=prm, x=x, mask=mask, hz=hz: F.fused_self_attention(  # noqa: E731
-                prm, x, num_heads=h, mask=mask, head_z=hz, return_probs=True,
-                differentiable=True)
-            plain = lambda prm=prm, x=x, kb=kb, hz=hz: F.self_attention_plain(  # noqa: E731
-                prm, x, kb, hz, h, return_probs=True)
+            run = lambda prm=prm, x=x, mask=mask, hz=hz, p=probs, tup=tup: tup(  # noqa: E731
+                F.fused_self_attention(prm, x, num_heads=h, mask=mask, head_z=hz,
+                                       return_probs=p, differentiable=True))
+            plain = lambda prm=prm, x=x, kb=kb, hz=hz, p=probs, tup=tup: tup(  # noqa: E731
+                F.self_attention_plain(prm, x, kb, hz, h, return_probs=p))
         else:
             run = lambda prm=prm, x=x, enc=enc, mask=mask, hz=hz: F.fused_cross_attention(  # noqa
                 prm, x, enc, num_heads=h, mask=mask, head_z=hz, return_probs=True,
                 differentiable=True)
             plain = lambda prm=prm, x=x, enc=enc, kb=kb, hz=hz: F.cross_attention_plain(  # noqa
                 prm, x, enc, kb, hz, h, return_probs=True)
-        cases.append((f"fused_{kind}_attention_probs", run, plain, ins, cts))
+        cases.append((f"fused_{kind}_attention" + ("_probs" if probs else "") +
+                      f" [b{b} t{t}]", run, plain, ins, cts))
     p, res, b = 16, 384, 4
     n = (res // p) ** 2
     pp = {"patch_embed": {"kernel": master(rnd(p, p, 3, d, std=(p * p * 3) ** -0.5))},
@@ -1211,6 +1284,45 @@ def grad_distance(a, b) -> tuple:
 TRAIN_FACTOR = 3.0  # kernel path vs plain path, in units of plain bf16 vs f32
 
 
+def hold_to_plain(results, steps: int, groups, what: str):
+    """The kernel path's losses and step-1 gradients against the plain
+    path's, in units of the plain bf16 path's distance from the f32 path.
+    results: {"kernel" | "plain" | "f32": (metrics per step, step-1 gradient
+    lists, one per group)}. The loss yardstick is the plain bf16 path's
+    largest relative distance from f32 over every loss of every step (one
+    scalar's own distance may cancel by chance: on an NVIDIA H100 80GB HBM3
+    at 700 W the ITM-logit KD's was 1e-4 at one step and 2e-3 at the next)."""
+    (mk, gk), (mp, gp), (mf, gf) = (results[n] for n in ("kernel", "plain", "f32"))
+    rel = max(abs(mp[i][k] - mf[i][k]) / max(abs(mf[i][k]), 1e-3)
+              for i in range(steps) for k in mf[i])
+    for i in range(steps):
+        worst = max((abs(mk[i][k] - mp[i][k]) / max(abs(mf[i][k]), 1e-3), k) for k in mf[i])
+        print(f"{what} step {i + 1} losses: kernel vs plain worst relative {worst[0]:.3e} "
+              f"({worst[1]}); plain bf16 vs f32 worst over the steps {rel:.3e}; tol "
+              f"{TRAIN_FACTOR * rel:.3e}")
+        check(worst[0] <= TRAIN_FACTOR * rel, f"{what} step {i + 1}: {worst[1]} of the kernel "
+                                              "path disagrees with the plain path")
+    for j, group in enumerate(groups):
+        rel_kp, cos_kp = grad_distance(gk[j], gp[j])
+        rel_pf, cos_pf = grad_distance(gp[j], gf[j])
+        # per leaf (leaves with a non-zero gradient): (rel, 1 - cos) of kernel
+        # vs plain, then of plain vs f32
+        per_leaf = [(*grad_distance([a], [b_]), *grad_distance([b_], [c_]))
+                    for a, b_, c_ in zip(gk[j], gp[j], gf[j])
+                    if a is not None and b_ is not None and b_.abs().max().item() > 0]
+        med = [statistics.median(x[i] if i % 2 == 0 else 1 - x[i] for x in per_leaf)
+               for i in range(4)]
+        print(f"{what} step-1 gradients [{group}, {len(per_leaf)} leaves]: kernel vs plain rel "
+              f"{rel_kp:.3e} cos {cos_kp:.6f}; plain bf16 vs f32 rel {rel_pf:.3e} cos "
+              f"{cos_pf:.6f}; per-leaf medians: rel {med[0]:.3e} vs {med[2]:.3e}, 1 - cos "
+              f"{med[1]:.3e} vs {med[3]:.3e}; worst leaf rel {max(x[0] for x in per_leaf):.3e} "
+              f"vs {max(x[2] for x in per_leaf):.3e}")
+        check(rel_kp <= TRAIN_FACTOR * rel_pf and 1 - cos_kp <= TRAIN_FACTOR * (1 - cos_pf)
+              + 1e-7 and med[0] <= TRAIN_FACTOR * med[2]
+              and med[1] <= TRAIN_FACTOR * med[3] + 1e-7,
+              f"{what} step-1 gradients [{group}]: the kernel path disagrees with the plain path")
+
+
 def phase_train(rnd):
     """TRAIN_UNIT["steps"] full-width steps at batch 24 on the kernel path,
     the plain path and the f32 plain path from one state, with the concrete
@@ -1271,40 +1383,8 @@ def phase_train(rnd):
         check(dlam[0] * g_lam1 > 0, f"train {name}: lambda_1 did not ascend its gradient")
         results[name] = (metrics, first_grads, state)
 
-    # kernel path against plain path, in units of plain bf16 against f32
-    (mk, gk, _), (mp, gp, _), (mf, gf, _) = (results[n] for n in ("kernel", "plain", "f32"))
-    # the yardstick: the plain bf16 path's largest relative distance from
-    # f32 over every loss of every step (one scalar's own distance may
-    # cancel by chance: on an NVIDIA H100 80GB HBM3 at 700 W the ITM-logit
-    # KD's was 1e-4 at one step and 2e-3 at the next)
-    rel = max(abs(mp[i][k] - mf[i][k]) / max(abs(mf[i][k]), 1e-3)
-              for i in range(u["steps"]) for k in mf[i])
-    for i in range(u["steps"]):
-        worst = max((abs(mk[i][k] - mp[i][k]) / max(abs(mf[i][k]), 1e-3), k) for k in mf[i])
-        print(f"train step {i + 1} losses: kernel vs plain worst relative {worst[0]:.3e} "
-              f"({worst[1]}); plain bf16 vs f32 worst over the steps {rel:.3e}; tol "
-              f"{TRAIN_FACTOR * rel:.3e}")
-        check(worst[0] <= TRAIN_FACTOR * rel, f"train step {i + 1}: {worst[1]} of the kernel "
-                                              "path disagrees with the plain path")
-    for j, group in enumerate(("params", "loga", "lambda")):
-        rel_kp, cos_kp = grad_distance(gk[j], gp[j])
-        rel_pf, cos_pf = grad_distance(gp[j], gf[j])
-        # per leaf (leaves with a non-zero gradient): (rel, 1 - cos) of kernel
-        # vs plain, then of plain vs f32
-        per_leaf = [(*grad_distance([a], [b_]), *grad_distance([b_], [c_]))
-                    for a, b_, c_ in zip(gk[j], gp[j], gf[j])
-                    if a is not None and b_ is not None and b_.abs().max().item() > 0]
-        med = [statistics.median(x[i] if i % 2 == 0 else 1 - x[i] for x in per_leaf)
-               for i in range(4)]
-        print(f"train step-1 gradients [{group}, {len(per_leaf)} leaves]: kernel vs plain rel "
-              f"{rel_kp:.3e} cos {cos_kp:.6f}; plain bf16 vs f32 rel {rel_pf:.3e} cos "
-              f"{cos_pf:.6f}; per-leaf medians: rel {med[0]:.3e} vs {med[2]:.3e}, 1 - cos "
-              f"{med[1]:.3e} vs {med[3]:.3e}; worst leaf rel {max(x[0] for x in per_leaf):.3e} "
-              f"vs {max(x[2] for x in per_leaf):.3e}")
-        check(rel_kp <= TRAIN_FACTOR * rel_pf and 1 - cos_kp <= TRAIN_FACTOR * (1 - cos_pf)
-              + 1e-7 and med[0] <= TRAIN_FACTOR * med[2]
-              and med[1] <= TRAIN_FACTOR * med[3] + 1e-7,
-              f"train step-1 gradients [{group}]: the kernel path disagrees with the plain path")
+    hold_to_plain({n: r[:2] for n, r in results.items()}, u["steps"],
+                  ("params", "loga", "lambda"), "train")
     step, state, _ = paths["kernel"]
     for name in ("plain", "f32"):
         del paths[name]
@@ -1456,6 +1536,389 @@ def phase_export(train_state, slice_state, rnd) -> dict:
     return out
 
 
+# --------------------------------------------------------------------------
+# phase 3c: general distillation (stage 1)
+# --------------------------------------------------------------------------
+
+GD_UNIT = dict(batch=128, raw=257, res=224, tokens=40, max_masks=8, region_images=48,
+               region_texts=128, steps=3)
+# launches per kernel-path step, wrappers() order: #1 teacher + student; #2's
+# probs form: teacher ViT 12, text 6, ITM pos / neg 6 + 6, MLM 12, student
+# ViT 6; #3's: teacher ITM pos / neg 6 + 6, MLM 6. The teacher runs no bbox
+# head (no KD loss reads it); the student's BERT layers (dropout 0.1),
+# its bbox head included, take the plain core
+GD_LAUNCHES = {False: (2, 0, 0, 0, 0, 0, 48, 18), True: (2, 0, 0, 0, 0, 0, 48, 18)}
+GD_PATHS = (("kernel", "fused", "bfloat16"), ("plain", "plain", "bfloat16"),
+            ("f32", "plain", None))
+
+
+def gd_config():
+    """configs/Pretrain_XVLM_small_4m.yaml with the vision tower of
+    configs/config_clipvit_small.json: the student's 6L CLIP-ViT-B/16 at 224
+    px with local_attn_depth 2 and BERT-base with 6 layers (fusion at 3,
+    dropout 0.1); the teacher 12L ViT (local_attn_depth 4) + 12L BERT (fusion
+    at 6) (drivers/common.teacher_configs); embed 256, temp 0.07, 40 tokens,
+    8 masks at most, one AdamW (lr 1e-4, weight decay 0.01, lr_mult 2, clip
+    1.0) over the published schedule's length, device_preprocess. One cut:
+    the warm-up of 2,500 steps is 0 here, so that the three checked steps
+    update at the peak lr (under the warm-up their lrs are 0, 4e-8, 8e-8)."""
+    from efficientvlm_tpu_torch.config import Config, VisionConfig
+
+    vision = VisionConfig.create(vision_width=768, patch_size=16, hidden_act="quick_gelu",
+                                 num_attention_heads=12, attention_dropout=0.0,
+                                 intermediate_size=3072, num_hidden_layers=6,
+                                 local_attn_depth=2, image_res=224)
+    return Config({
+        "image_res": 224, "vision": vision, "text_num_hidden_layers": 6, "embed_dim": 256,
+        "temp": 0.07, "max_tokens": 40, "max_masks": 8, "mask_prob": 0.25,
+        "train_dataset_size": 5114489, "images": {"batch_size": 128},
+        "regions": {"batch_size": 128, "max_images": 48},
+        "optimizer": {"opt": "adamW", "lr": 1e-4, "weight_decay": 0.01, "lr_mult": 2},
+        "schedular": {"sched": "linear", "lr": 1e-4, "epochs": 41, "num_warmup_steps": 0},
+        "accelerator": {"CLIP_GRAD_NORM": 1.0}, "device_preprocess": True})
+
+
+def gd_text(rnd, n: int) -> dict:
+    """n texts of 40 tokens ([CLS] first, PAD past each length of 8-40) and
+    their MLM inputs: 25% of the tokens after [CLS], at least 1 and at most
+    8, replaced by [MASK] (103); masked_pos / masked_ids padded with 0 /
+    -100."""
+    import torch
+
+    t, m = GD_UNIT["tokens"], GD_UNIT["max_masks"]
+    atts = rnd.mask(n, t, 8)
+    ids = torch.randint(1000, 30522, (n, t), generator=rnd.g, device="cuda")
+    ids[:, 0] = 101
+    ids = torch.where(atts == 1, ids, 0)
+    lens = atts.sum(1)
+    n_mask = ((lens - 1).float() * 0.25).long().clamp(1, m)
+    ar = torch.arange(t, device="cuda")
+    score = torch.rand(n, t, generator=rnd.g, device="cuda")
+    score = torch.where((ar[None] >= 1) & (ar[None] < lens[:, None]), score, 2.0)
+    valid = torch.arange(m, device="cuda")[None] < n_mask[:, None]
+    pos = torch.where(valid, score.argsort(1)[:, :m], 0)
+    masked_ids = torch.where(valid, ids.gather(1, pos), -100)
+    masked = ids.scatter(1, pos, torch.where(valid, 103, ids.gather(1, pos)))
+    return {"text_ids": ids, "text_atts": atts, "text_ids_masked": masked,
+            "masked_pos": pos, "masked_ids": masked_ids}
+
+
+def gd_batches(rnd) -> tuple:
+    """The general batch (128 uint8 images of 257 x 257, what
+    ImageTransform.uint8(224) ships, and their texts) and the region batch
+    (48 images at 224 and 128 region texts: every image has one text or
+    more, each text a box of 2-10 x 2-10 patches whose patch mask (and the
+    CLS) is its image_atts; every 8th text is a whole-image "region",
+    is_image 1)."""
+    import torch
+
+    u = GD_UNIT
+    general = {"image": torch.randint(0, 256, (u["batch"], u["raw"], u["raw"], 3),
+                                      generator=rnd.g, device="cuda", dtype=torch.uint8),
+               **gd_text(rnd, u["batch"])}
+    n_img, n_txt = u["region_images"], u["region_texts"]
+    idx = torch.cat([torch.arange(n_img, device="cuda"),
+                     torch.randint(0, n_img, (n_txt - n_img,), generator=rnd.g, device="cuda")])
+    idx = idx[torch.randperm(n_txt, generator=rnd.g, device="cuda")]
+    is_image = (torch.arange(n_txt, device="cuda") % 8 == 7).long()
+    image_atts, box = region_mask(rnd, n_txt, (u["res"] // 16) ** 2 + 1, sizes=(2, 10),
+                                  full=is_image == 1)
+    region = {"image": rnd(n_img, u["res"], u["res"], 3, dtype=torch.float32),
+              **gd_text(rnd, n_txt), "image_atts": image_atts, "idx_to_group_img": idx,
+              "target_bbox": box, "is_image": is_image}
+    return general, region
+
+
+def gd_models():
+    """The config, the student and teacher (bbox heads included), the
+    student's f32 params and the frozen teacher's, stored in bf16 (the f32
+    path upcasts them, exactly)."""
+    import torch
+
+    from efficientvlm_tpu_torch.bridge import cast_floating
+    from efficientvlm_tpu_torch.drivers.gd import build_models
+
+    config = gd_config()
+    student, teacher = build_models(config)
+    for m in (student, teacher):
+        pin_negatives(m)
+    params = student.init(0, device="cuda", with_bbox_head=True)
+    t_bf16 = cast_floating(teacher.init(1, device="cuda", with_bbox_head=True), torch.bfloat16)
+    return config, student, teacher, params, t_bf16
+
+
+def gd_step(models, path: str, with_bbox: bool, distill: bool = True):
+    """(preprocess or None, step, state) of one path from the shared init,
+    built by drivers/gd.build_step (whose general step comes wrapped in
+    DevicePreprocess; the parts are returned apart so they can be timed)."""
+    import torch
+
+    from efficientvlm_tpu_torch.bridge import cast_floating
+    from efficientvlm_tpu_torch.drivers.common import build_optimizers
+    from efficientvlm_tpu_torch.drivers.gd import DevicePreprocess, build_step, total_steps
+    from efficientvlm_tpu_torch.train.steps import init_pretrain_state
+
+    config, student, teacher, params, t_bf16 = models
+    _, impl, dtype = next(p for p in GD_PATHS if p[0] == path)
+    dtype = getattr(torch, dtype) if dtype else None
+    opt = build_optimizers(params, config, total_steps(config))[0]
+    state = init_pretrain_state(clone_tree(params), opt)
+    tparams = t_bf16 if dtype is not None else cast_floating(t_bf16, torch.float32)
+    step = build_step(config, student, opt, teacher=teacher if distill else None,
+                      teacher_params=tparams, with_bbox=with_bbox, dtype=dtype, impl=impl)
+    if isinstance(step, DevicePreprocess):
+        return step.preprocess, step.step, state
+    return None, step, state
+
+
+def phase_gd(rnd, seeds: int = 0) -> dict:
+    """GD_UNIT["steps"] steps of the general step (uint8 images ->
+    preprocess_train -> ITC + ITM + MLM + KD) and of the region step (local
+    attention, + bbox L1 / GIoU) on the kernel, plain and f32 plain paths
+    from one init, each path's generator seeded alike (so the crops, flips,
+    ops and dropout masks agree): exact launches per kernel-path step,
+    finite losses, gradients and params, temp within its clamp, the kernel
+    path held to the plain path (hold_to_plain); then one plain pretrain
+    step (no teacher) whose losses sit at chance at init; with `seeds`,
+    gd_leaf_seeds after (its launches are not counted)."""
+    import torch
+
+    from efficientvlm_tpu_torch.train.optim import tree_leaves
+
+    t_phase = time.perf_counter()
+    models = gd_models()
+    general, region = gd_batches(rnd)
+    u = GD_UNIT
+    kept, c = {}, reset_counts()  # general distillation's run starts here
+    for with_bbox, batch in ((False, general), (True, region)):
+        what = "gd region" if with_bbox else "gd general"
+        results = {}
+        for path, _, _ in GD_PATHS:
+            prep, step, state = gd_step(models, path, with_bbox)
+            gen = torch.Generator(device="cuda").manual_seed(7)
+            metrics, first = [], None
+            for i in range(u["steps"]):
+                b = prep(batch, gen) if prep else batch
+                t_out = step.teacher_forward(b, gen)
+                m, grads = step.loss_and_grads(state, b, t_out, gen)
+                del t_out
+                first = grads if first is None else first
+                step.apply(state, grads)
+                metrics.append({k: float(v) for k, v in m.items()})
+                if path == "kernel":
+                    c = expect_launches(c, GD_LAUNCHES[with_bbox], f"{what} step {i + 1}")
+            if path != "kernel":  # the yardstick paths launch no kernel
+                c = expect_launches(c, (), f"{what} {path}")
+            torch.cuda.synchronize()
+            check(all(math.isfinite(v) for mm in metrics for v in mm.values()),
+                  f"{what} {path}: non-finite loss")
+            check(all(bool(torch.isfinite(g).all()) for g in first if g is not None),
+                  f"{what} {path}: non-finite gradient")
+            check(all(bool(torch.isfinite(t).all()) for t in tree_leaves(state.params)),
+                  f"{what} {path}: non-finite params")
+            temp = float(state.params["temp"].detach())
+            check(0.001 <= temp <= 0.5, f"{what} {path}: temp {temp} outside its clamp")
+            print(f"{what} {path} ({u['steps']} steps): " + ", ".join(
+                f"{k} " + "/".join(f"{mm[k]:.5f}" for mm in metrics) for k in metrics[0]))
+            results[path] = (metrics, (first,))
+            if path == "kernel":
+                kept[with_bbox] = (prep, step, state, batch)
+            del first, grads, step, state
+        hold_to_plain(results, u["steps"], ("params",), what)
+        leaf_report(what, models, *(results[p][1][0] for p in ("kernel", "plain", "f32")))
+        del results
+
+    # the plain pretrain step (the pretrain_* tasks): no teacher, no KD
+    prep, step, state = gd_step(models, "kernel", False, distill=False)
+    gen = torch.Generator(device="cuda").manual_seed(8)
+    m = {k: float(v) for k, v in step(state, prep(general, gen), gen).items()}
+    expect_launches(c, (1, 6, 0, 0, 0, 0, 0, 0), "pretrain step")  # the student's #1 and ViT
+    chance = {"loss_itc": math.log(u["batch"]), "loss_itm": math.log(2),
+              "loss_mlm": math.log(models[1].text_cfg["vocab_size"])}
+    print("pretrain step (kernel path): " + ", ".join(f"{k} {v:.5f}" for k, v in m.items()) +
+          "; chance: " + ", ".join(f"{k} {v:.5f}" for k, v in chance.items()))
+    check(all(math.isfinite(v) for v in m.values()), "pretrain step: non-finite loss")
+    check(abs(m["loss_itc"] - chance["loss_itc"]) < 1.0
+          and abs(m["loss_itm"] - chance["loss_itm"]) < 0.2
+          and abs(m["loss_mlm"] - chance["loss_mlm"]) < 1.0,
+          "pretrain step: the losses at init are not at chance")
+    del prep, step, state
+    print(f"phase gd: {time.perf_counter() - t_phase:.1f} s")
+    launches = counts()
+    if seeds:
+        gd_leaf_seeds(models, seeds)
+    return {"kept": kept, "launches": launches}
+
+
+def gd_parts(models) -> list:
+    """(part name, leaf indices) of the student's params in tree order: the
+    vision tower's global and local (region-masked) layers, its stem, the
+    text layers, the fusion layers, the MLM head, the bbox head, the rest
+    (ITM head, projections, temp)."""
+    from efficientvlm_tpu_torch.train.optim import tree_leaves_with_path
+
+    _, student, _, params, _ = models
+    n_vis, local = student.vision_cfg["num_hidden_layers"], student.vision_cfg["local_attn_depth"]
+    fusion = student.text_cfg["fusion_layer"]
+
+    def part(p) -> str:
+        if p[0] == "vision":
+            if p[1] == "layers":
+                return "vision_local" if p[2] >= n_vis - local else "vision_global"
+            return "vision_stem"
+        if p[0] == "text":
+            if p[1] == "layers":
+                return "fusion" if p[2] >= fusion else "text"
+            return "mlm_head" if p[1] == "cls" else "text"
+        return "bbox_head" if p[0] == "bbox_head" else "other"
+
+    parts: dict = {}
+    for i, (p, _) in enumerate(tree_leaves_with_path(params)):
+        parts.setdefault(part(p), []).append(i)
+    return list(parts.items())
+
+
+def leaf_report(what, models, gk, gp, gf) -> dict:
+    """Step-1 gradients by part of the student (gd_parts): the part's
+    relative distance kernel vs plain beside plain bf16 vs f32, their ratio,
+    and the part's worst leaf by that ratio. A kernel fault confined to some
+    rows (the local layers' masked keys) shows as one part's ratio far above
+    the others'; bf16 noise spreads alike. Returns {part: ratio}."""
+    from efficientvlm_tpu_torch.train.optim import path_str, tree_leaves_with_path
+
+    names = [path_str(p) for p, _ in tree_leaves_with_path(models[3])]
+    ratios = {}
+    for name, idx in gd_parts(models):
+        idx = [i for i in idx if gp[i] is not None and gp[i].abs().max().item() > 0]
+        if not idx:
+            continue
+        kp = grad_distance([gk[i] for i in idx], [gp[i] for i in idx])[0]
+        pf = grad_distance([gp[i] for i in idx], [gf[i] for i in idx])[0]
+        leaf = [(grad_distance([gk[i]], [gp[i]])[0], grad_distance([gp[i]], [gf[i]])[0], i)
+                for i in idx]
+        worst = max(leaf, key=lambda x: x[0] / max(x[1], 1e-12))
+        ratios[name] = kp / max(pf, 1e-12)
+        print(f"{what} step-1 gradients, part {name} ({len(idx)} leaves): kernel vs plain rel "
+              f"{kp:.3e}, plain bf16 vs f32 {pf:.3e}, ratio {ratios[name]:.2f}; worst leaf "
+              f"{names[worst[2]]}: {worst[0]:.3e} vs {worst[1]:.3e}")
+    return ratios
+
+
+def gd_leaf_seeds(models, seeds: int):
+    """The region step's step-1 gradients by part (leaf_report) over `seeds`
+    more region batches, each drawn from its own seed, on the kernel, plain
+    and f32 paths from the shared init; then each part's ratio over the
+    seeds. A diagnostic (chip_smoke.py --gd-seeds N); checks nothing."""
+    import torch
+
+    ratios: dict = {}
+    for seed in range(1, seeds + 1):
+        _, batch = gd_batches(Rand(100 + seed))
+        grads = {}
+        for path, _, _ in GD_PATHS:
+            _, step, state = gd_step(models, path, True)
+            gen = torch.Generator(device="cuda").manual_seed(7)
+            grads[path] = step.loss_and_grads(state, batch, step.teacher_forward(batch, gen),
+                                              gen)[1]
+            del step, state
+        for k, v in leaf_report(f"gd region seed {seed}", models,
+                                *(grads[p] for p in ("kernel", "plain", "f32"))).items():
+            ratios.setdefault(k, []).append(v)
+        del grads
+    print("gd region step-1 gradients, kernel vs plain over plain vs f32 by part, over "
+          f"{seeds} seeds: " + ", ".join(f"{k} " + "/".join(f"{x:.2f}" for x in v)
+                                         for k, v in ratios.items()))
+
+
+def gd_times(gd_state, smi: str):
+    """The GD steps' ms split into preprocessing (general only), teacher
+    forward, student forward + backward and optimizer (host clock,
+    synchronised at each boundary, median of 3 steps), samples/s, peak
+    memory and a profile of one step, each with the card's name and power
+    limit; then #2's and #3's probs forms at the GD shapes beside their
+    bounds, plain versions and a library composition."""
+    import torch
+
+    for with_bbox, (prep, step, state, batch) in gd_state["kept"].items():
+        what = "region" if with_bbox else "general"
+        gen = torch.Generator(device="cuda").manual_seed(11)
+        torch.cuda.reset_peak_memory_stats()
+        parts = [("preprocess", lambda _: prep(batch, gen))] if prep else []
+        med = split_ms(parts + [
+            ("teacher_forward", lambda b: (b or batch, step.teacher_forward(b or batch, gen))),
+            ("student_forward_backward",
+             lambda bt: step.loss_and_grads(state, bt[0], bt[1], gen)[1]),
+            ("optimizer", lambda grads: step.apply(state, grads))])
+        total = sum(med.values())
+        samples = GD_UNIT["region_texts"] if with_bbox else GD_UNIT["batch"]
+        print(f"card: {smi}")
+        print(json.dumps({f"gd_{what}_step": {
+            **{f"{k}_ms": v for k, v in med.items()}, "step_ms": total,
+            "samples_per_s": samples / total * 1e3,
+            "peak_memory_gib": torch.cuda.max_memory_allocated() / 2 ** 30}}))
+
+        def one_step():
+            b = prep(batch, gen) if prep else batch
+            step(state, b, gen)
+
+        profile(f"gd {what} step b{samples} (kernel path; card {smi})", one_step, calls=1,
+                top=16)
+    preprocess_split(gd_state["kept"][False][3]["image"], smi)
+    for name, case, run, plain, flops, nbytes, _, lib in gd_probs_cases(Rand(3)):
+        with torch.inference_mode():
+            ms, plain_ms, lib_ms = timed_ms(run), timed_ms(plain), timed_ms(lib)
+        bound_ms, bound_by = bound(flops, nbytes)
+        print(f"time {name} [{case}]: {ms:.4f} ms, plain {plain_ms:.4f} ms, library "
+              f"{lib_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by}), "
+              f"{nbytes / ms / 1e6:.1f} GB/s; card {smi}")
+
+
+def preprocess_split(pixels, smi: str):
+    """preprocess_train's parts at the general batch (CUDA events): the
+    crop + flip, and each RandAugment op over the whole batch (in a step an
+    op sees about 2 / 14 of it), so that the preprocessing's time can be
+    told apart by op."""
+    import torch
+
+    from efficientvlm_tpu_torch.data import device_pipeline as P
+
+    gen = torch.Generator(device="cuda").manual_seed(12)
+    params = P.sample_train_params(gen, *pixels.shape[:3])
+    res = GD_UNIT["res"]
+    crop = lambda: P.flip_images(P.crop_resize(pixels, params["box"], res),  # noqa: E731
+                                 params["flip"])
+    imgs, sign = crop(), params["signs"][0]
+    ms = {"crop_flip": timed_ms(crop, iters=3, runs=3)}
+    for name, op in zip(("identity", "autocontrast", "equalize", "rotate", "solarize", "color",
+                         "contrast", "brightness", "sharpness", "shear_x", "shear_y",
+                         "translate_x", "translate_y", "posterize"),
+                        P.make_randaug_ops(P.RANDAUG_M / P.MAX_LEVEL)):
+        ms[name] = timed_ms(lambda: op(imgs, sign), iters=3, runs=3)
+    ms["whole"] = timed_ms(lambda: P.preprocess_train(pixels, res, params=params), iters=3,
+                           runs=3)
+    print(f"preprocess split, ms at batch {pixels.shape[0]} ({smi}): " +
+          ", ".join(f"{k} {v:.3f}" for k, v in ms.items()))
+
+
+def split_ms(parts, runs: int = 3) -> dict:
+    """Median host-clock ms of each part of a step over `runs` steps,
+    synchronised at each boundary. parts: [(name, fn)] run in order, each fn
+    taking the previous part's result (None for the first)."""
+    import torch
+
+    times = {name: [] for name, _ in parts}
+    for _ in range(runs):
+        out = None
+        for name, fn in parts:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn(out)
+            torch.cuda.synchronize()
+            times[name].append((time.perf_counter() - t0) * 1e3)
+        del out
+    return {k: statistics.median(v) for k, v in times.items()}
+
+
 def train_times(train_state, probs_case_list, errs) -> list:
     """ms per step split into its parts (host clock, synchronised at each
     boundary), samples/s, peak memory, a profile of one step; the probs
@@ -1464,24 +1927,12 @@ def train_times(train_state, probs_case_list, errs) -> list:
 
     step, state, batch = train_state["step"], train_state["state"], train_state["batch"]
     noise, gen = train_state["noise"], torch.Generator(device="cuda").manual_seed(11)
-    parts = {"teacher_forward": [], "student_forward_backward": [], "optimizer": []}
     torch.cuda.reset_peak_memory_stats()
-    for _ in range(3):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        t_out = step.teacher_forward(batch)
-        torch.cuda.synchronize()
-        t1 = time.perf_counter()
-        _, grads = step.loss_and_grads(state, batch, t_out, gen, noise=noise)
-        del t_out
-        torch.cuda.synchronize()
-        t2 = time.perf_counter()
-        step.apply(state, grads)
-        torch.cuda.synchronize()
-        t3 = time.perf_counter()
-        for key, v in zip(parts, (t1 - t0, t2 - t1, t3 - t2)):
-            parts[key].append(v * 1e3)
-    med = {k: statistics.median(v) for k, v in parts.items()}
+    med = split_ms([
+        ("teacher_forward", lambda _: step.teacher_forward(batch)),
+        ("student_forward_backward",
+         lambda t_out: step.loss_and_grads(state, batch, t_out, gen, noise=noise)[1]),
+        ("optimizer", lambda grads: step.apply(state, grads))])
     total = sum(med.values())
     peak = torch.cuda.max_memory_allocated() / 2 ** 30
     print(json.dumps({"train_step": {**{f"{k}_ms": v for k, v in med.items()},
@@ -1605,6 +2056,9 @@ KERNEL_META = {
 
 
 def phase_times(cases, device_cases, errs, slice_state, gen_state, train_launches) -> list:
+    """The kernels line's rows of #1-#6 (launches summed over every main
+    path: retrieval, generation and the training paths of train_launches),
+    and the times of phase 4."""
     import torch
 
     from efficientvlm_tpu_torch.evaluation import retrieval as R
@@ -1628,7 +2082,7 @@ def phase_times(cases, device_cases, errs, slice_state, gen_state, train_launche
         src, replaces = KERNEL_META[name]
         rows_out.append({"name": name, "route": "cuda", "source": src, "replaces": replaces,
                          "launches": slice_state["launches"][name] + gen_state["launches"][name]
-                         + train_launches[name],
+                         + sum(t[name] for t in train_launches),
                          "max_abs_err": errs[name], "ms": ms, "plain_ms": plain_ms,
                          "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": lib_ms})
     # the other main-path shapes (text, t2i, rect, decode), for the record;
@@ -1643,7 +2097,8 @@ def phase_times(cases, device_cases, errs, slice_state, gen_state, train_launche
         flash = name.startswith("flash_attention")
         if first and not flash:
             continue
-        lib = library_yardstick(name, extra[0])
+        lib = (patch_yardstick(*extra[0]) if name == "patch_embed"
+               else library_yardstick(name, extra[0]))
         with torch.inference_mode():
             ms, lib_ms = timed_pair_ms(run, lib) if flash else (timed_ms(run), timed_ms(lib))
         if flash:
@@ -1831,7 +2286,10 @@ def profile(what: str, fn, calls: int = 3, top: int = 12):
               f" ms/call {e.count // calls:5d}x  {e.key[:90]}")
 
 
-def main() -> int:
+def main(argv) -> int:
+    """Every phase on one card. --gd-seeds N adds gd_leaf_seeds' diagnostic
+    over N more region batches."""
+    seeds = int(argv[argv.index("--gd-seeds") + 1]) if "--gd-seeds" in argv else 0
     import torch
 
     if not torch.cuda.is_available():
@@ -1849,15 +2307,24 @@ def main() -> int:
     errs = phase_kernels(cases + device_cases)
     flash_refusals(rnd)
     p_cases = probs_cases(rnd)
-    errs.update(phase_probs(p_cases))
+    errs.update(phase_probs(p_cases + gd_probs_cases(rnd)))
     phase_grads(grad_cases(rnd))
     slice_state = phase_slice(rnd)
     gen_state = phase_generation(rnd)
     train_state = phase_train(rnd)
     phase_export(train_state, slice_state, rnd)
+    train_rows = train_times(train_state, p_cases, errs)
+    train_launches = train_state["launches"]
+    del train_state  # each training path's peak memory is its own
+    gd_state = phase_gd(rnd, seeds)
+    gd_times(gd_state, smi)
+    gd_launches = gd_state["launches"]
+    del gd_state
     kernels = phase_times(cases, device_cases, errs, slice_state, gen_state,
-                          train_state["launches"])
-    kernels += train_times(train_state, p_cases, errs)
+                          [train_launches, gd_launches])
+    for row in train_rows:  # the probs forms run on both training paths
+        row["launches"] += gd_launches[row["name"]]
+    kernels += train_rows
     print(f"card: {smi}; total {time.perf_counter() - t0:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
@@ -1867,4 +2334,4 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(main(sys.argv[1:]))

@@ -12,7 +12,8 @@
   activation;
 - decoding: a fixed-size per-layer self-attention cache (init_bert_cache,
   written in place) and cross K/V projected once (precompute_cross_kv);
-- heads: the MLM / LM head and the shift-by-one LM loss.
+- heads: the MLM / LM head (over the masked positions,
+  gather_seq_out_by_pos) and the shift-by-one LM loss.
 
 impl="fused" dispatch, per attention sublayer:
 - self-attention with a key-vector bias, outside the decoder: the fused
@@ -352,6 +353,12 @@ def mlm_head_apply(params: dict, h: torch.Tensor, cfg: TextConfig, *,
     x = ACT2FN[cfg.get("hidden_act", "gelu")](x)
     x = layer_norm(params["transform"]["ln"], x, eps=cfg.get("layer_norm_eps", 1e-12))
     return dense(params["decoder"], x, dtype=dtype)
+
+
+def gather_seq_out_by_pos(seq: torch.Tensor, pos: torch.Tensor) -> torch.Tensor:
+    """[B, T, D], [B, M] positions -> [B, M, D] (the MLM head reads the
+    masked positions only)."""
+    return seq.gather(1, pos.long()[:, :, None].expand(-1, -1, seq.shape[-1]))
 
 
 def cross_entropy_ignore_index(logits: torch.Tensor, labels: torch.Tensor,

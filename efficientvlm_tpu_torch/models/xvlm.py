@@ -1,16 +1,17 @@
-"""X-VLM composite base: vision + text towers, ITC projections, ITM head
-and the retrieval losses (port of efficientvlm_tpu/models/xvlm.py):
+"""X-VLM composite base: vision + text towers, ITC projections, the ITM
+and bbox heads and the losses (port of efficientvlm_tpu/models/xvlm.py):
 
 - get_contrastive_loss: ITC with idx-aware soft labels, on one device (the
   all-gather across devices comes with the distribution slice);
 - get_matching_loss: ITM with in-batch hard negatives drawn from the softmax
   of the similarities (`sample_hard_negatives`, torch.multinomial with the
-  step's generator; a method, so a test can pin the draw).
+  step's generator; a method, so a test can pin the draw);
+- get_mlm_loss: MLM over the multi_modal pass, at the masked positions;
+- predict_bbox + get_bbox_loss: the region box head and its L1 + GIoU loss.
 
 Gates arrive as a `zs` dict (vision_head_z [Lv,H], vision_intermediate_z
 [Lv,I], text_head_z [Lt,H], text_intermediate_z [Lt,I], cross_head_z
 [Lc,2,H], cross_intermediate_z [Lc,I]); zs=None runs the dense teacher.
-The MLM and bbox losses come with their slices.
 """
 
 from __future__ import annotations
@@ -24,6 +25,7 @@ from ..device import resolve_device
 from ..ops.basic import dense, gelu, init_dense, init_layer_norm, layer_norm
 from . import bert as B
 from . import vit as V
+from .box_ops import box_cxcywh_to_xyxy, generalized_box_iou
 
 
 def init_mlp_head(generator, d_in: int, d_out: int, device=None) -> dict:
@@ -44,8 +46,8 @@ def mlp_head_apply(params: dict, x: torch.Tensor, *, dtype=None) -> torch.Tensor
 
 def init_xvlm(generator, vision_cfg: VisionConfig, text_cfg: TextConfig, *,
               embed_dim: int = 256, temp: float = 0.07, with_mlm_head: bool = True,
-              device=None) -> dict:
-    return {
+              with_bbox_head: bool = False, device=None) -> dict:
+    params = {
         "vision": V.init_vit(generator, vision_cfg, device),
         "text": B.init_bert(generator, text_cfg, with_mlm_head=with_mlm_head, device=device),
         "vision_proj": init_dense(generator, vision_cfg["vision_width"], embed_dim,
@@ -54,6 +56,9 @@ def init_xvlm(generator, vision_cfg: VisionConfig, text_cfg: TextConfig, *,
         "temp": torch.tensor(temp, device=device),
         "itm_head": init_mlp_head(generator, text_cfg["hidden_size"], 2, device),
     }
+    if with_bbox_head:
+        params["bbox_head"] = init_mlp_head(generator, text_cfg["hidden_size"], 4, device)
+    return params
 
 
 def split_zs(zs: Optional[dict]):
@@ -92,18 +97,30 @@ class XVLM:
                          embed_dim=self.embed_dim, temp=self.config.get("temp", 0.07),
                          device=device, **kw)
 
-    def get_vision_embeds(self, params, image, *, zs=None, output_attentions=False,
-                          output_hidden_states=False, train=False, generator=None, dtype=None,
-                          impl="fused"):
-        """Returns (embeds [B,S,D], atts [B,S] ones, tower outputs)."""
+    def get_vision_embeds(self, params, image, *, idx_to_group_img=None, image_atts=None,
+                          zs=None, output_attentions=False, output_hidden_states=False,
+                          train=False, generator=None, dtype=None, impl="fused"):
+        """Returns (embeds [B,S,D], atts [B,S] ones, tower outputs); for a
+        region batch (idx_to_group_img [n_txt], image_atts [n_txt, S]):
+        (region embeds [n_txt,S,D], image_atts, full [n_txt,S,D], full_atts
+        ones, tower outputs). `full` is the full-attention image row of each
+        text, gathered by idx_to_group_img as the reference's
+        get_vision_embeds does (models/xvlm.py:340-364), so the bbox head
+        sees one image row per text; the JAX package returns the B image rows
+        ungathered, which breaks predict_bbox when n_txt != B."""
         vz, _ = split_zs(zs)
         out = V.vit_apply(params["vision"], image, self.vision_cfg,
+                          idx_to_group_img=idx_to_group_img, image_atts=image_atts,
                           output_attentions=output_attentions,
                           output_hidden_states=output_hidden_states, train=train,
                           generator=generator, dtype=dtype, impl=impl, **vz)
         embeds = out["last_hidden"]
-        atts = torch.ones(embeds.shape[:2], dtype=torch.int32, device=embeds.device)
-        return embeds, atts, out
+        if idx_to_group_img is None:
+            atts = torch.ones(embeds.shape[:2], dtype=torch.int32, device=embeds.device)
+            return embeds, atts, out
+        full = out["full_atts_hidden"][idx_to_group_img]
+        full_atts = torch.ones(full.shape[:2], dtype=torch.int32, device=full.device)
+        return embeds, image_atts.to(torch.int32), full, full_atts, out
 
     def get_text_embeds(self, params, text_ids, text_atts, *, zs=None,
                         output_attentions=False, output_hidden_states=False, train=False,
@@ -215,3 +232,63 @@ class XVLM:
             "neg_cross_attentions": neg["cross_attentions"],
             "logits": logits,
         }
+
+    def get_mlm_loss(self, params, text_ids_masked, text_atts, image_embeds, image_atts,
+                     masked_pos, masked_ids, *, zs=None, output_attentions=False,
+                     output_hidden_states=False, train=False, generator=None, dtype=None,
+                     impl="fused"):
+        """MLM over the multi_modal pass of the masked text, read at
+        masked_pos [B,M] (labels masked_ids [B,M], -100 ignored). Returns the
+        loss, or (loss, {"logits", "hidden_states", "attentions",
+        "cross_attentions"}) with output_hidden_states."""
+        _, tz = split_zs(zs)
+        out = B.bert_apply(
+            params["text"], text_ids_masked, self.text_cfg, attention_mask=text_atts,
+            encoder_hidden=image_embeds, encoder_attention_mask=image_atts, mode="multi_modal",
+            output_attentions=output_attentions, output_hidden_states=output_hidden_states,
+            train=train, generator=generator, dtype=dtype, impl=impl, **tz)
+        gathered = B.gather_seq_out_by_pos(out["last_hidden"], masked_pos)
+        logits = B.mlm_head_apply(params["text"]["cls"], gathered, self.text_cfg, dtype=dtype)
+        loss = B.cross_entropy_ignore_index(logits, masked_ids)
+        if not output_hidden_states:
+            return loss
+        return loss, {"logits": logits, "hidden_states": out["hidden_states"],
+                      "attentions": out["attentions"],
+                      "cross_attentions": out["cross_attentions"]}
+
+    def predict_bbox(self, params, image_embeds, text_embeds, text_atts, *, zs=None,
+                     output_attentions=False, output_hidden_states=False, train=False,
+                     dtype=None, impl="fused"):
+        """Box [B,4] (cx, cy, w, h in [0, 1], f32) from the fusion pass of
+        the text over its full image. The pass has no dropout (no generator,
+        as in JAX); train marks a forward that autograd records, as in
+        get_matching_loss. Returns the box, or (box, fusion outputs)."""
+        image_atts = torch.ones(image_embeds.shape[:2], dtype=torch.int32,
+                                device=image_embeds.device)
+        out = self.get_cross_embeds(params, image_embeds, image_atts, text_embeds=text_embeds,
+                                    text_atts=text_atts, zs=zs,
+                                    output_attentions=output_attentions,
+                                    output_hidden_states=output_hidden_states, train=train,
+                                    dtype=dtype, impl=impl)
+        coord = mlp_head_apply(params["bbox_head"], out["last_hidden"][:, 0], dtype=dtype)
+        coord = torch.sigmoid(coord.float())
+        return (coord, out) if output_hidden_states else coord
+
+    def get_bbox_loss(self, output_coord, target_bbox, *, is_image=None):
+        """(L1, GIoU) losses over the boxes. The GIoU loss of the whole batch
+        is 0 when any predicted or target box is degenerate (x1 < x0 or y1 <
+        y0), as the reference does; rows with is_image 1 (a whole-image
+        "region") count for neither loss."""
+        loss_bbox = (output_coord - target_bbox).abs()
+        boxes1, boxes2 = box_cxcywh_to_xyxy(output_coord), box_cxcywh_to_xyxy(target_bbox)
+        degen = (boxes1[:, 2:] < boxes1[:, :2]).any() | (boxes2[:, 2:] < boxes2[:, :2]).any()
+        giou = 1.0 - torch.diagonal(generalized_box_iou(boxes1, boxes2))
+        loss_giou = torch.where(degen, torch.zeros_like(giou), giou)
+        if is_image is None:
+            num_boxes = target_bbox.shape[0]
+        else:
+            not_image = 1 - is_image.to(loss_bbox.dtype)
+            num_boxes = not_image.sum().clamp(min=1)
+            loss_bbox = loss_bbox * not_image.reshape(-1, 1)
+            loss_giou = loss_giou * not_image
+        return loss_bbox.sum() / num_boxes, loss_giou.sum() / num_boxes

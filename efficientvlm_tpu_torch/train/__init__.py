@@ -1,1 +1,1 @@
-"""The retrieval pruning fine-tune (port of efficientvlm_tpu/train/)."""
+"""The training steps and their optimizers (port of efficientvlm_tpu/train/)."""

@@ -6,7 +6,8 @@ of efficientvlm_tpu/train/distill.py).
   ends teacher[i * block + block - 1];
 - kd_loss: MSE over matched lists; attention maps are scaled by their last
   dim and filtered at <= -1e2 (a no-op on probabilities, kept for parity);
-  the image hidden list drops its 7th entry;
+  the image hidden list drops its 7th entry; paired entries must have one
+  shape (no broadcast);
 - soft_cross_entropy: KL(batchmean) of the teacher's probabilities against
   the student's log-probabilities.
 Teacher tensors enter detached.
@@ -41,6 +42,9 @@ def kd_loss(student_reps: Sequence[torch.Tensor], teacher_reps: Sequence[torch.T
             is_attn: bool = False, is_img: bool = False) -> torch.Tensor:
     total = 0.0
     for layer, (s, t) in enumerate(zip(student_reps, teacher_reps)):
+        if s.shape != t.shape:  # no broadcast: a region tap meets its own depth
+            raise ValueError(f"KD entry {layer}: student {tuple(s.shape)} != teacher "
+                             f"{tuple(t.shape)}")
         if is_attn:
             s = torch.where(s <= -1e2, 0.0, s)
             t = torch.where(t <= -1e2, 0.0, t)

@@ -1,8 +1,14 @@
-"""The retrieval pruning fine-tune step (port of the retrieval half of
-efficientvlm_tpu/train/steps.py): the frozen teacher's forward with its KD
-taps, the student's forward with stochastic L0 gates, the KD, ITC, ITM and
-Lagrangian losses, one backward, and the three AdamW updates with the
-log-alpha clamp.
+"""The training steps (port of the retrieval and general-distillation parts
+of efficientvlm_tpu/train/steps.py):
+
+- the retrieval pruning fine-tune: the frozen teacher's forward with its KD
+  taps, the student's forward with stochastic L0 gates, the KD, ITC, ITM and
+  Lagrangian losses, one backward, and the three AdamW updates with the
+  log-alpha clamp;
+- general distillation (stage 1): the teacher's and the student's pretrain
+  forwards (ITC, ITM, MLM, + bbox L1 / GIoU on region batches), 0.6 x task
+  + 0.4 x KD, one AdamW and the temperature clamp; and the plain pretrain
+  step, the same without a teacher.
 
 JAX traces all of it into one program whose dead-code elimination drops the
 teacher taps no loss reads. Eager PyTorch keeps what it computes, so the
@@ -19,6 +25,7 @@ from typing import Any, Optional
 
 import torch
 
+from ..models.model_pretrain import TEMP_CLAMP
 from ..pruning.hard_concrete import constrain_loga
 from ..pruning.l0_module import L0Module
 from . import distill as D
@@ -97,15 +104,18 @@ def retrieval_kd_losses(student_outputs: dict, teacher_outputs: dict, *,
 
 
 def subset_teacher_taps(out: dict, *, vision_layers: int, text_fusion: int,
-                        cross_layers: int) -> dict:
+                        cross_layers: int, text_layers: Optional[int] = None) -> dict:
     """The teacher's KD tree cut to the student-mapped tap layers
-    (distill.subset_taps); the rest are dropped."""
+    (distill.subset_taps); the rest are dropped. text_layers: the
+    student's BERT depth, which the multi_modal (mlm_*) taps map to."""
 
     def n_for(key: str) -> int:
         if key.startswith("image"):
             return vision_layers
         if key.startswith("text"):
             return text_fusion
+        if key.startswith("mlm"):
+            return text_layers
         return cross_layers  # itm_pos_* / itm_neg_*
 
     return {
@@ -198,3 +208,214 @@ def make_retrieval_train_step(student_model, teacher_model, l0_module: L0Module,
                               teacher_params=teacher_params, temperature=temperature,
                               dtype=dtype, impl=impl)
 
+
+
+# ---------------------------------------------------------------------------
+# general distillation and plain pretraining
+# ---------------------------------------------------------------------------
+
+
+@dataclass
+class PretrainState:
+    """(params, opt_state, step) of the general-distillation and pretrain
+    steps; params are the f32 masters, updated in place."""
+    params: Any
+    opt_state: dict
+    step: int
+
+
+def init_pretrain_state(params, optimizer) -> PretrainState:
+    return PretrainState(params=params, opt_state=optimizer.init(tree_leaves(params)), step=0)
+
+
+def clamp_temp(params) -> None:
+    """temp clamped to [0.001, 0.5] in place, as the reference does after
+    each update."""
+    if "temp" in params:
+        with torch.no_grad():
+            params["temp"].clamp_(*TEMP_CLAMP)
+
+
+def gd_kd_losses(student_outputs: dict, teacher_outputs: dict, *,
+                 temperature: float = 1.0) -> dict:
+    """The general-distillation KD menu: hidden + attention KD of the text,
+    image, ITM-positive, ITM-negative and MLM taps, soft cross-entropy of the
+    ITM and MLM logits; the image hidden states weighted 0.1 (their 7th
+    entry dropped)."""
+    sh, th = student_outputs["hidden_dict"], teacher_outputs["hidden_dict"]
+    sa, ta = student_outputs["attention_dict"], teacher_outputs["attention_dict"]
+    sl, tl = student_outputs["logits_dict"], teacher_outputs["logits_dict"]
+
+    def pair(name: str, **kw):
+        return (D.kd_list(sa[f"{name}_attentions"], ta[f"{name}_attentions"], is_attn=True),
+                D.kd_list(sh[f"{name}_hidden_states"], th[f"{name}_hidden_states"], **kw))
+
+    text_a, text_h = pair("text")
+    img_a, img_h = pair("image", is_img=True)
+    pos_a, pos_h = pair("itm_pos")
+    neg_a, neg_h = pair("itm_neg")
+    mlm_a, mlm_h = pair("mlm")
+    mlm_logits = D.soft_cross_entropy(sl["mlm_logits"] / temperature,
+                                      tl["mlm_logits"] / temperature)
+    itm_logits = D.soft_cross_entropy(sl["itm_head_logits"] / temperature,
+                                      tl["itm_head_logits"] / temperature)
+    loss_text_kd = text_a + text_h
+    loss_img_kd = img_a + 0.1 * img_h
+    loss_cross_kd = neg_a + neg_h + pos_a + pos_h + mlm_a + mlm_h
+    loss_kd = itm_logits + mlm_logits + loss_text_kd + loss_img_kd + loss_cross_kd
+    return {"loss_kd": loss_kd, "loss_text_kd": loss_text_kd, "loss_img_kd": loss_img_kd,
+            "loss_cross_kd": loss_cross_kd, "loss_mlm_logits_kd": mlm_logits,
+            "loss_itm_logits_kd": itm_logits}
+
+
+def gd_teacher_taps(out: dict, **layers) -> dict:
+    """The teacher's KD tree cut to what gd_kd_losses reads: the cross maps
+    and the bbox taps dropped, then subset_teacher_taps(**layers)."""
+    return subset_teacher_taps(
+        {"hidden_dict": {k: v for k, v in out["hidden_dict"].items() if not k.startswith("bbox")},
+         "attention_dict": {k: v for k, v in out["attention_dict"].items()
+                            if not k.startswith("bbox")},
+         "logits_dict": out["logits_dict"]}, **layers)
+
+
+def _forward_kw(batch: dict, with_bbox: bool, bbox_head: bool = True) -> dict:
+    """XVLMForPretrain.forward's batch arguments; bbox_head=False leaves out
+    target_bbox / is_image, so a region forward skips the bbox head."""
+    kw = {k: batch.get(k) for k in ("text_ids_masked", "masked_pos", "masked_ids")}
+    if with_bbox:
+        kw.update({k: batch.get(k) for k in ("image_atts", "idx_to_group_img")},
+                  ret_bbox_loss=True)
+        if bbox_head:
+            kw.update({k: batch.get(k) for k in ("target_bbox", "is_image")})
+    return kw
+
+
+def _task_loss(loss: dict, with_bbox: bool) -> torch.Tensor:
+    total = loss["loss_itc"] + loss["loss_itm"] + loss["loss_mlm"]
+    if with_bbox:
+        total = total + loss["loss_bbox"] + loss["loss_giou"]
+    return total
+
+
+class PretrainTrainStep:
+    """One plain pretrain step (no teacher, no KD): ITC + ITM + MLM (+ bbox
+    + GIoU with with_bbox), one AdamW update, the temperature clamp.
+    step(state, batch, generator) -> metrics, updating `state` in place.
+    batch: {"image", "text_ids", "text_atts", "text_ids_masked",
+    "masked_pos", "masked_ids"} and, for region batches, {"image_atts",
+    "idx_to_group_img", "target_bbox", "is_image"}. `generator` drives the
+    dropout and the hard negatives (XVLMForPretrain's order)."""
+
+    def __init__(self, model, optimizer, *, with_bbox: bool = False, dtype=None,
+                 impl: str = "fused"):
+        self.model, self.optimizer = model, optimizer
+        self.with_bbox, self.dtype, self.impl = with_bbox, dtype, impl
+
+    def _student(self, params, batch, generator, **kw) -> dict:
+        return self.model.forward(params, batch["image"], batch["text_ids"], batch["text_atts"],
+                                  generator=generator, train=True, dtype=self.dtype,
+                                  impl=self.impl, **_forward_kw(batch, self.with_bbox), **kw)
+
+    def _grads(self, state: PretrainState, loss_fn):
+        """(metrics, loss_fn's gradient over the params in tree order)."""
+        leaves = tree_leaves(state.params)
+        for leaf in leaves:
+            leaf.requires_grad_(True)
+        with torch.enable_grad():
+            loss, metrics = loss_fn()
+            grads = torch.autograd.grad(loss, leaves, allow_unused=True)
+        return {k: v.detach() for k, v in metrics.items()}, list(grads)
+
+    def loss_and_grads(self, state: PretrainState, batch: dict,
+                       generator: Optional[torch.Generator] = None):
+        def loss_fn():
+            out = self._student(state.params, batch, generator)
+            loss = _task_loss(out["loss"], self.with_bbox)
+            return loss, {"loss": loss, **out["loss"]}
+
+        return self._grads(state, loss_fn)
+
+    def apply(self, state: PretrainState, grads) -> PretrainState:
+        self.optimizer.step(tree_leaves(state.params), grads, state.opt_state)
+        clamp_temp(state.params)
+        state.step += 1
+        return state
+
+    def __call__(self, state: PretrainState, batch: dict,
+                 generator: Optional[torch.Generator] = None) -> dict:
+        metrics, grads = self.loss_and_grads(state, batch, generator)
+        self.apply(state, grads)
+        return metrics
+
+
+class GDTrainStep(PretrainTrainStep):
+    """One general-distillation step: the frozen teacher's pretrain forward
+    under no_grad (train=False, without the bbox head, whose outputs no KD
+    loss reads; its taps cut by gd_teacher_taps right after), the
+    student's, loss = (1 - kd_weight) x task + kd_weight x gd_kd_losses,
+    one AdamW update and the temperature clamp. The generator draws the
+    teacher's hard negatives first, then the student's dropout and hard
+    negatives. The parts are methods, so a caller can time them:
+    teacher_forward, loss_and_grads (student forward + backward), apply.
+
+    Region batches change batch inside the vision tower (B image rows before
+    the first local layer, n_txt + B after it); student entry i of a tap
+    list meets teacher entry 2i (hidden) / 2i+1 (maps) of a tower twice as
+    deep with twice the local layers, so both gather at the same mapped
+    depth, and distill.kd_loss refuses pairs whose shapes differ."""
+
+    def __init__(self, student_model, teacher_model, optimizer, *, teacher_params,
+                 temperature: float = 1.0, kd_weight: float = 0.4, with_bbox: bool = False,
+                 dtype=None, impl: str = "fused"):
+        super().__init__(student_model, optimizer, with_bbox=with_bbox, dtype=dtype, impl=impl)
+        self.teacher, self.teacher_params = teacher_model, teacher_params
+        self.temperature, self.kd_weight = temperature, kd_weight
+
+    @torch.no_grad()
+    def teacher_forward(self, batch: dict, generator: Optional[torch.Generator] = None) -> dict:
+        out = self.teacher.forward(
+            self.teacher_params, batch["image"], batch["text_ids"], batch["text_atts"],
+            generator=generator, output_attentions=True, output_hidden_states=True,
+            train=False, dtype=self.dtype, impl=self.impl,
+            **_forward_kw(batch, self.with_bbox, bbox_head=False))
+        vcfg, tcfg = self.model.vision_cfg, self.model.text_cfg
+        return gd_teacher_taps(
+            out, vision_layers=vcfg["num_hidden_layers"], text_fusion=tcfg["fusion_layer"],
+            cross_layers=tcfg["num_hidden_layers"] - tcfg["fusion_layer"],
+            text_layers=tcfg["num_hidden_layers"])
+
+    def loss_and_grads(self, state: PretrainState, batch: dict, teacher_outputs: dict,
+                       generator: Optional[torch.Generator] = None):
+        def loss_fn():
+            out = self._student(state.params, batch, generator, output_attentions=True,
+                                output_hidden_states=True)
+            kd = gd_kd_losses(out, teacher_outputs, temperature=self.temperature)
+            task = _task_loss(out["loss"], self.with_bbox)
+            loss = (1.0 - self.kd_weight) * task + self.kd_weight * kd["loss_kd"]
+            return loss, {"loss": loss, **out["loss"], **kd}
+
+        return self._grads(state, loss_fn)
+
+    def __call__(self, state: PretrainState, batch: dict,
+                 generator: Optional[torch.Generator] = None) -> dict:
+        teacher_outputs = self.teacher_forward(batch, generator)
+        metrics, grads = self.loss_and_grads(state, batch, teacher_outputs, generator)
+        del teacher_outputs
+        self.apply(state, grads)
+        return metrics
+
+
+def make_gd_train_step(student_model, teacher_model, optimizer, *, teacher_params,
+                       temperature: float = 1.0, kd_weight: float = 0.4,
+                       with_bbox: bool = False, dtype=None, impl: str = "fused") -> GDTrainStep:
+    """The general-distillation step (see GDTrainStep); with_bbox selects the
+    region-batch variant."""
+    return GDTrainStep(student_model, teacher_model, optimizer, teacher_params=teacher_params,
+                       temperature=temperature, kd_weight=kd_weight, with_bbox=with_bbox,
+                       dtype=dtype, impl=impl)
+
+
+def make_pretrain_train_step(model, optimizer, *, with_bbox: bool = False, dtype=None,
+                             impl: str = "fused") -> PretrainTrainStep:
+    """The plain pretrain step (see PretrainTrainStep)."""
+    return PretrainTrainStep(model, optimizer, with_bbox=with_bbox, dtype=dtype, impl=impl)

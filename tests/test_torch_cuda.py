@@ -715,3 +715,110 @@ def test_grouped_cross_attention_at_the_exported_head_counts(rnd, heads):
            lambda: F.fused_cross_attention_grouped(prm, x, enc, num_heads=heads, kv_groups=g,
                                                    key_bias=kb, head_z=hz, ln_params=ln),
            lambda: F.cross_attention_grouped_plain(prm, x, enc, kb, hz, heads, g, ln))
+
+
+# ---------------------------------------------------------------------------
+# general distillation's shapes: 224 px (197 tokens), region batches, the
+# ITM-negative fusion pass at batch 256, and the device image pipeline
+# ---------------------------------------------------------------------------
+
+
+def _region_mask(b, s, seed=0):
+    """Key masks of a region batch's local layers: every row keeps the CLS
+    key; rows 0, 3, 6, ... keep all keys (the full images), the others a
+    box of 1-12 patches of the 14 x 14 grid."""
+    g = torch.Generator().manual_seed(seed)
+    m = torch.zeros(b, s, dtype=torch.int32)
+    m[:, 0] = 1
+    side = int(round((s - 1) ** 0.5))
+    for i in range(b):
+        if i % 3 == 0:
+            m[i] = 1
+            continue
+        h, w = (int(x) for x in torch.randint(1, 4, (2,), generator=g))
+        y0, x0 = (int(x) for x in torch.randint(0, side - 3, (2,), generator=g))
+        grid = torch.zeros(side, side, dtype=torch.int32)
+        grid[y0:y0 + h, x0:x0 + w] = 1
+        m[i, 1:] = grid.reshape(-1)
+    return m.cuda()
+
+
+def test_patch_embed_gather_at_224(rnd):
+    """#1's gather form at the GD batch: 128 images of 224 x 224, patch 16."""
+    d, p = 768, 16
+    pp = {"patch_embed": {"kernel": rnd(p, p, 3, d, std=(p * p * 3) ** -0.5)},
+          "class_embedding": rnd(d, std=0.5), "pos_embed": {"embedding": rnd(197, d, std=0.5)},
+          "pre_ln": {"scale": rnd(d, std=0.1, mean=1.0), "bias": rnd(d, std=0.1)}}
+    img = rnd(128, 224, 224, 3)
+    _agree(fused_patch_embed, lambda: fused_patch_embed(pp, img, patch_size=p),
+           lambda: patch_embed_plain(pp, img, patch_size=p))
+
+
+@pytest.mark.parametrize("rows,region", [(128, False), (176, True)],
+                         ids=["vit_b128", "region_local_b176"])
+def test_self_attention_training_forms_at_197_tokens(rnd, rows, region):
+    """#2's probs form and its differentiable form at S = 197 (the maps'
+    rows padded to 200 floats), 12 heads; the region case with the local
+    layers' key masks (some rows keep only the CLS key and a few patches)."""
+    d, h, s = 768, 12, 197
+    mask = _region_mask(rows, s) if region else _mask(rows, s)
+    prm, x = _attn(rnd, d, d), rnd(rows, s, d)
+    hz = torch.rand(h, device="cuda") + 0.2
+    kb = F._key_bias(rows, s, mask, None, x.device)
+    before = F.fused_self_attention.probs_launches
+    out, probs = F.fused_self_attention(prm, x, num_heads=h, mask=mask, head_z=hz,
+                                        return_probs=True)
+    assert F.fused_self_attention.probs_launches == before + 1
+    ref, ref_probs = F.self_attention_plain(prm, x, kb, hz, h, return_probs=True)
+    _close(out, ref)
+    _probs_close(probs, ref_probs, mask)
+    del probs, ref_probs
+    master = {n: {kk: v.float().requires_grad_(True) for kk, v in p.items()}
+              for n, p in prm.items()}
+    xg, hg = x.clone().requires_grad_(True), hz.clone().requires_grad_(True)
+    ins = [xg, hg] + [master[n][kk] for n in master for kk in master[n]]
+    cts = [rnd(rows, s, d), torch.randn(rows, h, s, s, device="cuda")]
+    _grad_agree(lambda: F.fused_self_attention(master, xg, num_heads=h, mask=mask, head_z=hg,
+                                               return_probs=True, differentiable=True),
+                lambda: F.self_attention_plain(master, xg, kb, hg, h, return_probs=True),
+                ins, cts)
+
+
+def test_cross_attention_probs_at_the_itm_negative_pass(rnd):
+    """#3's probs form at [256, 40] x [256, 197], the key bias of region
+    masks on half of the rows."""
+    d, h, b, t, s = 768, 12, 256, 40, 197
+    mask = torch.cat([_region_mask(b // 2, s, seed=1),
+                      torch.ones(b // 2, s, dtype=torch.int32, device="cuda")])
+    prm, x, enc = _attn(rnd, d, d), rnd(b, t, d), rnd(b, s, d)
+    hz = torch.rand(h, device="cuda") + 0.2
+    kb = F._key_bias(b, s, mask, None, x.device)
+    before = F.fused_cross_attention.probs_launches
+    out, probs = F.fused_cross_attention(prm, x, enc, num_heads=h, key_bias=kb, head_z=hz,
+                                         return_probs=True)
+    assert F.fused_cross_attention.probs_launches == before + 1
+    ref, ref_probs = F.cross_attention_plain(prm, x, enc, kb, hz, h, return_probs=True)
+    _close(out, ref)
+    _probs_close(probs, ref_probs, mask)
+
+
+def test_preprocess_train_on_the_card_matches_the_cpu(rnd):
+    """preprocess_train on a CUDA batch against its CPU run on the same draws
+    (drawn once from a CPU generator): the crop gathers, the affine ops'
+    bilinear taps and the resize agree to f32 rounding (atol 1e-4 in
+    normalised units); the thresholding ops (equalize, solarize,
+    posterize) are drawn only in the first round, on integral pixels."""
+    from efficientvlm_tpu_torch.data import device_pipeline as P
+
+    n = 32
+    pixels = torch.randint(0, 256, (n, 257, 257, 3), dtype=torch.uint8,
+                           generator=torch.Generator().manual_seed(0))
+    params = P.sample_train_params(torch.Generator().manual_seed(1), n, 257, 257)
+    params["ops"][0] = torch.arange(n) % P.N_OPS
+    params["ops"][1] = torch.tensor([0, 1, 3, 5, 6, 7, 8, 9, 10, 11, 12])[torch.arange(n) % 11]
+    cpu = P.preprocess_train(pixels, 224, params=params)
+    on_card = P.preprocess_train(pixels.cuda(), 224,
+                                 params={k: tuple(t.cuda() for t in v) if isinstance(v, tuple)
+                                         else v.cuda() for k, v in params.items()})
+    assert on_card.is_cuda and on_card.dtype == torch.float32
+    assert (on_card.cpu() - cpu).abs().max().item() <= 1e-4
