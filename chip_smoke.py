@@ -55,6 +55,19 @@ It builds the port's CUDA kernels from csrc/ (into build/kernels/), then:
      128 region texts: local attention over 176 rows, + bbox L1 / GIoU) on
      the kernel path, the plain path and the plain path in f32 from one
      init, and one plain pretrain step (no teacher) at chance;
+   - the VQA and captioning pruning fine-tunes (configs/x-vlm-small-ft/
+     VQA_480.yaml and Captioning.yaml: the 6L/6L student with L0 gates over
+     head pairs, VQA's 3-layer answer decoder and VQAL0Module, the 12L/12L
+     teacher with a 6-layer decoder, task + KD + Lagrangian, three AdamWs):
+     three VQA steps at batch 8 (uint8 512 x 512 -> preprocess_train at 480
+     on the card without the flip, 40-token questions, 1-10 answers each
+     through vqa_collate) and three caption steps at batch 16 (384 px, 30
+     tokens, a 4-token prompt, label smoothing 0.1), each on the kernel,
+     plain and f32 plain paths from one state, one stop_prune step (frozen
+     deterministic gates: no Lagrangian, loga, λ and their optimizer states
+     unchanged), then the decoder-aware export and the pruned student's
+     forward_eval (k 128 over 3,128 answers) or 3-beam generate against the
+     gated dense student;
    with exact launch counts, finite outputs, and the kernel path against the
    plain path (f32 params for retrieval; the same bf16 params for
    generation, with a teacher-forced replay of the generated captions, and
@@ -78,7 +91,10 @@ It builds the port's CUDA kernels from csrc/ (into build/kernels/), then:
    probs forms' times beside their bounds and a library composition that
    also returns the maps; the same for the general and region GD steps
    (with the general step's preprocessing) and the probs forms at the GD
-   shapes, each with the card's name and power limit.
+   shapes; the same for the VQA step (with its preprocessing) and the
+   caption step and the probs forms at their shapes (#2 at 8 x 901 tokens,
+   #3 at the question fusion and the answer decoder), each with the card's
+   name and power limit.
 
 Weights are random, made from a seed. Any failed check exits non-zero
 before the last line, which is
@@ -259,6 +275,16 @@ def kernel_cases(rnd):
                   lambda: patch_embed_plain(pp224, img224, patch_size=p),
                   2 * 128 * 196 * k * d,
                   2 * (img224.numel() + k * d + 128 * 197 * d) + 4 * 196 * d, (pp224, img224, p)))
+    # the VQA fine-tune's batch: 8 images at 480 px (900 patches), f32 from
+    # the on-card preprocessing
+    pp480 = dict(pp, pos_embed={"embedding": rnd(901, d, std=0.5)})
+    img480 = rnd(8, 480, 480, 3, dtype=torch.float32)
+    cases.append(("patch_embed", "vqa_b8_480_f32_in",
+                  lambda: fused_patch_embed(pp480, img480, patch_size=p, dtype=torch.bfloat16),
+                  lambda: patch_embed_plain(pp480, img480, patch_size=p, dtype=torch.bfloat16),
+                  2 * 8 * 900 * k * d,
+                  4 * img480.numel() + 2 * (k * d + 8 * 901 * d) + 4 * 900 * d,
+                  (pp480, img480, p)))
 
     def self_case(case, bsz, t, a, heads):
         prm, x = rnd.attn(d, a), rnd(bsz, t, d)
@@ -1962,6 +1988,460 @@ def train_times(train_state, probs_case_list, errs) -> list:
 
 
 # --------------------------------------------------------------------------
+# phase 3d: the VQA and captioning pruning fine-tune (stage 2)
+# --------------------------------------------------------------------------
+
+TASK_UNIT = {"vqa": dict(batch=8, raw=512, res=480, q_len=40, a_len=20, max_answers=10,
+                         k=128, steps=3, steps_per_epoch=1000),
+             "captioning": dict(batch=16, res=384, tokens=30, steps=3, steps_per_epoch=1000)}
+# launches per kernel-path step, wrappers() order: #1 teacher + student; #2's
+# probs form: teacher ViT 12 (+ VQA question text 6 and fusion self 6),
+# student ViT 6; #3's: teacher decoder cross 6 (+ VQA question fusion 6).
+# The student's BERT layers and decoder (dropout 0.1) and every decoder
+# self-attention (a causal matrix bias) take the plain core
+TASK_LAUNCHES = {"vqa": (2, 0, 0, 0, 0, 0, 30, 12), "captioning": (2, 0, 0, 0, 0, 0, 18, 6)}
+
+
+def task_config(task: str):
+    """configs/x-vlm-small-ft/VQA_480.yaml or Captioning.yaml with the vision
+    tower of configs/config_clipvit_small.json: the student's 6L
+    CLIP-ViT-B/16 (at 480 / 384 px) and BERT-base with 6 layers (fusion at
+    3, dropout 0.1; VQA: a 3-layer answer decoder), the teacher 12L / 12L
+    (VQA: a 6-layer decoder); head gates over pairs, the published lr,
+    sparsity and schedules, TASK_UNIT's steps_per_epoch an epoch; VQA
+    preprocesses on the card, captioning's prompt has 4 tokens."""
+    from efficientvlm_tpu_torch.config import Config, VisionConfig
+
+    u = TASK_UNIT[task]
+    vision = VisionConfig.create(vision_width=768, patch_size=16, hidden_act="quick_gelu",
+                                 num_attention_heads=12, attention_dropout=0.0,
+                                 intermediate_size=3072, num_hidden_layers=6,
+                                 local_attn_depth=2, image_res=u["res"])
+    shared = {"image_res": u["res"], "vision": vision, "text_num_hidden_layers": 6,
+              "embed_dim": 256, "temp": 0.07, "head_gate_group": 2,
+              "batch_size_train": u["batch"],
+              "L0_schedular": {"droprate_init": 0.5, "temperature": 0.6667,
+                               "lagrangian_warmup_epochs": 1}}
+    if task == "vqa":
+        return Config({**shared, "num_dec_layers": 3, "max_tokens": 40, "k_test": 128,
+                       "sparsity": 0.35, "device_preprocess": True,
+                       "optimizer": {"opt": "adamW", "lr": 2e-5, "reg_learning_rate": 0.01,
+                                     "weight_decay": 0.01, "lr_mult": 2},
+                       "schedular": {"sched": "linear", "lr": 2e-5, "epochs": 10,
+                                     "num_warmup_steps": 0.1}})
+    return Config({**shared, "max_tokens": 30, "prompt_length": len(CAPTION_UNIT["prompt"]),
+                   "label_smoothing": 0.1, "sparsity": 0.25,
+                   "optimizer": {"opt": "adamW", "lr": 3e-5, "reg_learning_rate": 0.01,
+                                 "weight_decay": 0.01, "lr_mult": 2},
+                   "schedular": {"sched": "linear", "lr": 3e-5, "epochs": 5,
+                                 "num_warmup_steps": 0.1}})
+
+
+def vqa_task_batch(rnd) -> dict:
+    """8 uint8 images of 512 x 512 (preprocess_train takes them to 480 on the
+    card, without the flip), 40-token questions ([CLS] first, PAD past
+    lengths of 8-40), 1-7 answers a question (one question has 10; mean
+    about 4) of 20 tokens ([CLS], 1-4 words and [SEP], PAD after), weights
+    summing to 1 a question, flattened by vqa_collate (answer rows padded to
+    a multiple of 8 with weight-0 copies of the first)."""
+    import torch
+
+    from efficientvlm_tpu_torch.data.collate import vqa_collate
+
+    u, dev = TASK_UNIT["vqa"], "cuda"
+    b, t = u["batch"], u["q_len"]
+    pixels = torch.randint(0, 256, (b, u["raw"], u["raw"], 3), generator=rnd.g, device=dev,
+                           dtype=torch.uint8)
+    q_atts = rnd.mask(b, t, 8)
+    q_ids = torch.randint(1000, 30522, (b, t), generator=rnd.g, device=dev)
+    q_ids[:, 0] = 101
+    q_ids = torch.where(q_atts == 1, q_ids, 0)
+    counts = torch.randint(1, 8, (b,), generator=rnd.g, device=dev).tolist()
+    counts[1] = u["max_answers"]
+    samples, row = [], 0
+    for i, n in enumerate(counts):
+        w = (torch.rand(n, generator=rnd.g, device=dev) + 0.2).tolist()
+        samples.append((i, i, list(range(row, row + n)), [x / sum(w) for x in w]))
+        row += n
+    _, _, rows, weights, k_index = vqa_collate(samples)
+    lens = torch.randint(3, 7, (row,), generator=rnd.g, device=dev)
+    a_atts = (torch.arange(u["a_len"], device=dev)[None] < lens[:, None]).to(torch.int32)
+    a_ids = torch.randint(1000, 30522, (row, u["a_len"]), generator=rnd.g, device=dev)
+    a_ids[:, 0] = 101
+    a_ids[torch.arange(row, device=dev), lens - 1] = 102
+    a_ids = torch.where(a_atts == 1, a_ids, 0)
+    rows = torch.tensor(rows, device=dev)
+    return {"image": pixels, "q_ids": q_ids, "q_atts": q_atts, "a_ids": a_ids[rows],
+            "a_atts": a_atts[rows], "weights": torch.from_numpy(weights).to(dev),
+            "k_index": torch.from_numpy(k_index).to(dev)}
+
+
+def caption_task_batch(rnd) -> dict:
+    """16 images at 384 px (bf16; the config has no device preprocessing)
+    and 30-token captions: [CLS] and the 3-word prompt first, PAD past
+    lengths of 8-30."""
+    import torch
+
+    u = TASK_UNIT["captioning"]
+    b, t = u["batch"], u["tokens"]
+    atts = rnd.mask(b, t, 8)
+    ids = torch.randint(1000, 30522, (b, t), generator=rnd.g, device="cuda")
+    ids[:, :len(CAPTION_UNIT["prompt"])] = torch.tensor(CAPTION_UNIT["prompt"], device="cuda")
+    return {"image": rnd(b, u["res"], u["res"], 3), "caption_ids": torch.where(atts == 1, ids, 0),
+            "caption_atts": atts}
+
+
+def task_paths(task: str):
+    """The config, driver, student, teacher and gates of a task, and one
+    (step, state, dtype, optimizers) per path (kernel: impl fused, bf16;
+    plain: impl plain, bf16; f32: impl plain, f32 compute), all from one
+    init, built by the task's drivers/*.build_step (the VQA step comes in
+    DevicePreprocess without the flip)."""
+    import torch
+
+    from efficientvlm_tpu_torch.bridge import cast_floating
+    from efficientvlm_tpu_torch.drivers import captioning, vqa
+    from efficientvlm_tpu_torch.drivers.common import build_optimizers
+    from efficientvlm_tpu_torch.train.steps import init_train_state
+
+    config, drv = task_config(task), {"vqa": vqa, "captioning": captioning}[task]
+    u = TASK_UNIT[task]
+    student, teacher = drv.build_models(config)
+    l0 = drv.build_l0(config)
+    l0.lagrangian_warmup = u["steps_per_epoch"]  # lagrangian_warmup_epochs 1
+    total = config["schedular"]["epochs"] * u["steps_per_epoch"]
+    params, gates = student.init(0, device="cuda"), l0.init(0, device="cuda")
+    t_bf16 = cast_floating(teacher.init(1, device="cuda"), torch.bfloat16)
+    paths = {}
+    for name, impl, dtype in (("kernel", "fused", torch.bfloat16),
+                              ("plain", "plain", torch.bfloat16), ("f32", "plain", None)):
+        opts = build_optimizers(params, config, total)
+        state = init_train_state(clone_tree(params), clone_tree(gates), opts)
+        tparams = t_bf16 if dtype is not None else cast_floating(t_bf16, torch.float32)
+        step = drv.build_step(config, student, teacher, l0, opts, teacher_params=tparams,
+                              dtype=dtype, impl=impl)
+        paths[name] = (step, state, dtype, opts)
+    return config, drv, student, teacher, l0, t_bf16, paths
+
+
+def step_parts(step):
+    """(preprocess or None, the TaskTrainStep) of a step from drivers/*.build_step."""
+    from efficientvlm_tpu_torch.drivers.common import DevicePreprocess
+
+    return (step.preprocess, step.step) if isinstance(step, DevicePreprocess) else (None, step)
+
+
+def snapshot(trees) -> list:
+    import torch
+
+    from efficientvlm_tpu_torch.train.optim import tree_leaves
+
+    return [[t.detach().clone() if isinstance(t, torch.Tensor) else t for t in tree_leaves(x)]
+            for x in trees]
+
+
+def task_steps(task: str, rnd) -> dict:
+    """TASK_UNIT[task]["steps"] steps on the kernel, plain and f32 paths from
+    one state, the concrete noise and each path's generator (preprocessing
+    draws, dropout) alike: exact launches per kernel-path step (the plain and
+    f32 paths launch none), finite losses, gradients and params, loga and λ
+    moving (λ ascending), the kernel path held to the plain path
+    (hold_to_plain); then one stop_prune step on the kernel path with the
+    deterministic gates of its trained loga."""
+    import torch
+
+    from efficientvlm_tpu_torch.train.optim import tree_leaves
+
+    config, drv, student, teacher, l0, t_bf16, paths = task_paths(task)
+    u = TASK_UNIT[task]
+    batch = vqa_task_batch(rnd) if task == "vqa" else caption_task_batch(rnd)
+    if task == "vqa":
+        print(f"vqa batch: {u['batch']} questions, {batch['a_ids'].shape[0]} answer rows "
+              f"({int((batch['weights'] > 0).sum())} of weight > 0)")
+    noises = [{k: torch.rand(g["shape"], generator=rnd.g, device="cuda") * (1 - 2e-6) + 1e-6
+               for k, g in l0.groups.items()} for _ in range(u["steps"])]
+    results, c = {}, reset_counts()  # the task's run starts here
+    for name, (step, state, dtype, _) in paths.items():
+        prep, inner = step_parts(step)
+        gen = torch.Generator(device="cuda").manual_seed(7)
+        b = batch if dtype is not None or prep else dict(batch, image=batch["image"].float())
+        loga0, lam0 = snapshot((state.loga, state.lam))
+        metrics, first = [], None
+        for i in range(u["steps"]):
+            bi = prep(b, gen) if prep else b
+            t_out = inner.teacher_forward(bi)
+            m, grads = inner.loss_and_grads(state, bi, t_out, gen, noise=noises[i])
+            del t_out
+            first = grads if first is None else first
+            inner.apply(state, grads)
+            metrics.append({k: float(v) for k, v in m.items()})
+            if name == "kernel":
+                c = expect_launches(c, TASK_LAUNCHES[task], f"{task} step {i + 1}")
+        if name != "kernel":  # the yardstick paths launch no kernel
+            c = expect_launches(c, (), f"{task} {name}")
+        torch.cuda.synchronize()
+        check(all(math.isfinite(v) for mm in metrics for v in mm.values()),
+              f"{task} {name}: non-finite loss")
+        check(all(bool(torch.isfinite(g).all()) for g in sum(first, []) if g is not None),
+              f"{task} {name}: non-finite gradient")
+        check(all(bool(torch.isfinite(t).all()) for t in tree_leaves(state.params)),
+              f"{task} {name}: non-finite params")
+        dloga = max((a - b_).abs().max().item() for a, b_ in zip(tree_leaves(state.loga), loga0))
+        dlam = [(a.detach() - b_).item() for a, b_ in zip(tree_leaves(state.lam), lam0)]
+        g_lam1 = first[2][0].item()
+        print(f"{task} {name} ({u['steps']} steps, batch {u['batch']}): " + ", ".join(
+            f"{k} " + "/".join(f"{mm[k]:.5f}" for mm in metrics) for k in metrics[0]) +
+            f"; loga moved {dloga:.3e}, lambda_1/2 moved {dlam[0]:+.3e}/{dlam[1]:+.3e}")
+        check(dloga > 0 and all(d != 0 for d in dlam), f"{task} {name}: the gates did not move")
+        check(dlam[0] * g_lam1 > 0, f"{task} {name}: lambda_1 did not ascend its gradient")
+        results[name] = (metrics, first)
+    hold_to_plain(results, u["steps"], ("params", "loga", "lambda"), task)
+    del results
+    for name in ("plain", "f32"):
+        del paths[name]
+
+    # stop_prune: the deterministic gates frozen into the step
+    step, state, dtype, opts = paths["kernel"]
+    zs = l0.forward_deterministic({"loga": state.loga})
+    frozen = drv.build_step(config, student, teacher, l0, opts, teacher_params=t_bf16,
+                            frozen_zs=zs, dtype=dtype, impl="fused")
+    prep, inner = step_parts(frozen)
+    before = snapshot((state.loga, state.lam, state.l0_state, state.lam_state))
+    params0 = snapshot((state.params,))[0]
+    gen = torch.Generator(device="cuda").manual_seed(9)
+    bi = prep(batch, gen) if prep else batch
+    m = inner(state, bi, gen)
+    c = expect_launches(c, TASK_LAUNCHES[task], f"{task} stop_prune step")
+    after = snapshot((state.loga, state.lam, state.l0_state, state.lam_state))
+    same = all(torch.equal(x, y) if isinstance(x, torch.Tensor) else x == y
+               for xs, ys in zip(before, after) for x, y in zip(xs, ys))
+    moved = max((a.detach() - b_).abs().max().item()
+                for a, b_ in zip(tree_leaves(state.params), params0))
+    print(f"{task} stop_prune step: " + ", ".join(f"{k} {float(v):.5f}" for k, v in m.items())
+          + f"; loga, lambda and their optimizer states unchanged: {same}; params moved "
+          f"{moved:.3e}; sparsity of the frozen gates "
+          f"{l0.calculate_model_size(zs)['pruned_model_sparsity']:.4f}")
+    check(float(m["lagrangian_loss"]) == 0.0 and same and moved > 0,
+          f"{task} stop_prune: the Lagrangian or the gate state moved, or the params did not")
+    check(all(math.isfinite(float(v)) for v in m.values()), f"{task} stop_prune: non-finite")
+    del params0, before, after
+    return {"task": task, "config": config, "student": student, "l0": l0, "step": step,
+            "state": state, "batch": batch, "noise": noises[-1], "zs": zs, "counts": c}
+
+
+def pruned_task_counts(params, fusion: int) -> dict:
+    """Sublayers left in a pruned generation student: ViT attention, the
+    decoder's self and cross, and with a question stack (VQA) its text /
+    fusion self and fusion cross."""
+    n = lambda layers, key: sum(lp.get(key) is not None for lp in layers)  # noqa: E731
+    dec = params["text_decoder"]["layers"]
+    out = {"vit": n(params["vision"]["layers"], "attn"), "dec_self": n(dec, "attention"),
+           "dec_cross": n(dec, "crossattention")}
+    if "text" in params:
+        layers = params["text"]["layers"]
+        out.update(text=n(layers[:fusion], "attention"), fself=n(layers[fusion:], "attention"),
+                   fcross=n(layers[fusion:], "crossattention"))
+    return out
+
+
+def task_export(run: dict, rnd):
+    """forward_deterministic -> prune_xvlm_params with the decoder groups (FFN
+    widths multiples of EXPORT_ALIGN), for the trained gates (the stop_prune
+    step's) and for gates drawn from a seed: heads and FFN widths, then the
+    pruned student's VQA forward_eval (3,128 answers, k 128) or 3-beam
+    generate with exact launch counts, held to the gated dense student
+    under the same zs: VQA's question states and captioning's
+    teacher-forced logits of the pruned student's captions to 5% of the
+    largest value (phase_export's tolerance); VQA's ranked probabilities
+    (in order; near-ties may swap answers, not the values) to TRAIN_FACTOR
+    x the gated dense student's own kernel path's distance from its f32
+    compute on the same inputs: bf16 rounding alone moves them by about 5%
+    of the largest (a 5% rule failed on the card at 5.7e-3 against 5.6e-3
+    with every top-1 answer equal)."""
+    import torch
+
+    from efficientvlm_tpu_torch.bridge import cast_floating
+    from efficientvlm_tpu_torch.pruning.export import prune_xvlm_params
+
+    bf16 = torch.bfloat16
+    task, l0, student, state, batch = (run[k] for k in ("task", "l0", "student", "state",
+                                                        "batch"))
+    fusion = student.text_cfg["fusion_layer"]
+    head_dim = student.text_cfg["hidden_size"] // student.text_cfg["num_attention_heads"]
+    drawn = {key: (torch.rand(v.shape, generator=rnd.g, device="cuda") * 8 - 4
+                   if key.endswith("head") else torch.rand(v.shape, generator=rnd.g,
+                                                           device="cuda") * 6 - 3)
+             for key, v in state.loga.items()}
+    with torch.no_grad():
+        dense = cast_floating(state.params, bf16)
+    if task == "vqa":
+        gen = torch.Generator(device="cuda").manual_seed(13)
+        image = step_parts(run["step"])[0](batch, gen)["image"].to(bf16)
+        r = Rand(14)
+        answers = torch.randint(0, 30522, (VQA_UNIT["answers"], VQA_UNIT["answer_len"]),
+                                generator=r.g, device="cuda")
+        ans_atts = torch.ones_like(answers, dtype=torch.int32)
+        args = (image, batch["q_ids"], batch["q_atts"], answers, ans_atts)
+    else:
+        prompt = batch["caption_ids"][:, :len(CAPTION_UNIT["prompt"])]
+        gen_kw = dict(max_length=CAPTION_UNIT["max_length"], min_length=CAPTION_UNIT["min_length"],
+                      eos_id=CAPTION_UNIT["eos_id"], pad_id=CAPTION_UNIT["pad_id"], dtype=bf16)
+    launches = None
+    for gates_name, loga in (("trained", state.loga), ("drawn", drawn)):
+        zs = l0.forward_deterministic({"loga": loga})
+        sparsity = l0.calculate_model_size(zs)["pruned_model_sparsity"]
+        with torch.no_grad():
+            pruned = cast_floating(prune_xvlm_params(state.params, zs, fusion_layer=fusion,
+                                                     head_dim=head_dim,
+                                                     align_intermediate=EXPORT_ALIGN), bf16)
+        n = pruned_task_counts(pruned, fusion)
+        heads = lambda a: 0 if a is None else a["q"]["kernel"].shape[1] // head_dim  # noqa
+        dec = pruned["text_decoder"]["layers"]
+        ffn = [0 if lp.get("intermediate") is None else lp["intermediate"]["kernel"].shape[1]
+               for lp in dec]
+        print(f"{task} export [{gates_name} gates]: sparsity {sparsity:.4f}; decoder heads "
+              f"self {[heads(lp.get('attention')) for lp in dec]} cross "
+              f"{[heads(lp.get('crossattention')) for lp in dec]}; decoder FFN {ffn}; "
+              f"vision heads {[heads(lp.get('attn')) for lp in pruned['vision']['layers']]}")
+        c = reset_counts()
+        with torch.inference_mode():
+            if task == "vqa":
+                ids, probs = student.forward_eval(pruned, *args, k=TASK_UNIT["vqa"]["k"],
+                                                  dtype=bf16)
+                expect_launches(c, (1, n["vit"] + n["text"] + n["fself"], n["fcross"], 0,
+                                    2 * n["dec_self"] + n["dec_cross"], n["dec_cross"]),
+                                f"pruned vqa forward_eval [{gates_name}]")
+                launches = counts() if launches is None else launches
+                k = TASK_UNIT["vqa"]["k"]
+                g_ids, g_probs = student.forward_eval(dense, *args, k=k, zs=zs, dtype=bf16)
+                # the ranked probabilities' yardstick: the gated dense student's
+                # kernel path (the path both sides run) against its f32
+                # compute on these inputs; its plain bf16 path's for the record
+                plain_probs = student.forward_eval(dense, *args, k=k, zs=zs, dtype=bf16,
+                                                   impl="plain")[1].float()
+                f32_probs = student.forward_eval(cast_floating(dense, torch.float32),
+                                                 args[0].float(), *args[1:], k=k, zs=zs,
+                                                 impl="plain")[1].float()
+                yard = (g_probs.float() - f32_probs).abs().max().item()
+                plain_yard = (plain_probs - f32_probs).abs().max().item()
+                q_p = student.encode_question(pruned, *args[:3], dtype=bf16)[0]["last_hidden"]
+                q_g = student.encode_question(dense, *args[:3], zs=zs, dtype=bf16)[0][
+                    "last_hidden"]
+                pairs = {"question_states": (q_p, q_g)}
+                same = (ids[:, 0] == g_ids[:, 0]).float().mean().item()
+                err = (probs.float() - g_probs.float()).abs().max().item()
+                print(f"pruned vqa [{gates_name}] topk_probs: vs gated dense {err:.4e}, tol "
+                      f"{TRAIN_FACTOR * yard:.4e} = {TRAIN_FACTOR} x the gated dense student's "
+                      f"kernel path vs f32 {yard:.4e} (its plain bf16 path vs f32 "
+                      f"{plain_yard:.4e}); top-1 answer as the gated dense student's for "
+                      f"{same:.3f} of the questions")
+                check(err <= TRAIN_FACTOR * yard, f"pruned vqa [{gates_name}] topk_probs "
+                                                  "disagree with the gated dense student's")
+            else:
+                stats = {}
+                tokens = student.generate(pruned, batch["image"], prompt, num_beams=3,
+                                          stats=stats, **gen_kw)
+                calls = stats["decoder_calls"]
+                expect_launches(c, (1, n["vit"], 0, 0, n["dec_self"] * calls,
+                                    n["dec_cross"] * calls),
+                                f"pruned caption generate [{gates_name}] ({calls} calls)")
+                launches = counts() if launches is None else launches
+                check(tuple(tokens.shape) == (TASK_UNIT["captioning"]["batch"],
+                                              CAPTION_UNIT["max_length"])
+                      and bool((tokens[:, :prompt.shape[1]] == prompt).all()),
+                      "pruned caption: tokens out of shape or prompt lost")
+                atts = torch.ones_like(tokens, dtype=torch.int32)
+                pairs = {"replay_logits": (
+                    student.forward_logits(pruned, batch["image"], tokens, atts, dtype=bf16),
+                    student.forward_logits(dense, batch["image"], tokens, atts, zs=zs,
+                                           dtype=bf16))}
+                g_tokens = student.generate(dense, batch["image"], prompt, num_beams=3, zs=zs,
+                                            **gen_kw)
+                print(f"pruned caption [{gates_name}]: identical captions to the gated dense "
+                      f"student's {(g_tokens == tokens).all(1).float().mean().item():.3f}")
+        for what, (a, g) in pairs.items():
+            a, g = a.float(), g.float()
+            check(bool(torch.isfinite(a).all()), f"pruned {task} {what} not finite")
+            err, tol = (a - g).abs().max().item(), 0.05 * g.abs().max().item()
+            print(f"pruned {task} [{gates_name}] {what}: vs gated dense {err:.4e}, tol {tol:.4e}")
+            check(err <= tol, f"pruned {task} [{gates_name}] {what} disagrees")
+    return launches
+
+
+def phase_task_train(rnd) -> dict:
+    """The VQA and then the captioning pruning fine-tune: task_steps and
+    task_export for each; launches summed over both tasks' main paths (the
+    checked steps, the stop_prune step and the pruned evaluation of the
+    trained gates)."""
+    t_phase = time.perf_counter()
+    kept, launches = {}, {}
+    for task in ("vqa", "captioning"):
+        run = task_steps(task, rnd)
+        pruned = task_export(run, rnd)
+        for k in pruned:
+            launches[k] = launches.get(k, 0) + run["counts"][k] + pruned[k]
+        kept[task] = {k: run[k] for k in ("step", "state", "batch", "noise")}
+        del run
+    print(f"phase task train: {time.perf_counter() - t_phase:.1f} s")
+    return {"kept": kept, "launches": launches}
+
+
+def task_probs_cases(rnd):
+    """The probs forms at the generation fine-tunes' shapes: #2 over the VQA
+    ViT (8 x 901 tokens at 480 px, the maps' rows padded to 904 floats) and
+    question stack (8 x 40), the caption ViT (16 x 577); #3 over the
+    question fusion (8 x 40 x 901), the VQA answer decoder over gathered
+    question states (40 answer rows x 20 x 40, the questions' key masks) and
+    the caption decoder (16 x 30 x 577, every key kept)."""
+    return [probs_case(rnd, "self", "vqa_vit_b8_t901_h12", 8, 901, 901, 12, 901),
+            probs_case(rnd, "self", "vqa_question_b8_t40_h12", 8, 40, 40, 12, 8),
+            probs_case(rnd, "self", "caption_vit_b16_t577_h12", 16, 577, 577, 12, 577),
+            probs_case(rnd, "cross", "vqa_fusion_b8_tq40_s901_h12", 8, 40, 901, 12, 901),
+            probs_case(rnd, "cross", "vqa_decoder_b40_tq20_s40_h12", 40, 20, 40, 12, 8),
+            probs_case(rnd, "cross", "caption_decoder_b16_tq30_s577_h12", 16, 30, 577, 12,
+                       577)]
+
+
+def task_times(task_state, smi: str):
+    """Each task step's ms split into preprocessing (VQA), teacher forward,
+    student forward + backward and optimizer (host clock, synchronised at
+    each boundary, median of 3 steps), samples/s, peak memory (the other
+    paths freed) and a profile of one step (device idle share, launches),
+    each with the card's name and power limit; then #2's and #3's probs
+    forms at the tasks' shapes beside their bounds, plain versions and a
+    library composition."""
+    import torch
+
+    for task, kept in task_state["kept"].items():
+        prep, inner = step_parts(kept["step"])
+        state, batch, noise = kept["state"], kept["batch"], kept["noise"]
+        gen = torch.Generator(device="cuda").manual_seed(11)
+        torch.cuda.reset_peak_memory_stats()
+        parts = [("preprocess", lambda _: prep(batch, gen))] if prep else []
+        med = split_ms(parts + [
+            ("teacher_forward", lambda b: (b or batch, inner.teacher_forward(b or batch))),
+            ("student_forward_backward",
+             lambda bt: inner.loss_and_grads(state, bt[0], bt[1], gen, noise=noise)[1]),
+            ("optimizer", lambda grads: inner.apply(state, grads))])
+        total = sum(med.values())
+        samples = TASK_UNIT[task]["batch"]
+        print(f"card: {smi}")
+        print(json.dumps({f"{task}_step": {
+            **{f"{k}_ms": v for k, v in med.items()}, "step_ms": total,
+            "samples_per_s": samples / total * 1e3,
+            "peak_memory_gib": torch.cuda.max_memory_allocated() / 2 ** 30}}))
+        profile(f"{task} step b{samples} (kernel path; card {smi})",
+                lambda: kept["step"](state, batch, gen, noise=noise), calls=1, top=16)
+    for name, case, run, plain, flops, nbytes, _, lib in task_probs_cases(Rand(4)):
+        with torch.inference_mode():
+            ms, plain_ms, lib_ms = timed_ms(run), timed_ms(plain), timed_ms(lib)
+        bound_ms, bound_by = bound(flops, nbytes)
+        print(f"time {name} [{case}]: {ms:.4f} ms, plain {plain_ms:.4f} ms, library "
+              f"{lib_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by}), "
+              f"{nbytes / ms / 1e6:.1f} GB/s; card {smi}")
+
+
+# --------------------------------------------------------------------------
 # phase 4: times
 # --------------------------------------------------------------------------
 
@@ -2027,7 +2507,7 @@ def patch_yardstick(pp, img, p):
     cls = (pp["class_embedding"] + pos[0]).expand(b, 1, d)
 
     def run():
-        x = img.reshape(b, res // p, p, res // p, p, c).permute(0, 1, 3, 2, 4, 5)
+        x = img.reshape(b, res // p, p, res // p, p, c).permute(0, 1, 3, 2, 4, 5).to(w.dtype)
         y = torch.matmul(x.reshape(b, n, p * p * c), w) + pos[1:]
         y = torch.cat([cls, y], dim=1)
         return Fn.layer_norm(y, (d,), pp["pre_ln"]["scale"], pp["pre_ln"]["bias"], 1e-5)
@@ -2307,7 +2787,7 @@ def main(argv) -> int:
     errs = phase_kernels(cases + device_cases)
     flash_refusals(rnd)
     p_cases = probs_cases(rnd)
-    errs.update(phase_probs(p_cases + gd_probs_cases(rnd)))
+    errs.update(phase_probs(p_cases + gd_probs_cases(rnd) + task_probs_cases(rnd)))
     phase_grads(grad_cases(rnd))
     slice_state = phase_slice(rnd)
     gen_state = phase_generation(rnd)
@@ -2320,10 +2800,14 @@ def main(argv) -> int:
     gd_times(gd_state, smi)
     gd_launches = gd_state["launches"]
     del gd_state
+    task_state = phase_task_train(rnd)
+    task_times(task_state, smi)
+    task_launches = task_state["launches"]
+    del task_state
     kernels = phase_times(cases, device_cases, errs, slice_state, gen_state,
-                          [train_launches, gd_launches])
-    for row in train_rows:  # the probs forms run on both training paths
-        row["launches"] += gd_launches[row["name"]]
+                          [train_launches, gd_launches, task_launches])
+    for row in train_rows:  # the probs forms run on every training path
+        row["launches"] += gd_launches[row["name"]] + task_launches[row["name"]]
     kernels += train_rows
     print(f"card: {smi}; total {time.perf_counter() - t0:.1f} s")
     print(json.dumps({"kernels": kernels}))

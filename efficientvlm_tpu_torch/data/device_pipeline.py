@@ -288,15 +288,21 @@ def sample_train_params(generator, n: int, h: int, w: int, *, device=None) -> di
 
 def preprocess_train(pixels: torch.Tensor, out_res: int, *,
                      generator: Optional[torch.Generator] = None,
-                     params: Optional[dict] = None) -> torch.Tensor:
+                     params: Optional[dict] = None, hflip: bool = True,
+                     randaug: bool = True) -> torch.Tensor:
     """[N, H, W, 3] uint8 -> [N, out_res, out_res, 3] normalised f32 on the
-    same device: crop, flip, RandAugment, CLIP normalise. The draws come
-    from `params` (sample_train_params) or `generator`."""
+    same device: crop, flip (hflip), RandAugment (randaug), CLIP normalise.
+    The draws come from `params` (sample_train_params) or `generator`; they
+    are drawn whole whatever the flags, so a flag changes no other draw."""
     n, h, w, _ = pixels.shape
     if params is None:
         params = sample_train_params(generator, n, h, w, device=pixels.device)
-    imgs = flip_images(crop_resize(pixels, params["box"], out_res), params["flip"])
-    return normalize(randaugment(imgs, params["ops"], params["signs"]))
+    imgs = crop_resize(pixels, params["box"], out_res)
+    if hflip:
+        imgs = flip_images(imgs, params["flip"])
+    if randaug:
+        imgs = randaugment(imgs, params["ops"], params["signs"])
+    return normalize(imgs)
 
 
 def preprocess_eval(pixels: torch.Tensor, out_res: int) -> torch.Tensor:

@@ -1,11 +1,15 @@
-"""Model configs and the optimizer trio of a fine-tune (port of the model
-and optimizer parts of efficientvlm_tpu/drivers/common.py)."""
+"""Model configs, the optimizer trio of a fine-tune and on-device image
+preprocessing around a step (port of the model, optimizer and
+preprocessing parts of efficientvlm_tpu/drivers/common.py)."""
 
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Optional, Tuple
+
+import torch
 
 from ..config import Config, TextConfig, VisionConfig
+from ..data.device_pipeline import preprocess_train
 from ..train.optim import create_l0_optimizer, create_lagrangian_optimizer, create_optimizer
 from ..train.scheduler import create_scheduler
 
@@ -46,3 +50,23 @@ def build_optimizers(params, config: Config, total_steps: int, *, init_param_pat
                             init_param_paths=init_param_paths, grad_clip=clip)
     reg_lr = float(opt_cfg.get("reg_learning_rate", 0.01))
     return main, create_l0_optimizer(reg_lr=reg_lr), create_lagrangian_optimizer(reg_lr=reg_lr)
+
+
+class DevicePreprocess:
+    """A step whose batch["image"] comes as uint8 [B,H,W,3]: the generator
+    draws the crop, flip and RandAugment of preprocess_train first (flip and
+    RandAugment applied as hflip / randaug say), then the step runs on the
+    normalised f32 images; keyword arguments go through to the step."""
+
+    def __init__(self, step, image_res: int, *, hflip: bool = True, randaug: bool = True):
+        self.step, self.image_res = step, image_res
+        self.hflip, self.randaug = hflip, randaug
+
+    def preprocess(self, batch: dict, generator: Optional[torch.Generator] = None) -> dict:
+        return dict(batch, image=preprocess_train(batch["image"], self.image_res,
+                                                  generator=generator, hflip=self.hflip,
+                                                  randaug=self.randaug))
+
+    def __call__(self, state, batch: dict, generator: Optional[torch.Generator] = None, **kw):
+        return self.step(state, self.preprocess(batch, generator), generator, **kw)
+

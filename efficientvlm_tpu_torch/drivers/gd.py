@@ -12,15 +12,11 @@ with the tokenizer and the streams.
 
 from __future__ import annotations
 
-from typing import Optional
-
-import torch
-
 from ..config import Config
-from ..data.device_pipeline import preprocess_train
 from ..models.model_pretrain import XVLMForPretrain
 from ..train.steps import make_gd_train_step, make_pretrain_train_step
 from . import common
+from .common import DevicePreprocess
 
 
 def build_models(config: Config):
@@ -37,22 +33,6 @@ def total_steps(config: Config) -> int:
     batch = config.get("images", {}).get("batch_size", 128)
     epochs = int(config.get("schedular", {}).get("epochs", 41))
     return epochs * (config.get("train_dataset_size", 10000) // max(batch, 1))
-
-
-class DevicePreprocess:
-    """A step whose batch["image"] comes as uint8 [B,H,W,3]: the generator
-    draws the crop, flip and RandAugment of preprocess_train first, then
-    runs the step on the normalised f32 images."""
-
-    def __init__(self, step, image_res: int):
-        self.step, self.image_res = step, image_res
-
-    def preprocess(self, batch: dict, generator: Optional[torch.Generator] = None) -> dict:
-        return dict(batch, image=preprocess_train(batch["image"], self.image_res,
-                                                  generator=generator))
-
-    def __call__(self, state, batch: dict, generator: Optional[torch.Generator] = None):
-        return self.step(state, self.preprocess(batch, generator), generator)
 
 
 def build_step(config: Config, student, optimizer, *, teacher=None, teacher_params=None,

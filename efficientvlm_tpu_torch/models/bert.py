@@ -13,7 +13,8 @@
 - decoding: a fixed-size per-layer self-attention cache (init_bert_cache,
   written in place) and cross K/V projected once (precompute_cross_kv);
 - heads: the MLM / LM head (over the masked positions,
-  gather_seq_out_by_pos) and the shift-by-one LM loss.
+  gather_seq_out_by_pos) and the shift-by-one LM loss, with optional label
+  smoothing (LabelSmoothSoftmaxCEV1).
 
 impl="fused" dispatch, per attention sublayer:
 - self-attention with a key-vector bias, outside the decoder: the fused
@@ -25,8 +26,7 @@ impl="fused" dispatch, per attention sublayer:
 - other cross-attention: the fused cross kernel, or the grouped one when
   `encoder_groups` > 1, whose epilogue also applies the layer's residual +
   post-LN; a matrix encoder bias has no kernel there and raises.
-impl="plain" runs the plain PyTorch path. Label smoothing in the LM loss
-comes with the captioning training slice.
+impl="plain" runs the plain PyTorch path.
 
 Training (train=True with a torch.Generator): dropout after the embeddings,
 on the attention probabilities and after each attention and FFN output, as
@@ -371,15 +371,36 @@ def cross_entropy_ignore_index(logits: torch.Tensor, labels: torch.Tensor,
     return torch.where(valid, nll, 0.0).sum() / valid.sum().clamp(min=1)
 
 
-def lm_loss(logits: torch.Tensor, labels: torch.Tensor, *,
+def label_smooth_cross_entropy(logits: torch.Tensor, labels: torch.Tensor, *,
+                               smoothing: float = 0.1, ignore_index: int = -100,
+                               reduction: str = "mean") -> torch.Tensor:
+    """LabelSmoothSoftmaxCEV1: the target gets 1 - smoothing, every class
+    smoothing / V on top, in f32; labels == ignore_index count nothing.
+    reduction='none' returns the per-token loss."""
+    valid = labels != ignore_index
+    logp = torch.log_softmax(logits.float(), dim=-1)
+    target = logp.gather(-1, torch.where(valid, labels, 0)[..., None].long())[..., 0]
+    nll = -((1.0 - smoothing) * target + smoothing / logits.shape[-1] * logp.sum(-1))
+    nll = torch.where(valid, nll, 0.0)
+    if reduction == "none":
+        return nll
+    return nll.sum() / valid.sum().clamp(min=1)
+
+
+def lm_loss(logits: torch.Tensor, labels: torch.Tensor, *, label_smoothing: float = 0.0,
             reduction: str = "mean") -> torch.Tensor:
-    """Next-token LM loss with shift-by-one, labels -100 ignored;
-    reduction='none' returns the per-sequence summed loss."""
+    """Next-token LM loss with shift-by-one, labels -100 ignored, label
+    smoothing when label_smoothing > 0; reduction='none' returns the
+    per-sequence summed loss."""
     labels = labels[:, 1:]
     valid = labels != -100
-    logp = torch.log_softmax(logits[:, :-1].float(), dim=-1)
-    per_tok = -logp.gather(-1, torch.where(valid, labels, 0)[..., None].long())[..., 0]
-    per_tok = torch.where(valid, per_tok, 0.0)
+    if label_smoothing > 0:
+        per_tok = label_smooth_cross_entropy(logits[:, :-1], labels, smoothing=label_smoothing,
+                                             reduction="none")
+    else:
+        logp = torch.log_softmax(logits[:, :-1].float(), dim=-1)
+        per_tok = -logp.gather(-1, torch.where(valid, labels, 0)[..., None].long())[..., 0]
+        per_tok = torch.where(valid, per_tok, 0.0)
     if reduction == "none":
         return per_tok.sum(1)
     return per_tok.sum() / valid.sum().clamp(min=1)

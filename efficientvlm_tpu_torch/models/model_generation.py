@@ -1,18 +1,23 @@
-"""Generation task models, inference half (port of
-efficientvlm_tpu/models/model_generation.py): captioning (image -> caption)
-and VQA (question + image -> ranked answers), teacher and student in one via
-zs.
+"""Generation task models (port of efficientvlm_tpu/models/
+model_generation.py): captioning (image -> caption) and VQA (question +
+image -> ranked answers), teacher and student in one via zs.
 
 - XVLMForCaptioning: the vision encoder and a BERT LM-head decoder with the
   full fusion text config (layers [0, fusion) text-only, [fusion, N)
-  cross-attending into the image); `generate` decodes greedily or by beam
-  search, the beams of an image sharing its cross K/V.
+  cross-attending into the image). `forward` is the training LM loss (the
+  prompt and PAD positions masked out, label smoothing) or, with
+  output_hidden_states, the loss and the KD taps; `forward_logits` the
+  teacher-forced logits; `generate` decodes greedily or by beam search, the
+  beams of an image sharing its cross K/V.
 - XVLMForVQA: the question through the fusion text encoder (multi_modal over
   the image), then an answer decoder with fusion_layer 0 (every layer
-  cross-attends into the question states); `forward_eval` ranks a list of
-  answers in two batched decoder calls (`rank_answer`).
+  cross-attends into the question states). `forward_train` is the weighted
+  answer LM loss over the answers gathered to their questions by `k`
+  (vqa_collate's k_index); `forward_eval` ranks a list of answers in two
+  batched decoder calls (`rank_answer`).
 
-The training forwards (LM loss, SCST, the VQA answer loss) and the two
+Training forwards (train=True) draw dropout from one torch.Generator, the
+vision tower's first. Sampling (do_sample / top_p), SCST and the two
 translation models come with later slices.
 """
 
@@ -62,6 +67,8 @@ class XVLMForCaptioning:
         self.vision_cfg = vision_cfg
         self.text_cfg = text_cfg
         self.config = config or Config()
+        self.label_smoothing = self.config.get("label_smoothing", 0.0)
+        self.prompt_length = self.config.get("prompt_length", 2)  # '[CLS] a picture of'
 
     def init(self, seed: int, *, device=None) -> dict:
         """Params from a seed, on `device` (default cuda)."""
@@ -70,13 +77,70 @@ class XVLMForCaptioning:
                 "text_decoder": B.init_bert(generator, self.text_cfg, with_mlm_head=True,
                                             device=device)}
 
-    def encode_image(self, params, image, *, zs=None, dtype=None, impl="fused"):
+    def encode_image(self, params, image, *, zs=None, output_attentions=False,
+                     output_hidden_states=False, train=False, generator=None, dtype=None,
+                     impl="fused"):
         """Returns (image_embeds [B,S,D], atts [B,S] ones, tower outputs)."""
         vz, _ = split_zs(zs)
-        out = V.vit_apply(params["vision"], image, self.vision_cfg, dtype=dtype, impl=impl, **vz)
+        out = V.vit_apply(params["vision"], image, self.vision_cfg,
+                          output_attentions=output_attentions,
+                          output_hidden_states=output_hidden_states, train=train,
+                          generator=generator, dtype=dtype, impl=impl, **vz)
         embeds = out["last_hidden"]
         atts = torch.ones(embeds.shape[:2], dtype=torch.int32, device=embeds.device)
         return embeds, atts, out
+
+    def _decode(self, params, image, caption_ids, caption_atts, *, zs, output_attentions,
+                output_hidden_states, train, generator, dtype, impl):
+        """(logits [B, L, V], decoder outputs, tower outputs) of the
+        teacher-forced decoder over the image."""
+        embeds, atts, vout = self.encode_image(
+            params, image, zs=zs, output_attentions=output_attentions,
+            output_hidden_states=output_hidden_states, train=train, generator=generator,
+            dtype=dtype, impl=impl)
+        out = B.bert_apply(
+            params["text_decoder"], caption_ids, self.text_cfg, attention_mask=caption_atts,
+            encoder_hidden=embeds, encoder_attention_mask=atts, mode="multi_modal",
+            is_decoder=True, output_attentions=output_attentions,
+            output_hidden_states=output_hidden_states, train=train, generator=generator,
+            dtype=dtype, impl=impl, **_text_stack_zs(zs))
+        logits = B.mlm_head_apply(params["text_decoder"]["cls"], out["last_hidden"],
+                                  self.text_cfg, dtype=dtype)
+        return logits, out, vout
+
+    def forward(self, params, image, caption_ids, caption_atts, *, pad_token_id: int = 0,
+                prompt_length: Optional[int] = None, zs=None, generator=None,
+                output_attentions=False, output_hidden_states=False, train=False, dtype=None,
+                impl="fused"):
+        """The caption LM loss, PAD and prompt positions masked to -100, with
+        the model's label smoothing; with output_hidden_states {"loss",
+        "hidden_dict", "attention_dict", "cross_attention_dict",
+        "logits_dict"} (the KD taps)."""
+        prompt_length = self.prompt_length if prompt_length is None else prompt_length
+        logits, out, vout = self._decode(
+            params, image, caption_ids, caption_atts, zs=zs, output_attentions=output_attentions,
+            output_hidden_states=output_hidden_states, train=train, generator=generator,
+            dtype=dtype, impl=impl)
+        targets = torch.where(caption_ids == pad_token_id, -100, caption_ids)
+        pos = torch.arange(caption_ids.shape[1], device=caption_ids.device)[None]
+        targets = torch.where(pos < prompt_length, -100, targets)
+        loss = B.lm_loss(logits, targets, label_smoothing=self.label_smoothing)
+        if not output_hidden_states:
+            return loss
+        return {"loss": loss,
+                "hidden_dict": {"image_hidden_states": vout["hidden_states"],
+                                "decoder_hidden_states": out["hidden_states"]},
+                "attention_dict": {"image_attentions": vout["attentions"],
+                                   "decoder_attentions": out["attentions"]},
+                "cross_attention_dict": {"decoder_cross_attentions": out["cross_attentions"]},
+                "logits_dict": {"logits": logits}}
+
+    def forward_logits(self, params, image, caption_ids, caption_atts, *, zs=None,
+                       dtype=None, impl="fused") -> torch.Tensor:
+        """Teacher-forced decoder logits [B, L, V] of the given token ids."""
+        return self._decode(params, image, caption_ids, caption_atts, zs=zs,
+                            output_attentions=False, output_hidden_states=False, train=False,
+                            generator=None, dtype=dtype, impl=impl)[0]
 
     def generate(self, params, image, prompt_ids, *, max_length: int = 30,
                  min_length: int = 10, num_beams: int = 1, do_sample: bool = False,
@@ -131,19 +195,61 @@ class XVLMForVQA:
                                             device=device)}
 
     def encode_question(self, params, image, question_ids, question_atts, *, zs=None,
-                        dtype=None, impl="fused"):
+                        output_attentions=False, output_hidden_states=False, train=False,
+                        generator=None, dtype=None, impl="fused"):
         """Returns (question outputs {"last_hidden", ...}, vision outputs)."""
         vz, tz = split_zs(zs)
-        vout = V.vit_apply(params["vision"], image, self.vision_cfg, dtype=dtype, impl=impl,
-                           **vz)
+        taps = dict(output_attentions=output_attentions,
+                    output_hidden_states=output_hidden_states, train=train,
+                    generator=generator, dtype=dtype, impl=impl)
+        vout = V.vit_apply(params["vision"], image, self.vision_cfg, **taps, **vz)
         image_embeds = vout["last_hidden"]
         image_atts = torch.ones(image_embeds.shape[:2], dtype=torch.int32,
                                 device=image_embeds.device)
         qout = B.bert_apply(
             params["text"], question_ids, self.text_cfg, attention_mask=question_atts,
             encoder_hidden=image_embeds, encoder_attention_mask=image_atts,
-            mode="multi_modal", dtype=dtype, impl=impl, **tz)
+            mode="multi_modal", **taps, **tz)
         return qout, vout
+
+    def forward_train(self, params, image, question_ids, question_atts, answer_ids,
+                      answer_atts, weights, k, *, zs=None, generator=None,
+                      output_attentions=False, output_hidden_states=False, train=True,
+                      dtype=None, impl="fused"):
+        """The weighted answer LM loss: answer row a decodes over the states
+        of question k[a] (vqa_collate's k_index), its summed LM loss weighted
+        by weights[a], summed over the answers and divided by the number of
+        images; pad answers of weight 0 count nothing. With
+        output_hidden_states {"loss", "hidden_dict", "attention_dict",
+        "cross_attention_dict", "logits_dict"} (the KD taps)."""
+        qout, vout = self.encode_question(
+            params, image, question_ids, question_atts, zs=zs,
+            output_attentions=output_attentions, output_hidden_states=output_hidden_states,
+            train=train, generator=generator, dtype=dtype, impl=impl)
+        k = k.long()
+        targets = torch.where(answer_ids == self.pad_token_id, -100, answer_ids)
+        dout = B.bert_apply(
+            params["text_decoder"], answer_ids, self.decoder_cfg, attention_mask=answer_atts,
+            encoder_hidden=qout["last_hidden"][k], encoder_attention_mask=question_atts[k],
+            mode="multi_modal", is_decoder=True, output_attentions=output_attentions,
+            output_hidden_states=output_hidden_states, train=train, generator=generator,
+            dtype=dtype, impl=impl, **_decoder_zs(zs))
+        logits = B.mlm_head_apply(params["text_decoder"]["cls"], dout["last_hidden"],
+                                  self.decoder_cfg, dtype=dtype)
+        per_answer = B.lm_loss(logits, targets, reduction="none")
+        loss = (weights.float() * per_answer).sum() / image.shape[0]
+        if not output_hidden_states:
+            return loss
+        return {"loss": loss,
+                "hidden_dict": {"image_hidden_states": vout["hidden_states"],
+                                "text_hidden_states": qout["hidden_states"],
+                                "decoder_hidden_states": dout["hidden_states"]},
+                "attention_dict": {"image_attentions": vout["attentions"],
+                                   "text_attentions": qout["attentions"],
+                                   "decoder_attentions": dout["attentions"]},
+                "cross_attention_dict": {"cross_attentions": qout["cross_attentions"],
+                                         "decoder_cross_attentions": dout["cross_attentions"]},
+                "logits_dict": {"logits": logits}}
 
     def rank_answer(self, params, question_states, question_atts, answer_ids, answer_atts,
                     k: int, *, zs=None, dtype=None, impl="fused"):

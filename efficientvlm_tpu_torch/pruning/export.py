@@ -124,12 +124,15 @@ def prune_vit_params(params: dict, zs: dict, *, head_dim: int = 64, align_heads:
 
 @torch.no_grad()
 def prune_bert_params(params: dict, zs: dict, *, fusion_layer: int, head_dim: int = 64,
-                      align_heads: int = 1, align_intermediate: int = 1) -> dict:
+                      decoder: bool = False, align_heads: int = 1,
+                      align_intermediate: int = 1) -> dict:
     """Slice a fusion BERT: layers [0, fusion) by text_head_z /
     text_intermediate_z, layers [fusion, N) by cross_head_z [Lc,2,H] (self,
-    cross) / cross_intermediate_z."""
+    cross) / cross_intermediate_z. With decoder=True the decoder_* groups
+    drive those layers instead (the VQA answer decoder, fusion_layer 0)."""
+    prefix = "decoder" if decoder else "cross"
     text_head_z, text_mlp_z = zs.get("text_head_z"), zs.get("text_intermediate_z")
-    cross_head_z, cross_mlp_z = zs.get("cross_head_z"), zs.get("cross_intermediate_z")
+    cross_head_z, cross_mlp_z = zs.get(f"{prefix}_head_z"), zs.get(f"{prefix}_intermediate_z")
     layers = []
     for i, lp in enumerate(params["layers"]):
         lp = dict(lp)
@@ -157,8 +160,11 @@ def prune_bert_params(params: dict, zs: dict, *, fusion_layer: int, head_dim: in
 @torch.no_grad()
 def prune_xvlm_params(params: dict, zs: dict, *, fusion_layer: int, head_dim: int = 64,
                       align_heads: int = 1, align_intermediate: int = 1) -> dict:
-    """The retrieval export: vision and text towers. Params outside the
-    towers are shared with the input tree."""
+    """The whole export: the vision and text towers and a text_decoder,
+    which is VQA's answer decoder (fusion_layer 0, the decoder_* gates) when
+    zs has decoder_head_z, else captioning's (the text/cross layout at
+    fusion_layer). Params outside the towers are shared with the input
+    tree."""
     kw = dict(head_dim=head_dim, align_heads=align_heads,
               align_intermediate=align_intermediate)
     new = dict(params)
@@ -166,17 +172,26 @@ def prune_xvlm_params(params: dict, zs: dict, *, fusion_layer: int, head_dim: in
         new["vision"] = prune_vit_params(params["vision"], zs, **kw)
     if "text" in params:
         new["text"] = prune_bert_params(params["text"], zs, fusion_layer=fusion_layer, **kw)
+    if "text_decoder" in params:
+        vqa = "decoder_head_z" in zs
+        new["text_decoder"] = prune_bert_params(
+            params["text_decoder"], zs, fusion_layer=0 if vqa else fusion_layer, decoder=vqa,
+            **kw)
     return new
 
 
 def load_zs_from_params(params: dict, *, num_heads: int, intermediate_size: int,
                         head_dim: int = 64, fusion_layer: Optional[int] = None,
                         vision_num_heads: Optional[int] = None,
-                        vision_intermediate_size: Optional[int] = None) -> dict:
+                        vision_intermediate_size: Optional[int] = None,
+                        decoder_groups: bool = False) -> dict:
     """Binary gate masks of every tower from the sliced shapes: how many
     units survived (the first n set), not which. num_heads /
     intermediate_size are the unpruned text widths; vision_* default to
-    them. Returns numpy arrays."""
+    them. A text_decoder is read as VQA's answer decoder (fusion_layer 0,
+    decoder_* groups) with decoder_groups=True, else, when the tree has no
+    text tower, as captioning's (the text/cross layout at fusion_layer).
+    Returns numpy arrays."""
     v_heads = vision_num_heads or num_heads
     v_inter = vision_intermediate_size or intermediate_size
 
@@ -196,22 +211,33 @@ def load_zs_from_params(params: dict, *, num_heads: int, intermediate_size: int,
         return first(mod["fc1"]["kernel"].shape[1] if key == "mlp" else mod["kernel"].shape[1],
                      size)
 
+    def bert_masks(layers: list, fusion: int, prefix: str) -> dict:
+        """The text groups of layers [0, fusion) and the `prefix` (self,
+        cross pair) groups of the rest."""
+        text, cross = layers[:fusion], layers[fusion:]
+        out = {}
+        if text:
+            out["text_head_z"] = np.stack([heads(lp, "attention", num_heads) for lp in text])
+            out["text_intermediate_z"] = np.stack(
+                [mlp(lp, "intermediate", intermediate_size) for lp in text])
+        if cross:
+            out[f"{prefix}_head_z"] = np.stack(
+                [np.stack([heads(lp, "attention", num_heads),
+                           heads(lp, "crossattention", num_heads)]) for lp in cross])
+            out[f"{prefix}_intermediate_z"] = np.stack(
+                [mlp(lp, "intermediate", intermediate_size) for lp in cross])
+        return out
+
     zs = {}
     if "vision" in params:
         vl = params["vision"]["layers"]
         zs["vision_head_z"] = np.stack([heads(lp, "attn", v_heads) for lp in vl])
         zs["vision_intermediate_z"] = np.stack([mlp(lp, "mlp", v_inter) for lp in vl])
     if "text" in params and fusion_layer is not None:
-        layers = params["text"]["layers"]
-        text, cross = layers[:fusion_layer], layers[fusion_layer:]
-        if text:
-            zs["text_head_z"] = np.stack([heads(lp, "attention", num_heads) for lp in text])
-            zs["text_intermediate_z"] = np.stack(
-                [mlp(lp, "intermediate", intermediate_size) for lp in text])
-        if cross:
-            zs["cross_head_z"] = np.stack(
-                [np.stack([heads(lp, "attention", num_heads),
-                           heads(lp, "crossattention", num_heads)]) for lp in cross])
-            zs["cross_intermediate_z"] = np.stack(
-                [mlp(lp, "intermediate", intermediate_size) for lp in cross])
+        zs.update(bert_masks(params["text"]["layers"], fusion_layer, "cross"))
+    if "text_decoder" in params:
+        if decoder_groups:
+            zs.update(bert_masks(params["text_decoder"]["layers"], 0, "decoder"))
+        elif fusion_layer is not None and "text" not in params:
+            zs.update(bert_masks(params["text_decoder"]["layers"], fusion_layer, "cross"))
     return zs

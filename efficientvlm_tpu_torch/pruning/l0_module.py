@@ -2,9 +2,10 @@
 efficientvlm_tpu/pruning/l0_module.py).
 
 One generic `L0Module` over a gate-group layout; `XVLML0Module` builds the
-retrieval layout: vision_head [Lv,H], text_head [Lt,H], cross_head [2*Lc,H]
-(self/cross interleaved), vision/text/cross_intermediate [L,I]. The
-VQA and NLVR layouts come with their task slices.
+retrieval and captioning layout: vision_head [Lv,H], text_head [Lt,H],
+cross_head [2*Lc,H] (self/cross interleaved), vision/text/cross_intermediate
+[L,I]; `VQAL0Module` adds the answer decoder's decoder_head [2*Ld,H] and
+decoder_intermediate [Ld,I]. The NLVR layout comes with its task slice.
 
 Params: {"loga": {group: [L, size] tensor}, "lambda_1", "lambda_2"}; the
 λs are trained by gradient ascent (train/optim.create_lagrangian_optimizer).
@@ -132,7 +133,7 @@ class L0Module:
 
 
 # ---------------------------------------------------------------------------
-# the retrieval layout
+# the layouts
 # ---------------------------------------------------------------------------
 
 
@@ -180,28 +181,61 @@ def _cross_emit(group: int):
     return lambda z: _interleave_to_pairs(rep(z))
 
 
-def XVLML0Module(*, vision_layers: int, text_layers: int, cross_layers: int,
-                 hidden_size: int = 768, intermediate_size: int = 3072, num_heads: int = 12,
-                 vision_hidden_size: int | None = None,
-                 vision_intermediate_size: int | None = None,
-                 vision_num_heads: int | None = None, head_group: int = 1, **kw) -> L0Module:
-    """The retrieval / pretrain gate layout; the vision_* overrides serve
-    towers of other widths, head_group > 1 learns gates over head groups."""
+def _groups(*, vision_layers, text_layers, cross_layers, decoder_layers, hidden_size,
+            intermediate_size, num_heads, vision_hidden_size, vision_intermediate_size,
+            vision_num_heads, head_group) -> dict:
+    """The head groups, then the FFN groups; the decoder's with
+    decoder_layers > 0."""
     v_hidden = vision_hidden_size or hidden_size
     v_int = vision_intermediate_size or intermediate_size
     v_heads = vision_num_heads or num_heads
     pph, ppi = _bert_sizes(hidden_size, intermediate_size, num_heads)
     vpph, vppi = _bert_sizes(v_hidden, v_int, v_heads)
-    groups = {
-        "vision_head": _head_group(vision_layers, v_heads, vpph, head_group),
-        "text_head": _head_group(text_layers, num_heads, pph, head_group),
-        "cross_head": {**_head_group(cross_layers * 2, num_heads, pph, head_group),
-                       "emit": _cross_emit(head_group)},
-        "vision_intermediate": _int_group(vision_layers, v_int, vppi,
-                                          _mlp_layer_params(v_hidden, v_int)),
-        "text_intermediate": _int_group(text_layers, intermediate_size, ppi,
-                                        _mlp_layer_params(hidden_size, intermediate_size)),
-        "cross_intermediate": _int_group(cross_layers, intermediate_size, ppi,
-                                         _mlp_layer_params(hidden_size, intermediate_size)),
-    }
-    return L0Module(groups, **kw)
+    mlp = _mlp_layer_params(hidden_size, intermediate_size)
+    pairs = lambda n: {**_head_group(n * 2, num_heads, pph, head_group),  # noqa: E731
+                       "emit": _cross_emit(head_group)}
+    heads = {"vision_head": _head_group(vision_layers, v_heads, vpph, head_group),
+             "text_head": _head_group(text_layers, num_heads, pph, head_group),
+             "cross_head": pairs(cross_layers)}
+    ffn = {"vision_intermediate": _int_group(vision_layers, v_int, vppi,
+                                             _mlp_layer_params(v_hidden, v_int)),
+           "text_intermediate": _int_group(text_layers, intermediate_size, ppi, mlp),
+           "cross_intermediate": _int_group(cross_layers, intermediate_size, ppi, mlp)}
+    if decoder_layers:
+        heads["decoder_head"] = pairs(decoder_layers)
+        ffn["decoder_intermediate"] = _int_group(decoder_layers, intermediate_size, ppi, mlp)
+    return {**heads, **ffn}
+
+
+def XVLML0Module(*, vision_layers: int, text_layers: int, cross_layers: int,
+                 hidden_size: int = 768, intermediate_size: int = 3072, num_heads: int = 12,
+                 vision_hidden_size: int | None = None,
+                 vision_intermediate_size: int | None = None,
+                 vision_num_heads: int | None = None, head_group: int = 1, **kw) -> L0Module:
+    """The retrieval / pretrain / captioning gate layout; the vision_*
+    overrides serve towers of other widths, head_group > 1 learns gates over
+    head groups."""
+    return L0Module(_groups(
+        vision_layers=vision_layers, text_layers=text_layers, cross_layers=cross_layers,
+        decoder_layers=0, hidden_size=hidden_size, intermediate_size=intermediate_size,
+        num_heads=num_heads, vision_hidden_size=vision_hidden_size,
+        vision_intermediate_size=vision_intermediate_size, vision_num_heads=vision_num_heads,
+        head_group=head_group), **kw)
+
+
+def VQAL0Module(*, vision_layers: int, text_layers: int, cross_layers: int,
+                decoder_layers: Optional[int] = None, hidden_size: int = 768,
+                intermediate_size: int = 3072, num_heads: int = 12,
+                vision_hidden_size: int | None = None,
+                vision_intermediate_size: int | None = None,
+                vision_num_heads: int | None = None, head_group: int = 1, **kw) -> L0Module:
+    """The VQA layout: XVLML0Module's groups and the answer decoder's,
+    decoder_head [2*Ld,H] (self/cross interleaved, emitted [Ld,2,H]) and
+    decoder_intermediate [Ld,I]; Ld defaults to the cross depth."""
+    return L0Module(_groups(
+        vision_layers=vision_layers, text_layers=text_layers, cross_layers=cross_layers,
+        decoder_layers=cross_layers if decoder_layers is None else decoder_layers,
+        hidden_size=hidden_size, intermediate_size=intermediate_size, num_heads=num_heads,
+        vision_hidden_size=vision_hidden_size,
+        vision_intermediate_size=vision_intermediate_size, vision_num_heads=vision_num_heads,
+        head_group=head_group), **kw)

@@ -1,10 +1,13 @@
-"""The training steps (port of the retrieval and general-distillation parts
-of efficientvlm_tpu/train/steps.py):
+"""The training steps (port of efficientvlm_tpu/train/steps.py):
 
 - the retrieval pruning fine-tune: the frozen teacher's forward with its KD
   taps, the student's forward with stochastic L0 gates, the KD, ITC, ITM and
   Lagrangian losses, one backward, and the three AdamW updates with the
   log-alpha clamp;
+- the generic stage-2 pruning fine-tune of the generation tasks
+  (TaskTrainStep; VQA and captioning): task_weight x the task loss +
+  kd_weight x a KD menu + the Lagrangian, the three AdamWs, and stop_prune
+  (frozen gates, the main AdamW alone);
 - general distillation (stage 1): the teacher's and the student's pretrain
   forwards (ITC, ITM, MLM, + bbox L1 / GIoU on region batches), 0.6 x task
   + 0.4 x KD, one AdamW and the temperature clamp; and the plain pretrain
@@ -71,6 +74,17 @@ def apply_updates_3way(state: TrainState, grads, optimizers) -> TrainState:
     return state
 
 
+def _grads_by_group(loss: torch.Tensor, groups: list) -> tuple:
+    """loss's gradients over each list of leaves, one list per group (None
+    where a leaf gets none)."""
+    grads = torch.autograd.grad(loss, [t for g in groups for t in g], allow_unused=True)
+    out, at = [], 0
+    for g in groups:
+        out.append(list(grads[at:at + len(g)]))
+        at += len(g)
+    return tuple(out)
+
+
 def retrieval_kd_losses(student_outputs: dict, teacher_outputs: dict, *,
                         temperature: float = 1.0) -> dict:
     """The KD menu of the reference's retrieval fine-tune (weights 0.2 /
@@ -104,12 +118,19 @@ def retrieval_kd_losses(student_outputs: dict, teacher_outputs: dict, *,
 
 
 def subset_teacher_taps(out: dict, *, vision_layers: int, text_fusion: int,
-                        cross_layers: int, text_layers: Optional[int] = None) -> dict:
+                        cross_layers: int, text_layers: Optional[int] = None,
+                        by_key: Optional[dict] = None) -> dict:
     """The teacher's KD tree cut to the student-mapped tap layers
     (distill.subset_taps); the rest are dropped. text_layers: the
-    student's BERT depth, which the multi_modal (mlm_*) taps map to."""
+    student's BERT depth, which the multi_modal (mlm_*) taps map to.
+    by_key: the student's layer count for named taps, before the prefix
+    rules (VQA's text_* taps cover the whole question stack; the decoder_*
+    taps map to the student's decoder)."""
+    by_key = by_key or {}
 
     def n_for(key: str) -> int:
+        if key in by_key:
+            return by_key[key]
         if key.startswith("image"):
             return vision_layers
         if key.startswith("text"):
@@ -175,12 +196,8 @@ class RetrievalTrainStep:
                 self.l0.lagrangian_regularization({"loga": state.loga, **state.lam},
                                                   state.step))
             loss = (kd["loss_kd"] + loss_itc + loss_itm) * 0.5 + lagrangian_loss
-            flat = [t for g in groups for t in g]
-            grads = torch.autograd.grad(loss, flat, allow_unused=True)
+            grads = _grads_by_group(loss, groups)
         del student_outputs
-        sizes = [len(g) for g in groups]
-        grads = (list(grads[:sizes[0]]), list(grads[sizes[0]:sizes[0] + sizes[1]]),
-                 list(grads[sizes[0] + sizes[1]:]))
         metrics = {"loss": loss, "loss_itc": loss_itc, "loss_itm": loss_itm,
                    "lagrangian_loss": lagrangian_loss, "expected_sparsity": expected_sparsity,
                    "target_sparsity": torch.as_tensor(target_sparsity), **kd}
@@ -208,6 +225,172 @@ def make_retrieval_train_step(student_model, teacher_model, l0_module: L0Module,
                               teacher_params=teacher_params, temperature=temperature,
                               dtype=dtype, impl=impl)
 
+
+
+# ---------------------------------------------------------------------------
+# the stage-2 pruning fine-tune of the generation tasks (VQA, captioning)
+# ---------------------------------------------------------------------------
+
+
+def _split_text_cross(hidden: list, attns: list, fusion_layer: int) -> tuple:
+    """The multi_modal question stack's taps split at the fusion boundary:
+    hidden [:fusion + 1] text, [fusion + 1:] cross outputs; maps [:fusion]
+    text, [fusion:] the cross layers' self-attention."""
+    return (hidden[:fusion_layer + 1], hidden[fusion_layer + 1:], attns[:fusion_layer],
+            attns[fusion_layer:])
+
+
+def vqa_kd_losses(student_outputs: dict, teacher_outputs: dict, *, fusion_layer_s: int,
+                  temperature: float = 1.0) -> dict:
+    """The VQA KD menu: the question stack's taps mapped over the whole
+    stack and then split at the student's fusion layer (text hidden + maps,
+    cross hidden + self maps + cross maps x 0.5), the image taps (hidden x
+    0.2), the decoder's hidden, self and cross maps, and the soft
+    cross-entropy of the answer logits."""
+    sh, th = student_outputs["hidden_dict"], teacher_outputs["hidden_dict"]
+    sa, ta = student_outputs["attention_dict"], teacher_outputs["attention_dict"]
+    sc, tc = student_outputs["cross_attention_dict"], teacher_outputs["cross_attention_dict"]
+
+    s_text_h, s_text_a = sh["text_hidden_states"], sa["text_attentions"]
+    t_text_h = D.get_cor_teacher([x.detach() for x in th["text_hidden_states"]], s_text_h)
+    t_text_a = D.get_cor_teacher([x.detach() for x in ta["text_attentions"]], s_text_a,
+                                 is_attn=True)
+    s_th, s_ch, s_ta, s_ca = _split_text_cross(s_text_h, s_text_a, fusion_layer_s)
+    t_th, t_ch, t_ta, t_ca = _split_text_cross(t_text_h, t_text_a, fusion_layer_s)
+
+    text_h, text_a = D.kd_loss(s_th, t_th), D.kd_loss(s_ta, t_ta, is_attn=True)
+    cross_h, cross_sa = D.kd_loss(s_ch, t_ch), D.kd_loss(s_ca, t_ca, is_attn=True)
+    cross_x = D.kd_list(sc["cross_attentions"], tc["cross_attentions"], is_attn=True)
+    img_h = D.kd_list(sh["image_hidden_states"], th["image_hidden_states"], is_img=True)
+    img_a = D.kd_list(sa["image_attentions"], ta["image_attentions"], is_attn=True)
+    dec_h = D.kd_list(sh["decoder_hidden_states"], th["decoder_hidden_states"], is_img=True)
+    dec_a = D.kd_list(sa["decoder_attentions"], ta["decoder_attentions"], is_attn=True)
+    dec_x = D.kd_list(sc["decoder_cross_attentions"], tc["decoder_cross_attentions"],
+                      is_attn=True)
+    logits = D.soft_cross_entropy(student_outputs["logits_dict"]["logits"] / temperature,
+                                  teacher_outputs["logits_dict"]["logits"] / temperature)
+    loss_text_kd = text_a + text_h
+    loss_img_kd = img_a + img_h * 0.2
+    loss_cross_kd = (cross_h + cross_sa + cross_x) * 0.5
+    loss_decoder_kd = dec_a + dec_h + dec_x
+    loss_kd = logits + loss_text_kd + loss_img_kd + loss_cross_kd + loss_decoder_kd
+    return {"loss_kd": loss_kd, "loss_text_kd": loss_text_kd, "loss_img_kd": loss_img_kd,
+            "loss_cross_kd": loss_cross_kd, "loss_decoder_kd": loss_decoder_kd,
+            "loss_logits_kd": logits}
+
+
+def captioning_kd_losses(student_outputs: dict, teacher_outputs: dict, *,
+                         temperature: float = 1.0) -> dict:
+    """The captioning KD menu: the image taps (hidden x 0.1), the decoder's
+    hidden, self and cross maps, and the soft cross-entropy of the logits."""
+    sh, th = student_outputs["hidden_dict"], teacher_outputs["hidden_dict"]
+    sa, ta = student_outputs["attention_dict"], teacher_outputs["attention_dict"]
+    sc, tc = student_outputs["cross_attention_dict"], teacher_outputs["cross_attention_dict"]
+    img_h = D.kd_list(sh["image_hidden_states"], th["image_hidden_states"], is_img=True)
+    img_a = D.kd_list(sa["image_attentions"], ta["image_attentions"], is_attn=True)
+    dec_h = D.kd_list(sh["decoder_hidden_states"], th["decoder_hidden_states"], is_img=True)
+    dec_a = D.kd_list(sa["decoder_attentions"], ta["decoder_attentions"], is_attn=True)
+    dec_x = D.kd_list(sc["decoder_cross_attentions"], tc["decoder_cross_attentions"],
+                      is_attn=True)
+    logits = D.soft_cross_entropy(student_outputs["logits_dict"]["logits"] / temperature,
+                                  teacher_outputs["logits_dict"]["logits"] / temperature)
+    loss_img_kd = img_a + img_h * 0.1
+    loss_decoder_kd = dec_a + dec_h + dec_x
+    return {"loss_kd": logits + loss_img_kd + loss_decoder_kd, "loss_img_kd": loss_img_kd,
+            "loss_decoder_kd": loss_decoder_kd, "loss_logits_kd": logits}
+
+
+class TaskTrainStep:
+    """One stage-2 pruning fine-tune step of a generation task (Eff_VQA /
+    Eff_Captioning's train loop body): loss = task_weight x the student's
+    task loss + kd_weight x kd_fn's loss_kd + the Lagrangian, one backward,
+    the three AdamW updates with the loga clamp. step(state, batch,
+    generator, noise=None) -> metrics, updating `state` in place.
+
+    student_forward(params, zs, batch, generator) -> outputs with "loss" and
+    the KD dicts; teacher_forward(teacher_params, batch) -> the teacher's KD
+    tree, already cut to the taps kd_fn reads (it runs under no_grad);
+    kd_fn(student_outputs, teacher_outputs) -> {"loss_kd", ...}.
+
+    frozen_zs is stop_prune: the student trains against those fixed gates,
+    the Lagrangian is 0, and only the main AdamW steps, so loga, the λs and
+    their optimizer states stay as they are. The parts are methods, so a
+    caller can time them: teacher_forward, loss_and_grads (student forward +
+    backward), apply."""
+
+    def __init__(self, student_forward, teacher_forward, kd_fn, l0_module: L0Module,
+                 optimizers, *, teacher_params, task_weight: float, kd_weight: float,
+                 frozen_zs: Optional[dict] = None):
+        self.student_forward, self.teacher_fn, self.kd_fn = (student_forward, teacher_forward,
+                                                             kd_fn)
+        self.l0, self.optimizers, self.teacher_params = l0_module, optimizers, teacher_params
+        self.task_weight, self.kd_weight, self.frozen_zs = task_weight, kd_weight, frozen_zs
+
+    @torch.no_grad()
+    def teacher_forward(self, batch: dict) -> dict:
+        return self.teacher_fn(self.teacher_params, batch)
+
+    def loss_and_grads(self, state: TrainState, batch: dict, teacher_outputs: dict,
+                       generator: Optional[torch.Generator] = None, *,
+                       noise: Optional[dict] = None):
+        """The student forward, every loss and the gradients: (metrics,
+        (params, loga, λ) grad lists); with frozen_zs the loga and λ lists
+        are empty."""
+        frozen = self.frozen_zs is not None
+        groups = [tree_leaves(state.params)]
+        if not frozen:
+            groups += [tree_leaves(state.loga), tree_leaves(state.lam)]
+        for leaf in (t for g in groups for t in g):
+            leaf.requires_grad_(True)
+        with torch.enable_grad():
+            if frozen:
+                zs = {k: v.detach() for k, v in self.frozen_zs.items()}
+                zero = torch.zeros((), device=groups[0][0].device)
+                lagrangian_loss, expected_sparsity, target_sparsity = zero, zero, zero
+            else:
+                zs = self.l0.forward_train({"loga": state.loga}, generator, noise=noise)
+                lagrangian_loss, expected_sparsity, target_sparsity = (
+                    self.l0.lagrangian_regularization({"loga": state.loga, **state.lam},
+                                                      state.step))
+            student_outputs = self.student_forward(state.params, zs, batch, generator)
+            kd = self.kd_fn(student_outputs, teacher_outputs)
+            loss_task = student_outputs["loss"]
+            loss = (self.task_weight * loss_task + self.kd_weight * kd["loss_kd"]
+                    + lagrangian_loss)
+            grads = _grads_by_group(loss, groups)
+        del student_outputs
+        if frozen:
+            grads += ([], [])  # no loga or λ gradients
+        metrics = {"loss": loss, "loss_task": loss_task, "lagrangian_loss": lagrangian_loss,
+                   "expected_sparsity": expected_sparsity,
+                   "target_sparsity": torch.as_tensor(target_sparsity), **kd}
+        return {k: v.detach() for k, v in metrics.items()}, grads
+
+    def apply(self, state: TrainState, grads) -> TrainState:
+        if self.frozen_zs is None:
+            return apply_updates_3way(state, grads, self.optimizers)
+        self.optimizers[0].step(tree_leaves(state.params), grads[0], state.opt_state)
+        state.step += 1
+        return state
+
+    def __call__(self, state: TrainState, batch: dict,
+                 generator: Optional[torch.Generator] = None, *,
+                 noise: Optional[dict] = None) -> dict:
+        teacher_outputs = self.teacher_forward(batch)
+        metrics, grads = self.loss_and_grads(state, batch, teacher_outputs, generator,
+                                             noise=noise)
+        del teacher_outputs
+        self.apply(state, grads)
+        return metrics
+
+
+def make_task_train_step(student_forward, teacher_forward, kd_fn, l0_module: L0Module,
+                         optimizers, *, teacher_params, task_weight: float, kd_weight: float,
+                         frozen_zs: Optional[dict] = None) -> TaskTrainStep:
+    """The generic stage-2 pruning fine-tune step (see TaskTrainStep)."""
+    return TaskTrainStep(student_forward, teacher_forward, kd_fn, l0_module, optimizers,
+                         teacher_params=teacher_params, task_weight=task_weight,
+                         kd_weight=kd_weight, frozen_zs=frozen_zs)
 
 
 # ---------------------------------------------------------------------------

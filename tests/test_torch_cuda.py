@@ -802,6 +802,57 @@ def test_cross_attention_probs_at_the_itm_negative_pass(rnd):
     _probs_close(probs, ref_probs, mask)
 
 
+def test_self_attention_training_forms_at_the_vqa_vit(rnd):
+    """#2's probs form and its differentiable form at the VQA fine-tune's
+    ViT, [8, 901] at 480 px (the maps' rows padded to 904 floats), 12
+    heads, a masked key tail on the later rows."""
+    d, h, b, s = 768, 12, 8, 901
+    mask = _mask(b, s)
+    prm, x = _attn(rnd, d, d), rnd(b, s, d)
+    hz = torch.rand(h, device="cuda") + 0.2
+    kb = F._key_bias(b, s, mask, None, x.device)
+    before = F.fused_self_attention.probs_launches
+    out, probs = F.fused_self_attention(prm, x, num_heads=h, mask=mask, head_z=hz,
+                                        return_probs=True)
+    assert F.fused_self_attention.probs_launches == before + 1
+    ref, ref_probs = F.self_attention_plain(prm, x, kb, hz, h, return_probs=True)
+    _close(out, ref)
+    _probs_close(probs, ref_probs, mask)
+    del probs, ref_probs
+    master = {n: {kk: v.float().requires_grad_(True) for kk, v in p.items()}
+              for n, p in prm.items()}
+    xg, hg = x.clone().requires_grad_(True), hz.clone().requires_grad_(True)
+    ins = [xg, hg] + [master[n][kk] for n in master for kk in master[n]]
+    cts = [rnd(b, s, d), torch.randn(b, h, s, s, device="cuda")]
+    _grad_agree(lambda: F.fused_self_attention(master, xg, num_heads=h, mask=mask, head_z=hg,
+                                               return_probs=True, differentiable=True),
+                lambda: F.self_attention_plain(master, xg, kb, hg, h, return_probs=True),
+                ins, cts)
+
+
+@pytest.mark.parametrize("b,t,s", [(8, 40, 901), (40, 20, 40)],
+                         ids=["question_fusion_b8_t40_s901", "answer_decoder_b40_t20_s40"])
+def test_cross_attention_probs_at_the_vqa_shapes(rnd, b, t, s):
+    """#3's probs form at the VQA fine-tune's shapes: the question fusion
+    over the 480 px image and the answer decoder over the gathered question
+    states, whose key masks are the questions' padding (lengths 4-40)."""
+    d, h = 768, 12
+    g = torch.Generator().manual_seed(2)
+    lens = torch.randint(4, s + 1, (b,), generator=g)
+    lens[0] = s
+    mask = (torch.arange(s)[None] < lens[:, None]).to(torch.int32).cuda()
+    prm, x, enc = _attn(rnd, d, d), rnd(b, t, d), rnd(b, s, d)
+    hz = torch.rand(h, device="cuda") + 0.2
+    kb = F._key_bias(b, s, mask, None, x.device)
+    before = F.fused_cross_attention.probs_launches
+    out, probs = F.fused_cross_attention(prm, x, enc, num_heads=h, key_bias=kb, head_z=hz,
+                                         return_probs=True)
+    assert F.fused_cross_attention.probs_launches == before + 1
+    ref, ref_probs = F.cross_attention_plain(prm, x, enc, kb, hz, h, return_probs=True)
+    _close(out, ref)
+    _probs_close(probs, ref_probs, mask)
+
+
 def test_preprocess_train_on_the_card_matches_the_cpu(rnd):
     """preprocess_train on a CUDA batch against its CPU run on the same draws
     (drawn once from a CPU generator): the crop gathers, the affine ops'
