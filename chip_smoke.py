@@ -26,7 +26,9 @@ It builds the port's CUDA kernels from csrc/ (into build/kernels/), then:
    at the i2t rerank, ViT and fusion shapes; the training forms: the probs
    forms of #2 and #3 (the pre-gate f32 softmax maps beside the output) at
    the training batch's ViT, text and fusion shapes and at the pruned widths
-   (2-12 heads), with row sums and masked keys checked, and every input
+   (2-12 heads), and their core attn_probs on its own at the long-key
+   shapes, the maps held entry by entry, with row sums and masked keys
+   checked, and every input
    gradient of the differentiable forms of #1-#3 against the plain
    versions' own autograd;
 3. paths, each driven with every launch count set to 0 just before it and
@@ -93,8 +95,12 @@ It builds the port's CUDA kernels from csrc/ (into build/kernels/), then:
    (with the general step's preprocessing) and the probs forms at the GD
    shapes; the same for the VQA step (with its preprocessing) and the
    caption step and the probs forms at their shapes (#2 at 8 x 901 tokens,
-   #3 at the question fusion and the answer decoder), each with the card's
-   name and power limit.
+   #3 at the question fusion and the answer decoder), the device and host
+   time per call of the probs forms at 40 query tokens or fewer, and the
+   probs core alone (CUDA events: its time, the maps' write rate beside the
+   card's maps.zero_() of the same buffer), each with the card's name and
+   power limit. Every probs launch of the main paths must be served by the
+   probs core (bindings.probs_routes).
 
 Weights are random, made from a seed. Any failed check exits non-zero
 before the last line, which is
@@ -581,25 +587,44 @@ def wrappers():
             "fused_cross_attention_probs": (F.fused_cross_attention, "probs_launches")}
 
 
+ROUTES = ("attn_probs", "attn_core")  # bindings.probs_routes: the core of each probs call
+
+
 def counts() -> dict:
-    return {k: getattr(w, attr) for k, (w, attr) in wrappers().items()}
+    """The wrappers' launch counts, then the probs forms' calls by the core
+    that served them (`route_attn_probs`: the probs core attn_probs;
+    `route_attn_core`: attn_core's two-sweep form)."""
+    from efficientvlm_tpu_torch.kernels import bindings
+
+    return {**{k: getattr(w, attr) for k, (w, attr) in wrappers().items()},
+            **{f"route_{r}": bindings.probs_routes[r] for r in ROUTES}}
 
 
 def reset_counts() -> dict:
     """Every launch count to 0: a main path's run starts here."""
+    from efficientvlm_tpu_torch.kernels import bindings
+
     for w, attr in wrappers().values():
         setattr(w, attr, 0)
+    for r in ROUTES:
+        bindings.probs_routes[r] = 0
     return counts()
 
 
 def expect_launches(before: dict, expected: tuple, what: str):
     """The launches since `before`, in wrappers() order; names past the end
-    of `expected` must not have launched."""
+    of `expected` must not have launched. Every probs launch of the main
+    path's shapes (head dim 64) is served by the probs core."""
     now = counts()
-    expected = tuple(expected) + (0,) * (len(now) - len(expected))
-    delta = tuple(now[k] - before[k] for k in now)
-    print(f"launches {what}: {dict(zip(now, delta))}")
-    check(delta == expected, f"{what}: launches {delta} != expected {expected}")
+    names = list(wrappers())
+    expected = tuple(expected) + (0,) * (len(names) - len(expected))
+    delta = {k: now[k] - before[k] for k in now}
+    print(f"launches {what}: {delta}")
+    check(tuple(delta[k] for k in names) == expected,
+          f"{what}: launches {tuple(delta[k] for k in names)} != expected {expected}")
+    probs = delta["fused_self_attention_probs"] + delta["fused_cross_attention_probs"]
+    check(delta["route_attn_probs"] == probs and delta["route_attn_core"] == 0,
+          f"{what}: {probs} probs launches, the probs core served {delta['route_attn_probs']}")
     return now
 
 
@@ -1076,17 +1101,30 @@ def gd_probs_cases(rnd):
             probs_case(rnd, "cross", "gd_bbox_b128_tq40_s197_h12", 128, 40, 197, 12, 197 // 4)]
 
 
-def phase_probs(cases) -> dict:
+# the maps held entry by entry: |p - ref| <= MAPS_ATOL + rtol * |ref|, rtol
+# MAPS_RTOL_CORE where both sides read the same bf16 q, k and v (f32
+# summation order and ex2.approx differ by ~1e-6 relatively), MAPS_RTOL for
+# a sublayer (its q and k come out of the projections rounded to bf16: a
+# rounding that falls the other way moves a score, so each probability
+# relatively, by up to 2^-7 * |q_i k_i| / 8, a few 1e-3 at these inputs);
+# MAPS_ATOL covers f32 values that ex2.approx flushes to zero
+MAPS_ATOL, MAPS_RTOL_CORE, MAPS_RTOL = 1e-6, 1e-4, 8 * BF16_ULP
+
+
+def phase_probs(cases, same_inputs: bool = False) -> dict:
     """Each probs form against its plain version: the output held to 4 bf16
     ulps at its largest magnitude (phase_kernels' rule); the maps to 4 bf16
-    ulps of the largest probability (q and k come out of the projections
-    rounded to bf16, which moves a score by about that much; the kernel then
-    rounds the same normalised p as the plain version); each row summing to
-    1 within 1e-4 (f32 sums of up to 577 terms); masked keys exactly 0."""
+    ulps of the largest probability, and entry by entry to MAPS_ATOL + rtol
+    * |ref| (MAPS_RTOL_CORE with `same_inputs`, the core alone on the same
+    bf16 q, k and v; else MAPS_RTOL), which a map written to the wrong place
+    fails (two 32-key chunks swapped, or a 16-byte unit moved inside one,
+    keeps every row sum at 1 and every value finite); each row summing to
+    1 within 1e-4 (f32 sums of up to 901 terms); masked keys exactly 0."""
     import torch
 
+    rtol = MAPS_RTOL_CORE if same_inputs else MAPS_RTOL
     errs = {}
-    for name, case, run, plain, _, _, mask, _ in cases:
+    for name, case, run, plain, _, _, mask, *_ in cases:
         (out, probs), (ref, ref_probs) = run(), plain()
         out, ref = out.float(), ref.float()
         torch.cuda.synchronize()
@@ -1095,14 +1133,20 @@ def phase_probs(cases) -> dict:
         check(bool(torch.isfinite(out).all()) and bool(torch.isfinite(probs).all()),
               f"{name}/{case}: non-finite output")
         err, tol = (out - ref).abs().max().item(), 4 * BF16_ULP * ref.abs().max().item()
-        perr = (probs - ref_probs).abs().max().item()
+        diff = (probs - ref_probs).abs()
+        perr = diff.max().item()
         ptol = 4 * BF16_ULP * ref_probs.abs().max().item()
+        # the largest |p - ref| / (|ref| + MAPS_ATOL / rtol): at most rtol
+        prel = (diff / (ref_probs.abs() + MAPS_ATOL / rtol)).max().item()
+        del diff
         sums = (probs.sum(-1) - 1).abs().max().item()
         masked = probs.masked_select((mask == 0)[:, None, None, :].expand_as(probs))
         print(f"kernel {name} [{case}]: max_abs_err {err:.4e} tol {tol:.4e}; probs max_abs_err "
-              f"{perr:.4e} tol {ptol:.4e}, row sums within {sums:.2e} of 1, {masked.numel()} "
-              f"masked entries, max {masked.abs().max().item() if masked.numel() else 0:.1e}")
+              f"{perr:.4e} tol {ptol:.4e}, entry-wise {prel:.3e} of |ref| (tol {rtol:.1e}), row "
+              f"sums within {sums:.2e} of 1, {masked.numel()} masked entries, max "
+              f"{masked.abs().max().item() if masked.numel() else 0:.1e}")
         check(err <= tol and perr <= ptol, f"{name}/{case} disagrees with its plain version")
+        check(prel <= rtol, f"{name}/{case}: a map entry disagrees with its plain version")
         check(sums <= 1e-4, f"{name}/{case}: rows do not sum to 1")
         check(bool((masked == 0).all()), f"{name}/{case}: a masked key has a probability")
         errs[name] = max(errs.get(name, 0.0), err, perr)
@@ -1896,7 +1940,7 @@ def gd_times(gd_state, smi: str):
         bound_ms, bound_by = bound(flops, nbytes)
         print(f"time {name} [{case}]: {ms:.4f} ms, plain {plain_ms:.4f} ms, library "
               f"{lib_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by}), "
-              f"{nbytes / ms / 1e6:.1f} GB/s; card {smi}")
+              f"{nbytes / ms / 1e6:.1f} GB/s{device_host(case, run)}; card {smi}")
 
 
 def preprocess_split(pixels, smi: str):
@@ -1970,7 +2014,7 @@ def train_times(train_state, probs_case_list, errs) -> list:
 
     rows, seen = [], set()
     for name, case, run, plain, flops, nbytes, _, lib in probs_case_list:
-        if name in seen:
+        if name in seen:  # the pruned widths
             continue
         seen.add(name)
         with torch.inference_mode():
@@ -1978,7 +2022,7 @@ def train_times(train_state, probs_case_list, errs) -> list:
         bound_ms, bound_by = bound(flops, nbytes)
         print(f"time {name} [{case}]: {ms:.4f} ms, plain {plain_ms:.4f} ms, library "
               f"{lib_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by}), "
-              f"{nbytes / ms / 1e6:.1f} GB/s")
+              f"{nbytes / ms / 1e6:.1f} GB/s{device_host(case, run)}")
         src, replaces = KERNEL_META[name]
         rows.append({"name": name, "route": "cuda", "source": src, "replaces": replaces,
                      "launches": train_state["launches"][name], "max_abs_err": errs[name],
@@ -2402,6 +2446,103 @@ def task_probs_cases(rnd):
                        577)]
 
 
+def probs_core_cases(rnd):
+    """The probs core on its own, through bindings.attn_core(probs=True)
+    (attn_probs where bindings.probs_tile admits the shape), at the training
+    paths' long-key shapes, 12 heads, masked key tails: #2p's ViT
+    self-attention at [24, 577] (retrieval), [8, 901] (VQA) and [128, 197]
+    (GD), #3p's cross-attention at [48, 40] x 577 (retrieval fusion), [8, 40]
+    x 901 (VQA question fusion) and [256, 40] x 197 (GD's ITM negatives). As
+    (name, case, core call, plain call,
+    flops, bytes, mask, library composition, the maps buffer's zero_(),
+    (q, k, v, key bias, gates, batch, tq, s)). Bytes: q, k, v, the key bias
+    and the output once, and the f32 maps. The library composition (matmul,
+    f32 softmax, matmul; scaled_dot_product_attention returns no maps) is
+    timed only."""
+    import torch
+
+    from efficientvlm_tpu_torch.kernels import bindings as K
+    from efficientvlm_tpu_torch.ops import fused_mha as F
+
+    def core_case(case, b, tq, s, h=12):
+        a = h * 64
+        q, k, v = rnd(b * tq, a), rnd(b * s, a), rnd(b * s, a)
+        mask, hz = rnd.mask(b, s, s // 4), rnd.gates(h)
+        kb = F._key_bias(b, s, mask, None, q.device)
+        maps = torch.empty(b, h, tq, -(-s // 4) * 4, device="cuda")
+        split = lambda t, n: t.view(b, n, h, 64).transpose(1, 2)  # noqa: E731
+
+        def lib():
+            scores = torch.matmul(split(q, tq), split(k, s).transpose(-1, -2)).float()
+            probs = torch.softmax(scores * 0.125 + kb[:, None, None, :], dim=-1)
+            ctx = torch.matmul(probs.to(q.dtype), split(v, s)) * hz.to(q.dtype)[:, None, None]
+            return ctx.transpose(1, 2).reshape(b * tq, a), probs
+        return ("attn_probs", case,
+                lambda: K.attn_core(q, k, v, kb, hz, batch=b, tq=tq, s=s, probs=True),
+                lambda: F.attn_core_plain(q, k, v, kb, hz, batch=b, tq=tq, s=s, probs=True),
+                4 * b * tq * s * a, 2 * (2 * q.numel() + k.numel() + v.numel()) + 4 * b * s
+                + 4 * b * h * tq * s, mask, lib, maps.zero_, (q, k, v, kb, hz, b, tq, s))
+
+    return [core_case("vit_b24_t577_h12", 24, 577, 577),
+            core_case("vqa_vit_b8_t901_h12", 8, 901, 901),
+            core_case("gd_vit_b128_t197_h12", 128, 197, 197),
+            core_case("fusion_b48_tq40_s577_h12", 48, 40, 577),
+            core_case("vqa_fusion_b8_tq40_s901_h12", 8, 40, 901),
+            core_case("gd_itm_neg_b256_tq40_s197_h12", 256, 40, 197)]
+
+
+def probs_core_times(errs, launches: int, smi: str) -> dict:
+    """The probs core alone at probs_core_cases' shapes, all by CUDA events
+    (late in this run torch.profiler's device time under-counts, reading the
+    maps' zero_() above the card's peak rate): its ms, the maps' write rate
+    over that time beside the card's own write rate of the same maps buffer
+    (maps.zero_()), the plain version's and the library composition's ms,
+    the bound. Returns the kernels line's attn_probs row (its first case)."""
+    import torch
+
+    from efficientvlm_tpu_torch.kernels import bindings as K
+
+    row = None
+    for name, case, run, plain, flops, nbytes, _, lib, zero, args in probs_core_cases(Rand(5)):
+        hz, b, tq, s = args[4:]
+        maps_bytes = 4 * b * hz.numel() * tq * s
+        with torch.inference_mode():
+            ms, zero_ms = timed_pair_ms(run, zero)
+            plain_ms, lib_ms = timed_ms(plain), timed_ms(lib)
+        bound_ms, bound_by = bound(flops, nbytes)
+        print(f"time {name} [{case}]: {ms:.4f} ms, maps at {maps_bytes / ms / 1e6:.1f} GB/s; "
+              f"maps.zero_() {zero_ms:.4f} ms = {4 * zero.__self__.numel() / zero_ms / 1e6:.1f} "
+              f"GB/s; plain {plain_ms:.4f} ms, library {lib_ms:.4f} ms, bound {bound_ms:.4f} ms "
+              f"({bound_by}); tile {'x'.join(map(str, K.probs_tile(64, tq, s)))}; card {smi}")
+        if row is None:
+            row = {"name": name, "route": "cuda",
+                   "source": "efficientvlm_tpu_torch/csrc/attn_probs.cuh",
+                   "replaces": "efficientvlm_tpu/ops/pallas_fused_mha.py:119",
+                   "launches": launches, "max_abs_err": errs[name], "ms": ms,
+                   "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
+                   "library_ms": lib_ms}
+    return row
+
+
+def device_host(case: str, run) -> str:
+    """For a probs case of 40 query tokens or fewer (text, question, answer
+    decoder; the case name says tq20 / tq30 / t40 / tq40), where the call is
+    mostly host work: its device time and device launches per call and its
+    host time per call; '' for the others."""
+    import re
+
+    import torch
+
+    if not re.search(r"_tq?(20|30|40)_", case):
+        return ""
+    with torch.inference_mode():
+        us, launches = device_us(run)
+        host = host_us(run, calls=50)
+    return (f"; device {fmt_us(us)} us/call, "
+            f"{'not measured' if launches is None else f'{launches:g}'} device launches/call, "
+            f"host {host:.2f} us/call")
+
+
 def task_times(task_state, smi: str):
     """Each task step's ms split into preprocessing (VQA), teacher forward,
     student forward + backward and optimizer (host clock, synchronised at
@@ -2438,7 +2579,7 @@ def task_times(task_state, smi: str):
         bound_ms, bound_by = bound(flops, nbytes)
         print(f"time {name} [{case}]: {ms:.4f} ms, plain {plain_ms:.4f} ms, library "
               f"{lib_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by}), "
-              f"{nbytes / ms / 1e6:.1f} GB/s; card {smi}")
+              f"{nbytes / ms / 1e6:.1f} GB/s{device_host(case, run)}; card {smi}")
 
 
 # --------------------------------------------------------------------------
@@ -2527,10 +2668,10 @@ KERNEL_META = {
                         "efficientvlm_tpu/ops/pallas_attention.py:81"),
     "flash_attention_grouped": ("efficientvlm_tpu_torch/csrc/flash_attention.cu",
                                 "efficientvlm_tpu/ops/pallas_attention.py:118"),
-    # the emit_probs instances of #2 and #3: attn_core's probs form
-    "fused_self_attention_probs": ("efficientvlm_tpu_torch/csrc/attn_core.cuh",
+    # the emit_probs instances of #2 and #3: the probs core attn_probs
+    "fused_self_attention_probs": ("efficientvlm_tpu_torch/csrc/attn_probs.cuh",
                                    "efficientvlm_tpu/ops/pallas_fused_mha.py:159"),
-    "fused_cross_attention_probs": ("efficientvlm_tpu_torch/csrc/attn_core.cuh",
+    "fused_cross_attention_probs": ("efficientvlm_tpu_torch/csrc/attn_probs.cuh",
                                     "efficientvlm_tpu/ops/pallas_fused_mha.py:282"),
 }
 
@@ -2565,9 +2706,10 @@ def phase_times(cases, device_cases, errs, slice_state, gen_state, train_launche
                          + sum(t[name] for t in train_launches),
                          "max_abs_err": errs[name], "ms": ms, "plain_ms": plain_ms,
                          "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": lib_ms})
-    # the other main-path shapes (text, t2i, rect, decode), for the record;
-    # the two bare cores (#5, #6) at every shape, with the library call timed
-    # in turns (the host sets the pace at the decode shapes)
+    # the other main-path shapes (text, t2i, rect, decode), for the record,
+    # with the plain versions of #1-#4; the two bare cores (#5, #6) at every
+    # shape, with the library call timed in turns (the host sets the pace at
+    # the decode shapes)
     seen, flash_cases = set(), []
     for name, case, run, plain, flops, nbytes, *extra in cases:
         first = name not in seen
@@ -2581,9 +2723,10 @@ def phase_times(cases, device_cases, errs, slice_state, gen_state, train_launche
                else library_yardstick(name, extra[0]))
         with torch.inference_mode():
             ms, lib_ms = timed_pair_ms(run, lib) if flash else (timed_ms(run), timed_ms(lib))
+            plain_ms = "" if flash else f", plain {timed_ms(plain, iters=3, runs=3):.4f} ms"
         if flash:
             flash_cases.append((name, case, run, lib))
-        print(f"time {name} [{case}]: {ms:.4f} ms, library {lib_ms:.4f} ms, "
+        print(f"time {name} [{case}]: {ms:.4f} ms{plain_ms}, library {lib_ms:.4f} ms, "
               f"bound {bound(flops, nbytes)[0]:.4f} ms, {flops / ms / 1e9:.1f} TFLOP/s")
     # the two device kernels under #1-#4 on their own: which one leads
     for name, case, run, plain, flops, nbytes, lib in device_cases:
@@ -2788,6 +2931,7 @@ def main(argv) -> int:
     flash_refusals(rnd)
     p_cases = probs_cases(rnd)
     errs.update(phase_probs(p_cases + gd_probs_cases(rnd) + task_probs_cases(rnd)))
+    errs.update(phase_probs(probs_core_cases(Rand(5)), same_inputs=True))
     phase_grads(grad_cases(rnd))
     slice_state = phase_slice(rnd)
     gen_state = phase_generation(rnd)
@@ -2809,6 +2953,15 @@ def main(argv) -> int:
     for row in train_rows:  # the probs forms run on every training path
         row["launches"] += gd_launches[row["name"]] + task_launches[row["name"]]
     kernels += train_rows
+    paths = (slice_state["launches"], gen_state["launches"], train_launches, gd_launches,
+             task_launches)
+    probs_launches = sum(p[k] for p in paths for k in ("fused_self_attention_probs",
+                                                       "fused_cross_attention_probs"))
+    core_launches = sum(p["route_attn_probs"] for p in paths)
+    print(f"probs forms on the main paths: {probs_launches} launches, {core_launches} served "
+          f"by attn_probs, {sum(p['route_attn_core'] for p in paths)} by attn_core")
+    check(core_launches == probs_launches > 0, "a probs launch of the main paths missed attn_probs")
+    kernels.append(probs_core_times(errs, core_launches, smi))
     print(f"card: {smi}; total {time.perf_counter() - t0:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -348,9 +348,10 @@ cudaError_t launch(const void* q, const void* k, const void* v, const float* key
                    cudaStream_t stream) {
   // a 128-row query tile for long query runs, else just enough 16-row warps
   const int warps = Tq > 64 ? MAX_WARPS : (Tq + 15) / 16;
-  cudaError_t e = cudaFuncSetAttribute(attn_core_kernel<DH, PROBS>,
-                                       cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                       static_cast<int>(Layout<DH>::bytes(MAX_WARPS)));
+  static DeviceCache cache;
+  int sms = 0;
+  cudaError_t e = once_per_device(cache, reinterpret_cast<const void*>(attn_core_kernel<DH, PROBS>),
+                                  static_cast<int>(Layout<DH>::bytes(MAX_WARPS)), &sms);
   if (e != cudaSuccess) return e;
   dim3 grid((Tq + warps * 16 - 1) / (warps * 16), heads, batch);
   attn_core_kernel<DH, PROBS><<<grid, warps * 32, Layout<DH>::bytes(warps), stream>>>(

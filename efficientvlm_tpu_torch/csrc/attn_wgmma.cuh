@@ -84,12 +84,6 @@ struct AttnParams {
   float scale_log2;       // softmax scale * log2 e
 };
 
-__device__ __forceinline__ float ex2(float x) {
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
-  return y;
-}
-
 template <int N>
 __device__ __forceinline__ void fence_f(float (&d)[N]) {
 #pragma unroll
@@ -387,12 +381,10 @@ static inline cudaError_t attn_wgmma(const void* q, const void* k, const void* v
   p.s = S;
   p.heads = heads;
   p.scale_log2 = scale * LOG2E;
-  int dev = 0, sms = 0;
-  cudaError_t e = cudaGetDevice(&dev);
-  if (e == cudaSuccess) e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  if (e == cudaSuccess)
-    e = cudaFuncSetAttribute(attn_wgmma_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             static_cast<int>(SMEM_BYTES));
+  static DeviceCache cache;
+  int sms = 0;
+  cudaError_t e = once_per_device(cache, reinterpret_cast<const void*>(attn_wgmma_kernel),
+                                  static_cast<int>(SMEM_BYTES), &sms);
   if (e != cudaSuccess) return e;
   const int items = batch * heads * ((Tq + QT - 1) / QT);
   attn_wgmma_kernel<<<items < sms ? items : sms, THREADS, SMEM_BYTES, s>>>(p);

@@ -28,6 +28,34 @@ __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" :: "n"(N));
 }
 
+// The launch set-up of one kernel, done once per device and not on every
+// launch: its dynamic shared memory limit raised to `smem_bytes`, the most
+// any launch of it asks for (so that no order of shapes can fail), an
+// optional shared memory carveout in percent (-1: left to the runtime), and
+// the device's SM count. The caller keeps one cache per kernel instance.
+struct DeviceCache {
+  int sms[16] = {};
+};
+
+inline cudaError_t once_per_device(DeviceCache& cache, const void* kernel, int smem_bytes,
+                                   int* sms, int carveout = -1) {
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e != cudaSuccess) return e;
+  if (dev >= 16) return cudaErrorInvalidDevice;
+  if (cache.sms[dev] == 0) {
+    int n = 0;
+    e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem_bytes);
+    if (e == cudaSuccess && carveout >= 0)
+      e = cudaFuncSetAttribute(kernel, cudaFuncAttributePreferredSharedMemoryCarveout, carveout);
+    if (e == cudaSuccess) e = cudaDeviceGetAttribute(&n, cudaDevAttrMultiProcessorCount, dev);
+    if (e != cudaSuccess) return e;
+    cache.sms[dev] = n;
+  }
+  *sms = cache.sms[dev];
+  return cudaSuccess;
+}
+
 // Small parameter vectors (biases, LayerNorm scale and shift, positional
 // rows, head gates) are read as stored, bf16 or f32, so that no wrapper
 // converts them per call. `bf16` selects the type; i is an element index.
@@ -42,6 +70,13 @@ __device__ __forceinline__ float2 load2(const void* p, bool bf16, size_t i) {
     return __bfloat1622float2(
         *reinterpret_cast<const __nv_bfloat162*>(static_cast<const __nv_bfloat16*>(p) + i));
   return *reinterpret_cast<const float2*>(static_cast<const float*>(p) + i);
+}
+
+// 2^x (the SFU's approximation, denormals flushed)
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
 }
 
 __device__ __forceinline__ float warp_sum(float v) {

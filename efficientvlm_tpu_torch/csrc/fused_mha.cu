@@ -35,10 +35,15 @@
 // (kernels/bindings.py) and passes them as `core` and `ln_route`; a route
 // the shape does not allow is refused here. With `probs` (the emit_probs
 // forms of _fused_kernel and _fused_cross_kernel, the training path's KD
-// taps) attn_core also writes the pre-gate f32 softmax maps; only attn_core
-// has that form, and the grouped sublayer (eval-only) never asks for it. Biases and the LN parameters are
-// read as stored, all bf16 (vec16) or all f32; the gates likewise (gates16).
+// taps) the core also writes the pre-gate f32 softmax maps: attn_probs
+// (CORE_PROBS, head dim 64 up to the staging limit, `probs_rows` query rows
+// a block served by `probs_ks` warps a 16-row group; bindings.probs_tile)
+// or, outside that rule, attn_core's two-sweep
+// form (CORE_MMA); the grouped sublayer (eval-only) never asks for maps.
+// Biases and the LN parameters are read as stored, all bf16 (vec16) or all
+// f32; the gates likewise (gates16).
 #include "attn_core.cuh"
+#include "attn_probs.cuh"
 #include "attn_wgmma.cuh"
 #include "gemm_bias.cuh"
 #include "gemm_ln.cuh"
@@ -46,7 +51,7 @@
 
 namespace {
 
-enum { CORE_MMA = 0, CORE_WGMMA = 1 };
+enum { CORE_MMA = 0, CORE_WGMMA = 1, CORE_PROBS = 2 };
 enum { LN_NONE = 0, LN_CLUSTER = 1, LN_SEPARATE = 2 };
 
 }  // namespace
@@ -57,20 +62,24 @@ enum { LN_NONE = 0, LN_CLUSTER = 1, LN_SEPARATE = 2 };
 // (gates16) or f32, or null; key_bias [batch, s] f32; workspaces ws_q/ws_ctx
 // [batch*tq, A], ws_k/ws_v [batch*s, A] bf16, ws_out [batch*tq, d] f32
 // (ln_route 2 only); out [batch*tq, d] bf16; probs (or null) [batch, heads,
-// tq, pitch] f32, the first s of each row written. Every bf16 pointer is
-// 16-byte aligned (TMA).
+// tq, pitch] f32, the first s of each row written (CORE_PROBS: 16-byte
+// aligned, pitch a multiple of 4; probs_rows query rows a block, probs_ks
+// warps a 16-row group). Every bf16
+// pointer is 16-byte aligned (TMA).
 extern "C" int evlm_fused_attention(
     const void* x, const void* enc, const void* wq, const void* bq, const void* wk,
     const void* bk, const void* wv, const void* bv, const void* wo, const void* bo,
     const float* key_bias, const void* gates, const void* ln_gamma, const void* ln_beta,
     void* ws_q, void* ws_k, void* ws_v, void* ws_ctx, float* ws_out, void* out, float* probs,
     int pitch, int batch, int tq, int s, int d, int de, int heads, int head_dim, int core,
-    int ln_route, int vec16, int gates16, float ln_eps, void* stream) {
+    int probs_rows, int probs_ks, int ln_route, int vec16, int gates16, float ln_eps,
+    void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const int a = heads * head_dim, rows_q = batch * tq, rows_kv = batch * s;
   const bool with_ln = ln_route != LN_NONE, v16 = vec16 != 0, g16 = gates16 != 0;
-  if ((core == CORE_WGMMA && head_dim != 64) || (core != CORE_MMA && core != CORE_WGMMA) ||
-      (probs && core != CORE_MMA) ||
+  if ((core != CORE_MMA && core != CORE_WGMMA && core != CORE_PROBS) ||
+      (core != CORE_MMA && head_dim != 64) || (probs && core == CORE_WGMMA) ||
+      ((core == CORE_PROBS) != (probs && probs_rows > 0 && probs_ks > 0)) ||
       !key_bias || (with_ln && !(ln_gamma && ln_beta)) ||
       (ln_route == LN_CLUSTER && !evlm::gemm_ln_impl::width_ok(d)) ||
       (ln_route == LN_SEPARATE && !ws_out) || ln_route < LN_NONE || ln_route > LN_SEPARATE)
@@ -91,11 +100,15 @@ extern "C" int evlm_fused_attention(
   }
   if (e != cudaSuccess) return e;
   const float scale = 1.0f / sqrtf(static_cast<float>(head_dim));
-  e = core == CORE_WGMMA
-          ? evlm::attn_wgmma(ws_q, ws_k, ws_v, key_bias, gates, g16, ws_ctx, batch, tq, s, heads,
-                             scale, st)
-          : evlm::attn_core(ws_q, ws_k, ws_v, key_bias, gates, g16, ws_ctx, batch, tq, s, heads,
-                            head_dim, scale, st, probs, pitch);
+  if (core == CORE_WGMMA)
+    e = evlm::attn_wgmma(ws_q, ws_k, ws_v, key_bias, gates, g16, ws_ctx, batch, tq, s, heads,
+                         scale, st);
+  else if (core == CORE_PROBS)
+    e = evlm::attn_probs(ws_q, ws_k, ws_v, key_bias, gates, g16, ws_ctx, probs, pitch, batch, tq,
+                         s, heads, probs_rows, probs_ks, scale, st);
+  else
+    e = evlm::attn_core(ws_q, ws_k, ws_v, key_bias, gates, g16, ws_ctx, batch, tq, s, heads,
+                        head_dim, scale, st, probs, pitch);
   if (e != cudaSuccess) return e;
   if (ln_route == LN_NONE)
     return static_cast<int>(evlm::gemm_bias(ws_ctx, wo, bo, nullptr, 1, v16, out, false, rows_q,
@@ -148,6 +161,19 @@ extern "C" int evlm_attn_core(const void* q, const void* k, const void* v, const
   return static_cast<int>(evlm::attn_core(q, k, v, key_bias, gates, gates16 != 0, out, batch, tq,
                                           s, heads, head_dim, scale,
                                           static_cast<cudaStream_t>(stream), probs, pitch));
+}
+
+// the probs form at head dim 64 (attn_probs): q/out [batch*tq, heads*64],
+// k/v [batch*s, heads*64] bf16; key_bias [batch, s] f32; gates [heads] bf16
+// (gates16) or f32, or null; probs [batch, heads, tq, pitch] f32; `rows`
+// query rows a block and `ks` warps a 16-row group (bindings.probs_tile)
+extern "C" int evlm_attn_probs(const void* q, const void* k, const void* v, const float* key_bias,
+                               const void* gates, void* out, float* probs, int pitch, int batch,
+                               int tq, int s, int heads, int rows, int ks, int gates16,
+                               float scale, void* stream) {
+  return static_cast<int>(evlm::attn_probs(q, k, v, key_bias, gates, gates16 != 0, out, probs,
+                                           pitch, batch, tq, s, heads, rows, ks, scale,
+                                           static_cast<cudaStream_t>(stream)));
 }
 
 // the same function and arguments as evlm_attn_core, for head dim 64

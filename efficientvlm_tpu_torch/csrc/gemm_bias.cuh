@@ -450,12 +450,10 @@ static inline cudaError_t gemm_bias_multi(const void* A, int count, const void* 
   p.gemms = count;
   p.out_f32 = out_f32;
   auto kernel = vec16 ? gemm_bias_kernel<true> : gemm_bias_kernel<false>;
-  int dev = 0, sms = 0;
-  cudaError_t e = cudaGetDevice(&dev);
-  if (e == cudaSuccess) e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  if (e == cudaSuccess)
-    e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             static_cast<int>(SMEM_BYTES));
+  static DeviceCache cache[2];  // per instance of the kernel
+  int sms = 0;
+  cudaError_t e = once_per_device(cache[vec16], reinterpret_cast<const void*>(kernel),
+                                  static_cast<int>(SMEM_BYTES), &sms);
   if (e != cudaSuccess) return e;
   const int tiles = ((M + BM - 1) / BM) * ((N + BN - 1) / BN) * count;
   kernel<<<tiles < sms ? tiles : sms, THREADS, SMEM_BYTES, s>>>(p);

@@ -8,11 +8,13 @@ raises when the C entry returns a CUDA error. Small parameter vectors
 (biases, LayerNorm scale and shift, positional rows, head gates) are passed
 as stored with one flag per kernel call: all bf16, or all f32, so that no
 call converts params stored in one dtype. The shape rules that choose between device kernels live here too
-(gemm_ln_fits, wgmma_core_fits, patch_gather_fits).
+(gemm_ln_fits, wgmma_core_fits, patch_gather_fits, probs_tile), and
+`probs_routes` counts which core served each call of a probs form.
 """
 
 from __future__ import annotations
 
+import functools
 import struct
 from typing import Optional
 
@@ -87,6 +89,72 @@ def patch_gather_fits(patch: int) -> bool:
     """gemm_ln's gather reads 16-byte pieces of the image: the P*3 values of
     one patch row must be a multiple of 8."""
     return patch > 0 and patch * 3 % 8 == 0
+
+
+PROBS_HEAD_DIM, PROBS_MAX_ROWS, PROBS_MAX_WARPS = 64, 128, 16
+PROBS_SMEM_LIMIT = 227 * 1024  # a block's shared memory on the H100
+
+
+def probs_smem(rows: int, s: int, warps: int) -> int:
+    """Shared memory of an attn_probs block of `rows` query rows over s keys
+    with `warps` consumer warps a 16-row group (csrc/attn_probs.cuh
+    smem_bytes): the f32 e of every row staged over ceil(s / 64) key tiles
+    with each tile's running max, Q, the warps' (max, sum), the key bias, the
+    K/V rings (one per warp of a group: 3 slots of 8 KB at up to 2 warps,
+    else 2), their barriers and Q's, and the alignment."""
+    nt = -(-s // 64)
+    slots = warps * (3 if warps <= 2 else 2)
+    return rows * (nt * 260 + 128 + 8 * warps) + nt * 256 + slots * (8192 + 16) + 8 + 1024
+
+
+def probs_tile_fits(rows: int, s: int, warps: int) -> bool:
+    return (0 < rows <= PROBS_MAX_ROWS and rows % 16 == 0 and warps > 0
+            and rows // 16 * warps <= PROBS_MAX_WARPS
+            and probs_smem(rows, s, warps) <= PROBS_SMEM_LIMIT)
+
+
+PROBS_GROUP_WARPS, PROBS_MIN_WARPS = 5, 8
+PROBS_SMEM_PAIR = 113 * 1024  # two blocks on one SM (228 KB, 1 KB reserved a block)
+
+
+@functools.lru_cache(maxsize=None)
+def probs_tile(head_dim: int, tq: int, s: int) -> tuple:
+    """(query rows a block, consumer warps a 16-row group) of the probs core
+    attn_probs, or (0, 0) when the probs form takes attn_core's two-sweep
+    route (head dim 32 or 128, or s past the staging limit of 2,944 keys).
+    The rows are as many 16-row groups as tq needs, up to 128, whose shared
+    memory fits with at least 8 consumer warps in all (fewer where the keys
+    have fewer 64-key tiles); each group gets as many warps as fit, up to 5
+    and at most one a key tile, 16 a block; at 4 key tiles or fewer, the
+    most warps with which two blocks share an SM. Measured on the H100
+    (PERF.md, the tile sweep of scripts/torch_probs_bench.py): 5 warps a
+    group beat 6 and 8; at S = 197, 128 rows of 2 warps beat 96 of 2; at 40
+    x 197, 48 rows of 3 warps (two blocks an SM) beat 48 of 4 (one). Cached:
+    every probs call asks."""
+    if head_dim != PROBS_HEAD_DIM or tq <= 0 or s <= 0:
+        return 0, 0
+    nt, best = -(-s // 64), (0, 0)
+    for rows in range(min(PROBS_MAX_ROWS, -(-tq // 16) * 16), 0, -16):
+        groups = rows // 16
+        fit = [w for w in range(min(PROBS_GROUP_WARPS, nt, PROBS_MAX_WARPS // groups), 0, -1)
+               if probs_tile_fits(rows, s, w)]
+        if not fit:
+            continue
+        warps = fit[0]
+        if nt <= 4:  # short keys: two blocks an SM hide each other's fixed latency
+            pair = [w for w in fit if probs_smem(rows, s, w) <= PROBS_SMEM_PAIR
+                    and 2 * groups * w >= PROBS_MIN_WARPS]
+            warps = pair[0] if pair else warps
+        if groups * warps >= min(PROBS_MIN_WARPS, groups * min(PROBS_GROUP_WARPS, nt)):
+            return rows, warps
+        if groups * warps > best[0] // 16 * best[1]:
+            best = (rows, warps)
+    return best
+
+
+# calls of the probs forms by the core that served them: attn_probs, or
+# attn_core's two-sweep form outside probs_tile's rule
+probs_routes = {"attn_probs": 0, "attn_core": 0}
 
 
 def as_stored(t: Optional[torch.Tensor]) -> Optional[torch.Tensor]:
@@ -192,7 +260,8 @@ def fused_attention(x: torch.Tensor, enc: torch.Tensor, w: dict, key_bias: torch
     post-LN epilogue; vectors as stored (bf16 or f32). Returns [batch*tq, D]
     bf16; with probs, (that, the pre-gate f32 softmax maps [batch, H, tq,
     s]) where the maps are a view of rows padded to a multiple of 4 floats
-    (the kernel's 8-byte stores), as JAX returns its padded maps trimmed."""
+    (16-byte row strides for attn_probs' TMA stores), as JAX returns its
+    padded maps trimmed. The probs form's core follows probs_tile."""
     d, de = x.shape[1], enc.shape[1]
     a = w["wq"].shape[1]
     dh = a // heads
@@ -203,7 +272,8 @@ def fused_attention(x: torch.Tensor, enc: torch.Tensor, w: dict, key_bias: torch
         raise ValueError(f"fused_attention: widths {d}, {de} must be multiples of 8")
     if probs and grouped:
         raise ValueError("fused_attention: the grouped sublayer has no probs form")
-    core = 1 if wgmma_core_fits(dh, grouped) else 0
+    rows, warps = probs_tile(dh, tq, s) if probs else (0, 0)
+    core = 2 if rows else 1 if wgmma_core_fits(dh, grouped) else 0
     ln_route = 0 if ln is None else (1 if gemm_ln_fits(d) else 2)
     rq, rkv = batch * tq, batch * s
     mats = [_ptr(x, BF16, "x", (rq, d)), _ptr(enc, BF16, "enc", (rkv, de)),
@@ -226,9 +296,12 @@ def fused_attention(x: torch.Tensor, enc: torch.Tensor, w: dict, key_bias: torch
     _check(library().evlm_fused_attention(
         mats[0], mats[1], mats[2], bq, mats[3], bk, mats[4], bv, mats[5], bo, kb, _addr(g), lg,
         lb, *map(_addr, ws), out.data_ptr(), _addr(maps), pitch, batch, tq, s, d, de, heads, dh,
-        core, ln_route, vec16, gates16, float(ln_eps), _stream(x)),
+        core, rows, warps, ln_route, vec16, gates16, float(ln_eps), _stream(x)),
         "fused_attention")
-    return (out, maps[..., :s]) if probs else out
+    if not probs:
+        return out
+    probs_routes["attn_probs" if rows else "attn_core"] += 1
+    return out, maps[..., :s]
 
 
 def gemm_bias(a: torch.Tensor, b: torch.Tensor, bias: Optional[torch.Tensor] = None,
@@ -299,13 +372,16 @@ def attn_core(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, key_bias: torch
     bf16 (heads side by side), key_bias [batch, s] f32 and gates [H] (bf16
     or f32). Returns [batch*tq, H*dh] bf16; with probs (its probs form),
     also the pre-gate f32 maps [batch, H, tq, s] (a view, as
-    fused_attention's)."""
+    fused_attention's), from attn_probs where probs_tile admits the shape,
+    else from attn_core's two-sweep form."""
     heads = gates.shape[0]
     a = q.shape[1]
     dh = a // heads
     if dh * heads != a or dh not in (32, 64, 128):
         raise ValueError(f"attn_core: width {a} over {heads} heads "
                          f"(head dim must be 32, 64 or 128)")
+    if probs and probs_tile(dh, tq, s)[0]:
+        return attn_probs(q, k, v, key_bias, gates, batch=batch, tq=tq, s=s)
     args = [_ptr(q, BF16, "q", (batch * tq, a)), _ptr(k, BF16, "k", (batch * s, a)),
             _ptr(v, BF16, "v", (batch * s, a)), _ptr(key_bias, F32, "key_bias", (batch, s))]
     _aligned({"q": args[0], "k": args[1], "v": args[2]}, "attn_core")
@@ -316,7 +392,48 @@ def attn_core(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, key_bias: torch
     _check(library().evlm_attn_core(*args, g.data_ptr(), out.data_ptr(), _addr(maps), pitch, batch,
                                     tq, s, heads, dh, gates16, float(dh ** -0.5), _stream(q)),
            "attn_core")
-    return (out, maps[..., :s]) if probs else out
+    if not probs:
+        return out
+    probs_routes["attn_core"] += 1
+    return out, maps[..., :s]
+
+
+def attn_probs(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, key_bias: torch.Tensor,
+               gates: torch.Tensor, *, batch: int, tq: int, s: int) -> tuple:
+    """The probs core on its own: attn_core's function and arguments with
+    probs at head dim 64 (q [batch*tq, H*64], k/v [batch*s, H*64] bf16,
+    key_bias [batch, s] f32, gates [H] bf16 or f32), at probs_tile's tile.
+    Returns (out [batch*tq, H*64] bf16, the pre-gate f32 maps [batch, H, tq,
+    s], a view of rows padded to a multiple of 4 floats)."""
+    return _attn_probs_tile(q, k, v, key_bias, gates, batch, tq, s,
+                            *probs_tile(PROBS_HEAD_DIM, tq, s))
+
+
+def _attn_probs_tile(q, k, v, key_bias, gates, batch: int, tq: int, s: int, rows: int,
+                     warps: int) -> tuple:
+    """attn_probs at `rows` query rows a block and `warps` consumer warps a
+    16-row group; tiles other than probs_tile's serve only to measure and
+    test the rule."""
+    heads, a = gates.shape[0], q.shape[1]
+    if a != heads * PROBS_HEAD_DIM:
+        raise ValueError(f"attn_probs: width {a} is not {heads} heads of 64")
+    if not probs_tile_fits(rows, s, warps):
+        raise ValueError(f"attn_probs: {rows} rows a block, {warps} warps a 16-row group, over "
+                         f"{s} keys (rows a multiple of 16 up to 128, at most 16 warps, within "
+                         f"{PROBS_SMEM_LIMIT} bytes of shared memory)")
+    args = [_ptr(q, BF16, "q", (batch * tq, a)), _ptr(k, BF16, "k", (batch * s, a)),
+            _ptr(v, BF16, "v", (batch * s, a)), _ptr(key_bias, F32, "key_bias", (batch, s))]
+    _aligned({"q": args[0], "k": args[1], "v": args[2]}, "attn_probs")
+    (g,), gates16 = _vecs([("gates", gates, (heads,))])
+    out = torch.empty_like(q)
+    pitch = -(-s // 4) * 4
+    maps = torch.empty(batch, heads, tq, pitch, dtype=F32, device=q.device)
+    _check(library().evlm_attn_probs(*args, g.data_ptr(), out.data_ptr(), maps.data_ptr(), pitch,
+                                     batch, tq, s, heads, rows, warps, gates16,
+                                     float(PROBS_HEAD_DIM ** -0.5), _stream(q)),
+           "attn_probs")
+    probs_routes["attn_probs"] += 1
+    return out, maps[..., :s]
 
 
 def attn_wgmma(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, key_bias: torch.Tensor,

@@ -39,8 +39,8 @@ SIGNATURES = {
     "evlm_patch_embed_im2col": [_P] * 8 + [_I] * 5 + [_F, _P],
     # x, enc, wq, bq, wk, bk, wv, bv, wo, bo, key_bias, gates, ln_gamma, ln_beta,
     # ws_q, ws_k, ws_v, ws_ctx, ws_out, out, probs, pitch, batch, tq, s, d, de, heads,
-    # head_dim, core, ln_route, vec16, gates16, ln_eps, stream
-    "evlm_fused_attention": [_P] * 21 + [_I] * 12 + [_F, _P],
+    # head_dim, core, probs_rows, probs_ks, ln_route, vec16, gates16, ln_eps, stream
+    "evlm_fused_attention": [_P] * 21 + [_I] * 14 + [_F, _P],
     # a, b, bias, row_add, c, period, out_f32, vec16, m, n, k, stream
     "evlm_gemm_bias": [_P] * 5 + [_I] * 6 + [_P],
     # a, b, bias, row_add, residual, gamma, beta, out, period, group,
@@ -51,6 +51,9 @@ SIGNATURES = {
     # q, k, v, key_bias, gates, out, probs, pitch, batch, tq, s, heads, head_dim,
     # gates16, scale, stream
     "evlm_attn_core": [_P] * 7 + [_I] * 7 + [_F, _P],
+    # q, k, v, key_bias, gates, out, probs, pitch, batch, tq, s, heads, rows, ks,
+    # gates16, scale, stream
+    "evlm_attn_probs": [_P] * 7 + [_I] * 8 + [_F, _P],
     # q, k, v, key_bias, gates, out, batch, tq, s, heads, gates16, scale, stream
     "evlm_attn_wgmma": [_P] * 6 + [_I] * 5 + [_F, _P],
     # q, k, v, bias, out, ws, tickets, dims (18 ints), scale, stream

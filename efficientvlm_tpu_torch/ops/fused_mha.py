@@ -26,8 +26,10 @@ head_z[h] and rounded before the output projection.
 The training forms (ports of `_dv_self` / `_dv_cross` and the emit_probs
 instances of the TPU kernels): `return_probs=True` also returns the pre-gate
 f32 softmax maps [B, H, Tq, Tk] that the KD taps read (on CUDA the probs
-form of attn_core, which writes them while it attends; counted in
-`probs_launches`); `differentiable=True` runs the kernel inside a
+core attn_probs, which stages each row's scores in shared memory and stores
+the maps by TMA while it attends; attn_core's two-sweep form outside
+bindings.probs_tile; counted in `probs_launches`, the core that served each
+call in bindings.probs_routes); `differentiable=True` runs the kernel inside a
 torch.autograd.Function that saves its inputs only and whose backward
 recomputes the plain version under autograd and takes its gradients, as
 JAX's custom_vjp recomputes its XLA reference. Cotangents flow into both

@@ -77,6 +77,15 @@ def test_bare_kernel_bindings_refuse_cpu_tensors():
         bindings.gemm_ln(x, w, torch.ones(128), torch.zeros(128), 1e-5)
     with pytest.raises(ValueError, match="must be a CUDA tensor"):
         bindings.attn_wgmma(x, x, x, torch.zeros(1, 8), torch.ones(1), batch=1, tq=8, s=8)
+    q = torch.zeros(8, 128, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="must be a CUDA tensor"):
+        bindings.attn_probs(q, q, q, torch.zeros(1, 8), torch.ones(2), batch=1, tq=8, s=8)
+    with pytest.raises(ValueError, match="rows a block"):
+        bindings._attn_probs_tile(q, q, q, torch.zeros(1, 8), torch.ones(2), 1, 8, 8, 24, 1)
+    with pytest.raises(ValueError, match="rows a block"):
+        bindings._attn_probs_tile(q, q, q, torch.zeros(1, 8), torch.ones(2), 1, 8, 8, 64, 5)
+    with pytest.raises(ValueError, match="heads of 64"):
+        bindings.attn_probs(x, x, x, torch.zeros(1, 8), torch.ones(2), batch=1, tq=8, s=8)
     with pytest.raises(ValueError, match="a multiple of 128"):
         bindings.gemm_ln(x, torch.zeros(64, 200, dtype=torch.bfloat16), torch.ones(200),
                          torch.zeros(200), 1e-5)
@@ -195,6 +204,50 @@ def test_shape_rules_pick_the_device_kernel(rule, arg, fits):
     of a patch row (P*3 % 8 == 0)."""
     args = arg if isinstance(arg, tuple) else (arg,)
     assert getattr(bindings, rule)(*args) is fits
+
+
+@pytest.mark.parametrize("head_dim,tq,s,rows,warps", [
+    (64, 577, 577, 64, 3), (32, 577, 577, 0, 0), (128, 577, 577, 0, 0),
+    (64, 197, 197, 128, 2), (64, 901, 901, 32, 5),
+    (64, 40, 40, 48, 1), (64, 40, 577, 48, 5), (64, 40, 901, 32, 5), (64, 30, 577, 32, 5),
+    (64, 16, 40, 16, 1), (64, 17, 40, 32, 1), (64, 1, 1, 16, 1),
+    (64, 577, 64, 128, 1), (64, 577, 65, 128, 1), (64, 577, 256, 128, 2),
+    (64, 577, 257, 128, 1), (64, 40, 197, 48, 3), (64, 577, 640, 64, 3), (64, 577, 641, 48, 5),
+    (64, 577, 832, 48, 3), (64, 577, 833, 32, 5), (64, 577, 1152, 32, 4),
+    (64, 577, 1153, 16, 5), (64, 37, 2944, 16, 1), (64, 37, 2945, 0, 0)])
+def test_probs_tile_picks_the_probs_core(head_dim, tq, s, rows, warps):
+    """The probs form takes attn_probs at head dim 64 (else attn_core's two
+    sweeps), as many 16-row groups as tq needs (up to 128 rows) with at least
+    8 consumer warps, each group up to 5 warps and one a key tile, at 4 key
+    tiles or fewer the most warps that let two blocks share an SM; on each
+    side of every limit: the head dim, tq a multiple of 16 or one row past
+    it, one key tile or two (s 64 / 65), four or five (256 / 257, where two
+    blocks an SM stop being preferred), the key tile counts that move the
+    rows (640 / 641, 832 / 833, 1,152 / 1,153) and the staging limit (2,944
+    keys in one 16-row block of one warp)."""
+    assert bindings.probs_tile(head_dim, tq, s) == (rows, warps)
+    if rows:
+        nt = -(-s // 64)
+        assert bindings.probs_tile_fits(rows, s, warps)
+        assert warps <= min(bindings.PROBS_GROUP_WARPS, nt)
+        assert rows // 16 * warps <= bindings.PROBS_MAX_WARPS
+
+
+def test_probs_smem_counts_the_staged_rows():
+    """attn_probs.cuh's smem_bytes: a row's staged f32 e (256 bytes a 64-key
+    tile) and tile maxima (4 a tile), its Q (128) and its warps' (max, sum)
+    (8 a warp of its group), the key bias (256 a tile), the K/V rings of 8
+    KB tiles with two barriers each (one ring a warp of a group: 3 slots at
+    up to 2 warps, else 2), Q's barrier, and 1,024 bytes to align."""
+    for rows, s, warps, slots in ((64, 577, 3, 6), (128, 197, 2, 6), (32, 901, 5, 10),
+                                  (48, 40, 1, 3), (16, 2944, 1, 3)):
+        nt = -(-s // 64)
+        assert bindings.probs_smem(rows, s, warps) == \
+            rows * (nt * 256 + nt * 4 + 128 + 8 * warps) + nt * 256 + \
+            slots * (64 * 64 * 2 + 16) + 8 + 1024
+    assert not bindings.probs_tile_fits(16, 2945, 1)
+    assert not bindings.probs_tile_fits(48, 577, 6)  # 18 warps
+    assert not bindings.probs_tile_fits(24, 577, 1)
 
 
 def test_gemm_ln_plain_places_rows_behind_each_group_head():

@@ -482,14 +482,21 @@ def test_cuda_tensors_never_fall_back(rnd):
 # --------------------------------------------------------------------------
 
 
-def _probs_close(probs, ref, mask):
-    """Maps within 4 bf16 ulps of the largest probability (q and k come out
-    of the projections rounded to bf16 in another summation order), rows
-    summing to 1 within f32 rounding, masked keys exactly 0."""
+def _probs_close(probs, ref, mask, same_inputs=False):
+    """Maps within 4 bf16 ulps of the largest probability, and entry by
+    entry within 1e-6 + rtol * |ref| (chip_smoke.phase_probs' rule): rtol
+    1e-4 where the core and its plain version read the same bf16 q, k and v
+    (`same_inputs`), 2^-5 for a sublayer (q and k come out of the
+    projections rounded to bf16 in another summation order); rows summing
+    to 1 within f32 rounding, masked keys exactly 0."""
     probs, ref = probs.float(), ref.float()
     torch.cuda.synchronize()
     assert probs.shape == ref.shape
-    assert (probs - ref).abs().max().item() <= 4 * 2 ** -8 * ref.abs().max().item()
+    diff = (probs - ref).abs()
+    assert diff.max().item() <= 4 * 2 ** -8 * ref.abs().max().item()
+    rtol = 1e-4 if same_inputs else 2 ** -5
+    assert bool((diff <= 1e-6 + rtol * ref.abs()).all())
+    del diff
     assert (probs.sum(-1) - 1).abs().max().item() <= 1e-4
     assert bool((probs.masked_select(mask[:, None, None, :] == 0) == 0).all())
 
@@ -532,7 +539,169 @@ def test_attn_core_probs_form_at_the_vit_shape(rnd):
     out, probs = K.attn_core(q, k, v, kb, hz, batch=b, tq=s, s=s, probs=True)
     ref, ref_probs = F.attn_core_plain(q, k, v, kb, hz, batch=b, tq=s, s=s, probs=True)
     _close(out, ref)
-    _probs_close(probs, ref_probs, mask)
+    _probs_close(probs, ref_probs, mask, same_inputs=True)
+
+
+def _region_mask(b, s):
+    """A region batch's key mask: every row keeps key 0 (CLS) and one
+    contiguous run of keys, of another length and place per row."""
+    m = torch.zeros(b, s, dtype=torch.int32, device="cuda")
+    m[:, 0] = 1
+    for i in range(b):
+        start = 1 + (7 * i) % max(1, s - 1)
+        m[i, start:start + 3 + 11 * i] = 1
+    return m
+
+
+PROBS = {
+    # name: (batch, Tq, S, heads, key mask); the probs core at head dim 64
+    # over S on each side of a key tile and of a 32-key half, Tq not a
+    # multiple of the rule's rows, 2-12 heads, masked tails or region masks
+    "s1_tq5_h2": (3, 5, 1, 2, "mask"),
+    "s40_tq40_h12": (4, 40, 40, 12, "mask"),
+    "s63_tq70_h2": (3, 70, 63, 2, "mask"),
+    "s64_tq33_h4": (3, 33, 64, 4, "mask"),
+    "s65_tq100_h6": (2, 100, 65, 6, "mask"),
+    "s197_tq197_h12_region": (4, 197, 197, 12, "region"),
+    "s577_tq577_h2": (2, 577, 577, 2, "mask"),
+    "s577_tq40_h8": (3, 40, 577, 8, "mask"),
+    "s901_tq901_h2": (1, 901, 901, 2, "mask"),
+    "s901_tq40_h10": (2, 40, 901, 10, "mask"),
+    "s2944_staging_limit": (1, 37, 2944, 2, "mask"),
+}
+
+
+def _probs_inputs(rnd, b, tq, s, h, masks):
+    q, k, v = rnd(b * tq, h * 64), rnd(b * s, h * 64), rnd(b * s, h * 64)
+    mask = _region_mask(b, s) if masks == "region" else _mask(b, s)
+    kb = F._key_bias(b, s, mask, None, q.device)
+    return q, k, v, kb, torch.rand(h, device="cuda") + 0.2, mask
+
+
+@pytest.mark.parametrize("name", sorted(PROBS))
+def test_attn_probs(rnd, name):
+    """The probs core against attn_core_plain(probs=True): the output within
+    4 bf16 ulps, the maps by _probs_close's rule; one attn_probs route."""
+    b, tq, s, h, masks = PROBS[name]
+    q, k, v, kb, hz, mask = _probs_inputs(rnd, b, tq, s, h, masks)
+    assert K.probs_tile(64, tq, s)[0] > 0
+    before = dict(K.probs_routes)
+    out, probs = K.attn_core(q, k, v, kb, hz, batch=b, tq=tq, s=s, probs=True)
+    assert K.probs_routes == {**before, "attn_probs": before["attn_probs"] + 1}
+    ref, ref_probs = F.attn_core_plain(q, k, v, kb, hz, batch=b, tq=tq, s=s, probs=True)
+    _close(out, ref)
+    _probs_close(probs, ref_probs, mask, same_inputs=True)
+
+
+@pytest.mark.parametrize("s,tq,rows,warps", [(577, 577, 16, 4), (577, 577, 32, 5),
+                                             (197, 197, 64, 2), (901, 300, 16, 5),
+                                             (40, 200, 64, 1), (257, 300, 128, 1)])
+def test_attn_probs_at_other_tiles(rnd, s, tq, rows, warps):
+    """Tiles other than the rule's (rows a block, warps a 16-row group), as
+    the tile sweep of scripts/torch_probs_bench.py times them, give the same
+    result."""
+    q, k, v, kb, hz, mask = _probs_inputs(rnd, 2, tq, s, 3, "mask")
+    out, probs = K._attn_probs_tile(q, k, v, kb, hz, 2, tq, s, rows, warps)
+    ref, ref_probs = F.attn_core_plain(q, k, v, kb, hz, batch=2, tq=tq, s=s, probs=True)
+    _close(out, ref)
+    _probs_close(probs, ref_probs, mask, same_inputs=True)
+
+
+@pytest.mark.parametrize("b,tq,s,h", [(8, 901, 901, 12), (48, 40, 577, 12)])
+def test_attn_probs_repeated_launches(rnd, b, tq, s, h):
+    """Twenty launches back to back at the VQA ViT's and the fusion layers'
+    shapes (four consumer warps a 16-row group, many tiles each, every SM
+    busy): the rings hand each slot to its class's warps in order, so no
+    launch faults and the last one still agrees."""
+    q, k, v, kb, hz, mask = _probs_inputs(rnd, b, tq, s, h, "mask")
+    for _ in range(20):
+        out, probs = K.attn_probs(q, k, v, kb, hz, batch=b, tq=tq, s=s)
+    ref, ref_probs = F.attn_core_plain(q, k, v, kb, hz, batch=b, tq=tq, s=s, probs=True)
+    _close(out, ref)
+    _probs_close(probs, ref_probs, mask, same_inputs=True)
+
+
+@pytest.mark.parametrize("s", [577, 197, 41])
+def test_attn_probs_writes_no_pad_column(rnd, s):
+    """The C entry over a maps buffer filled with NaN: every key of every
+    row is written, and the pad columns past S (up to the pitch) keep their
+    NaN: TMA clips each box at S."""
+    b, tq, h = 2, 50, 2
+    q, k, v, kb, hz, mask = _probs_inputs(rnd, b, tq, s, h, "mask")
+    pitch = -(-s // 4) * 4
+    maps = torch.full((b, h, tq, pitch), float("nan"), device="cuda")
+    out = torch.empty_like(q)
+    rows, warps = K.probs_tile(64, tq, s)
+    rc = K.library().evlm_attn_probs(q.data_ptr(), k.data_ptr(), v.data_ptr(), kb.data_ptr(),
+                                     hz.data_ptr(), out.data_ptr(), maps.data_ptr(), pitch, b, tq,
+                                     s, h, rows, warps, 0, 0.125, K._stream(q))
+    assert rc == 0
+    torch.cuda.synchronize()
+    assert torch.isfinite(maps[..., :s]).all()
+    assert torch.isnan(maps[..., s:]).all() and maps.shape[-1] - s == (-s) % 4
+    ref, ref_probs = F.attn_core_plain(q, k, v, kb, hz, batch=b, tq=tq, s=s, probs=True)
+    _close(out, ref)
+    _probs_close(maps[..., :s], ref_probs, mask, same_inputs=True)
+
+
+@pytest.mark.parametrize("dh", [32, 128])
+def test_two_sweep_probs_route_at_other_head_dims(rnd, dh):
+    """Head dims 32 and 128 keep attn_core's two-sweep probs form, counted
+    as that route."""
+    b, tq, s, h = 2, 70, 145, 2
+    q, k, v = rnd(b * tq, h * dh), rnd(b * s, h * dh), rnd(b * s, h * dh)
+    mask = _mask(b, s)
+    kb = F._key_bias(b, s, mask, None, q.device)
+    hz = torch.rand(h, device="cuda") + 0.2
+    assert K.probs_tile(dh, tq, s) == (0, 0)
+    before = dict(K.probs_routes)
+    out, probs = K.attn_core(q, k, v, kb, hz, batch=b, tq=tq, s=s, probs=True)
+    assert K.probs_routes == {**before, "attn_core": before["attn_core"] + 1}
+    ref, ref_probs = F.attn_core_plain(q, k, v, kb, hz, batch=b, tq=tq, s=s, probs=True)
+    _close(out, ref)
+    _probs_close(probs, ref_probs, mask, same_inputs=True)
+
+
+@pytest.mark.parametrize("kind,dh", [("self", 64), ("cross", 64), ("self", 32)])
+def test_probs_sublayer_launches_the_probs_core(rnd, kind, dh):
+    """#2p / #3p at head dim 64 run attn_probs inside their three / four
+    device launches, and never attn_core; at head dim 32 attn_core's
+    two-sweep form."""
+    h, b, t = 128 // dh, 3, 20
+    s = 37 if kind == "cross" else t
+    prm, x, enc = _attn(rnd, 128, 128), rnd(b, t, 128), rnd(b, s, 128)
+    kb = F._key_bias(b, s, _mask(b, s), None, x.device)  # as the models pass it
+    if kind == "self":
+        run = lambda: F.fused_self_attention(prm, x, num_heads=h, key_bias=kb, return_probs=True)
+    else:
+        run = lambda: F.fused_cross_attention(prm, x, enc, num_heads=h, key_bias=kb,
+                                              return_probs=True)
+    names = _kernel_names(run)
+    probs_core = dh == 64
+    assert any("attn_probs_kernel" in n for n in names) == probs_core
+    assert any("attn_core_kernel" in n for n in names) == (not probs_core)
+    assert len(names) == (3 if kind == "self" else 4), names
+
+
+def test_launch_set_up_in_any_order(rnd):
+    """Each kernel raises its shared memory limit once per device to the most
+    any launch asks for: attn_probs at 16 rows over 40 keys, then at the
+    staging limit (2,944 keys, 227 KB), then small again; attn_core from one warp to
+    eight and back; gemm_bias and attn_wgmma at a small shape."""
+    for s in (40, 2944, 40):
+        q, k, v, kb, hz, mask = _probs_inputs(rnd, 1, 16, s, 2, "mask")
+        out, probs = K.attn_probs(q, k, v, kb, hz, batch=1, tq=16, s=s)
+        ref, ref_probs = F.attn_core_plain(q, k, v, kb, hz, batch=1, tq=16, s=s, probs=True)
+        _close(out, ref)
+        _probs_close(probs, ref_probs, mask, same_inputs=True)
+    for tq in (16, 577, 16):
+        q, k, v, kb, hz, _ = _probs_inputs(rnd, 2, tq, 70, 2, "mask")
+        _close(K.attn_core(q, k, v, kb, hz, batch=2, tq=tq, s=70),
+               F.attn_core_plain(q, k, v, kb, hz, batch=2, tq=tq, s=70))
+        _close(K.attn_wgmma(q, k, v, kb, hz, batch=2, tq=tq, s=70),
+               F.attn_core_plain(q, k, v, kb, hz, batch=2, tq=tq, s=70))
+    a, w = rnd(50, 64), rnd(64, 72, std=0.125)
+    _close(K.gemm_bias(a, w), F.gemm_bias_plain(a, w))
 
 
 def _grad_agree(run_kernel, run_plain, inputs, cotangents):
