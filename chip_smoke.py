@@ -70,6 +70,19 @@ It builds the port's CUDA kernels from csrc/ (into build/kernels/), then:
      unchanged), then the decoder-aware export and the pruned student's
      forward_eval (k 128 over 3,128 answers) or 3-beam generate against the
      gated dense student;
+   - NLVR2 (configs/x-vlm-small-ft/NLVR.yaml: the 6L / 3 + 2 x 3 replicated
+     student under NLVRL0Module, the 12L / 6 + 2 x 6 teacher, task 0.8 + KD
+     0.2 + the Lagrangian): three steps at 16 pairs (uint8 448 x 448 ->
+     preprocess_train at 384 on the card, image0 then image1, 40 tokens) on
+     the kernel, plain and f32 plain paths from one state and a stop_prune
+     step; the teacher's, the gated dense student's and the pruned
+     student's (prune_xvlm_params(nlvr=True)) logits at 16 pairs, the
+     pruned student against the gated dense one for the trained gates and
+     for drawn gates that differ within every replicated pair,
+     nlvr_accuracy; one XVLMForNLVRPretraining loss at batch 64, 224 px;
+   - visual grounding (configs/x-vlm-small-ft/Grounding.yaml, no teacher):
+     three steps at batch 16 on the three paths and a stop_prune step, the
+     gated student's boxes and grounding_eval_bbox;
    with exact launch counts, finite outputs, and the kernel path against the
    plain path (f32 params for retrieval; the same bf16 params for
    generation, with a teacher-forced replay of the generated captions, and
@@ -95,7 +108,10 @@ It builds the port's CUDA kernels from csrc/ (into build/kernels/), then:
    (with the general step's preprocessing) and the probs forms at the GD
    shapes; the same for the VQA step (with its preprocessing) and the
    caption step and the probs forms at their shapes (#2 at 8 x 901 tokens,
-   #3 at the question fusion and the answer decoder), the device and host
+   #3 at the question fusion and the answer decoder), the same for the NLVR
+   step (its probs forms at 32 x 577, 16 x 40 and 16 x 40 x 577) and the
+   grounding step, NLVR's pairs/s (teacher, gated and pruned student) and
+   grounding's images/s, the device and host
    time per call of the probs forms at 40 query tokens or fewer, and the
    probs core alone (CUDA events: its time, the maps' write rate beside the
    card's maps.zero_() of the same buffer), each with the card's name and
@@ -292,9 +308,9 @@ def kernel_cases(rnd):
                   4 * img480.numel() + 2 * (k * d + 8 * 901 * d) + 4 * 900 * d,
                   (pp480, img480, p)))
 
-    def self_case(case, bsz, t, a, heads):
-        prm, x = rnd.attn(d, a), rnd(bsz, t, d)
-        mask, hz = rnd.mask(bsz, t, t // 4), rnd.gates(heads)
+    def self_case(case, bsz, t, a, heads, r=rnd):
+        prm, x = r.attn(d, a), r(bsz, t, d)
+        mask, hz = r.mask(bsz, t, t // 4), r.gates(heads)
         kb = F._key_bias(bsz, t, mask, None, x.device)
         flops = 2 * bsz * t * d * a * 4 + 4 * bsz * t * t * a
         nbytes = 2 * (2 * x.numel() + 4 * d * a) + 4 * bsz * t
@@ -309,9 +325,9 @@ def kernel_cases(rnd):
     # general distillation's plain pretrain step: the student ViT without maps
     cases.append(self_case("gd_vit_b128_t197", 128, 197, 768, 12))
 
-    def cross_case(case, bsz, t, s, a, heads):
-        prm, x, enc = rnd.attn(d, a), rnd(bsz, t, d), rnd(bsz, s, d)
-        mask, hz = rnd.mask(bsz, s, s // 4), rnd.gates(heads)
+    def cross_case(case, bsz, t, s, a, heads, r=rnd):
+        prm, x, enc = r.attn(d, a), r(bsz, t, d), r(bsz, s, d)
+        mask, hz = r.mask(bsz, s, s // 4), r.gates(heads)
         kb = F._key_bias(bsz, s, mask, None, x.device)
         flops = 2 * bsz * t * d * a * 2 + 2 * bsz * s * d * a * 2 + 4 * bsz * t * s * a
         nbytes = 2 * (2 * x.numel() + enc.numel() + 4 * d * a) + 4 * bsz * s
@@ -429,6 +445,35 @@ def kernel_cases(rnd):
     cases.append(grouped_flash_case("edge_g3_split_dh32_broadcast", 3, 3, 1, 577, d=32,
                                     broadcast=True))
     cases.append(grouped_flash_case("edge_g128_dh128", 2, 128, 6, 25, d=128))
+
+    # NLVR2 and grounding (drawn from their own generator, so the draws above
+    # stay as they were): #1 over NLVR's 2 x 16 images from the on-card
+    # preprocessing (f32 in) and its pretraining batch of 64 at 224 px; #2
+    # over the text stacks ([16, 40], grounding's [16, 30]); #3 over one
+    # image of each pair ([16, 40] x 577, grounding's [16, 30] x 577); the
+    # pretraining loss's #2 (ViT [64, 197], text [64, 40]) and #3 ([64, 40]
+    # x 197)
+    r = Rand(7)
+    img_nlvr = r(2 * 16, res, res, 3, dtype=torch.float32)
+    cases.append(("patch_embed", "nlvr_b32_384_f32_in",
+                  lambda: fused_patch_embed(pp, img_nlvr, patch_size=p, dtype=torch.bfloat16),
+                  lambda: patch_embed_plain(pp, img_nlvr, patch_size=p, dtype=torch.bfloat16),
+                  2 * 32 * n * k * d, 4 * img_nlvr.numel() + 2 * (k * d + 32 * (n + 1) * d)
+                  + 4 * n * d, (pp, img_nlvr, p)))
+    img_pre = r(64, 224, 224, 3)
+    cases.append(("patch_embed", "nlvr_pretrain_b64_224",
+                  lambda: fused_patch_embed(pp224, img_pre, patch_size=p),
+                  lambda: patch_embed_plain(pp224, img_pre, patch_size=p),
+                  2 * 64 * 196 * k * d,
+                  2 * (img_pre.numel() + k * d + 64 * 197 * d) + 4 * 196 * d,
+                  (pp224, img_pre, p)))
+    cases.append(self_case("nlvr_text_b16_t40", 16, 40, 768, 12, r))
+    cases.append(self_case("grounding_text_b16_t30", 16, 30, 768, 12, r))
+    cases.append(cross_case("nlvr_cross_b16_tq40_s577", 16, 40, 577, 768, 12, r))
+    cases.append(cross_case("grounding_cross_b16_tq30_s577", 16, 30, 577, 768, 12, r))
+    cases.append(self_case("nlvr_pretrain_vit_b64_t197", 64, 197, 768, 12, r))
+    cases.append(self_case("nlvr_pretrain_text_b64_t40", 64, 40, 768, 12, r))
+    cases.append(cross_case("nlvr_pretrain_cross_b64_tq40_s197", 64, 40, 197, 768, 12, r))
     return cases
 
 
@@ -1492,6 +1537,17 @@ def ffn_width_sweep():
     return out
 
 
+def drawn_loga(state, rnd) -> dict:
+    """Log-alphas drawn from a seed for the export checks: head groups in
+    [-4, 4), FFN units in [-3, 3), so the deterministic gates drop some."""
+    import torch
+
+    return {key: (torch.rand(v.shape, generator=rnd.g, device="cuda") * 8 - 4
+                  if key.endswith("head") else torch.rand(v.shape, generator=rnd.g,
+                                                          device="cuda") * 6 - 3)
+            for key, v in state.loga.items()}
+
+
 def pruned_counts(params, fusion: int) -> tuple:
     """(ViT, text, fusion self, fusion cross) sublayers left in a pruned tree."""
     layers = params["text"]["layers"]
@@ -1522,10 +1578,7 @@ def phase_export(train_state, slice_state, rnd) -> dict:
     fusion = student.text_cfg["fusion_layer"]
     image, ids, atts = slice_state["image"], slice_state["ids"], slice_state["atts"]
     ib, ib_x, txt, txt_atts, rows, k = slice_state["rerank"]
-    drawn = {key: (torch.rand(v.shape, generator=rnd.g, device="cuda") * 8 - 4
-                   if key.endswith("head") else torch.rand(v.shape, generator=rnd.g,
-                                                           device="cuda") * 6 - 3)
-             for key, v in state.loga.items()}
+    drawn = drawn_loga(state, rnd)
     with torch.no_grad():
         dense = cast_floating(state.params, bf16)
     out = {}
@@ -2037,23 +2090,30 @@ def train_times(train_state, probs_case_list, errs) -> list:
 
 TASK_UNIT = {"vqa": dict(batch=8, raw=512, res=480, q_len=40, a_len=20, max_answers=10,
                          k=128, steps=3, steps_per_epoch=1000),
-             "captioning": dict(batch=16, res=384, tokens=30, steps=3, steps_per_epoch=1000)}
+             "captioning": dict(batch=16, res=384, tokens=30, steps=3, steps_per_epoch=1000),
+             "nlvr": dict(batch=16, raw=448, res=384, tokens=40, steps=3, steps_per_epoch=1000),
+             "grounding": dict(batch=16, res=384, tokens=30, steps=3, steps_per_epoch=1000)}
 # launches per kernel-path step, wrappers() order: #1 teacher + student; #2's
-# probs form: teacher ViT 12 (+ VQA question text 6 and fusion self 6),
-# student ViT 6; #3's: teacher decoder cross 6 (+ VQA question fusion 6).
-# The student's BERT layers and decoder (dropout 0.1) and every decoder
-# self-attention (a causal matrix bias) take the plain core
-TASK_LAUNCHES = {"vqa": (2, 0, 0, 0, 0, 0, 30, 12), "captioning": (2, 0, 0, 0, 0, 0, 18, 6)}
+# probs form: teacher ViT 12 (+ VQA question text 6 and fusion self 6; NLVR's
+# replicated text stack 6 + 12), student ViT 6; #3's: teacher decoder cross 6
+# (+ VQA question fusion 6; NLVR: the 12 replicated cross layers). The
+# student's BERT layers and decoder (dropout 0.1) and every decoder
+# self-attention (a causal matrix bias) take the plain core. Grounding has no
+# teacher: #1 and the student ViT's 6 differentiable #2 without maps
+TASK_LAUNCHES = {"vqa": (2, 0, 0, 0, 0, 0, 30, 12), "captioning": (2, 0, 0, 0, 0, 0, 18, 6),
+                 "nlvr": (2, 0, 0, 0, 0, 0, 36, 12), "grounding": (1, 6)}
 
 
 def task_config(task: str):
-    """configs/x-vlm-small-ft/VQA_480.yaml or Captioning.yaml with the vision
-    tower of configs/config_clipvit_small.json: the student's 6L
-    CLIP-ViT-B/16 (at 480 / 384 px) and BERT-base with 6 layers (fusion at
-    3, dropout 0.1; VQA: a 3-layer answer decoder), the teacher 12L / 12L
-    (VQA: a 6-layer decoder); head gates over pairs, the published lr,
-    sparsity and schedules, TASK_UNIT's steps_per_epoch an epoch; VQA
-    preprocesses on the card, captioning's prompt has 4 tokens."""
+    """configs/x-vlm-small-ft/VQA_480.yaml, Captioning.yaml, NLVR.yaml or
+    Grounding.yaml with the vision tower of configs/config_clipvit_small.json:
+    the student's 6L CLIP-ViT-B/16 (at 480 / 384 px) and BERT-base with 6
+    layers (fusion at 3, dropout 0.1; VQA: a 3-layer answer decoder; NLVR:
+    3 + 2 x 3 replicated layers), the teacher 12L / 12L (VQA: a 6-layer
+    decoder; NLVR: 6 + 2 x 6); head gates over pairs (grounding: one a
+    head, as its config has no head_gate_group), the published lr, sparsity
+    and schedules, TASK_UNIT's steps_per_epoch an epoch; VQA and NLVR
+    preprocess on the card, captioning's prompt has 4 tokens."""
     from efficientvlm_tpu_torch.config import Config, VisionConfig
 
     u = TASK_UNIT[task]
@@ -2066,19 +2126,24 @@ def task_config(task: str):
               "batch_size_train": u["batch"],
               "L0_schedular": {"droprate_init": 0.5, "temperature": 0.6667,
                                "lagrangian_warmup_epochs": 1}}
+
+    def schedule(lr: float, epochs: int) -> dict:
+        return {"optimizer": {"opt": "adamW", "lr": lr, "reg_learning_rate": 0.01,
+                              "weight_decay": 0.01, "lr_mult": 2},
+                "schedular": {"sched": "linear", "lr": lr, "epochs": epochs,
+                              "num_warmup_steps": 0.1}}
+
     if task == "vqa":
         return Config({**shared, "num_dec_layers": 3, "max_tokens": 40, "k_test": 128,
-                       "sparsity": 0.35, "device_preprocess": True,
-                       "optimizer": {"opt": "adamW", "lr": 2e-5, "reg_learning_rate": 0.01,
-                                     "weight_decay": 0.01, "lr_mult": 2},
-                       "schedular": {"sched": "linear", "lr": 2e-5, "epochs": 10,
-                                     "num_warmup_steps": 0.1}})
+                       "sparsity": 0.35, "device_preprocess": True, **schedule(2e-5, 10)})
+    if task == "nlvr":  # the images preprocessed on the card
+        return Config({**shared, "max_tokens": 40, "sparsity": 0.25, "device_preprocess": True,
+                       **schedule(3e-5, 10)})
+    if task == "grounding":  # sparsity 0, head gates one a head
+        return Config({**shared, "max_tokens": 30, "sparsity": 0.0, "head_gate_group": 1,
+                       **schedule(3e-5, 10)})
     return Config({**shared, "max_tokens": 30, "prompt_length": len(CAPTION_UNIT["prompt"]),
-                   "label_smoothing": 0.1, "sparsity": 0.25,
-                   "optimizer": {"opt": "adamW", "lr": 3e-5, "reg_learning_rate": 0.01,
-                                 "weight_decay": 0.01, "lr_mult": 2},
-                   "schedular": {"sched": "linear", "lr": 3e-5, "epochs": 5,
-                                 "num_warmup_steps": 0.1}})
+                   "label_smoothing": 0.1, "sparsity": 0.25, **schedule(3e-5, 5)})
 
 
 def vqa_task_batch(rnd) -> dict:
@@ -2120,6 +2185,41 @@ def vqa_task_batch(rnd) -> dict:
             "k_index": torch.from_numpy(k_index).to(dev)}
 
 
+def nlvr_task_batch(rnd) -> dict:
+    """16 pairs of uint8 images of 448 x 448 (preprocess_train takes image0
+    and then image1 to 384 on the card), 40-token sentences ([CLS] first,
+    PAD past lengths of 8-40), labels 0 / 1."""
+    import torch
+
+    u, dev = TASK_UNIT["nlvr"], "cuda"
+    b, t = u["batch"], u["tokens"]
+    pixels = lambda: torch.randint(0, 256, (b, u["raw"], u["raw"], 3), generator=rnd.g,  # noqa
+                                   device=dev, dtype=torch.uint8)
+    atts = rnd.mask(b, t, 8)
+    ids = torch.randint(1000, 30522, (b, t), generator=rnd.g, device=dev)
+    ids[:, 0] = 101
+    return {"image0": pixels(), "image1": pixels(), "text_ids": torch.where(atts == 1, ids, 0),
+            "text_atts": atts,
+            "targets": torch.randint(0, 2, (b,), generator=rnd.g, device=dev)}
+
+
+def grounding_task_batch(rnd) -> dict:
+    """16 images at 384 px (bf16; no device preprocessing: the box would
+    move with the crop), 30-token referring expressions, target boxes (cx,
+    cy, w, h) with centres in [0.25, 0.75] and sides in [0.1, 0.5]."""
+    import torch
+
+    u, dev = TASK_UNIT["grounding"], "cuda"
+    b, t = u["batch"], u["tokens"]
+    atts = rnd.mask(b, t, 4)
+    ids = torch.randint(1000, 30522, (b, t), generator=rnd.g, device=dev)
+    ids[:, 0] = 101
+    centre = torch.rand(b, 2, generator=rnd.g, device=dev) * 0.5 + 0.25
+    side = torch.rand(b, 2, generator=rnd.g, device=dev) * 0.4 + 0.1
+    return {"image": rnd(b, u["res"], u["res"], 3), "text_ids": torch.where(atts == 1, ids, 0),
+            "text_atts": atts, "target_bbox": torch.cat([centre, side], 1)}
+
+
 def caption_task_batch(rnd) -> dict:
     """16 images at 384 px (bf16; the config has no device preprocessing)
     and 30-token captions: [CLS] and the 3-word prompt first, PAD past
@@ -2135,33 +2235,45 @@ def caption_task_batch(rnd) -> dict:
             "caption_atts": atts}
 
 
+TASK_BATCH = {"vqa": vqa_task_batch, "captioning": caption_task_batch, "nlvr": nlvr_task_batch,
+              "grounding": grounding_task_batch}
+
+
+def task_driver(task: str):
+    from efficientvlm_tpu_torch.drivers import captioning, grounding, nlvr, vqa
+
+    return {"vqa": vqa, "captioning": captioning, "nlvr": nlvr, "grounding": grounding}[task]
+
+
 def task_paths(task: str):
     """The config, driver, student, teacher and gates of a task, and one
     (step, state, dtype, optimizers) per path (kernel: impl fused, bf16;
     plain: impl plain, bf16; f32: impl plain, f32 compute), all from one
     init, built by the task's drivers/*.build_step (the VQA step comes in
-    DevicePreprocess without the flip)."""
+    DevicePreprocess without the flip, NLVR's over image0 and image1), the
+    optimizers by the driver's build_optimizers (NLVR's cls_head at
+    lr_mult); a teacher only where the driver's KD_WEIGHT is not 0."""
     import torch
 
     from efficientvlm_tpu_torch.bridge import cast_floating
-    from efficientvlm_tpu_torch.drivers import captioning, vqa
-    from efficientvlm_tpu_torch.drivers.common import build_optimizers
     from efficientvlm_tpu_torch.train.steps import init_train_state
 
-    config, drv = task_config(task), {"vqa": vqa, "captioning": captioning}[task]
+    config, drv = task_config(task), task_driver(task)
     u = TASK_UNIT[task]
     student, teacher = drv.build_models(config)
     l0 = drv.build_l0(config)
     l0.lagrangian_warmup = u["steps_per_epoch"]  # lagrangian_warmup_epochs 1
     total = config["schedular"]["epochs"] * u["steps_per_epoch"]
     params, gates = student.init(0, device="cuda"), l0.init(0, device="cuda")
-    t_bf16 = cast_floating(teacher.init(1, device="cuda"), torch.bfloat16)
+    t_bf16 = (cast_floating(teacher.init(1, device="cuda"), torch.bfloat16)
+              if drv.KD_WEIGHT else None)
     paths = {}
     for name, impl, dtype in (("kernel", "fused", torch.bfloat16),
                               ("plain", "plain", torch.bfloat16), ("f32", "plain", None)):
-        opts = build_optimizers(params, config, total)
+        opts = drv.build_optimizers(params, config, total)
         state = init_train_state(clone_tree(params), clone_tree(gates), opts)
-        tparams = t_bf16 if dtype is not None else cast_floating(t_bf16, torch.float32)
+        tparams = t_bf16 if dtype is not None or t_bf16 is None else cast_floating(
+            t_bf16, torch.float32)
         step = drv.build_step(config, student, teacher, l0, opts, teacher_params=tparams,
                               dtype=dtype, impl=impl)
         paths[name] = (step, state, dtype, opts)
@@ -2198,7 +2310,7 @@ def task_steps(task: str, rnd) -> dict:
 
     config, drv, student, teacher, l0, t_bf16, paths = task_paths(task)
     u = TASK_UNIT[task]
-    batch = vqa_task_batch(rnd) if task == "vqa" else caption_task_batch(rnd)
+    batch = TASK_BATCH[task](rnd)
     if task == "vqa":
         print(f"vqa batch: {u['batch']} questions, {batch['a_ids'].shape[0]} answer rows "
               f"({int((batch['weights'] > 0).sum())} of weight > 0)")
@@ -2211,6 +2323,9 @@ def task_steps(task: str, rnd) -> dict:
         b = batch if dtype is not None or prep else dict(batch, image=batch["image"].float())
         loga0, lam0 = snapshot((state.loga, state.lam))
         metrics, first = [], None
+        torch.cuda.synchronize()
+        resident = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
         for i in range(u["steps"]):
             bi = prep(b, gen) if prep else b
             t_out = inner.teacher_forward(bi)
@@ -2233,9 +2348,12 @@ def task_steps(task: str, rnd) -> dict:
         dloga = max((a - b_).abs().max().item() for a, b_ in zip(tree_leaves(state.loga), loga0))
         dlam = [(a.detach() - b_).item() for a, b_ in zip(tree_leaves(state.lam), lam0)]
         g_lam1 = first[2][0].item()
+        peak = torch.cuda.max_memory_allocated()
         print(f"{task} {name} ({u['steps']} steps, batch {u['batch']}): " + ", ".join(
             f"{k} " + "/".join(f"{mm[k]:.5f}" for mm in metrics) for k in metrics[0]) +
-            f"; loga moved {dloga:.3e}, lambda_1/2 moved {dlam[0]:+.3e}/{dlam[1]:+.3e}")
+            f"; loga moved {dloga:.3e}, lambda_1/2 moved {dlam[0]:+.3e}/{dlam[1]:+.3e}; peak "
+            f"memory {peak / 2 ** 30:.2f} GiB, {(peak - resident) / 2 ** 30:.2f} GiB above the "
+            f"{resident / 2 ** 30:.2f} GiB resident when its steps began")
         check(dloga > 0 and all(d != 0 for d in dlam), f"{task} {name}: the gates did not move")
         check(dlam[0] * g_lam1 > 0, f"{task} {name}: lambda_1 did not ascend its gradient")
         results[name] = (metrics, first)
@@ -2269,7 +2387,8 @@ def task_steps(task: str, rnd) -> dict:
           f"{task} stop_prune: the Lagrangian or the gate state moved, or the params did not")
     check(all(math.isfinite(float(v)) for v in m.values()), f"{task} stop_prune: non-finite")
     del params0, before, after
-    return {"task": task, "config": config, "student": student, "l0": l0, "step": step,
+    return {"task": task, "config": config, "student": student, "teacher": teacher,
+            "t_bf16": t_bf16, "l0": l0, "step": step,
             "state": state, "batch": batch, "noise": noises[-1], "zs": zs, "counts": c}
 
 
@@ -2312,10 +2431,7 @@ def task_export(run: dict, rnd):
                                                         "batch"))
     fusion = student.text_cfg["fusion_layer"]
     head_dim = student.text_cfg["hidden_size"] // student.text_cfg["num_attention_heads"]
-    drawn = {key: (torch.rand(v.shape, generator=rnd.g, device="cuda") * 8 - 4
-                   if key.endswith("head") else torch.rand(v.shape, generator=rnd.g,
-                                                           device="cuda") * 6 - 3)
-             for key, v in state.loga.items()}
+    drawn = drawn_loga(state, rnd)
     with torch.no_grad():
         dense = cast_floating(state.params, bf16)
     if task == "vqa":
@@ -2446,6 +2562,15 @@ def task_probs_cases(rnd):
                        577)]
 
 
+def nlvr_probs_cases(rnd):
+    """The probs forms at the NLVR teacher's shapes: #2 over the ViT of both
+    images (32 x 577) and the replicated text stack (16 x 40); #3 over one
+    image of each pair (16 x 40 x 577)."""
+    return [probs_case(rnd, "self", "nlvr_vit_b32_t577_h12", 32, 577, 577, 12, 577),
+            probs_case(rnd, "self", "nlvr_text_b16_t40_h12", 16, 40, 40, 12, 8),
+            probs_case(rnd, "cross", "nlvr_cross_b16_tq40_s577_h12", 16, 40, 577, 12, 577)]
+
+
 def probs_core_cases(rnd):
     """The probs core on its own, through bindings.attn_core(probs=True)
     (attn_probs where bindings.probs_tile admits the shape), at the training
@@ -2543,14 +2668,15 @@ def device_host(case: str, run) -> str:
             f"host {host:.2f} us/call")
 
 
-def task_times(task_state, smi: str):
-    """Each task step's ms split into preprocessing (VQA), teacher forward,
-    student forward + backward and optimizer (host clock, synchronised at
-    each boundary, median of 3 steps), samples/s, peak memory (the other
-    paths freed) and a profile of one step (device idle share, launches),
-    each with the card's name and power limit; then #2's and #3's probs
-    forms at the tasks' shapes beside their bounds, plain versions and a
-    library composition."""
+def task_times(task_state, smi: str, probs_cases=task_probs_cases):
+    """Each task step's ms split into preprocessing (VQA, NLVR), teacher
+    forward, student forward + backward and optimizer (host clock,
+    synchronised at each boundary, median of 3 steps), samples/s (NLVR:
+    pairs), peak memory (the other paths freed) and a profile of one step
+    (device idle share, launches), each with the card's name and power
+    limit; then #2's and #3's probs forms at the tasks' shapes (probs_cases;
+    None: none) beside their bounds, plain versions and a library
+    composition."""
     import torch
 
     for task, kept in task_state["kept"].items():
@@ -2573,13 +2699,252 @@ def task_times(task_state, smi: str):
             "peak_memory_gib": torch.cuda.max_memory_allocated() / 2 ** 30}}))
         profile(f"{task} step b{samples} (kernel path; card {smi})",
                 lambda: kept["step"](state, batch, gen, noise=noise), calls=1, top=16)
-    for name, case, run, plain, flops, nbytes, _, lib in task_probs_cases(Rand(4)):
+    for name, case, run, plain, flops, nbytes, _, lib in (probs_cases(Rand(4)) if probs_cases
+                                                          else ()):
         with torch.inference_mode():
             ms, plain_ms, lib_ms = timed_ms(run), timed_ms(plain), timed_ms(lib)
         bound_ms, bound_by = bound(flops, nbytes)
         print(f"time {name} [{case}]: {ms:.4f} ms, plain {plain_ms:.4f} ms, library "
               f"{lib_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by}), "
               f"{nbytes / ms / 1e6:.1f} GB/s{device_host(case, run)}; card {smi}")
+
+
+# --------------------------------------------------------------------------
+# phase 3e: NLVR2 and visual grounding
+# --------------------------------------------------------------------------
+
+NLVR_PRETRAIN_UNIT = dict(batch=64, res=224, tokens=40)
+EVAL_SIZE = (640, 480)  # the synthetic referring boxes' image size (width, height)
+
+
+def hold_outputs(what: str, got, ref, ref32, *, ranked: bool = True):
+    """got against ref within TRAIN_FACTOR x ref's own distance from ref32,
+    the same function in f32 compute (the yardstick of hold_to_plain and of
+    the pruned VQA student); with ranked, the argmax equal on every row
+    whose top-two margin in ref exceeds twice got's distance (a closer row
+    may swap)."""
+    import torch
+
+    got, ref, ref32 = got.float(), ref.float(), ref32.float()
+    check(got.shape == ref.shape and bool(torch.isfinite(got).all()),
+          f"{what}: shape {tuple(got.shape)} != {tuple(ref.shape)} or not finite")
+    err, yard = (got - ref).abs().max().item(), (ref - ref32).abs().max().item()
+    tol = TRAIN_FACTOR * yard
+    line = (f"{what}: max_abs_err {err:.4e}, tol {tol:.4e} = {TRAIN_FACTOR} x the reference's "
+            f"distance from its f32 compute {yard:.4e}")
+    same = True
+    if ranked:
+        top2 = ref.topk(2, dim=-1).values
+        clear = (top2[:, 0] - top2[:, 1]) > 2 * err
+        agree = got.argmax(-1) == ref.argmax(-1)
+        same = bool(agree[clear].all())
+        line += (f"; argmax equal on {agree.float().mean().item():.3f} of the rows, on "
+                 f"{int(clear.sum())} rows with a clear margin {same}")
+    print(line)
+    check(err <= tol and same, f"{what} disagrees")
+
+
+def nlvr_eval(run: dict, rnd) -> dict:
+    """The teacher, the gated dense student (the trained deterministic gates)
+    and the pruned student (prune_xvlm_params(nlvr=True), FFN widths
+    multiples of EXPORT_ALIGN) on the step's 16 pairs through
+    preprocess_eval, with exact launch counts; each held to its plain path
+    (logits and argmax, hold_outputs, the plain path's f32 compute the
+    yardstick), and the pruned student to the gated dense one (the gated
+    dense student's f32 compute the yardstick), for the trained gates and for gates drawn from a seed whose
+    pair-second layers' head log-alphas are the pair-first layers' negated,
+    so every replicated pair keeps other heads; nlvr_accuracy of each; pairs
+    per second. Returns the launches of the three evaluations (the trained
+    gates' pruned student)."""
+    import torch
+
+    from efficientvlm_tpu_torch.bridge import cast_floating
+    from efficientvlm_tpu_torch.data.device_pipeline import preprocess_eval
+    from efficientvlm_tpu_torch.drivers import nlvr
+    from efficientvlm_tpu_torch.evaluation.grounding import nlvr_accuracy
+    from efficientvlm_tpu_torch.pruning.export import prune_xvlm_params
+
+    bf16 = torch.bfloat16
+    l0, student, teacher, t_bf16, state, batch = (run[k] for k in (
+        "l0", "student", "teacher", "t_bf16", "state", "batch"))
+    fusion, res = student.num_text_layers, TASK_UNIT["nlvr"]["res"]
+    ev32 = dict(batch, **{k: preprocess_eval(batch[k], res) for k in nlvr.IMAGE_KEYS})
+    ev = dict(ev32, **{k: ev32[k].to(bf16) for k in nlvr.IMAGE_KEYS})
+    targets = batch["targets"].cpu().numpy()
+    drawn = drawn_loga(state, rnd)
+    for i in range(student.num_cross_layers):  # rows (self, cross) of layers 2i, 2i + 1
+        drawn["cross_head"][4 * i + 2:4 * i + 4] = -drawn["cross_head"][4 * i:4 * i + 2]
+    with torch.no_grad():
+        dense = cast_floating(state.params, bf16)
+    zs = l0.forward_deterministic({"loga": state.loga})
+    predict = lambda model, params, **kw: nlvr.predict(model, params, ev, dtype=bf16,  # noqa
+                                                       **kw)
+    # the same function in f32 compute on the plain path (f32 params)
+    predict32 = lambda model, params, **kw: nlvr.predict(  # noqa: E731
+        model, cast_floating(params, torch.float32), ev32, impl="plain", **kw)
+    c = reset_counts()
+    logits = {"teacher": predict(teacher, t_bf16)}
+    c = expect_launches(c, (1, 30, 12), "nlvr teacher evaluation")
+    logits["student"] = predict(student, dense, zs=zs)
+    c = expect_launches(c, (1, 15, 6), "nlvr gated dense student evaluation")
+    hold_outputs("nlvr teacher logits vs its plain path", logits["teacher"],
+                 predict(teacher, t_bf16, impl="plain"), predict32(teacher, t_bf16))
+    hold_outputs("nlvr gated dense student logits vs its plain path", logits["student"],
+                 predict(student, dense, zs=zs, impl="plain"), predict32(student, dense, zs=zs))
+    tput, launches = {}, None
+    for gates_name, loga in (("trained", state.loga), ("drawn", drawn)):
+        zs = l0.forward_deterministic({"loga": loga})
+        pairs_differ = [bool((zs["cross_head_z"][2 * i] != zs["cross_head_z"][2 * i + 1]).any())
+                        for i in range(student.num_cross_layers)]
+        with torch.no_grad():
+            pruned = cast_floating(prune_xvlm_params(
+                state.params, zs, fusion_layer=fusion, head_dim=64,
+                align_intermediate=EXPORT_ALIGN, nlvr=True), bf16)
+        vit, text, fself, fcross = pruned_counts(pruned, fusion)
+        heads = lambda a: 0 if a is None else a["q"]["kernel"].shape[1] // 64  # noqa: E731
+        layers = pruned["text"]["layers"][fusion:]
+        print(f"nlvr export [{gates_name} gates]: sparsity "
+              f"{l0.calculate_model_size(zs)['pruned_model_sparsity']:.4f}; replicated heads "
+              f"self {[heads(lp.get('attention')) for lp in layers]} cross "
+              f"{[heads(lp.get('crossattention')) for lp in layers]}; FFN "
+              f"{[0 if lp.get('intermediate') is None else lp['intermediate']['kernel'].shape[1] for lp in layers]}; "  # noqa: E501
+              f"the layers of each pair gated apart: {pairs_differ}")
+        if gates_name == "drawn":
+            check(all(pairs_differ), "nlvr drawn gates: a replicated pair gated alike")
+        c = reset_counts() if launches is not None else c
+        got = predict(student, pruned)
+        c = expect_launches(c, (1, vit + text + fself, fcross),
+                            f"nlvr pruned student evaluation [{gates_name}]")
+        launches = counts() if launches is None else launches
+        gated32 = predict32(student, dense, zs=zs)
+        hold_outputs(f"nlvr pruned student [{gates_name}] vs gated dense", got,
+                     predict(student, dense, zs=zs), gated32)
+        plain = predict(student, pruned, impl="plain")
+        hold_outputs(f"nlvr pruned student [{gates_name}] vs its plain path", got, plain,
+                     predict32(student, pruned))
+        if gates_name == "trained":
+            logits["pruned"] = got
+            with torch.inference_mode():
+                for name, model, params, kw in (("teacher", teacher, t_bf16, {}),
+                                                ("student", student, dense, {"zs": zs}),
+                                                ("pruned_student", student, pruned, {})):
+                    ms = timed_ms(lambda: predict(model, params, **kw), iters=5)
+                    tput[f"{name}_pairs_per_s"] = TASK_UNIT["nlvr"]["batch"] / ms * 1e3
+    acc = {k: nlvr_accuracy(v.float().cpu().numpy(), targets) for k, v in logits.items()}
+    check(all(0.0 <= a <= 100.0 for a in acc.values()), f"nlvr_accuracy out of range {acc}")
+    print(json.dumps({"nlvr_eval": {"accuracy_random_weights": acc, **tput}}))
+    return launches
+
+
+def nlvr_pretrain(rnd) -> dict:
+    """One XVLMForNLVRPretraining pass (the student's towers at 224 px, batch
+    64, 40 tokens) with the negatives (a derangement) and the 3-way labels
+    pinned, exact launches; the replicated stack's last hidden state and
+    the ta_head logits held to the plain path (hold_outputs: TRAIN_FACTOR x
+    the plain path's distance from its f32 compute), and the loss with the
+    generator's own draws finite. Returns the kernel path's launches."""
+    import torch
+
+    from efficientvlm_tpu_torch.bridge import cast_floating
+    from efficientvlm_tpu_torch.config import Config, TextConfig, VisionConfig
+    from efficientvlm_tpu_torch.models.model_nlvr import XVLMForNLVRPretraining
+
+    u, bf16 = NLVR_PRETRAIN_UNIT, torch.bfloat16
+    vision = VisionConfig.create(num_hidden_layers=6, local_attn_depth=2, image_res=u["res"])
+    model = XVLMForNLVRPretraining(vision, TextConfig.create(num_hidden_layers=6),
+                                   Config({"embed_dim": 256}))
+    params = cast_floating(model.init(3, device="cuda"), bf16)
+    b, t = u["batch"], u["tokens"]
+    image, atts = rnd(b, u["res"], u["res"], 3), rnd.mask(b, t, 8)
+    ids = torch.randint(1000, 30522, (b, t), generator=rnd.g, device="cuda")
+    ids = torch.where(atts == 1, ids, 0)
+    ar = torch.arange(b, device="cuda")
+    noise = {"neg_idx": (ar + torch.randint(1, b, (b,), generator=rnd.g, device="cuda")) % b,
+             "labels": torch.randint(0, 3, (b,), generator=rnd.g, device="cuda")}
+    with torch.inference_mode():
+        c = reset_counts()
+        hidden, pred, _ = model.pair_forward(params, image, ids, atts, noise=noise, dtype=bf16)
+        expect_launches(c, (1, 15, 6), "nlvr pretraining pass")
+        launches = counts()
+        plain = model.pair_forward(params, image, ids, atts, noise=noise, dtype=bf16,
+                                   impl="plain")
+        f32 = model.pair_forward(cast_floating(params, torch.float32), image.float(), ids, atts,
+                                 noise=noise, impl="plain")
+        drawn = model.forward_pretrain(params, image, ids, atts, dtype=bf16,
+                                       generator=torch.Generator(device="cuda").manual_seed(21))
+    hold_outputs("nlvr pretraining last hidden state vs the plain path", hidden, plain[0],
+                 f32[0], ranked=False)
+    hold_outputs("nlvr pretraining ta_head logits vs the plain path", pred, plain[1], f32[1])
+    loss = float(torch.nn.functional.cross_entropy(pred.float(), noise["labels"]))
+    drawn = float(drawn)
+    print(f"nlvr pretraining loss (b{b}, {u['res']} px): kernel {loss:.5f}, with the "
+          f"generator's draws {drawn:.5f}; ln 3 = {math.log(3):.5f}")
+    check(math.isfinite(loss) and math.isfinite(drawn), "nlvr pretraining loss not finite")
+    return launches
+
+
+def phase_nlvr(rnd) -> dict:
+    """The NLVR2 pruning fine-tune (task_steps: three steps on the kernel,
+    plain and f32 paths, the kernel path held to the plain one, a stop_prune
+    step), its evaluation and export (nlvr_eval) and one domain pretraining
+    loss (nlvr_pretrain); launches summed over those main paths."""
+    t_phase = time.perf_counter()
+    run = task_steps("nlvr", rnd)
+    ev, pre = nlvr_eval(run, rnd), nlvr_pretrain(rnd)
+    launches = {k: run["counts"][k] + ev[k] + pre[k] for k in ev}
+    print(f"phase nlvr: {time.perf_counter() - t_phase:.1f} s")
+    return {"kept": {"nlvr": {k: run[k] for k in ("step", "state", "batch", "noise")}},
+            "launches": launches}
+
+
+def phase_grounding(rnd) -> dict:
+    """The grounding fine-tune (task_steps, as phase_nlvr) and the gated
+    student's evaluation with exact launches, its boxes held to the plain
+    path (hold_outputs) and scored by grounding_eval_bbox against the batch's targets as
+    pixel boxes; images per second."""
+    import torch
+
+    from efficientvlm_tpu_torch.bridge import cast_floating
+    from efficientvlm_tpu_torch.drivers import grounding
+    from efficientvlm_tpu_torch.evaluation.grounding import grounding_eval_bbox
+
+    t_phase = time.perf_counter()
+    run = task_steps("grounding", rnd)
+    l0, student, state, batch = (run[k] for k in ("l0", "student", "state", "batch"))
+    bf16 = torch.bfloat16
+    zs = l0.forward_deterministic({"loga": state.loga})
+    with torch.no_grad():
+        dense = cast_floating(state.params, bf16)
+    c = reset_counts()
+    coords = grounding.predict(student, dense, batch, zs=zs, dtype=bf16)
+    expect_launches(c, (1, 12, 3), "grounding evaluation")
+    launches = counts()
+    hold_outputs("grounding boxes vs the plain path", coords,
+                 grounding.predict(student, dense, batch, zs=zs, dtype=bf16, impl="plain"),
+                 grounding.predict(student, cast_floating(dense, torch.float32),
+                                   dict(batch, image=batch["image"].float()), zs=zs,
+                                   impl="plain"), ranked=False)
+    check(tuple(coords.shape) == (TASK_UNIT["grounding"]["batch"], 4)
+          and bool(((coords > 0) & (coords < 1)).all()), "grounding boxes out of (0, 1)")
+    w, h = EVAL_SIZE
+    results, boxes, splits = [], {}, {}
+    for i, (pred, tgt) in enumerate(zip(coords.float().tolist(),
+                                        batch["target_bbox"].float().tolist())):
+        results.append({"ref_id": i, "pred": pred, "width": w, "height": h})
+        boxes[i] = [(tgt[0] - tgt[2] / 2) * w, (tgt[1] - tgt[3] / 2) * h, tgt[2] * w, tgt[3] * h]
+        splits[i] = ("val", "testA", "testB")[i % 3]
+    acc = grounding_eval_bbox(results, boxes, splits)
+    check(all(0.0 <= a <= 100.0 for a in acc.values()), f"grounding accuracy {acc}")
+    with torch.inference_mode():
+        ms = timed_ms(lambda: grounding.predict(student, dense, batch, zs=zs, dtype=bf16),
+                      iters=5)
+    print(json.dumps({"grounding_eval": {"accuracy_random_weights": acc,
+                                         "student_images_per_s":
+                                             TASK_UNIT["grounding"]["batch"] / ms * 1e3}}))
+    launches = {k: run["counts"][k] + launches[k] for k in launches}
+    print(f"phase grounding: {time.perf_counter() - t_phase:.1f} s")
+    return {"kept": {"grounding": {k: run[k] for k in ("step", "state", "batch", "noise")}},
+            "launches": launches}
 
 
 # --------------------------------------------------------------------------
@@ -2930,7 +3295,8 @@ def main(argv) -> int:
     errs = phase_kernels(cases + device_cases)
     flash_refusals(rnd)
     p_cases = probs_cases(rnd)
-    errs.update(phase_probs(p_cases + gd_probs_cases(rnd) + task_probs_cases(rnd)))
+    errs.update(phase_probs(p_cases + gd_probs_cases(rnd) + task_probs_cases(rnd)
+                            + nlvr_probs_cases(Rand(6))))
     errs.update(phase_probs(probs_core_cases(Rand(5)), same_inputs=True))
     phase_grads(grad_cases(rnd))
     slice_state = phase_slice(rnd)
@@ -2948,13 +3314,21 @@ def main(argv) -> int:
     task_times(task_state, smi)
     task_launches = task_state["launches"]
     del task_state
+    nlvr_state = phase_nlvr(rnd)
+    task_times(nlvr_state, smi, nlvr_probs_cases)
+    nlvr_launches = nlvr_state["launches"]
+    del nlvr_state
+    grounding_state = phase_grounding(rnd)
+    task_times(grounding_state, smi, None)
+    grounding_launches = grounding_state["launches"]
+    del grounding_state
+    later = [gd_launches, task_launches, nlvr_launches, grounding_launches]
     kernels = phase_times(cases, device_cases, errs, slice_state, gen_state,
-                          [train_launches, gd_launches, task_launches])
+                          [train_launches] + later)
     for row in train_rows:  # the probs forms run on every training path
-        row["launches"] += gd_launches[row["name"]] + task_launches[row["name"]]
+        row["launches"] += sum(p[row["name"]] for p in later)
     kernels += train_rows
-    paths = (slice_state["launches"], gen_state["launches"], train_launches, gd_launches,
-             task_launches)
+    paths = (slice_state["launches"], gen_state["launches"], train_launches, *later)
     probs_launches = sum(p[k] for p in paths for k in ("fused_self_attention_probs",
                                                        "fused_cross_attention_probs"))
     core_launches = sum(p["route_attn_probs"] for p in paths)

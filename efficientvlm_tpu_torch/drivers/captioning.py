@@ -50,6 +50,11 @@ def build_l0(config: Config) -> L0Module:
         head_group=int(config.get("head_gate_group", 1)))
 
 
+def build_optimizers(params, config: Config, total_steps: int):
+    """common.build_optimizers."""
+    return common.build_optimizers(params, config, total_steps)
+
+
 def build_step(config: Config, student: XVLMForCaptioning, teacher: XVLMForCaptioning,
                l0: L0Module, optimizers, *, teacher_params, frozen_zs: Optional[dict] = None,
                dtype=None, impl: str = "fused"):

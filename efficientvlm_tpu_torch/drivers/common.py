@@ -53,19 +53,21 @@ def build_optimizers(params, config: Config, total_steps: int, *, init_param_pat
 
 
 class DevicePreprocess:
-    """A step whose batch["image"] comes as uint8 [B,H,W,3]: the generator
-    draws the crop, flip and RandAugment of preprocess_train first (flip and
+    """A step whose batch images (the image_keys entries, default "image")
+    come as uint8 [B,H,W,3]: the generator draws the crop, flip and
+    RandAugment of preprocess_train for each key in turn first (flip and
     RandAugment applied as hflip / randaug say), then the step runs on the
     normalised f32 images; keyword arguments go through to the step."""
 
-    def __init__(self, step, image_res: int, *, hflip: bool = True, randaug: bool = True):
+    def __init__(self, step, image_res: int, *, hflip: bool = True, randaug: bool = True,
+                 image_keys: Tuple[str, ...] = ("image",)):
         self.step, self.image_res = step, image_res
-        self.hflip, self.randaug = hflip, randaug
+        self.hflip, self.randaug, self.image_keys = hflip, randaug, tuple(image_keys)
 
     def preprocess(self, batch: dict, generator: Optional[torch.Generator] = None) -> dict:
-        return dict(batch, image=preprocess_train(batch["image"], self.image_res,
-                                                  generator=generator, hflip=self.hflip,
-                                                  randaug=self.randaug))
+        return dict(batch, **{k: preprocess_train(batch[k], self.image_res, generator=generator,
+                                                  hflip=self.hflip, randaug=self.randaug)
+                              for k in self.image_keys})
 
     def __call__(self, state, batch: dict, generator: Optional[torch.Generator] = None, **kw):
         return self.step(state, self.preprocess(batch, generator), generator, **kw)

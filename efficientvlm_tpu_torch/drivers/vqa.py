@@ -57,6 +57,11 @@ def build_l0(config: Config) -> L0Module:
         head_group=int(config.get("head_gate_group", 1)))
 
 
+def build_optimizers(params, config: Config, total_steps: int):
+    """common.build_optimizers."""
+    return common.build_optimizers(params, config, total_steps)
+
+
 def _forward_args(batch: dict) -> tuple:
     return tuple(batch[k] for k in ("image", "q_ids", "q_atts", "a_ids", "a_atts", "weights",
                                     "k_index"))

@@ -10,6 +10,18 @@ heads through the same kernels.
   acts before the activation), then dropped units are sliced out;
 - a fully pruned sublayer becomes None, which the layers treat as identity.
 
+NLVR's replicated stack (prune_xvlm_params(nlvr=True)) is exported as the
+gated dense forward computes it (models/model_nlvr.py), not as JAX's export
+does: replicated layer ci's FFN by row ci // 2 of cross_intermediate_z (the
+row the forward reads), and each pair-second layer first given a copy of
+the pair-first layer's dense cross K/V (the ones it reads), into which its
+own cross head gate folds and from which its own heads are sliced. The
+pruned text tree is marked untied (model_nlvr.UNTIED): each layer then
+reads its own K/V. JAX's export folds the pair-first layer's gate into the
+K/V that both layers of a pair read, slices them by it, and reads FFN row
+ci; its pruned model differs from the gated one whenever the layers of a
+pair keep different heads or FFN units.
+
 align_heads / align_intermediate keep extra zero-folded units so that the
 kept widths are multiples of those counts (outputs are unchanged, since the
 folded weights of a dropped unit are zero). The head counts the slices
@@ -24,6 +36,8 @@ from typing import Optional
 
 import numpy as np
 import torch
+
+from ..models.model_nlvr import UNTIED, tie_cross_kv
 
 
 def _np(z) -> np.ndarray:
@@ -124,23 +138,27 @@ def prune_vit_params(params: dict, zs: dict, *, head_dim: int = 64, align_heads:
 
 @torch.no_grad()
 def prune_bert_params(params: dict, zs: dict, *, fusion_layer: int, head_dim: int = 64,
-                      decoder: bool = False, align_heads: int = 1,
+                      decoder: bool = False, nlvr: bool = False, align_heads: int = 1,
                       align_intermediate: int = 1) -> dict:
     """Slice a fusion BERT: layers [0, fusion) by text_head_z /
     text_intermediate_z, layers [fusion, N) by cross_head_z [Lc,2,H] (self,
     cross) / cross_intermediate_z. With decoder=True the decoder_* groups
-    drive those layers instead (the VQA answer decoder, fusion_layer 0)."""
+    drive those layers instead (the VQA answer decoder, fusion_layer 0);
+    with nlvr=True the layers are NLVR's replicated stack (see the module
+    note) and the result is marked untied."""
     prefix = "decoder" if decoder else "cross"
     text_head_z, text_mlp_z = zs.get("text_head_z"), zs.get("text_intermediate_z")
     cross_head_z, cross_mlp_z = zs.get(f"{prefix}_head_z"), zs.get(f"{prefix}_intermediate_z")
+    # NLVR: each pair-second layer slices the dense K/V the tied forward reads
+    src = tie_cross_kv(params["layers"], fusion_layer) if nlvr else params["layers"]
     layers = []
-    for i, lp in enumerate(params["layers"]):
+    for i, lp in enumerate(src):
         lp = dict(lp)
         if i >= fusion_layer:
             ci = i - fusion_layer
             shz = None if cross_head_z is None else _np(cross_head_z[ci][0])
             xhz = None if cross_head_z is None else _np(cross_head_z[ci][1])
-            mz = None if cross_mlp_z is None else _np(cross_mlp_z[ci])
+            mz = None if cross_mlp_z is None else _np(cross_mlp_z[ci // 2 if nlvr else ci])
         else:
             shz = None if text_head_z is None else _np(text_head_z[i])
             xhz = None
@@ -154,24 +172,30 @@ def prune_bert_params(params: dict, zs: dict, *, fusion_layer: int, head_dim: in
                                   align_intermediate)
             lp["intermediate"], lp["output"] = fc1, fc2
         layers.append(lp)
-    return {**params, "layers": layers}
+    out = {**params, "layers": layers}
+    if nlvr:
+        out[UNTIED] = None
+    return out
 
 
 @torch.no_grad()
 def prune_xvlm_params(params: dict, zs: dict, *, fusion_layer: int, head_dim: int = 64,
-                      align_heads: int = 1, align_intermediate: int = 1) -> dict:
+                      align_heads: int = 1, align_intermediate: int = 1,
+                      nlvr: bool = False) -> dict:
     """The whole export: the vision and text towers and a text_decoder,
     which is VQA's answer decoder (fusion_layer 0, the decoder_* gates) when
     zs has decoder_head_z, else captioning's (the text/cross layout at
-    fusion_layer). Params outside the towers are shared with the input
-    tree."""
+    fusion_layer). nlvr=True reads the text tower as NLVR's replicated
+    stack (see the module note). Params outside the towers are shared with
+    the input tree."""
     kw = dict(head_dim=head_dim, align_heads=align_heads,
               align_intermediate=align_intermediate)
     new = dict(params)
     if "vision" in params:
         new["vision"] = prune_vit_params(params["vision"], zs, **kw)
     if "text" in params:
-        new["text"] = prune_bert_params(params["text"], zs, fusion_layer=fusion_layer, **kw)
+        new["text"] = prune_bert_params(params["text"], zs, fusion_layer=fusion_layer,
+                                        nlvr=nlvr, **kw)
     if "text_decoder" in params:
         vqa = "decoder_head_z" in zs
         new["text_decoder"] = prune_bert_params(
@@ -184,14 +208,17 @@ def load_zs_from_params(params: dict, *, num_heads: int, intermediate_size: int,
                         head_dim: int = 64, fusion_layer: Optional[int] = None,
                         vision_num_heads: Optional[int] = None,
                         vision_intermediate_size: Optional[int] = None,
-                        decoder_groups: bool = False) -> dict:
+                        decoder_groups: bool = False, nlvr: bool = False) -> dict:
     """Binary gate masks of every tower from the sliced shapes: how many
     units survived (the first n set), not which. num_heads /
     intermediate_size are the unpruned text widths; vision_* default to
     them. A text_decoder is read as VQA's answer decoder (fusion_layer 0,
     decoder_* groups) with decoder_groups=True, else, when the tree has no
     text tower, as captioning's (the text/cross layout at fusion_layer).
-    Returns numpy arrays."""
+    nlvr=True reads the text tower as NLVR's pruned replicated stack: row r
+    < Lc of cross_intermediate_z from the FFN of layer pair r (both layers
+    of a pair keep that row's units), rows Lc...2Lc-1, which the forward
+    never reads, zero. Returns numpy arrays."""
     v_heads = vision_num_heads or num_heads
     v_inter = vision_intermediate_size or intermediate_size
 
@@ -235,6 +262,9 @@ def load_zs_from_params(params: dict, *, num_heads: int, intermediate_size: int,
         zs["vision_intermediate_z"] = np.stack([mlp(lp, "mlp", v_inter) for lp in vl])
     if "text" in params and fusion_layer is not None:
         zs.update(bert_masks(params["text"]["layers"], fusion_layer, "cross"))
+        if nlvr:
+            pairs = zs["cross_intermediate_z"][::2]
+            zs["cross_intermediate_z"] = np.concatenate([pairs, np.zeros_like(pairs)])
     if "text_decoder" in params:
         if decoder_groups:
             zs.update(bert_masks(params["text_decoder"]["layers"], 0, "decoder"))

@@ -5,7 +5,8 @@ One generic `L0Module` over a gate-group layout; `XVLML0Module` builds the
 retrieval and captioning layout: vision_head [Lv,H], text_head [Lt,H],
 cross_head [2*Lc,H] (self/cross interleaved), vision/text/cross_intermediate
 [L,I]; `VQAL0Module` adds the answer decoder's decoder_head [2*Ld,H] and
-decoder_intermediate [Ld,I]. The NLVR layout comes with its task slice.
+decoder_intermediate [Ld,I]; `NLVRL0Module` is XVLML0Module's over NLVR's
+replicated stack (twice the cross layers).
 
 Params: {"loga": {group: [L, size] tensor}, "lambda_1", "lambda_2"}; the
 λs are trained by gradient ascent (train/optim.create_lagrangian_optimizer).
@@ -221,6 +222,18 @@ def XVLML0Module(*, vision_layers: int, text_layers: int, cross_layers: int,
         num_heads=num_heads, vision_hidden_size=vision_hidden_size,
         vision_intermediate_size=vision_intermediate_size, vision_num_heads=vision_num_heads,
         head_group=head_group), **kw)
+
+
+def NLVRL0Module(*, vision_layers: int, text_layers: int, cross_layers: int,
+                 hidden_size: int = 768, intermediate_size: int = 3072, num_heads: int = 12,
+                 **kw) -> L0Module:
+    """The NLVR layout: XVLML0Module's over the replicated stack, 2 x
+    cross_layers cross layers (cross_head [4Lc,H] emitted [2Lc,2,H],
+    cross_intermediate [2Lc,I], of which the forward reads rows [0, Lc));
+    the vision_* overrides and head_group pass through."""
+    return XVLML0Module(vision_layers=vision_layers, text_layers=text_layers,
+                        cross_layers=cross_layers * 2, hidden_size=hidden_size,
+                        intermediate_size=intermediate_size, num_heads=num_heads, **kw)
 
 
 def VQAL0Module(*, vision_layers: int, text_layers: int, cross_layers: int,

@@ -4,8 +4,8 @@
   taps, the student's forward with stochastic L0 gates, the KD, ITC, ITM and
   Lagrangian losses, one backward, and the three AdamW updates with the
   log-alpha clamp;
-- the generic stage-2 pruning fine-tune of the generation tasks
-  (TaskTrainStep; VQA and captioning): task_weight x the task loss +
+- the generic stage-2 pruning fine-tune of the other tasks (TaskTrainStep;
+  VQA, captioning, NLVR and grounding): task_weight x the task loss +
   kd_weight x a KD menu + the Lagrangian, the three AdamWs, and stop_prune
   (frozen gates, the main AdamW alone);
 - general distillation (stage 1): the teacher's and the student's pretrain
@@ -228,7 +228,7 @@ def make_retrieval_train_step(student_model, teacher_model, l0_module: L0Module,
 
 
 # ---------------------------------------------------------------------------
-# the stage-2 pruning fine-tune of the generation tasks (VQA, captioning)
+# the stage-2 pruning fine-tune of VQA, captioning, NLVR and grounding
 # ---------------------------------------------------------------------------
 
 
@@ -300,8 +300,44 @@ def captioning_kd_losses(student_outputs: dict, teacher_outputs: dict, *,
             "loss_decoder_kd": loss_decoder_kd, "loss_logits_kd": logits}
 
 
+def nlvr_kd_losses(student_outputs: dict, teacher_outputs: dict, *, fusion_layer_s: int,
+                   temperature: float = 1.0) -> dict:
+    """The NLVR KD menu: the replicated text stack's taps mapped over its
+    whole depth (fusion + 2Lc layers) and split at the student's fusion
+    layer (text hidden + maps, cross hidden + self maps + cross maps x 0.5),
+    the image taps (hidden x 0.1), the soft cross-entropy of the cls_head
+    logits; kd = logits + text + (image + cross) x 0.33. As in JAX, the
+    mapping takes the teacher's block ends, so a student cross layer over
+    image0 meets a teacher layer over image1."""
+    sh, th = student_outputs["hidden_dict"], teacher_outputs["hidden_dict"]
+    sa, ta = student_outputs["attention_dict"], teacher_outputs["attention_dict"]
+    sc, tc = student_outputs["cross_attention_dict"], teacher_outputs["cross_attention_dict"]
+
+    s_text_h, s_text_a = sh["text_hidden_states"], sa["text_attentions"]
+    t_text_h = D.get_cor_teacher([x.detach() for x in th["text_hidden_states"]], s_text_h)
+    t_text_a = D.get_cor_teacher([x.detach() for x in ta["text_attentions"]], s_text_a,
+                                 is_attn=True)
+    s_th, s_ch, s_ta, s_ca = _split_text_cross(s_text_h, s_text_a, fusion_layer_s)
+    t_th, t_ch, t_ta, t_ca = _split_text_cross(t_text_h, t_text_a, fusion_layer_s)
+
+    text_h, text_a = D.kd_loss(s_th, t_th), D.kd_loss(s_ta, t_ta, is_attn=True)
+    cross_h, cross_sa = D.kd_loss(s_ch, t_ch), D.kd_loss(s_ca, t_ca, is_attn=True)
+    cross_x = D.kd_list(sc["cross_attentions"], tc["cross_attentions"], is_attn=True)
+    img_h = D.kd_list(sh["image_hidden_states"], th["image_hidden_states"], is_img=True)
+    img_a = D.kd_list(sa["image_attentions"], ta["image_attentions"], is_attn=True)
+    logits = D.soft_cross_entropy(
+        student_outputs["logits_dict"]["cls_head_logits"] / temperature,
+        teacher_outputs["logits_dict"]["cls_head_logits"] / temperature)
+    loss_text_kd = text_a + text_h
+    loss_img_kd = img_a + img_h * 0.1
+    loss_cross_kd = (cross_h + cross_sa + cross_x) * 0.5
+    loss_kd = logits + loss_text_kd + (loss_img_kd + loss_cross_kd) * 0.33
+    return {"loss_kd": loss_kd, "loss_text_kd": loss_text_kd, "loss_img_kd": loss_img_kd,
+            "loss_cross_kd": loss_cross_kd, "loss_logits_kd": logits}
+
+
 class TaskTrainStep:
-    """One stage-2 pruning fine-tune step of a generation task (Eff_VQA /
+    """One stage-2 pruning fine-tune step of a task (Eff_VQA / Eff_NLVR /
     Eff_Captioning's train loop body): loss = task_weight x the student's
     task loss + kd_weight x kd_fn's loss_kd + the Lagrangian, one backward,
     the three AdamW updates with the loga clamp. step(state, batch,

@@ -1042,3 +1042,109 @@ def test_preprocess_train_on_the_card_matches_the_cpu(rnd):
                                          else v.cuda() for k, v in params.items()})
     assert on_card.is_cuda and on_card.dtype == torch.float32
     assert (on_card.cpu() - cpu).abs().max().item() <= 1e-4
+
+
+@pytest.mark.parametrize("form", ["eval", "probs"])
+def test_cross_attention_reads_tied_kv(rnd, form):
+    """#3 over a params dict whose K/V are another layer's tensors (NLVR's
+    pair-second layer) gives what it gives over copies of them, bit for bit,
+    in the eval form and the probs form."""
+    d, h, b, t, s = 256, 4, 3, 40, 77
+    first, second = _attn(rnd, d, d), _attn(rnd, d, d)
+    tied = {**second, "k": first["k"], "v": first["v"]}
+    copied = {**second, "k": {k: v.clone() for k, v in first["k"].items()},
+              "v": {k: v.clone() for k, v in first["v"].items()}}
+    x, enc, mask = rnd(b, t, d), rnd(b, s, d), _mask(b, s)
+    hz = torch.rand(h, device="cuda") + 0.2
+    kw = dict(num_heads=h, mask=mask, head_z=hz, return_probs=form == "probs")
+    got, want = (F.fused_cross_attention(p, x, enc, **kw) for p in (tied, copied))
+    for g, w in zip(*((o,) if form == "eval" else o for o in (got, want))):
+        assert torch.equal(g, w)
+    kb = F._key_bias(b, s, mask, None, x.device)
+    ref = F.cross_attention_plain(tied, x, enc, kb, hz, h, return_probs=form == "probs")
+    _close(got if form == "eval" else got[0], ref if form == "eval" else ref[0])
+
+
+def test_cross_attention_training_form_sums_tied_kv_gradients(rnd):
+    """Two cross layers sharing one K/V (an NLVR pair over image0 and
+    image1), each through #3's differentiable probs form: the shared K/V get
+    the sum of both layers' gradients, as two copies' gradients add up, and
+    the whole matches the plain versions' own autograd; the pair-second
+    layer's own K/V are never read."""
+    d, h, b, t, s = 256, 4, 3, 40, 77
+    master = lambda p: {n: {k: v.float().requires_grad_(True) for k, v in w.items()}  # noqa
+                        for n, w in p.items()}
+    first, second = master(_attn(rnd, d, d)), master(_attn(rnd, d, d))
+    x = rnd(b, t, d).requires_grad_(True)
+    enc0, enc1, mask = rnd(b, s, d), rnd(b, s, d), _mask(b, s)
+    hz = torch.rand(h, device="cuda") + 0.2
+    kb = F._key_bias(b, s, mask, None, x.device)
+    cts = [rnd(b, t, d), torch.randn(b, h, t, s, device="cuda")] * 2
+
+    def pair(kernel: bool, kv_second: dict):
+        second_view = {**second, **kv_second}
+        outs = []
+        for prm, enc in ((first, enc0), (second_view, enc1)):
+            if kernel:
+                outs += F.fused_cross_attention(prm, x, enc, num_heads=h, mask=mask, head_z=hz,
+                                                return_probs=True, differentiable=True)
+            else:
+                outs += F.cross_attention_plain(prm, x, enc, kb, hz, h, return_probs=True)
+        return outs
+
+    shared = [first[n][k] for n in ("k", "v") for k in ("kernel", "bias")]
+    own = [second[n][k] for n in ("k", "v") for k in ("kernel", "bias")]
+    ins = [x] + shared + [second[n][k] for n in ("q", "out") for k in ("kernel", "bias")]
+    tie = {"k": first["k"], "v": first["v"]}
+    _grad_agree(lambda: pair(True, tie), lambda: pair(False, tie), ins, cts)
+    tied_grads = [t.grad.clone() for t in shared]
+    assert all(t.grad is None for t in own)
+    copies = {n: {k: v.detach().clone().requires_grad_(True) for k, v in first[n].items()}
+              for n in ("k", "v")}
+    for t in shared:
+        t.grad = None
+    torch.autograd.backward(pair(True, copies), cts)
+    for g, t, c in zip(tied_grads, shared,
+                       [copies[n][k] for n in ("k", "v") for k in ("kernel", "bias")]):
+        summed = t.grad + c.grad
+        assert (g - summed).abs().max().item() <= 1e-5 * summed.abs().max().item()
+
+
+NLVR_SHAPES = {
+    # name: (kind, batch, Tq, S); 12 heads at width 768, masked key tails
+    "nlvr_vit_b32_t577": ("self", 32, 577, 577),
+    "nlvr_text_b16_t40": ("self", 16, 40, 40),
+    "nlvr_cross_b16_tq40_s577": ("cross", 16, 40, 577),
+    "grounding_text_b16_t30": ("self", 16, 30, 30),
+    "grounding_cross_b16_tq30_s577": ("cross", 16, 30, 577),
+}
+
+
+@pytest.mark.parametrize("name", sorted(NLVR_SHAPES))
+def test_attention_at_the_nlvr_and_grounding_shapes(rnd, name):
+    """#2 / #3 in the eval form and the probs form at the NLVR and
+    grounding paths' shapes, against their plain versions."""
+    kind, b, t, s = NLVR_SHAPES[name]
+    d, h = 768, 12
+    prm, x, enc, mask = _attn(rnd, d, d), rnd(b, t, d), rnd(b, s, d), _mask(b, s)
+    hz = torch.rand(h, device="cuda") + 0.2
+    kb = F._key_bias(b, s, mask, None, x.device)
+    if kind == "self":
+        wrapper = F.fused_self_attention
+        run = lambda probs: F.fused_self_attention(prm, x, num_heads=h, mask=mask,  # noqa
+                                                   head_z=hz, return_probs=probs)
+        plain = lambda probs: F.self_attention_plain(prm, x, kb, hz, h,  # noqa: E731
+                                                     return_probs=probs)
+    else:
+        wrapper = F.fused_cross_attention
+        run = lambda probs: F.fused_cross_attention(prm, x, enc, num_heads=h,  # noqa: E731
+                                                    mask=mask, head_z=hz, return_probs=probs)
+        plain = lambda probs: F.cross_attention_plain(prm, x, enc, kb, hz, h,  # noqa: E731
+                                                      return_probs=probs)
+    _agree(wrapper, lambda: run(False), lambda: plain(False))
+    before = wrapper.probs_launches
+    out, probs = run(True)
+    assert wrapper.probs_launches == before + 1
+    ref, ref_probs = plain(True)
+    _close(out, ref)
+    _probs_close(probs, ref_probs, mask)
