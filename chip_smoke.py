@@ -83,6 +83,18 @@ It builds the port's CUDA kernels from csrc/ (into build/kernels/), then:
    - visual grounding (configs/x-vlm-small-ft/Grounding.yaml, no teacher):
      three steps at batch 16 on the three paths and a stop_prune step, the
      gated student's boxes and grounding_eval_bbox;
+   - the host data layer (phase_data), from files it writes under build/
+     (a 30,522-entry vocab, COCO-style annotations, 640 x 480 textured JPEGs,
+     a pretraining JSONL shard of base64 JPEGs): three retrieval fine-tune
+     steps at batch 24 from RetrievalTrainDataset + ImageTransform.train(384)
+     + SimpleLoader (the host loaders' images/s at one process, four threads
+     and four spawned processes beside the step's samples/s, and a batch's
+     host ms by part), the retrieval evaluation over 128 images x 5 captions
+     (k_test 128, itm_eval), VQA (16 questions at 480, vqa_accuracy) and
+     caption (16 images at 384, 3 beams, coco_caption_eval) evaluation on the
+     kernel and plain paths, and one GD general step at batch 128 from the
+     shard through GD's DevicePreprocess (crop area 0.2-1, the reference's
+     10 RandAugment ops); it prints the JPEG decoder in use;
    with exact launch counts, finite outputs, and the kernel path against the
    plain path (f32 params for retrieval; the same bf16 params for
    generation, with a teacher-forced replay of the generated captions, and
@@ -2948,6 +2960,533 @@ def phase_grounding(rnd) -> dict:
 
 
 # --------------------------------------------------------------------------
+# phase 3b: the paths fed from files on disk
+# --------------------------------------------------------------------------
+
+DATA_UNIT = dict(vocab=30522, raw=(640, 480), train_images=48, captions=5, batch=24, steps=3,
+                 loaded_batches=6, workers=4, eval_images=128, eval_batch=32, k_test=128,
+                 vqa_questions=16, vqa_answers=3128, vqa_res=480, caption_images=16,
+                 caption_res=384, gd_records=136, batch_timeout=120.0)
+DATA_WORDS = ("a an the of in on with and two three man woman person people dog cat horse "
+              "bird train bus car truck bike table bench chair bed street field beach grass "
+              "water kitchen plate pizza cake ball frisbee kite umbrella sign clock red blue "
+              "green white black yellow brown small large young old sitting standing riding "
+              "holding playing eating walking looking flying parked next near front top "
+              "picture photo image what where who how many color is are yes no left right "
+              "sky tree building room window door wall snow wave board surf skate").split()
+DATA_PROMPT = "a picture of "
+
+
+def data_caption(rng, n_words=(5, 12)) -> str:
+    """A caption of DATA_WORDS (the corpus's words, so that most tokens are
+    in the vocab)."""
+    words = rng.choice(DATA_WORDS, rng.integers(*n_words))
+    return " ".join(words).capitalize() + rng.choice([".", "", "!"])
+
+
+def data_image(rng, w: int, h: int, noise):
+    """A textured uint8 RGB image (a gradient at a random angle, stripes at
+    random frequencies, the int16 noise [h', w', 3] at a random offset):
+    JPEG sizes and decode work as of a photograph, not of a flat colour."""
+    import numpy as np
+
+    x = np.arange(w, dtype=np.float32)[None, :]
+    y = np.arange(h, dtype=np.float32)[:, None]
+    a, b = rng.uniform(-0.5, 0.5, 2)
+    fx, fy = rng.uniform(0.02, 0.3, 2)
+    sx, cy = np.sin(fx * x), np.cos(fy * y)
+    img = np.empty((h, w, 3), np.int16)
+    img[..., 0] = (a * x + b * y) % 256
+    img[..., 1] = 127 + 60 * sx + 60 * cy
+    img[..., 2] = 127 + 120 * sx * cy
+    oy, ox = rng.integers(0, noise.shape[0] - h + 1), rng.integers(0, noise.shape[1] - w + 1)
+    img += noise[oy:oy + h, ox:ox + w]
+    return np.clip(img, 0, 255).astype(np.uint8)
+
+
+def write_data_corpus(root: str, rng) -> dict:
+    """The files of phase_data under `root`: eval_images JPEGs of raw size
+    (COCO-style names, so CaptioningEvalDataset reads an id off each), a
+    30,522-entry vocab (make_test_vocab's specials and pieces, DATA_WORDS,
+    then filler entries), the retrieval train / eval annotations, the VQA
+    test questions, answer list and annotators' answers, the caption
+    references and one pretraining JSONL shard of base64 JPEGs."""
+    import base64
+    import io
+
+    import numpy as np
+    from PIL import Image
+
+    from efficientvlm_tpu_torch.data.tokenizer import make_test_vocab
+    from efficientvlm_tpu_torch.data.utils import write_jsonl
+
+    u = DATA_UNIT
+    names, blobs = [], []
+    w, h = u["raw"]
+    noise = rng.integers(-12, 13, (h + 64, w + 64, 3), dtype=np.int16)
+    for i in range(u["eval_images"]):
+        buf = io.BytesIO()
+        Image.fromarray(data_image(rng, w, h, noise)).save(buf, "JPEG", quality=85)
+        names.append(f"COCO_val2014_{i + 1:012d}.jpg")
+        blobs.append(buf.getvalue())
+        with open(os.path.join(root, names[-1]), "wb") as f:
+            f.write(blobs[-1])
+    vocab = list(make_test_vocab(DATA_WORDS))
+    vocab += [f"[unused{i}]" for i in range(u["vocab"] - len(vocab))]
+    files = {"root": root, "vocab": os.path.join(root, "vocab.txt")}
+    with open(files["vocab"], "w") as f:
+        f.write("\n".join(vocab) + "\n")
+
+    def dump(name, obj):
+        files[name] = os.path.join(root, f"{name}.json")
+        with open(files[name], "w") as f:
+            json.dump(obj, f)
+
+    captions = [[data_caption(rng) for _ in range(u["captions"])] for _ in names]
+    dump("retrieval_train", [{"image": names[i], "caption": c, "image_id": i}
+                             for i in range(u["train_images"]) for c in captions[i]])
+    dump("retrieval_eval", [{"image": n, "caption": c} for n, c in zip(names, captions)])
+    answers = list(dict.fromkeys(" ".join(rng.choice(DATA_WORDS, rng.integers(1, 4)))
+                                 for _ in range(4 * u["vqa_answers"])))[:u["vqa_answers"]]
+    dump("answer_list", answers)
+    q = u["vqa_questions"]
+    dump("vqa_test", [{"image": names[i], "question": f"what is {data_caption(rng, (2, 6))}?",
+                       "question_id": 1000 + i} for i in range(q)])
+    dump("vqa_annotations", {1000 + i: [answers[k] for k in rng.integers(0, 40, 10)]
+                             for i in range(q)})
+    dump("caption_eval", [{"image": n} for n in names[:u["caption_images"]]])
+    dump("caption_refs", [{"image_id": i + 1, "caption": c}
+                          for i in range(u["caption_images"]) for c in captions[i]])
+    shard = [{"binary": base64.b64encode(blobs[i % len(blobs)]).decode(),
+              "caption": captions[i % len(blobs)] if i % 2 else captions[i % len(blobs)][0]}
+             for i in range(u["gd_records"])]
+    files["gd_shard"] = os.path.join(root, "pretrain-00000.jsonl")
+    write_jsonl(shard, files["gd_shard"])
+    return files
+
+
+def loader_rates(dataset, smi: str) -> dict:
+    """Images per second of the host loaders over one epoch of the
+    retrieval train set (240 samples, 10 batches): one process
+    (SimpleLoader), ParallelMapLoader (threads) and ProcessMapLoader
+    (spawned processes, each batch's wait bounded); `images_per_s` over the
+    epoch (a pool's start included), `first_batch_s` the wait for the first
+    batch, `steady_per_s` over the batches after the first loaded_batches
+    (once the loaders' in-flight window, workers + 2 batches, has filled)."""
+    from efficientvlm_tpu_torch.data.datasets import SimpleLoader
+    from efficientvlm_tpu_torch.data.prefetch import ParallelMapLoader, ProcessMapLoader
+
+    u = DATA_UNIT
+    w, skip = u["workers"], u["loaded_batches"]
+
+    def base():
+        return SimpleLoader(dataset, batch_size=u["batch"], shuffle=True, drop_last=True)
+
+    rates = {}
+    for name, loader in (("1_process", base()), (f"{w}_threads", ParallelMapLoader(base(), w)),
+                         (f"{w}_processes", ProcessMapLoader(base(), w,
+                                                             batch_timeout=u["batch_timeout"]))):
+        t0 = time.perf_counter()
+        arrived = []
+        for batch in loader:
+            arrived.append(time.perf_counter() - t0)
+            check(batch[0].shape == (u["batch"], 384, 384, 3), f"loader {name}: batch shape")
+        n = len(arrived)
+        check(n > skip, f"loader {name}: {n} batches")
+        rates[name] = r = {"images_per_s": n * u["batch"] / arrived[-1],
+                           "first_batch_s": arrived[0],
+                           "steady_per_s": (n - skip) * u["batch"]
+                           / (arrived[-1] - arrived[skip - 1])}
+        print(f"host loader {name}, retrieval train set (ImageTransform.train(384) from "
+              f"{u['raw'][0]} x {u['raw'][1]} JPEGs), {n} batches of {u['batch']}: "
+              f"{r['images_per_s']:.1f} images/s (first batch {r['first_batch_s']:.2f} s; "
+              f"batches {skip + 1}-{n}: {r['steady_per_s']:.1f} images/s); "
+              f"{os.cpu_count()} host cores; card {smi}", flush=True)
+    return rates
+
+
+def host_split(dataset, tokenizer) -> dict:
+    """Host ms of one batch of the retrieval train set, by part: decode
+    (open_image), augmentation (ImageTransform: crop, flip, RandAugment,
+    normalise), tokenizing (pre_caption + the tokenizer) and collation."""
+    from efficientvlm_tpu_torch.data.datasets import default_collate, open_image
+    from efficientvlm_tpu_torch.data.utils import pre_caption
+
+    u = DATA_UNIT
+    ms = dict.fromkeys(("decode", "augmentation", "tokenizing", "collation"), 0.0)
+    samples, captions = [], []
+    for ann in dataset.ann[:u["batch"]]:
+        t0 = time.perf_counter()
+        img = open_image(ann["image"], is_path=True, image_root=dataset.image_root)
+        t1 = time.perf_counter()
+        pixels = dataset.transform(img)
+        t2 = time.perf_counter()
+        captions.append(pre_caption(ann["caption"], dataset.max_words))
+        ms["decode"] += (t1 - t0) * 1e3
+        ms["augmentation"] += (t2 - t1) * 1e3
+        ms["tokenizing"] += (time.perf_counter() - t2) * 1e3
+        samples.append((pixels, captions[-1], dataset.img_ids[ann["image_id"]]))
+    t0 = time.perf_counter()
+    tokenizer(captions, padding="longest", truncation=True, max_length=40)
+    t1 = time.perf_counter()
+    default_collate(samples)
+    ms["tokenizing"] += (t1 - t0) * 1e3
+    ms["collation"] = (time.perf_counter() - t1) * 1e3
+    return ms
+
+
+def data_retrieval_train(files, tokenizer, smi: str, c: dict):
+    """The retrieval fine-tune's kernel path fed by RetrievalTrainDataset +
+    ImageTransform.train(384) + SimpleLoader at b24, batches made as the
+    driver makes them (the tokenizer at padding "longest", 40 tokens): the
+    host loaders' images/s and the host split of a batch, then
+    DATA_UNIT["steps"] steps with phase_train's launches, finite losses and
+    the step's samples/s."""
+    import torch
+
+    from efficientvlm_tpu_torch.bridge import cast_floating
+    from efficientvlm_tpu_torch.data.datasets import RetrievalTrainDataset, SimpleLoader
+    from efficientvlm_tpu_torch.data.transforms import ImageTransform
+    from efficientvlm_tpu_torch.drivers.common import build_optimizers
+    from efficientvlm_tpu_torch.drivers.retrieval import build_l0, build_models
+    from efficientvlm_tpu_torch.train.steps import init_train_state, make_retrieval_train_step
+
+    u = DATA_UNIT
+    dataset = RetrievalTrainDataset(files["retrieval_train"], ImageTransform.train(384, seed=0),
+                                    files["root"], max_words=40)
+    rates = loader_rates(dataset, smi)
+    split = host_split(dataset, tokenizer)
+    print(f"host ms a batch of {u['batch']}: " + ", ".join(f"{k} {v:.1f}"
+                                                           for k, v in split.items()))
+    config = train_config()
+    student, teacher = build_models(config)
+    l0 = build_l0(config)
+    params, gates = student.init(0, device="cuda"), l0.init(0, device="cuda")
+    opts = build_optimizers(params, config,
+                            config["schedular"]["epochs"] * TRAIN_UNIT["steps_per_epoch"])
+    state = init_train_state(params, gates, opts)
+    step = make_retrieval_train_step(
+        student, teacher, l0, opts, dtype=torch.bfloat16, impl="fused",
+        teacher_params=cast_floating(teacher.init(1, device="cuda"), torch.bfloat16))
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    loader = SimpleLoader(dataset, batch_size=u["batch"], shuffle=True, drop_last=True)
+    metrics, times = [], []
+    for i, (images, captions, idx) in enumerate(loader):
+        if i == u["steps"]:
+            break
+        tok = tokenizer(list(captions), padding="longest", truncation=True, max_length=40)
+        batch = {"image": torch.from_numpy(images).cuda(),
+                 "text_ids": torch.from_numpy(tok["input_ids"]).long().cuda(),
+                 "text_atts": torch.from_numpy(tok["attention_mask"]).cuda(),
+                 "idx": torch.from_numpy(idx).cuda()}
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        m = step(state, batch, gen)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        metrics.append({k: float(v) for k, v in m.items()})
+        c = expect_launches(c, (2, 0, 0, 0, 0, 0, 36, 12), f"retrieval step {i + 1} from files")
+    check(len(metrics) == u["steps"] and all(math.isfinite(v) for m in metrics
+                                             for v in m.values()),
+          "retrieval from files: a non-finite loss or too few batches")
+    step_ms = statistics.median(times) * 1e3
+    print(f"retrieval steps from files (b{u['batch']}, {tok['input_ids'].shape[1]} tokens at "
+          f"padding longest): " + ", ".join(f"{k} " + "/".join(f"{m[k]:.4f}" for m in metrics)
+                                            for k in metrics[0]) +
+          f"; step {step_ms:.1f} ms median, {u['batch'] / step_ms * 1e3:.1f} samples/s")
+    return {"student": student, "state": state, "l0": l0}, {
+        "loader_images_per_s": rates, "host_ms_per_batch": split, "step_ms": step_ms,
+        "step_samples_per_s": u["batch"] / step_ms * 1e3}, c
+
+
+def data_retrieval_eval(files, tokenizer, run: dict, c: dict):
+    """RetrievalEvalDataset (eval_images x 5 captions, ImageTransform.test
+    at 384) through the trained student's encoders, retrieval_scores
+    (k_test 128) and itm_eval, as the driver's evaluate does, on the kernel
+    path and the plain path (the same f32 params, bf16 compute, the
+    deterministic gates), held as phase 3 holds them: the ITC features
+    within 5% of the plain path's largest, every row's k_test entries
+    filled, finite scores, itm_eval in range; both paths' R@1/5/10."""
+    import numpy as np
+    import torch
+
+    from efficientvlm_tpu_torch.data.datasets import RetrievalEvalDataset, SimpleLoader
+    from efficientvlm_tpu_torch.data.prefetch import ParallelMapLoader
+    from efficientvlm_tpu_torch.data.transforms import ImageTransform
+    from efficientvlm_tpu_torch.evaluation import retrieval as R
+
+    u = DATA_UNIT
+    dataset = RetrievalEvalDataset(files["retrieval_eval"], ImageTransform.test(384),
+                                   files["root"], max_words=40)
+    images = [b[0] for b in ParallelMapLoader(SimpleLoader(dataset, batch_size=u["eval_batch"]),
+                                              u["workers"])]
+    tok = tokenizer(dataset.text, padding="max_length", truncation=True, max_length=40)
+    model, params = run["student"], run["state"].params
+    zs = run["l0"].forward_deterministic({"loga": run["state"].loga})
+    n_img, n_txt = len(dataset), len(dataset.text)
+    out = {}
+    for impl in ("fused", "plain"):
+        t0 = time.perf_counter()
+        kw = dict(zs=zs, dtype=torch.bfloat16, impl=impl)
+        text_feats, text_embeds = R.encode_texts(model, params, tok["input_ids"],
+                                                 tok["attention_mask"], **kw)
+        image_feats, image_embeds = R.encode_images(model, params, images, **kw)
+        s_i2t, s_t2i = R.retrieval_scores(model, params, image_feats, image_embeds, text_feats,
+                                          tok["attention_mask"], text_embeds,
+                                          k_test=u["k_test"], **kw)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        if impl == "fused":
+            chunks_i2t, chunks_t2i = n_img // 4, n_txt // 4
+            text_batches = -(-n_txt // 256)
+            c = expect_launches(c, (len(images), 6 * len(images) + 3 * text_batches
+                                    + 3 * (chunks_i2t + chunks_t2i), 3 * chunks_t2i,
+                                    3 * chunks_i2t), "retrieval evaluation from files")
+        else:
+            c = expect_launches(c, (), "retrieval evaluation from files, plain path")
+        check(bool(np.isfinite(s_i2t).all() and np.isfinite(s_t2i).all()),
+              f"retrieval eval {impl}: scores not finite")
+        metrics = R.itm_eval(s_i2t, s_t2i, dataset.txt2img, dataset.img2txt)
+        check(all(0.0 <= v <= 100.0 for v in metrics.values()), f"itm_eval out of range {metrics}")
+        out[impl] = (text_embeds, image_embeds, s_i2t, s_t2i, metrics, seconds)
+    for j, name in enumerate(("text_embeds", "image_embeds")):
+        a, b = out["fused"][j], out["plain"][j]
+        err, tol = float(np.abs(a - b).max()), 0.05 * float(np.abs(b).max())
+        print(f"retrieval eval from files, {name} kernel vs plain: max_abs_err {err:.4e} "
+              f"tol {tol:.4e}")
+        check(err <= tol, f"retrieval eval from files: {name} disagree")
+    for j, name, k in ((2, "i2t", min(u["k_test"], n_txt)), (3, "t2i", min(u["k_test"], n_img))):
+        a, b = out["fused"][j], out["plain"][j]
+        for impl, s in (("kernel", a), ("plain", b)):
+            check(bool(((s > -100).sum(1) == k).all()),
+                  f"retrieval eval from files: the {impl} path's {name} rerank filled the wrong "
+                  "entries")
+        both = (a > -100) & (b > -100)
+        print(f"retrieval eval from files, {name} scores kernel vs plain on the {int(both.sum())}"
+              f" pairs both reranked (of {int((b > -100).sum())}): max_abs_diff "
+              f"{float(np.abs(a - b)[both].max()):.4e}, largest |score| "
+              f"{float(np.abs(b[both]).max()):.4e}")
+    for impl in ("fused", "plain"):
+        m, seconds = out[impl][4], out[impl][5]
+        print(f"retrieval eval from files ({n_img} images x {n_txt} texts, k_test "
+              f"{u['k_test']}), {impl} path: " + ", ".join(
+                  f"{k} {m[k]:.2f}" for k in ("txt_r1", "txt_r5", "txt_r10", "img_r1",
+                                              "img_r5", "img_r10")) + f"; {seconds:.2f} s")
+    return {"fused_s": out["fused"][5], "plain_s": out["plain"][5],
+            "r_mean": {k: v[4]["r_mean"] for k, v in out.items()}}, c
+
+
+def data_vqa_caption(files, tokenizer, c: dict):
+    """VQA: VQADataset in test mode (16 questions at 480) -> forward_eval's
+    ranking over the answer list (each answer + "[SEP]", as the driver
+    tokenizes it) -> vqa_accuracy against the annotators' answers;
+    captioning: CaptioningEvalDataset (16 images at 384) -> 3-beam generate
+    from the prompt -> tokenizer.decode -> coco_caption_eval. Both on the
+    student (6L) at random weights on the kernel and plain paths: exact
+    launches, and equal strings scoring equally."""
+    import numpy as np
+    import torch
+
+    from efficientvlm_tpu_torch.data.datasets import (CaptioningEvalDataset, SimpleLoader,
+                                                      VQADataset)
+    from efficientvlm_tpu_torch.data.transforms import ImageTransform
+    from efficientvlm_tpu_torch.evaluation.caption_metrics import CiderD, coco_caption_eval
+    from efficientvlm_tpu_torch.evaluation.vqa import vqa_accuracy, vqa_accuracy_breakdown
+
+    u, bf16 = DATA_UNIT, torch.bfloat16
+    out = {}
+    # VQA
+    dataset = VQADataset(files["vqa_test"], ImageTransform.test(u["vqa_res"]), files["root"],
+                         split="test", answer_list=files["answer_list"])
+    with open(files["vqa_annotations"]) as f:
+        annotations = {int(k): v for k, v in json.load(f).items()}
+    images, questions, qids = next(iter(SimpleLoader(dataset, batch_size=u["vqa_questions"])))
+    ans = tokenizer([a + "[SEP]" for a in dataset.answer_list], padding="longest",
+                    truncation=True, max_length=20)
+    q = tokenizer(list(questions), padding="max_length", truncation=True, max_length=40)
+    model, params = build_generation("vqa", 6)
+    args = [torch.from_numpy(x).cuda() for x in (images, q["input_ids"], q["attention_mask"],
+                                                  ans["input_ids"], ans["attention_mask"])]
+    args[1], args[3] = args[1].long(), args[3].long()
+    results = {}
+    with torch.inference_mode():
+        for impl in ("fused", "plain"):
+            ids, probs = model.forward_eval(params, *args, k=u["k_test"], dtype=bf16, impl=impl)
+            c = expect_launches(c, (1, 12, 3, 0, 9, 3) if impl == "fused" else (),
+                                f"vqa forward_eval from files, {impl}")
+            check(bool(torch.isfinite(probs.float()).all()), f"vqa {impl}: probs not finite")
+            results[impl] = [{"question_id": int(qid), "answer": dataset.answer_list[int(a)]}
+                             for qid, a in zip(qids, ids[:, 0].tolist())]
+    del model, params
+    per_q = {impl: vqa_accuracy_breakdown(r, annotations, n=12)["evalQA"]
+             for impl, r in results.items()}
+    same = [r["question_id"] for r, p in zip(results["fused"], results["plain"])
+            if r["answer"] == p["answer"]]
+    check(all(per_q["fused"][qid] == per_q["plain"][qid] for qid in same),
+          "vqa: equal answers scored differently")
+    out["vqa"] = {impl: vqa_accuracy(r, annotations) for impl, r in results.items()}
+    print(f"vqa from files ({len(qids)} questions at {u['vqa_res']}, {len(dataset.answer_list)} "
+          f"answers, k {u['k_test']}): accuracy kernel {out['vqa']['fused']:.2f} / plain "
+          f"{out['vqa']['plain']:.2f}; {len(same)} of {len(qids)} answers equal")
+    # captioning
+    dataset = CaptioningEvalDataset(files["caption_eval"], ImageTransform.test(u["caption_res"]),
+                                    files["root"])
+    with open(files["caption_refs"]) as f:
+        refs = json.load(f)
+    images, image_ids = next(iter(SimpleLoader(dataset, batch_size=u["caption_images"])))
+    prompt = tokenizer([DATA_PROMPT])["input_ids"][:, :-1]
+    prompt_ids = torch.from_numpy(np.repeat(prompt, len(image_ids), 0)).long().cuda()
+    model, params = build_generation("caption", 6)
+    captions = {}
+    with torch.inference_mode():
+        for impl in ("fused", "plain"):
+            stats = {}
+            tokens = model.generate(params, torch.from_numpy(images).cuda(), prompt_ids,
+                                    num_beams=3, max_length=20, min_length=5,
+                                    eos_id=tokenizer.sep_token_id, pad_id=tokenizer.pad_token_id,
+                                    dtype=bf16, impl=impl, stats=stats)
+            n = stats["decoder_calls"]
+            c = expect_launches(c, (1, 6, 0, 0, 6 * n, 3 * n) if impl == "fused" else (),
+                                f"caption generate from files, {impl} ({n} decoder calls)")
+            texts = []
+            for toks in tokens.cpu().numpy():
+                text = tokenizer.decode(toks, skip_special_tokens=True)
+                p = DATA_PROMPT.strip()
+                texts.append(text[len(p):].strip() if text.startswith(p) else text)
+            captions[impl] = [{"image_id": int(i), "caption": t}
+                              for i, t in zip(image_ids, texts)]
+    del model, params
+    out["caption"] = {impl: coco_caption_eval(refs, r) for impl, r in captions.items()}
+    gts = {}
+    for r in refs:
+        gts.setdefault(r["image_id"], []).append(r["caption"])
+    per_image = {}
+    for impl, res in captions.items():
+        hyps = {r["image_id"]: [r["caption"]] for r in res}
+        per_image[impl] = dict(zip(hyps, CiderD().compute_score(gts, hyps)[1]))
+    same = [a["image_id"] for a, b in zip(captions["fused"], captions["plain"])
+            if a["caption"] == b["caption"]]
+    check(all(per_image["fused"][i] == per_image["plain"][i] for i in same),
+          "captioning: equal captions scored differently")
+    if len(same) == len(image_ids):
+        check(out["caption"]["fused"] == out["caption"]["plain"],
+              "captioning: equal captions, different metrics")
+    for impl in ("fused", "plain"):
+        m = out["caption"][impl]
+        print(f"captioning from files ({len(image_ids)} images at {u['caption_res']}, 3 beams), "
+              f"{impl} path: " + ", ".join(f"{k} {m[k]:.4f}" for k in (
+                  "Bleu_4", "CIDEr", "ROUGE_L", "METEOR")) + f"; e.g. "
+              f"{captions[impl][0]['caption']!r}")
+    print(f"captioning from files: {len(same)} of {len(image_ids)} captions equal on the two "
+          f"paths")
+    return out, c
+
+
+def data_gd(files, tokenizer, c: dict):
+    """One GD general step at b128 from the pretraining shard: one record
+    decoded first (a stream whose records all fail would never yield),
+    then PretrainImageTextDataset(transform=ImageTransform.uint8(224)) over
+    one pass of the shard (no repeat: the wait ends with the shard), its
+    TextMaskingGenerator's masks, and the general step through GD's
+    DevicePreprocess (crop area in (0.2, 1.0), RandAugment over the 10
+    reference ops): the draw's op histogram, exact launches, finite
+    losses."""
+    import numpy as np
+    import torch
+
+    from efficientvlm_tpu_torch.data import device_pipeline as P
+    from efficientvlm_tpu_torch.data.datasets import PretrainImageTextDataset
+    from efficientvlm_tpu_torch.data.transforms import ImageTransform
+    from efficientvlm_tpu_torch.data.utils import read_jsonl
+
+    u, g = DATA_UNIT, GD_UNIT
+    config = gd_config()
+
+    def dataset():
+        return PretrainImageTextDataset(config, files["gd_shard"], tokenizer, repeat=False,
+                                        transform=ImageTransform.uint8(g["res"]), seed=3)
+
+    first = dataset().sample(read_jsonl(files["gd_shard"])[0])
+    check(first[0].shape == (g["raw"], g["raw"], 3) and first[0].dtype == np.uint8,
+          f"gd shard: the first record decodes to {first[0].shape} {first[0].dtype}")
+    t0 = time.perf_counter()
+    host = next(dataset().batches(), None)
+    host_s = time.perf_counter() - t0
+    check(host is not None, f"gd shard: no batch of {g['batch']} from {u['gd_records']} records")
+    batch = {k: torch.from_numpy(v).cuda() for k, v in host.items()}
+    for k in ("text_ids", "text_ids_masked", "masked_pos", "masked_ids"):
+        batch[k] = batch[k].long()
+    n_masked = int((host["masked_ids"] != -100).sum())
+    models = gd_models()
+    prep, step, state = gd_step(models, "kernel", False)
+    check(prep.__self__.scale == P.PRETRAIN_CROP_SCALE, "GD's DevicePreprocess crop scale")
+    drawn = P.sample_train_params(torch.Generator(device="cuda").manual_seed(9), g["batch"],
+                                  g["raw"], g["raw"], scale=prep.__self__.scale)
+    hist = torch.bincount(drawn["ops"].reshape(-1), minlength=P.N_OPS).tolist()
+    ops = {P.OP_NAMES[k]: n for k, n in enumerate(hist) if n}
+    check(set(ops) <= set(P.DEFAULT_AUGS), f"GD's RandAugment drew ops outside the 10: {ops}")
+    area = drawn["box"][2].double() * drawn["box"][3] / (g["raw"] * g["raw"])
+    gen = torch.Generator(device="cuda").manual_seed(9)  # the same draws as `drawn`
+    b = prep(batch, gen)
+    t_out = step.teacher_forward(b, gen)
+    m, grads = step.loss_and_grads(state, b, t_out, gen)
+    del t_out
+    step.apply(state, grads)
+    c = expect_launches(c, GD_LAUNCHES[False], "gd general step from the shard")
+    m = {k: float(v) for k, v in m.items()}
+    check(all(math.isfinite(v) for v in m.values()), "gd step from the shard: non-finite loss")
+    print(f"gd general step from a JSONL shard (b{g['batch']}, uint8 {g['raw']} x {g['raw']}, "
+          f"{n_masked} masked tokens; host {host_s:.2f} s for the batch): " + ", ".join(
+              f"{k} {v:.4f}" for k, v in m.items()) + f"; RandAugment draw {ops}; crop area "
+          f"{area.min().item():.3f}-{area.max().item():.3f}")
+    return {"host_batch_s": host_s, "ops": ops}, c
+
+
+def phase_data(smi: str) -> dict:
+    """The host data layer feeding the card's paths from files written
+    under build/ (removed after): the retrieval fine-tune (with the host
+    loaders' images/s), the retrieval evaluation, VQA and caption
+    evaluation with their metrics, and one GD step from a pretraining
+    shard; launches summed over them."""
+    import shutil
+    import tempfile
+
+    import numpy as np
+
+    from efficientvlm_tpu_torch.data import fastjpeg
+    from efficientvlm_tpu_torch.data.tokenizer import build_tokenizer
+
+    t_phase = time.perf_counter()
+    import PIL
+
+    print(f"phase data: PIL {PIL.__version__}; JPEG decoder for the uint8 / native paths: "
+          f"{fastjpeg.decoder()}")
+    root = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build")
+    os.makedirs(root, exist_ok=True)
+    root = tempfile.mkdtemp(prefix="data-corpus-", dir=root)
+    try:
+        t0 = time.perf_counter()
+        files = write_data_corpus(root, np.random.default_rng(0))
+        tokenizer = build_tokenizer(files["vocab"])
+        check(tokenizer.vocab_size == DATA_UNIT["vocab"], "the corpus vocab's size")
+        print(f"corpus written in {time.perf_counter() - t0:.1f} s")
+        c = reset_counts()  # the data path's run starts here
+        run, train, c = data_retrieval_train(files, tokenizer, smi, c)
+        evaluation, c = data_retrieval_eval(files, tokenizer, run, c)
+        del run
+        gen_metrics, c = data_vqa_caption(files, tokenizer, c)
+        gd, c = data_gd(files, tokenizer, c)
+        launches = counts()
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    print(json.dumps({"data_phase": {"decoder": fastjpeg.decoder(), "card": smi,
+                                     "retrieval_train": train, "retrieval_eval": evaluation,
+                                     "vqa_accuracy": gen_metrics["vqa"], "gd": gd}}))
+    print(f"phase data: {time.perf_counter() - t_phase:.1f} s")
+    return {"launches": launches}
+
+
+# --------------------------------------------------------------------------
 # phase 4: times
 # --------------------------------------------------------------------------
 
@@ -3322,7 +3861,8 @@ def main(argv) -> int:
     task_times(grounding_state, smi, None)
     grounding_launches = grounding_state["launches"]
     del grounding_state
-    later = [gd_launches, task_launches, nlvr_launches, grounding_launches]
+    data_launches = phase_data(smi)["launches"]
+    later = [gd_launches, task_launches, nlvr_launches, grounding_launches, data_launches]
     kernels = phase_times(cases, device_cases, errs, slice_state, gen_state,
                           [train_launches] + later)
     for row in train_rows:  # the probs forms run on every training path

@@ -1,8 +1,8 @@
 """Image preprocessing on the device (port of
 efficientvlm_tpu/data/device_pipeline.py): the host decodes to uint8 only;
-random-resized crop, horizontal flip, RandAugment (the reference's 14 ops,
-n = 2 at magnitude 7) and CLIP normalisation run on the images' device,
-over the whole batch at once.
+random-resized crop, horizontal flip, RandAugment (n = 2 ops at magnitude
+7, drawn from the reference's 10 unless told otherwise) and CLIP
+normalisation run on the images' device, over the whole batch at once.
 
 Randomness comes from an explicit torch.Generator (on the images' device),
 drawn up front by `sample_train_params`; `preprocess_train(params=...)`
@@ -32,9 +32,20 @@ CLIP_MEAN = (0.48145466, 0.4578275, 0.40821073)
 CLIP_STD = (0.26862954, 0.26130258, 0.27577711)
 FILL = 128.0  # the reference's fill value of the geometric ops
 MAX_LEVEL = 10.0
-N_OPS = 14
+# make_randaug_ops' table, in its order; params["ops"] index into it
+OP_NAMES = ("Identity", "AutoContrast", "Equalize", "Rotate", "Solarize", "Color", "Contrast",
+            "Brightness", "Sharpness", "ShearX", "ShearY", "TranslateX", "TranslateY",
+            "Posterize")
+N_OPS = len(OP_NAMES)
+# the ops the reference's train stacks draw from (the host RandomAugment's
+# DEFAULT_AUGS): Color, Contrast, Solarize and Posterize are in the table only
+DEFAULT_AUGS = ("Identity", "AutoContrast", "Equalize", "Brightness", "Sharpness", "ShearX",
+                "ShearY", "TranslateX", "TranslateY", "Rotate")
 RANDAUG_N, RANDAUG_M = 2, 7  # ops a sample, magnitude
-CROP_SCALE, CROP_RATIO = (0.5, 1.0), (0.75, 4.0 / 3.0)
+# crop area fractions: the fine-tunes' train transform, and pretraining's
+# (general distillation), as the host ImageTransform.train / .pretrain
+CROP_SCALE, PRETRAIN_CROP_SCALE = (0.5, 1.0), (0.2, 1.0)
+CROP_RATIO = (0.75, 4.0 / 3.0)
 
 
 # --------------------------------------------------------------------------
@@ -106,15 +117,15 @@ def crop_resize(imgs: torch.Tensor, box, out_res: int) -> torch.Tensor:
     return out.float()
 
 
-def sample_crop(generator, n: int, h: int, w: int, *, device=None):
+def sample_crop(generator, n: int, h: int, w: int, *, scale=CROP_SCALE, device=None):
     """Per-sample boxes (x0, y0, cw, ch) of JAX's random_resized_crop: an
-    area fraction in CROP_SCALE, a log-uniform aspect ratio in CROP_RATIO,
+    area fraction in `scale`, a log-uniform aspect ratio in CROP_RATIO,
     sides clipped to [8, side] (one draw, no rejection loop), a uniform
     corner."""
     def uniform(lo, hi):
         return torch.rand(n, generator=generator, device=device) * (hi - lo) + lo
 
-    area = h * w * uniform(*CROP_SCALE)
+    area = h * w * uniform(*scale)
     aspect = torch.exp(uniform(math.log(CROP_RATIO[0]), math.log(CROP_RATIO[1])))
     cw = torch.sqrt(area * aspect).clamp(8, w).to(torch.int32)
     ch = torch.sqrt(area / aspect).clamp(8, h).to(torch.int32)
@@ -171,7 +182,7 @@ def affine_sample(imgs: torch.Tensor, a, b, c, d, e, f) -> torch.Tensor:
 
 
 def make_randaug_ops(level: float) -> list:
-    """The reference's 14-op table at magnitude level = m / MAX_LEVEL; each
+    """The 14-op table (OP_NAMES) at magnitude level = m / MAX_LEVEL; each
     op maps (imgs [N,H,W,3] f32 in 0..255, sign [N] of +-1) to imgs. The
     sign flips the direction of rotate, shear and translate."""
     enh = 0.1 + 1.8 * level
@@ -274,14 +285,19 @@ def randaugment(imgs: torch.Tensor, ops: torch.Tensor, signs: torch.Tensor) -> t
 # --------------------------------------------------------------------------
 
 
-def sample_train_params(generator, n: int, h: int, w: int, *, device=None) -> dict:
+def sample_train_params(generator, n: int, h: int, w: int, *, device=None, scale=CROP_SCALE,
+                        augs=DEFAULT_AUGS) -> dict:
     """The draws of preprocess_train for N images of H x W, on `device` (the
     generator's): {"box": (x0, y0, cw, ch), "flip": [N] bool, "ops" /
-    "signs": [RANDAUG_N, N]}."""
+    "signs": [RANDAUG_N, N]}. The crop's area fraction lies in `scale`; each
+    op is drawn uniformly from the names `augs` and stored as its index in
+    OP_NAMES."""
     device = device or generator.device
-    return {"box": sample_crop(generator, n, h, w, device=device),
+    subset = torch.tensor([OP_NAMES.index(a) for a in augs], device=device)
+    return {"box": sample_crop(generator, n, h, w, scale=scale, device=device),
             "flip": torch.rand(n, generator=generator, device=device) < 0.5,
-            "ops": torch.randint(0, N_OPS, (RANDAUG_N, n), generator=generator, device=device),
+            "ops": subset[torch.randint(0, len(subset), (RANDAUG_N, n), generator=generator,
+                                        device=device)],
             "signs": torch.where(torch.rand(RANDAUG_N, n, generator=generator, device=device)
                                  < 0.5, 1.0, -1.0)}
 
@@ -289,14 +305,16 @@ def sample_train_params(generator, n: int, h: int, w: int, *, device=None) -> di
 def preprocess_train(pixels: torch.Tensor, out_res: int, *,
                      generator: Optional[torch.Generator] = None,
                      params: Optional[dict] = None, hflip: bool = True,
-                     randaug: bool = True) -> torch.Tensor:
+                     randaug: bool = True, scale=CROP_SCALE, augs=DEFAULT_AUGS) -> torch.Tensor:
     """[N, H, W, 3] uint8 -> [N, out_res, out_res, 3] normalised f32 on the
     same device: crop, flip (hflip), RandAugment (randaug), CLIP normalise.
-    The draws come from `params` (sample_train_params) or `generator`; they
-    are drawn whole whatever the flags, so a flag changes no other draw."""
+    The draws come from `params` (sample_train_params, where `scale` and
+    `augs` are read) or `generator`; they are drawn whole whatever the
+    flags, so a flag changes no other draw."""
     n, h, w, _ = pixels.shape
     if params is None:
-        params = sample_train_params(generator, n, h, w, device=pixels.device)
+        params = sample_train_params(generator, n, h, w, device=pixels.device, scale=scale,
+                                     augs=augs)
     imgs = crop_resize(pixels, params["box"], out_res)
     if hflip:
         imgs = flip_images(imgs, params["flip"])

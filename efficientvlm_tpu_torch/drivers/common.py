@@ -9,7 +9,7 @@ from typing import Optional, Tuple
 import torch
 
 from ..config import Config, TextConfig, VisionConfig
-from ..data.device_pipeline import preprocess_train
+from ..data.device_pipeline import CROP_SCALE, preprocess_train
 from ..train.optim import create_l0_optimizer, create_lagrangian_optimizer, create_optimizer
 from ..train.scheduler import create_scheduler
 
@@ -37,7 +37,15 @@ def teacher_configs(config: Config) -> Tuple[VisionConfig, TextConfig]:
 
 def build_optimizers(params, config: Config, total_steps: int, *, init_param_paths=()):
     """(main, L0, Lagrangian) AdamWs from the config's optimizer, schedular
-    and accelerator sections (gradient accumulation comes later)."""
+    and accelerator sections. Gradient accumulation
+    (accelerator.GRAD_ACCUMULATE_STEPS > 1) and skip_nonfinite_updates are
+    not ported yet: either raises a ValueError that names it."""
+    accum = int(config.get("accelerator", {}).get("GRAD_ACCUMULATE_STEPS", 1) or 1)
+    if accum > 1:
+        raise ValueError(f"accelerator.GRAD_ACCUMULATE_STEPS = {accum}: gradient accumulation "
+                         "is not supported by the port yet")
+    if int(config.get("skip_nonfinite_updates", 0) or 0):
+        raise ValueError("skip_nonfinite_updates is not supported by the port yet")
     opt_cfg = config.get("optimizer", Config())
     sched_cfg = config.get("schedular", Config())
     sched = create_scheduler(lr=float(opt_cfg.get("lr", 1e-4)),
@@ -55,18 +63,20 @@ def build_optimizers(params, config: Config, total_steps: int, *, init_param_pat
 class DevicePreprocess:
     """A step whose batch images (the image_keys entries, default "image")
     come as uint8 [B,H,W,3]: the generator draws the crop, flip and
-    RandAugment of preprocess_train for each key in turn first (flip and
-    RandAugment applied as hflip / randaug say), then the step runs on the
-    normalised f32 images; keyword arguments go through to the step."""
+    RandAugment of preprocess_train for each key in turn first (the crop's
+    area fraction in `scale`; flip and RandAugment applied as hflip /
+    randaug say), then the step runs on the normalised f32 images; keyword
+    arguments go through to the step."""
 
     def __init__(self, step, image_res: int, *, hflip: bool = True, randaug: bool = True,
-                 image_keys: Tuple[str, ...] = ("image",)):
-        self.step, self.image_res = step, image_res
+                 image_keys: Tuple[str, ...] = ("image",), scale=CROP_SCALE):
+        self.step, self.image_res, self.scale = step, image_res, tuple(scale)
         self.hflip, self.randaug, self.image_keys = hflip, randaug, tuple(image_keys)
 
     def preprocess(self, batch: dict, generator: Optional[torch.Generator] = None) -> dict:
         return dict(batch, **{k: preprocess_train(batch[k], self.image_res, generator=generator,
-                                                  hflip=self.hflip, randaug=self.randaug)
+                                                  hflip=self.hflip, randaug=self.randaug,
+                                                  scale=self.scale)
                               for k in self.image_keys})
 
     def __call__(self, state, batch: dict, generator: Optional[torch.Generator] = None, **kw):
