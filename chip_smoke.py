@@ -85,16 +85,34 @@ It builds the port's CUDA kernels from csrc/ (into build/kernels/), then:
      gated student's boxes and grounding_eval_bbox;
    - the host data layer (phase_data), from files it writes under build/
      (a 30,522-entry vocab, COCO-style annotations, 640 x 480 textured JPEGs,
-     a pretraining JSONL shard of base64 JPEGs): three retrieval fine-tune
-     steps at batch 24 from RetrievalTrainDataset + ImageTransform.train(384)
-     + SimpleLoader (the host loaders' images/s at one process, four threads
-     and four spawned processes beside the step's samples/s, and a batch's
-     host ms by part), the retrieval evaluation over 128 images x 5 captions
-     (k_test 128, itm_eval), VQA (16 questions at 480, vqa_accuracy) and
-     caption (16 images at 384, 3 beams, coco_caption_eval) evaluation on the
-     kernel and plain paths, and one GD general step at batch 128 from the
-     shard through GD's DevicePreprocess (crop area 0.2-1, the reference's
-     10 RandAugment ops); it prints the JPEG decoder in use;
+     a pretraining JSONL shard of base64 JPEGs): the retrieval train set
+     (RetrievalTrainDataset + ImageTransform.train(384)) through the host
+     loaders (images/s at one process, four threads and four spawned
+     processes, and a batch's host ms by part), VQA (16 questions at 480,
+     vqa_accuracy) and caption (16 images at 384, 3 beams,
+     coco_caption_eval) evaluation on the kernel and plain paths, and one
+     GD general step at batch 128 from the shard through GD's
+     DevicePreprocess (crop area 0.2-1, the reference's 10 RandAugment
+     ops); it prints the JPEG decoder in use;
+   - the retrieval fine-tune's driver loop (phase_driver) through the
+     port's CLI (efficientvlm_tpu_torch.run.main, in this process) on the
+     same kind of corpus and the shipped Retrieval_coco.yaml at full width
+     (one epoch: 240 pairs, 10 steps at b24), from two seeded
+     reference-keyed .th files (the teacher 12L / 12L at 384 px; the
+     student's init 12L / 12L at 224 px, loaded through the 12 -> 6 mapper
+     and the 197 -> 577 positional resize, both checked): an epoch with 4
+     loader threads (exact launches a step, log.txt, the full state and
+     the best snapshot, the validation at k_test 256), the retrieval
+     evaluation from files (128 x 640, k_test 128) on its student, two
+     uninterrupted epochs and one preempted after 5 batches and resumed
+     with one loader process (the resumed losses held to the uninterrupted
+     run's, the step and optimizer counts exact), the epoch under
+     StepProfiler (the device's busy share of the loop), and --evaluate
+     from the best snapshot (its stored gates) and from a params-only
+     export (no gates), each held to the plain path; it prints each .th's
+     load seconds, the epoch's samples/s beside the step's own, the loop's
+     wait for batches, the validation's, save's and resume's seconds and
+     the peak memory;
    with exact launch counts, finite outputs, and the kernel path against the
    plain path (f32 params for retrieval; the same bf16 params for
    generation, with a teacher-forced replay of the generated captions, and
@@ -142,6 +160,7 @@ import contextlib
 import json
 import math
 import os
+import signal
 import statistics
 import subprocess
 import sys
@@ -1418,7 +1437,8 @@ def hold_to_plain(results, steps: int, groups, what: str):
     lists, one per group)}. The loss yardstick is the plain bf16 path's
     largest relative distance from f32 over every loss of every step (one
     scalar's own distance may cancel by chance: on an NVIDIA H100 80GB HBM3
-    at 700 W the ITM-logit KD's was 1e-4 at one step and 2e-3 at the next)."""
+    at 700 W the ITM-logit KD's was 1e-4 at one step and 2e-3 at the next).
+    Returns that yardstick."""
     (mk, gk), (mp, gp), (mf, gf) = (results[n] for n in ("kernel", "plain", "f32"))
     rel = max(abs(mp[i][k] - mf[i][k]) / max(abs(mf[i][k]), 1e-3)
               for i in range(steps) for k in mf[i])
@@ -1448,6 +1468,7 @@ def hold_to_plain(results, steps: int, groups, what: str):
               + 1e-7 and med[0] <= TRAIN_FACTOR * med[2]
               and med[1] <= TRAIN_FACTOR * med[3] + 1e-7,
               f"{what} step-1 gradients [{group}]: the kernel path disagrees with the plain path")
+    return rel
 
 
 def phase_train(rnd):
@@ -1510,14 +1531,15 @@ def phase_train(rnd):
         check(dlam[0] * g_lam1 > 0, f"train {name}: lambda_1 did not ascend its gradient")
         results[name] = (metrics, first_grads, state)
 
-    hold_to_plain({n: r[:2] for n, r in results.items()}, u["steps"],
-                  ("params", "loga", "lambda"), "train")
+    yardstick = hold_to_plain({n: r[:2] for n, r in results.items()}, u["steps"],
+                              ("params", "loga", "lambda"), "train")
     step, state, _ = paths["kernel"]
     for name in ("plain", "f32"):
         del paths[name]
     del results
     return {"step": step, "state": state, "batch": batch, "noise": noises[-1], "l0": l0,
-            "student": student, "config": config, "launches": launches}
+            "student": student, "config": config, "launches": launches,
+            "loss_yardstick": yardstick}
 
 
 # the export's FFN width alignment on the H100 (NVIDIA H100 80GB HBM3, 700
@@ -3135,21 +3157,13 @@ def host_split(dataset, tokenizer) -> dict:
     return ms
 
 
-def data_retrieval_train(files, tokenizer, smi: str, c: dict):
-    """The retrieval fine-tune's kernel path fed by RetrievalTrainDataset +
-    ImageTransform.train(384) + SimpleLoader at b24, batches made as the
-    driver makes them (the tokenizer at padding "longest", 40 tokens): the
-    host loaders' images/s and the host split of a batch, then
-    DATA_UNIT["steps"] steps with phase_train's launches, finite losses and
-    the step's samples/s."""
-    import torch
-
-    from efficientvlm_tpu_torch.bridge import cast_floating
-    from efficientvlm_tpu_torch.data.datasets import RetrievalTrainDataset, SimpleLoader
+def data_loaders(files, tokenizer, smi: str) -> dict:
+    """The retrieval train set (RetrievalTrainDataset +
+    ImageTransform.train(384)) through the host loaders (loader_rates) and
+    one batch's host ms by part (host_split); the loop that steps on these
+    batches is phase_driver's."""
+    from efficientvlm_tpu_torch.data.datasets import RetrievalTrainDataset
     from efficientvlm_tpu_torch.data.transforms import ImageTransform
-    from efficientvlm_tpu_torch.drivers.common import build_optimizers
-    from efficientvlm_tpu_torch.drivers.retrieval import build_l0, build_models
-    from efficientvlm_tpu_torch.train.steps import init_train_state, make_retrieval_train_step
 
     u = DATA_UNIT
     dataset = RetrievalTrainDataset(files["retrieval_train"], ImageTransform.train(384, seed=0),
@@ -3158,45 +3172,7 @@ def data_retrieval_train(files, tokenizer, smi: str, c: dict):
     split = host_split(dataset, tokenizer)
     print(f"host ms a batch of {u['batch']}: " + ", ".join(f"{k} {v:.1f}"
                                                            for k, v in split.items()))
-    config = train_config()
-    student, teacher = build_models(config)
-    l0 = build_l0(config)
-    params, gates = student.init(0, device="cuda"), l0.init(0, device="cuda")
-    opts = build_optimizers(params, config,
-                            config["schedular"]["epochs"] * TRAIN_UNIT["steps_per_epoch"])
-    state = init_train_state(params, gates, opts)
-    step = make_retrieval_train_step(
-        student, teacher, l0, opts, dtype=torch.bfloat16, impl="fused",
-        teacher_params=cast_floating(teacher.init(1, device="cuda"), torch.bfloat16))
-    gen = torch.Generator(device="cuda").manual_seed(7)
-    loader = SimpleLoader(dataset, batch_size=u["batch"], shuffle=True, drop_last=True)
-    metrics, times = [], []
-    for i, (images, captions, idx) in enumerate(loader):
-        if i == u["steps"]:
-            break
-        tok = tokenizer(list(captions), padding="longest", truncation=True, max_length=40)
-        batch = {"image": torch.from_numpy(images).cuda(),
-                 "text_ids": torch.from_numpy(tok["input_ids"]).long().cuda(),
-                 "text_atts": torch.from_numpy(tok["attention_mask"]).cuda(),
-                 "idx": torch.from_numpy(idx).cuda()}
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        m = step(state, batch, gen)
-        torch.cuda.synchronize()
-        times.append(time.perf_counter() - t0)
-        metrics.append({k: float(v) for k, v in m.items()})
-        c = expect_launches(c, (2, 0, 0, 0, 0, 0, 36, 12), f"retrieval step {i + 1} from files")
-    check(len(metrics) == u["steps"] and all(math.isfinite(v) for m in metrics
-                                             for v in m.values()),
-          "retrieval from files: a non-finite loss or too few batches")
-    step_ms = statistics.median(times) * 1e3
-    print(f"retrieval steps from files (b{u['batch']}, {tok['input_ids'].shape[1]} tokens at "
-          f"padding longest): " + ", ".join(f"{k} " + "/".join(f"{m[k]:.4f}" for m in metrics)
-                                            for k in metrics[0]) +
-          f"; step {step_ms:.1f} ms median, {u['batch'] / step_ms * 1e3:.1f} samples/s")
-    return {"student": student, "state": state, "l0": l0}, {
-        "loader_images_per_s": rates, "host_ms_per_batch": split, "step_ms": step_ms,
-        "step_samples_per_s": u["batch"] / step_ms * 1e3}, c
+    return {"loader_images_per_s": rates, "host_ms_per_batch": split}
 
 
 def data_retrieval_eval(files, tokenizer, run: dict, c: dict):
@@ -3444,10 +3420,10 @@ def data_gd(files, tokenizer, c: dict):
 
 def phase_data(smi: str) -> dict:
     """The host data layer feeding the card's paths from files written
-    under build/ (removed after): the retrieval fine-tune (with the host
-    loaders' images/s), the retrieval evaluation, VQA and caption
-    evaluation with their metrics, and one GD step from a pretraining
-    shard; launches summed over them."""
+    under build/ (removed after): the host loaders' images/s over the
+    retrieval train set, VQA and caption evaluation with their metrics, and
+    one GD step from a pretraining shard; launches summed over them (the
+    retrieval fine-tune and evaluation from files are phase_driver's)."""
     import shutil
     import tempfile
 
@@ -3470,19 +3446,555 @@ def phase_data(smi: str) -> dict:
         tokenizer = build_tokenizer(files["vocab"])
         check(tokenizer.vocab_size == DATA_UNIT["vocab"], "the corpus vocab's size")
         print(f"corpus written in {time.perf_counter() - t0:.1f} s")
+        loaders = data_loaders(files, tokenizer, smi)
         c = reset_counts()  # the data path's run starts here
-        run, train, c = data_retrieval_train(files, tokenizer, smi, c)
-        evaluation, c = data_retrieval_eval(files, tokenizer, run, c)
-        del run
         gen_metrics, c = data_vqa_caption(files, tokenizer, c)
         gd, c = data_gd(files, tokenizer, c)
         launches = counts()
     finally:
         shutil.rmtree(root, ignore_errors=True)
     print(json.dumps({"data_phase": {"decoder": fastjpeg.decoder(), "card": smi,
-                                     "retrieval_train": train, "retrieval_eval": evaluation,
+                                     "retrieval_loaders": loaders,
                                      "vqa_accuracy": gen_metrics["vqa"], "gd": gd}}))
     print(f"phase data: {time.perf_counter() - t_phase:.1f} s")
+    return {"launches": launches}
+
+
+# --------------------------------------------------------------------------
+# phase 3c: the retrieval fine-tune's driver loop, through the port's CLI
+# --------------------------------------------------------------------------
+
+DRIVER_UNIT = dict(preempt_after=5, steps=10, init_res=224)
+DRIVER_STEP = (2, 0, 0, 0, 0, 0, 36, 12)  # #1 x2, #2p x36, #3p x12, as phase_train
+
+
+def driver_yaml(files, root: str) -> str:
+    """configs/x-vlm-small-ft/Retrieval_coco.yaml with the corpus's files,
+    its vocab and one epoch; everything else (the 6L CLIP-ViT-B/16 at 384
+    px, BERT-base 6L, b24, k_test 256, sparsity 0.25, head pairs) as
+    shipped."""
+    import yaml
+
+    here = os.path.dirname(os.path.abspath(__file__))
+    with open(os.path.join(here, "configs/x-vlm-small-ft/Retrieval_coco.yaml")) as f:
+        cfg = yaml.safe_load(f)
+    cfg.update(train_file=[files["retrieval_train"]], val_file=files["retrieval_eval"],
+               test_file=files["retrieval_eval"], image_root=files["root"],
+               text_encoder=files["vocab"])
+    cfg["schedular"]["epochs"] = 1
+    path = os.path.join(root, "Retrieval_coco.yaml")
+    with open(path, "w") as f:
+        yaml.safe_dump(cfg, f)
+    return path
+
+
+def reference_resize(table, n_new: int):
+    """The reference's positional-table resize (its models/vit.py
+    interpolate_pos_embed): the CLS row kept, the grid through
+    F.interpolate(bicubic, align_corners=False), on the CPU in f32."""
+    import torch
+
+    table = table.detach().float().cpu()
+    n_old, d = int((table.shape[0] - 1) ** 0.5), table.shape[1]
+    grid = table[1:].reshape(1, n_old, n_old, d).permute(0, 3, 1, 2)
+    grid = torch.nn.functional.interpolate(grid, size=(n_new, n_new), mode="bicubic",
+                                           align_corners=False)
+    return torch.cat([table[:1], grid.permute(0, 2, 3, 1).reshape(n_new * n_new, d)])
+
+
+def driver_checkpoints(config, root: str, smi: str) -> dict:
+    """Two reference-keyed .th files from seeded 12L / 12L X-VLM params
+    (xvlm_state_dict_from_params, torch.save): the teacher at 384 px and the
+    student's init at 224 px. Each is read, remapped and placed on the card
+    through maybe_load_params, timed; the student's load (12 -> 6 layers,
+    197 -> 577 positions) is checked: its vision layer i is the file's layer
+    2i + 1 bit for bit, its text layer i the file's 2i + 1, and its
+    positional table the reference resize of the file's within 1e-6."""
+    import torch
+
+    from efficientvlm_tpu_torch.config import Config, VisionConfig
+    from efficientvlm_tpu_torch.drivers import common
+    from efficientvlm_tpu_torch.drivers.retrieval import build_models
+    from efficientvlm_tpu_torch.models.model_retrieval import XVLMForRetrieval
+    from efficientvlm_tpu_torch.train.checkpoint import xvlm_state_dict_from_params
+    from efficientvlm_tpu_torch.train.optim import tree_leaves
+
+    student, teacher = build_models(config)
+    tv, tt = common.teacher_configs(config)
+    init_v = VisionConfig(dict(tv, image_res=DRIVER_UNIT["init_res"]))
+    out = {}
+    for name, model, seed in (("teacher", teacher, 11),
+                              ("student", XVLMForRetrieval(init_v, tt, config), 12)):
+        params = model.init(seed, device="cuda")
+        out[name] = path = os.path.join(root, f"{name}.th")
+        t0 = time.perf_counter()
+        torch.save({"model": xvlm_state_dict_from_params(params, fusion_layer=6)}, path)
+        write_s = time.perf_counter() - t0
+        target = teacher if name == "teacher" else student
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        loaded = common.maybe_load_params(target, Config({"checkpoint": path}), Config(),
+                                          lambda: None, device="cuda")
+        torch.cuda.synchronize()
+        load_s = time.perf_counter() - t0
+        n = sum(t.numel() for t in tree_leaves(loaded))
+        print(f"driver {name} .th ({os.path.getsize(path) / 2**20:.0f} MiB, "
+              f"{model.vision_cfg['num_hidden_layers']}L / {model.text_cfg['num_hidden_layers']}L "
+              f"at {model.vision_cfg['image_res']} px): written in {write_s:.2f} s; read, "
+              f"remapped and placed ({n / 1e6:.1f} M params, "
+              f"{target.vision_cfg['num_hidden_layers']}L / "
+              f"{target.text_cfg['num_hidden_layers']}L at {target.vision_cfg['image_res']} px) "
+              f"in {load_s:.2f} s; card {smi}", flush=True)
+        out[f"{name}_load_s"] = load_s
+        if name == "student":
+            for i in range(6):
+                for part, key in (("vision", "layers"), ("text", "layers")):
+                    a = tree_leaves(loaded[part][key][i])
+                    b = tree_leaves(params[part][key][2 * i + 1])
+                    check(len(a) == len(b) and all(torch.equal(x, y) for x, y in zip(a, b)),
+                          f"driver: the student's {part} layer {i} is not the file's layer "
+                          f"{2 * i + 1}")
+            pos = loaded["vision"]["pos_embed"]["embedding"]
+            ref = reference_resize(params["vision"]["pos_embed"]["embedding"], 24)
+            err = float((pos.cpu() - ref).abs().max())
+            print(f"driver student load: vision and text layer i = the file's 2i + 1 (bit-equal); "
+                  f"pos_embed {tuple(params['vision']['pos_embed']['embedding'].shape)} -> "
+                  f"{tuple(pos.shape)}, max abs from the reference resize {err:.3e} (tol 1e-6)")
+            check(tuple(pos.shape) == (577, 768) and err <= 1e-6,
+                  "driver: the student's pos_embed is not the reference resize")
+        del params, loaded
+    return out
+
+
+@contextlib.contextmanager
+def patched(obj, name: str, make):
+    """obj.name replaced by make(original) inside the block."""
+    orig = getattr(obj, name)
+    setattr(obj, name, make(orig))
+    try:
+        yield orig
+    finally:
+        setattr(obj, name, orig)
+
+
+@contextlib.contextmanager
+def driver_recorder(flag_after: int = 0, timed: bool = False):
+    """Inside the block every retrieval train step's call is recorded:
+    {"launches": the wrappers' launches of each call, "metrics": its losses
+    (floats, read after the block), "ms": with timed, its host time
+    synchronised with the card before and after (else the loop runs as it
+    would, unsynchronised)}; flag_after > 0 sends this process SIGTERM
+    after that many calls (the preemption handler flags it)."""
+    import torch
+
+    from efficientvlm_tpu_torch.train import steps
+
+    rec = {"launches": [], "metrics": [], "ms": []}
+
+    def make(orig):
+        def call(self, state, batch, generator=None, **kw):
+            if timed:
+                torch.cuda.synchronize()
+            before, t0 = counts(), time.perf_counter()
+            out = orig(self, state, batch, generator, **kw)
+            if timed:
+                torch.cuda.synchronize()
+                rec["ms"].append((time.perf_counter() - t0) * 1e3)
+            now = counts()
+            rec["launches"].append(tuple(now[k] - before[k] for k in wrappers()))
+            rec["metrics"].append(out)
+            if flag_after and len(rec["metrics"]) == flag_after:
+                os.kill(os.getpid(), signal.SIGTERM)  # the handler run.main installed
+            return out
+        return call
+
+    with patched(steps.RetrievalTrainStep, "__call__", make):
+        yield rec
+    rec["metrics"] = [{k: float(v) for k, v in m.items()} for m in rec["metrics"]]
+
+
+@contextlib.contextmanager
+def eval_recorder():
+    """Inside the block the retrieval driver's evaluate records its params
+    and gates, the text and image embeddings it encodes, the score matrices
+    and its seconds."""
+    import torch
+
+    from efficientvlm_tpu_torch.drivers import retrieval
+    from efficientvlm_tpu_torch.evaluation import retrieval as R
+
+    rec = {}
+
+    def wrap_eval(orig):
+        def evaluate(model, params, *a, zs=None, **kw):
+            rec.update(params=params, zs=zs)
+            t0 = time.perf_counter()
+            out = orig(model, params, *a, zs=zs, **kw)
+            torch.cuda.synchronize()
+            rec["seconds"] = time.perf_counter() - t0
+            return out
+        return evaluate
+
+    def keep(key):
+        def make(orig):
+            def fn(*a, **kw):
+                out = orig(*a, **kw)
+                rec[key] = out[1]
+                return out
+            return fn
+        return make
+
+    def wrap_itm(orig):
+        def itm_eval(s_i2t, s_t2i, *a):
+            rec["scores"] = (s_i2t, s_t2i)
+            return orig(s_i2t, s_t2i, *a)
+        return itm_eval
+
+    with patched(retrieval, "evaluate", wrap_eval), patched(R, "encode_texts", keep("text")), \
+            patched(R, "encode_images", keep("image")), patched(R, "itm_eval", wrap_itm):
+        yield rec
+
+
+def eval_launches(config, n_img: int, n_txt: int, counts_=(6, 3, 3, 3)) -> tuple:
+    """The evaluation's launches (#1, #2, #3, #4) over n_img images and
+    n_txt captions at the config's batches and k_test, for a student with
+    counts_ = (ViT, text, fusion self, fusion cross) attention sublayers."""
+    vit, text, fself, fcross = counts_
+    img_b = -(-n_img // config["batch_size_test"])
+    txt_b = -(-n_txt // config["batch_size_test_text"])
+    i2t, t2i = -(-n_img // 4), -(-n_txt // 4)  # rows_per_call 4
+    return (img_b, vit * img_b + text * txt_b + fself * (i2t + t2i), fcross * t2i, fcross * i2t)
+
+
+def loop_trace(path: str, steps: int) -> dict:
+    """The device's busy time in a StepProfiler Chrome trace: the union of
+    its kernel and memcpy / memset intervals against the traced window
+    (first to last event), per traced step."""
+    with open(path) as f:
+        events = [e for e in json.load(f)["traceEvents"] if "ts" in e and "dur" in e]
+    device = sorted((float(e["ts"]), float(e["ts"]) + float(e["dur"])) for e in events
+                    if e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset"))
+    check(len(device) > 0, f"{path}: no device time in the trace")
+    busy, end = 0.0, -1e30
+    for a, b in device:
+        if b > end:
+            busy += b - max(a, end)
+            end = b
+    window = max(float(e["ts"]) + float(e["dur"]) for e in events) - min(
+        float(e["ts"]) for e in events)
+    return {"window_ms": window / 1e3, "busy_ms": busy / 1e3, "idle_share": 1 - busy / window,
+            "kernels": sum(1 for e in events if e.get("cat") == "kernel"),
+            "busy_ms_per_step": busy / 1e3 / steps}
+
+
+def run_launches(rec: dict, c: dict, steps: int, val: tuple, what: str) -> dict:
+    """A driver run's launches: each of its `steps` train steps exactly
+    DRIVER_STEP, and the run's total those steps plus `val` (#1-#4 of its
+    validation, () for none)."""
+    got = rec["launches"]
+    check(len(got) == steps and all(x == DRIVER_STEP for x in got),
+          f"{what}: {len(got)} steps, launches {sorted(set(got))} (each {DRIVER_STEP})")
+    val = tuple(val) + (0,) * (len(DRIVER_STEP) - len(val))
+    return expect_launches(c, tuple(steps * a + b for a, b in zip(DRIVER_STEP, val)), what)
+
+
+def timed_call(report: dict, key: str):
+    """make(orig) for patched(): orig, its seconds kept in report[key]."""
+    def make(orig):
+        def fn(*a, **kw):
+            t0 = time.perf_counter()
+            out = orig(*a, **kw)
+            report[key] = time.perf_counter() - t0
+            return out
+        return fn
+    return make
+
+
+def hold_driver_eval(config, tokenizer, rec: dict, expected: tuple, c: dict, what: str):
+    """The evaluation recorded in rec (the kernel path, launches `expected`)
+    against the plain path on the same params and gates, as
+    data_retrieval_eval holds them: the text and image embeddings within 5%
+    of the plain path's largest, finite scores, every row's k_test entries
+    filled, itm_eval in range; both paths' R@1/5/10 and seconds."""
+    import numpy as np
+
+    from efficientvlm_tpu_torch.data.datasets import SimpleLoader
+    from efficientvlm_tpu_torch.drivers import retrieval
+    from efficientvlm_tpu_torch.evaluation import retrieval as R
+
+    c = expect_launches(c, expected, f"{what}, kernel path")
+    student = retrieval.build_models(config)[0]
+    test_ds = retrieval.build_datasets(config, 42)[2]
+    with eval_recorder() as plain:
+        plain_metrics = retrieval.evaluate(
+            student, rec["params"], SimpleLoader(test_ds, batch_size=config["batch_size_test"]),
+            test_ds, tokenizer, dict(config, attn_impl="plain"), zs=rec["zs"])
+    c = expect_launches(c, (), f"{what}, plain path")
+    n_img, n_txt = len(test_ds), len(test_ds.text)
+    for name in ("text", "image"):
+        err = float(np.abs(rec[name] - plain[name]).max())
+        tol = 0.05 * float(np.abs(plain[name]).max())
+        print(f"{what}, {name} embeddings kernel vs plain: max_abs_err {err:.4e} tol {tol:.4e}")
+        check(err <= tol, f"{what}: {name} embeddings disagree")
+    metrics = {}
+    for path, r in (("kernel", rec), ("plain", plain)):
+        s_i2t, s_t2i = r["scores"]
+        check(bool(np.isfinite(s_i2t).all() and np.isfinite(s_t2i).all()),
+              f"{what} {path}: scores not finite")
+        for s, k in ((s_i2t, min(config["k_test"], n_txt)), (s_t2i, min(config["k_test"], n_img))):
+            check(bool(((s > -100).sum(1) == k).all()), f"{what} {path}: rerank entries")
+        metrics[path] = m = R.itm_eval(s_i2t, s_t2i, test_ds.txt2img, test_ds.img2txt)
+        check(all(0.0 <= v <= 100.0 for v in m.values()), f"{what}: itm_eval out of range {m}")
+        print(f"{what} ({n_img} images x {n_txt} texts, k_test {config['k_test']}), {path} path: "
+              + ", ".join(f"{k} {m[k]:.2f}" for k in ("txt_r1", "txt_r5", "txt_r10", "img_r1",
+                                                      "img_r5", "img_r10"))
+              + f"; {r['seconds']:.2f} s")
+    check(plain_metrics == metrics["plain"], f"{what}: the plain path's recalls moved")
+    return metrics, c
+
+
+def phase_driver(smi: str, yardstick: float) -> dict:
+    """The retrieval fine-tune's driver loop on the card, through
+    efficientvlm_tpu_torch.run.main (the port's CLI) in this process, from
+    files under build/ (removed after): the corpus of write_data_corpus, the
+    shipped Retrieval_coco.yaml at full width with the corpus's files and
+    one epoch (240 pairs, 10 steps at b24), two seeded reference-keyed .th
+    files (driver_checkpoints). Runs: A, the epoch with --checkpoint /
+    --teacher_chkpt (exact launches a step, finite losses, log.txt's keys,
+    the full state and the best snapshot, validation recalls in range; the
+    epoch's samples/s beside the step's own, the loop's share waiting for
+    batches, the validation's and save_full_state's seconds, peak memory),
+    then the retrieval evaluation from files (data_retrieval_eval) on its
+    trained student; B1 / B2, the epoch uninterrupted with num_workers 0; C,
+    the same flagged for preemption after DRIVER_UNIT["preempt_after"]
+    batches (SystemExit 0, the batch cursor saved); D, --resume to the
+    epoch's end (the step count and every optimizer's count exact, the
+    losses of the batches after the cut within TRAIN_FACTOR x yardstick of
+    B1's, B1 against B2 printed beside them); E1 / E2, --evaluate from the
+    best snapshot (its stored gates) and from a params-only export (no
+    gates), each held to the plain path."""
+    import shutil
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from efficientvlm_tpu_torch import run as cli
+    from efficientvlm_tpu_torch.config import load_task_config
+    from efficientvlm_tpu_torch.data.tokenizer import build_tokenizer
+    from efficientvlm_tpu_torch.drivers import common, retrieval
+    from efficientvlm_tpu_torch.pruning.export import prune_xvlm_params
+    from efficientvlm_tpu_torch.train import checkpoint as ckpt_io
+
+    t_phase = time.perf_counter()
+    u = DRIVER_UNIT
+    build = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build")
+    os.makedirs(build, exist_ok=True)
+    root = tempfile.mkdtemp(prefix="driver-", dir=build)
+    report = {"card": smi}
+    try:
+        files = write_data_corpus(root, np.random.default_rng(1))
+        yaml_path = driver_yaml(files, root)
+        config = load_task_config(yaml_path, repo_root=os.path.dirname(build))
+        tokenizer = build_tokenizer(files["vocab"])
+        ths = driver_checkpoints(config, root, smi)
+        report["load_s"] = {k: ths[f"{k}_load_s"] for k in ("teacher", "student")}
+        base = ["--task", "itr_coco", "--config", yaml_path, "--checkpoint", ths["student"],
+                "--teacher_chkpt", ths["teacher"]]
+
+        def run(name, *extra, flag_after=0, timed=False, **overrides):
+            argv = base + ["--output_dir", os.path.join(root, name), *extra]
+            if overrides:  # the same YAML with these keys set
+                import yaml
+
+                with open(yaml_path) as f:
+                    cfg = yaml.safe_load(f)
+                cfg.update(overrides)
+                cfg_path = os.path.join(root, f"{name}.yaml")
+                with open(cfg_path, "w") as f:
+                    yaml.safe_dump(cfg, f)
+                argv[argv.index(yaml_path)] = cfg_path
+            with driver_recorder(flag_after, timed) as rec:
+                try:
+                    out = cli.main(argv)
+                except SystemExit as e:
+                    out = {"exit": e.code}
+            torch.cuda.synchronize()
+            return out, rec
+
+        # A: the epoch as a user runs it (the loader's 4 threads)
+        torch.cuda.reset_peak_memory_stats()
+        held = torch.cuda.memory_allocated() / 2**30  # by the phases before this one
+        c = reset_counts()  # the driver's main path starts here
+        out_a, rec_a = run("A")
+        peak = torch.cuda.max_memory_allocated() / 2**30 - held
+        ep = out_a["epochs"][0]
+        n_img, n_txt = 128, 640
+        check(ep["steps"] == u["steps"], f"driver A: {ep['steps']} steps")
+        c = run_launches(rec_a, c, u["steps"], eval_launches(config, n_img, n_txt),
+                         "driver A: the epoch's steps and its validation")
+        check(all(math.isfinite(v) for m in rec_a["metrics"] for v in m.values()),
+              "driver A: a non-finite loss")
+        a_dir = os.path.join(root, "A")
+        with open(os.path.join(a_dir, "log.txt")) as f:
+            log = [json.loads(line) for line in f]
+        keys = set(log[0])
+        check({"epoch", "train_loss", "train_loss_itc", "train_loss_itm", "train_loss_kd",
+               "train_lagrangian_loss", "val_txt_r1", "val_img_r1", "val_r_mean",
+               "sparsity"} <= keys and all(k in ("epoch", "sparsity")
+                                           or k.startswith(("train_", "val_")) for k in keys),
+              f"driver A: log.txt keys {sorted(keys)}")
+        check(all(0.0 <= log[0][k] <= 100.0 for k in keys if k.startswith("val_")),
+              "driver A: validation recalls out of range")
+        for name in ("training_state_latest.ckpt", "model_state_step_best.ckpt"):
+            check(os.path.exists(os.path.join(a_dir, name)), f"driver A: no {name}")
+        batch = ep["batch"]
+        report["A"] = {
+            "epoch_samples_per_s": ep["steps"] * batch / ep["train_s"],
+            "wait_share": ep["wait_s"] / ep["train_s"], "train_s": ep["train_s"],
+            "val_s": ep["val_s"], "save_s": ep["save_s"], "peak_gib": peak, "held_gib": held,
+            "val_r_mean": log[0]["val_r_mean"]}
+        print(f"driver A (--task itr_coco, 1 epoch of {ep['steps']} steps at b{batch}, "
+              f"num_workers 4): losses " + ", ".join(
+                  f"{k} " + "/".join(f"{m[k]:.4f}" for m in rec_a["metrics"])
+                  for k in ("loss", "loss_itc", "loss_itm", "loss_kd")))
+        print(f"driver A: epoch {ep['train_s']:.2f} s, {report['A']['epoch_samples_per_s']:.1f} "
+              f"samples/s end to end (loader + step + logging, unsynchronised); waiting for "
+              f"batches {ep['wait_s']:.2f} s ({report['A']['wait_share']:.3f} of the epoch); "
+              f"validation ({n_img} x {n_txt}, k_test {config['k_test']}) {ep['val_s']:.2f} s; "
+              f"save_full_state {ep['save_s']:.2f} s; peak memory {peak:.2f} GiB above the "
+              f"{held:.2f} GiB held before the run; val r_mean "
+              f"{log[0]['val_r_mean']:.2f}; card {smi}", flush=True)
+        state = out_a["state"]
+        t0 = time.perf_counter()
+        common.save_full_state(root, state, {"epoch": 0})
+        sync_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        common.save_full_state(root, state, {"epoch": 0}, background=True)
+        caller_s = time.perf_counter() - t0
+        common.wait_for_saves()
+        bg_s = time.perf_counter() - t0
+        size = os.path.getsize(os.path.join(root, "training_state_latest.ckpt")) / 2**20
+        report["save_s"] = {"sync": sync_s, "background_caller": caller_s,
+                            "background_total": bg_s}
+        print(f"driver save_full_state ({size:.0f} MiB): synchronous {sync_s:.2f} s; background "
+              f"{caller_s:.2f} s on the caller's thread, {bg_s:.2f} s to land; card {smi}")
+        student = retrieval.build_models(config)[0]
+        report["eval_from_files"], c = data_retrieval_eval(
+            files, tokenizer, {"student": student, "state": state, "l0": retrieval.build_l0(config)},
+            c)
+        del out_a, state, student
+        torch.cuda.empty_cache()
+
+        # B1 / B2: uninterrupted with one loader process; C / D: preempted, resumed
+        uninterrupted = []
+        for name in ("B1", "B2"):
+            out, rec = run(name, num_workers=0, timed=True)
+            c = run_launches(rec, c, u["steps"], eval_launches(config, n_img, n_txt),
+                             f"driver {name}")
+            uninterrupted.append(rec["metrics"])
+            ep = out["epochs"][0]
+            report.setdefault("step_samples_per_s_workers0", []).append(
+                ep["batch"] / statistics.median(rec["ms"][1:]) * 1e3)
+            report.setdefault("epoch_samples_per_s_workers0", []).append(
+                ep["steps"] * ep["batch"] / ep["train_s"])
+            del out
+        out_c, rec_c = run("C", num_workers=0, flag_after=u["preempt_after"])
+        check(out_c == {"exit": 0}, f"driver C: {out_c}")
+        c = run_launches(rec_c, c, u["preempt_after"], (), "driver C (preempted)")
+        saved = ckpt_io.load_pytree(os.path.join(root, "C", "training_state_latest.ckpt"))
+        check(saved["extra"] == {"epoch": -1, "batches_done": u["preempt_after"],
+                                 "preempted": True} and saved["state"]["step"] == u["preempt_after"],
+              f"driver C: the saved cursor {saved['extra']}, step {saved['state']['step']}")
+        del saved
+        with patched(common, "restore_full_state", timed_call(report, "resume_s")):
+            out_d, rec_d = run("C", "--resume", num_workers=0)
+        c = run_launches(rec_d, c, u["steps"] - u["preempt_after"],
+                         eval_launches(config, n_img, n_txt), "driver D (resumed)")
+        state = out_d["state"]
+        counts_ = {k: getattr(state, k)["count"] for k in ("opt_state", "l0_state", "lam_state")}
+        check(state.step == u["steps"] and all(v == u["steps"] for v in counts_.values())
+              and out_d["epochs"][0]["steps"] == u["steps"] - u["preempt_after"],
+              f"driver D: step {state.step}, counts {counts_}, {out_d['epochs'][0]['steps']} steps")
+        resumed = rec_c["metrics"] + rec_d["metrics"]
+
+        def distance(a, b, first):
+            return max((abs(a[i][k] - b[i][k]) / max(abs(b[i][k]), 1e-3), i + 1, k)
+                       for i in range(first, u["steps"]) for k in b[i])
+
+        cut = distance(resumed, uninterrupted[0], u["preempt_after"])
+        twin = distance(uninterrupted[1], uninterrupted[0], 0)
+        before = distance(resumed, uninterrupted[0], 0)
+        print(f"driver D (--resume after {u['preempt_after']} batches): step {state.step}, "
+              f"counts {counts_}; resume (restore_full_state) {report['resume_s']:.2f} s; losses "
+              f"of batches {u['preempt_after'] + 1}-{u['steps']} against the uninterrupted run: "
+              f"worst relative {cut[0]:.3e} (batch {cut[1]}, {cut[2]}); two uninterrupted runs: "
+              f"{twin[0]:.3e} (batch {twin[1]}, {twin[2]}); the cut run's batches 1-"
+              f"{u['preempt_after']} {before[0]:.3e}; tol {TRAIN_FACTOR * yardstick:.3e} "
+              f"({TRAIN_FACTOR} x the plain bf16 path's distance from f32); step's own samples/s "
+              f"with one loader process " + "/".join(
+                  f"{x:.1f}" for x in report["step_samples_per_s_workers0"]) + f"; card {smi}")
+        check(cut[0] <= TRAIN_FACTOR * yardstick,
+              "driver D: the resumed losses left the train-step tolerance")
+        report["resume"] = {"resume_s": report.pop("resume_s"), "worst_rel": cut[0],
+                            "twin_rel": twin[0]}
+        step_rate = statistics.median(report["step_samples_per_s_workers0"])
+        print(f"driver loop: epoch {report['A']['epoch_samples_per_s']:.1f} samples/s end to end "
+              f"(run A, 4 loader threads) beside the step's own {step_rate:.1f} (runs B, "
+              f"synchronised, median of steps 2-{u['steps']}); the loop waited "
+              f"{report['A']['wait_share']:.3f} of the epoch for batches; runs B's epochs (one "
+              f"loader process, each step synchronised) " + "/".join(
+                  f"{x:.1f}" for x in report["epoch_samples_per_s_workers0"]) +
+              f" samples/s; card {smi}")
+
+        # A2: run A's epoch under StepProfiler (torch.profiler over steps 4-6)
+        trace_dir = os.path.join(root, "A2", "trace")
+        out, rec = run("A2", profile_dir=trace_dir, profile_start_step=2, profile_num_steps=3)
+        c = run_launches(rec, c, u["steps"], eval_launches(config, n_img, n_txt), "driver A2")
+        report["A2"] = loop_trace(os.path.join(trace_dir, "trace.json"), 3)
+        ep = out["epochs"][0]
+        print(f"driver A2 (run A under StepProfiler, steps 4-6 traced): epoch "
+              f"{ep['steps'] * ep['batch'] / ep['train_s']:.1f} samples/s; in the traced window "
+              f"{report['A2']['window_ms']:.1f} ms, device busy {report['A2']['busy_ms']:.1f} ms "
+              f"(idle share {report['A2']['idle_share']:.3f}), {report['A2']['kernels']} device "
+              f"kernels, {report['A2']['busy_ms_per_step']:.1f} busy ms a step; card {smi}")
+        del out
+        del out_d, state
+        torch.cuda.empty_cache()
+
+        # E1 / E2: --evaluate from the best snapshot and from a params-only export
+        best = os.path.join(root, "C", "model_state_step_best.ckpt")
+        l0 = retrieval.build_l0(config)
+        for name, ckpt in (("E1", best), ("E2", os.path.join(root, "export.ckpt"))):
+            if name == "E2":
+                model, gates = ckpt_io.extract_model_and_gates(ckpt_io.load_pytree(best))
+                zs = l0.forward_deterministic({"loga": gates["loga"]})
+                pruned = prune_xvlm_params(model, zs, fusion_layer=3,
+                                           align_intermediate=EXPORT_ALIGN)
+                ckpt_io.save_pytree(ckpt, pruned)
+                sub = pruned_counts(pruned, 3)
+                del model, gates, pruned
+            with eval_recorder() as rec:
+                cli.main(["--task", "itr_coco", "--config", yaml_path, "--evaluate",
+                          "--checkpoint", ckpt, "--output_dir", os.path.join(root, name)])
+            if name == "E1":
+                loga = {k: v.cuda() for k, v in ckpt_io.load_pytree(best)["l0"]["loga"].items()}
+                want = l0.forward_deterministic({"loga": loga})
+                check(rec["zs"] is not None and sorted(rec["zs"]) == sorted(want)
+                      and all(torch.equal(rec["zs"][k], want[k]) for k in want),
+                      "driver E1: the snapshot's stored gates were not used")
+                expected = eval_launches(config, n_img, n_txt)
+            else:
+                check(rec["zs"] is None, "driver E2: an export evaluated with gates")
+                expected = eval_launches(config, n_img, n_txt, sub)
+            report[name], c = hold_driver_eval(config, tokenizer, rec, expected, c,
+                                               f"driver {name} --evaluate")
+            del rec
+        launches = counts()
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    print(json.dumps({"driver_phase": report}, default=float))
+    print(f"phase driver: {time.perf_counter() - t_phase:.1f} s")
     return {"launches": launches}
 
 
@@ -3843,7 +4355,7 @@ def main(argv) -> int:
     train_state = phase_train(rnd)
     phase_export(train_state, slice_state, rnd)
     train_rows = train_times(train_state, p_cases, errs)
-    train_launches = train_state["launches"]
+    train_launches, yardstick = train_state["launches"], train_state["loss_yardstick"]
     del train_state  # each training path's peak memory is its own
     gd_state = phase_gd(rnd, seeds)
     gd_times(gd_state, smi)
@@ -3862,7 +4374,9 @@ def main(argv) -> int:
     grounding_launches = grounding_state["launches"]
     del grounding_state
     data_launches = phase_data(smi)["launches"]
-    later = [gd_launches, task_launches, nlvr_launches, grounding_launches, data_launches]
+    driver_launches = phase_driver(smi, yardstick)["launches"]
+    later = [gd_launches, task_launches, nlvr_launches, grounding_launches, data_launches,
+             driver_launches]
     kernels = phase_times(cases, device_cases, errs, slice_state, gen_state,
                           [train_launches] + later)
     for row in train_rows:  # the probs forms run on every training path

@@ -1,17 +1,116 @@
-"""Model configs, the optimizer trio of a fine-tune and on-device image
-preprocessing around a step (port of the model, optimizer and
-preprocessing parts of efficientvlm_tpu/drivers/common.py)."""
+"""Shared driver plumbing (port of efficientvlm_tpu/drivers/common.py): run
+set-up, the model configs, the optimizer trio with gradient accumulation and
+the skip of non-finite updates, checkpoint loading, the fine-tunes' train
+epoch with its metric fetch, preemption and full-state saves, the host
+loaders and on-device preprocessing around a step. The retrieval driver's
+loop (drivers/retrieval.main) runs on it; the other drivers' loops come
+next (ROADMAP A3).
+
+Where JAX's design does not carry over to eager PyTorch:
+- the metrics of a step are read one step later, from pinned host buffers
+  behind a CUDA event (`.item()` would wait for the step queued after it);
+- each step draws from its own generator, seeded from (seed, epoch, batch
+  index) (step_generator): a resumed epoch draws what the uninterrupted one
+  drew without replaying the skipped batches' draws;
+- a background save copies the state to the CPU on the caller's thread
+  before the write is handed over (AdamW updates the tensors in place);
+- one process on one device: the data-parallel wrap, the mesh, batch
+  placement across processes, ZeRO-1 and the sharded checkpoint backend come
+  with distribution (ROADMAP A6).
+"""
 
 from __future__ import annotations
 
+import json
+import os
+import signal
+import threading
 from typing import Optional, Tuple
 
+import numpy as np
 import torch
 
 from ..config import Config, TextConfig, VisionConfig
 from ..data.device_pipeline import CROP_SCALE, preprocess_train
-from ..train.optim import create_l0_optimizer, create_lagrangian_optimizer, create_optimizer
+from ..device import resolve_device
+from ..train import checkpoint as ckpt_io
+from ..train.optim import (ApplyIfFinite, MultiSteps, create_l0_optimizer,
+                           create_lagrangian_optimizer, create_optimizer)
 from ..train.scheduler import create_scheduler
+from ..utils.dist import get_rank, init_distributed_mode
+
+
+def setup(args: Config, config: Config) -> Config:
+    """The run's topology (one process), numpy's global seed, and
+    <output_dir>/config.json with the args and the config."""
+    info = init_distributed_mode()
+    np.random.seed(int(args.get("seed", 42)) + info["rank"])
+    backend = str(config.get("checkpoint_backend", "msgpack"))
+    if backend != "msgpack":
+        raise NotImplementedError(f"checkpoint_backend: {backend}: the sharded checkpoint "
+                                  "backend comes with distribution (ROADMAP A6)")
+    if args.get("output_dir"):
+        os.makedirs(args["output_dir"], exist_ok=True)
+        if get_rank() == 0:
+            with open(os.path.join(args["output_dir"], "config.json"), "w") as f:
+                json.dump({"args": Config.from_dict(args).to_dict(),
+                           "config": Config.from_dict(config).to_dict()},
+                          f, indent=2, default=str)
+    return Config(info)
+
+
+class StepProfiler:
+    """A torch.profiler trace over a window of train steps, from the config:
+    `profile_dir` (a path, or true for <output_dir>/trace),
+    `profile_start_step` (default 2) and `profile_num_steps` (default 3).
+    The window ends synchronised with the device and writes a Chrome trace
+    (trace.json). Call tick() once per train step."""
+
+    def __init__(self, config: Config, output_dir: str = ""):
+        d = config.get("profile_dir")
+        if d is True or d == "true":
+            d = os.path.join(output_dir or ".", "trace")
+        self.dir = d if (d and get_rank() == 0) else None
+        self.start = int(config.get("profile_start_step", 2))
+        self.num = int(config.get("profile_num_steps", 3))
+        self._i = 0
+        self._prof = None
+        self._done = False
+
+    def tick(self) -> None:
+        if not self.dir or self._done:
+            return
+        if self._i == self.start:
+            os.makedirs(self.dir, exist_ok=True)
+            activities = [torch.profiler.ProfilerActivity.CPU]
+            if torch.cuda.is_available():
+                activities.append(torch.profiler.ProfilerActivity.CUDA)
+            self._prof = torch.profiler.profile(activities=activities)
+            self._prof.start()
+        elif self._prof is not None and self._i >= self.start + self.num:
+            self._stop()
+        self._i += 1
+
+    def _stop(self) -> None:
+        if torch.cuda.is_available():
+            torch.cuda.synchronize()
+        self._prof.stop()
+        self._prof.export_chrome_trace(os.path.join(self.dir, "trace.json"))
+        self._prof, self._done = None, True
+        print(f"### profiler trace written to {self.dir}")
+
+    def close(self) -> None:
+        """A window cut short by the end of an epoch writes what it caught."""
+        if self._prof is not None:
+            self._stop()
+
+
+def log_stats(stats: dict, output_dir: str, filename: str = "log.txt") -> None:
+    """One JSON line a call in <output_dir>/log.txt."""
+    if get_rank() != 0 or not output_dir:
+        return
+    with open(os.path.join(output_dir, filename), "a") as f:
+        f.write(json.dumps(stats, default=str) + "\n")
 
 
 def model_configs(config: Config) -> Tuple[VisionConfig, TextConfig]:
@@ -35,29 +134,340 @@ def teacher_configs(config: Config) -> Tuple[VisionConfig, TextConfig]:
     return VisionConfig(tv), TextConfig(tt)
 
 
+def resolve_warmup(num_warmup_steps, accum: int):
+    """The warm-up of the update-count schedule under accumulation: a float
+    below 1 is a fraction of the updates and stays as it is; a step count is
+    divided by the accumulation factor."""
+    if isinstance(num_warmup_steps, float) and num_warmup_steps < 1:
+        return num_warmup_steps
+    return int(num_warmup_steps) // accum
+
+
 def build_optimizers(params, config: Config, total_steps: int, *, init_param_paths=()):
     """(main, L0, Lagrangian) AdamWs from the config's optimizer, schedular
-    and accelerator sections. Gradient accumulation
-    (accelerator.GRAD_ACCUMULATE_STEPS > 1) and skip_nonfinite_updates are
-    not ported yet: either raises a ValueError that names it."""
-    accum = int(config.get("accelerator", {}).get("GRAD_ACCUMULATE_STEPS", 1) or 1)
-    if accum > 1:
-        raise ValueError(f"accelerator.GRAD_ACCUMULATE_STEPS = {accum}: gradient accumulation "
-                         "is not supported by the port yet")
-    if int(config.get("skip_nonfinite_updates", 0) or 0):
-        raise ValueError("skip_nonfinite_updates is not supported by the port yet")
+    and accelerator sections. skip_nonfinite_updates: n wraps each in
+    ApplyIfFinite(n); accelerator.GRAD_ACCUMULATE_STEPS: k > 1 wraps each in
+    MultiSteps(k), outermost, and the schedule runs over total_steps // k
+    updates. All three go on the same cadence, so the gates and λ never step
+    against a stale set of micro-updates."""
     opt_cfg = config.get("optimizer", Config())
     sched_cfg = config.get("schedular", Config())
+    accum = int(config.get("accelerator", {}).get("GRAD_ACCUMULATE_STEPS", 1) or 1)
     sched = create_scheduler(lr=float(opt_cfg.get("lr", 1e-4)),
-                             num_training_steps=max(total_steps, 1),
-                             num_warmup_steps=sched_cfg.get("num_warmup_steps", 0))
+                             num_training_steps=max(total_steps // accum, 1),
+                             num_warmup_steps=resolve_warmup(sched_cfg.get("num_warmup_steps", 0),
+                                                             accum))
     clip = float(config.get("accelerator", {}).get("CLIP_GRAD_NORM", 1.0) or 0) or None
-    main = create_optimizer(params, lr=sched,
-                            weight_decay=float(opt_cfg.get("weight_decay", 0.01)),
-                            lr_mult=float(opt_cfg.get("lr_mult", 1.0)),
-                            init_param_paths=init_param_paths, grad_clip=clip)
     reg_lr = float(opt_cfg.get("reg_learning_rate", 0.01))
-    return main, create_l0_optimizer(reg_lr=reg_lr), create_lagrangian_optimizer(reg_lr=reg_lr)
+    opts = [create_optimizer(params, lr=sched, weight_decay=float(opt_cfg.get("weight_decay", 0.01)),
+                             lr_mult=float(opt_cfg.get("lr_mult", 1.0)),
+                             init_param_paths=init_param_paths, grad_clip=clip),
+            create_l0_optimizer(reg_lr=reg_lr), create_lagrangian_optimizer(reg_lr=reg_lr)]
+    skip_bad = int(config.get("skip_nonfinite_updates", 0) or 0)
+    if skip_bad:
+        opts = [ApplyIfFinite(o, skip_bad) for o in opts]
+    if accum > 1:
+        opts = [MultiSteps(o, accum) for o in opts]
+    return tuple(opts)
+
+
+def maybe_load_params(model, args: Config, config: Config, build_fn, *, device=None, **load_kw):
+    """The model's params on `device` (default cuda): from --checkpoint (or
+    config["checkpoint"]) when the file exists, else build_fn(). A native
+    `.ckpt` (any payload shape, a physically pruned export included) is
+    taken as stored (f32 masters); any other file is read as the
+    reference's state dict and remapped (xvlm_params_from_state_dict, with
+    load_kw)."""
+    device = resolve_device(device)
+    if config.get("use_swin") or config.get("use_deit"):
+        raise NotImplementedError("Swin and DeiT vision towers come with ROADMAP A5")
+    ckpt = args.get("checkpoint") or config.get("checkpoint")
+    if not ckpt or not os.path.exists(ckpt):
+        if ckpt:
+            print(f"### checkpoint {ckpt} not found: params from their initialisation")
+        return build_fn()
+    if ckpt.endswith(".ckpt"):
+        params, _ = ckpt_io.extract_model_and_gates(ckpt_io.load_params(ckpt))
+        print(f"### loaded native checkpoint from {ckpt}")
+        return ckpt_io.place(params, device)
+    vcfg, tcfg = model.vision_cfg, model.text_cfg
+    params = ckpt_io.xvlm_params_from_state_dict(
+        ckpt_io.load_torch_state_dict(ckpt), vision_layers=vcfg["num_hidden_layers"],
+        text_layers=tcfg["num_hidden_layers"], fusion_layer=tcfg["fusion_layer"],
+        num_patches=vcfg.num_patches, device=device, **load_kw)
+    print(f"### loaded checkpoint from {ckpt}")
+    return params
+
+
+def is_native_checkpoint(args: Config, config: Config) -> bool:
+    """True when --checkpoint names a native `.ckpt` file."""
+    ckpt = args.get("checkpoint") or config.get("checkpoint")
+    return bool(ckpt) and str(ckpt).endswith(".ckpt")
+
+
+def native_eval_gates(l0, args: Config, config: Config, *, device=None):
+    """The evaluation gates of a native checkpoint: forward_deterministic of
+    its stored log-alphas (a snapshot or a full state), or None (the dense
+    program) for a tree without gates (a physical export). The read shares
+    maybe_load_params' memoised tree and then releases it."""
+    ckpt = str(args.get("checkpoint") or config.get("checkpoint"))
+    if not os.path.exists(ckpt):
+        raise SystemExit(f"--checkpoint not found: {ckpt}")
+    _, gates = ckpt_io.extract_model_and_gates(ckpt_io.load_params(ckpt))
+    ckpt_io.clear_load_memo()
+    if gates is None:
+        return None
+    device = resolve_device(device)
+    return l0.forward_deterministic({"loga": {k: v.to(device) for k, v in gates["loga"].items()}})
+
+
+# ---------------------------------------------------------------------------
+# Preemption: SIGTERM only sets a flag; the train loop saves the full state at
+# the next step boundary and exits 0, and --resume continues step-exact.
+
+_PREEMPT = threading.Event()
+
+
+def install_preemption_handler(extra_signals=()) -> threading.Event:
+    """The SIGTERM flag-setter (from the launcher's main thread); the flag
+    starts cleared. Returns the flag, so a caller can set or read it. A
+    process forked after this (a fork-based worker pool) inherits the
+    handler: there the signal takes its default action, so a pool can still
+    terminate its workers."""
+    owner = os.getpid()
+
+    def _handler(signum, frame):
+        if os.getpid() != owner:
+            signal.signal(signum, signal.SIG_DFL)
+            os.kill(os.getpid(), signum)
+            return
+        _PREEMPT.set()
+        print(f"### signal {signum}: preemption flagged, saving full state at the next step "
+              "boundary")
+
+    _PREEMPT.clear()
+    for sig in (signal.SIGTERM, *extra_signals):
+        try:
+            signal.signal(sig, _handler)
+        except (ValueError, OSError):  # not the main thread, or not supported
+            pass
+    return _PREEMPT
+
+
+def preempted() -> bool:
+    return _PREEMPT.is_set()
+
+
+def preempted_sync() -> bool:
+    """The flag as all processes agree on it: one process, its own."""
+    return preempted()
+
+
+def step_generator(seed: int, epoch: int, index: int, device) -> torch.Generator:
+    """The generator of batch `index` of `epoch` (its L0 noise, dropout, hard
+    negatives and on-device preprocessing), seeded from the three numbers
+    alone."""
+    s = np.random.SeedSequence([int(seed), int(epoch), int(index)]).generate_state(1, np.uint64)
+    return torch.Generator(device=torch.device(device)).manual_seed(int(s[0]))
+
+
+class LaggedMetrics:
+    """A step's metrics read one step later: the device values are copied
+    into a pinned host buffer behind a CUDA event, and push() returns the
+    previous step's values as floats once its event has passed, so the host
+    feeds the next step while the last one runs. CPU values are read at
+    once."""
+
+    def __init__(self):
+        self._pending = None
+
+    def push(self, metrics: dict) -> Optional[dict]:
+        prev = self.pop()
+        host, dev = {}, []
+        for k, v in metrics.items():
+            if isinstance(v, torch.Tensor) and v.is_cuda:
+                dev.append((k, v))
+            else:
+                host[k] = float(v)
+        buf = event = None
+        if dev:
+            vals = torch.stack([v.detach().reshape(()).float() for _, v in dev])
+            buf = torch.empty(len(dev), dtype=torch.float32, pin_memory=True)
+            buf.copy_(vals, non_blocking=True)
+            event = torch.cuda.Event()
+            event.record()
+        self._pending = (list(metrics), host, [k for k, _ in dev], buf, event)
+        return prev
+
+    def pop(self) -> Optional[dict]:
+        if self._pending is None:
+            return None
+        keys, host, dev_keys, buf, event = self._pending
+        self._pending = None
+        if event is not None:
+            event.synchronize()
+            host.update(zip(dev_keys, buf.tolist()))
+        return {k: host[k] for k in keys}
+
+
+def run_train_epoch(loader, logger, step_fn, state, make_batch, prof, *, epoch: int, seed: int,
+                    device, output_dir: str = "", resume_batches: int = 0, header: str = "",
+                    log_freq: int = 50):
+    """One fine-tune epoch: items -> make_batch -> step_fn(state, batch,
+    generator), which updates `state` in place and returns its metrics,
+    with profiler ticks and the metrics logged one step late
+    (LaggedMetrics). Batch i draws from step_generator(seed, epoch, i).
+
+    On preemption the full state is saved with {"epoch": epoch - 1,
+    "batches_done": n} and the process exits 0; --resume replays this epoch
+    from the loader, skipping the first n batches' steps (the loader still
+    builds them, so a host transform's draws stay in step), and then draws
+    exactly what the uninterrupted epoch drew. Host augmentation replays
+    exactly with a loader of one worker or with device_preprocess; a worker
+    pool's threads share the transform's generator in the order they run.
+    Returns the state."""
+    ckpt_io.clear_load_memo()  # the params live on the device now
+    lagged = LaggedMetrics()
+
+    def _save_and_exit(batches_done: int) -> None:
+        last = lagged.pop()
+        if last:
+            logger.update(**last)
+        if output_dir:
+            save_full_state(output_dir, state, {"epoch": epoch - 1, "batches_done": batches_done,
+                                                "preempted": True})
+            wait_for_saves()
+            log_stats({"preempted": True, "epoch": epoch, "batches_done": batches_done},
+                      output_dir)
+        print(f"### preempted at epoch {epoch} batch {batches_done}: full state saved, exiting")
+        raise SystemExit(0)
+
+    for i, items in enumerate(logger.log_every(loader, log_freq, header)):
+        if i < resume_batches:
+            continue
+        metrics = step_fn(state, make_batch(items), step_generator(seed, epoch, i, device))
+        prof.tick()
+        prev = lagged.push(metrics)
+        if prev:
+            logger.update(**prev)
+        if preempted():
+            _save_and_exit(i + 1)
+    last = lagged.pop()
+    if last:
+        logger.update(**last)
+    return state
+
+
+def save_training_state(output_dir: str, tag, payload: dict) -> None:
+    """A snapshot, model_state_{tag}.ckpt; training_state_latest (the full
+    resumable state) is save_full_state's alone."""
+    if get_rank() != 0 or not output_dir:
+        return
+    ckpt_io.Checkpointer(output_dir).save_checkpoint(tag, payload)
+
+
+def build_train_step(step, config: Config):
+    """The driver's step: on one device, the step itself. zero1 raises."""
+    if config.get("zero1"):
+        raise NotImplementedError("zero1: ZeRO-1 optimizer-state sharding comes with "
+                                  "distribution (ROADMAP A6)")
+    return step
+
+
+def maybe_parallel_loader(loader, config: Config, *, num_workers: Optional[int] = None):
+    """A train loader wrapped in a pool of num_workers (config num_workers,
+    default 4) when there is more than one and the host has more than 2
+    cores: threads (ParallelMapLoader, the default) or, with loader_backend:
+    process, spawned processes (ProcessMapLoader). Pool threads share the
+    transform's generator, so the draws follow thread scheduling: for an
+    exact replay (a resume) use num_workers <= 1 or device_preprocess."""
+    n = int(config.get("num_workers", 4) if num_workers is None else num_workers)
+    if n > 1 and (os.cpu_count() or 1) > 2 and hasattr(loader, "batch_size"):
+        if config.get("loader_backend", "thread") == "process":
+            from ..data.prefetch import ProcessMapLoader
+
+            return ProcessMapLoader(loader, num_workers=n, seed=int(config.get("seed", 42)))
+        from ..data.prefetch import ParallelMapLoader
+
+        return ParallelMapLoader(loader, num_workers=n)
+    return loader
+
+
+def eval_transform(config: Config, image_res: int):
+    """The evaluation transform: PIL bicubic, or with native_eval_decode the
+    libjpeg DCT-scaled decode."""
+    from ..data.transforms import ImageTransform
+
+    return ImageTransform.test(image_res, native_decode=bool(config.get("native_eval_decode")))
+
+
+def preprocess_transform(config: Config, *, default=None):
+    """With device_preprocess, the uint8 host transform (decode and resize;
+    the augmentation runs on the device, wrap_step_with_preprocess); else
+    `default`."""
+    if not config.get("device_preprocess"):
+        return default
+    from ..data.transforms import ImageTransform
+
+    return ImageTransform.uint8(config.get("image_res", 224))
+
+
+def wrap_step_with_preprocess(step, config: Config, *, image_keys=("image",),
+                              hflip: bool = True, randaug: bool = True):
+    """With device_preprocess, the step behind DevicePreprocess at
+    image_res; else the step."""
+    if not config.get("device_preprocess"):
+        return step
+    return DevicePreprocess(step, int(config.get("image_res", 224)), hflip=hflip,
+                            randaug=randaug, image_keys=image_keys)
+
+
+# ---------------------------------------------------------------------------
+# Full training state: params, gates, λ and every optimizer's state, with
+# the driver's {"epoch", "batches_done"}, in <output_dir>/training_state_latest.ckpt.
+
+_SAVE_EXECUTOR = None
+_PENDING_SAVE = None
+
+
+def wait_for_saves() -> None:
+    """Block until a background save has landed."""
+    global _PENDING_SAVE
+    if _PENDING_SAVE is not None:
+        _PENDING_SAVE.result()
+        _PENDING_SAVE = None
+
+
+def save_full_state(output_dir: str, state, extra: dict, *, background: bool = False) -> None:
+    """The complete training state and `extra`, as the reference saves {model,
+    optimizer, lr_scheduler, epoch}. The state is copied to the CPU on the
+    caller's thread (synchronised with the device) before anything is
+    written; background=True hands only the write to a worker thread. At
+    most one save is in flight: a new one waits for the last."""
+    if get_rank() != 0 or not output_dir:
+        return
+    wait_for_saves()
+    path = os.path.join(output_dir, "training_state_latest.ckpt")
+    payload = {"state": ckpt_io.to_cpu(state), "extra": dict(extra)}
+    if not background:
+        ckpt_io.save_pytree(path, payload)
+        return
+    global _SAVE_EXECUTOR, _PENDING_SAVE
+    if _SAVE_EXECUTOR is None:
+        from concurrent.futures import ThreadPoolExecutor
+
+        _SAVE_EXECUTOR = ThreadPoolExecutor(max_workers=1, thread_name_prefix="ckpt-save")
+    _PENDING_SAVE = _SAVE_EXECUTOR.submit(ckpt_io.save_pytree, path, payload)
+
+
+def restore_full_state(output_dir: str, template_state):
+    """(state, extra) of save_full_state, rebuilt in `template_state`'s
+    structure on its devices, or None when there is no saved state."""
+    path = os.path.join(output_dir, "training_state_latest.ckpt")
+    if not os.path.exists(path):
+        return None
+    payload = ckpt_io.load_pytree(path)
+    return ckpt_io.restore_pytree_like(template_state, payload["state"]), payload.get("extra", {})
 
 
 class DevicePreprocess:
@@ -81,4 +491,3 @@ class DevicePreprocess:
 
     def __call__(self, state, batch: dict, generator: Optional[torch.Generator] = None, **kw):
         return self.step(state, self.preprocess(batch, generator), generator, **kw)
-

@@ -7,9 +7,12 @@ reference's pretraining transform; JAX's GD step keeps the fine-tunes'
 (0.5, 1.0)), flips, augments and normalises them on the device first
 (data/device_pipeline.preprocess_train).
 
-The training loop over the JSONL streams (efficientvlm_tpu/drivers/gd.py
-main: the region interleave, resume, preemption and checkpoints) comes
-with the tokenizer and the streams.
+The training loop (efficientvlm_tpu/drivers/gd.py main: the general and
+region streams interleaved, resume with the streams' cursors, preemption
+and periodic checkpoints) is the next loop to port (ROADMAP A3). Its parts
+are here already: the streams and their cursors (data/datasets,
+data/jsonl), the full-state saves, preemption and the profiler
+(drivers/common.py, where the fine-tunes' shared epoch loop lives).
 """
 
 from __future__ import annotations

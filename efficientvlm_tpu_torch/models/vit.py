@@ -172,3 +172,22 @@ def vit_apply(params: dict, images: torch.Tensor, cfg: VisionConfig, *,
         n_txt = idx_to_group_img.shape[0]
         out["last_hidden"], out["full_atts_hidden"] = h[:n_txt], h[n_txt:]
     return out
+
+
+def interpolate_pos_embed(pos_embed: torch.Tensor, num_patches_new: int) -> torch.Tensor:
+    """[N+1, D] -> [N'+1, D]: the CLS row kept, the sqrt(N) x sqrt(N) grid
+    resized to sqrt(N') x sqrt(N') as the reference does (its
+    models/vit.py interpolate_pos_embed): F.interpolate(mode="bicubic",
+    align_corners=False), Keys' cubic with a = -0.75 and no antialiasing,
+    in f32. JAX's interpolate_pos_embed resizes with jax.image.resize
+    (a = -0.5, antialiased when it shrinks); the port does not copy that."""
+    cls, emb = pos_embed[:1], pos_embed[1:]
+    size_old, size_new = int(emb.shape[0] ** 0.5), int(num_patches_new ** 0.5)
+    if size_old == size_new:
+        return pos_embed
+    d = emb.shape[-1]
+    grid = emb.float().reshape(1, size_old, size_old, d).permute(0, 3, 1, 2)
+    grid = torch.nn.functional.interpolate(grid, size=(size_new, size_new), mode="bicubic",
+                                           align_corners=False)
+    grid = grid.permute(0, 2, 3, 1).reshape(size_new * size_new, d)
+    return torch.cat([cls.float(), grid], 0)

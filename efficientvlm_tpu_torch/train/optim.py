@@ -18,6 +18,14 @@ The update is in place on the param tensors (no second copy of the
 params); the moments are f32 tensors beside them. Params are nested
 dicts / lists of tensors, as in the JAX package; a leaf without a gradient
 (None) counts as a zero gradient, as a zero cotangent does in JAX.
+
+Two wrappers take any of them (the same init / step over a list of
+leaves), as optax's do in the JAX package's drivers:
+- MultiSteps: optax.MultiSteps(every_k_schedule=k), gradient accumulation;
+- ApplyIfFinite: optax.apply_if_finite(max_consecutive_errors=n), the skip
+  of non-finite updates.
+Their state (the accumulator, the micro-step and error counts) is part of
+the optimizer state, beside the wrapped optimizer's under "inner".
 """
 
 from __future__ import annotations
@@ -115,6 +123,62 @@ class AdamW:
             torch._foreach_mul_([u for u, m in zip(upd, self.mult) if m], self.lr_mult)
         for p, u in zip(leaves, upd):
             p.add_(u.to(p.dtype))
+
+
+class MultiSteps:
+    """optax.MultiSteps(inner, every_k_schedule=k): each step folds the
+    gradients into a running mean (optax's, acc + (g - acc) / (n + 1)); the
+    k-th applies `inner` once with that mean and restarts it. The params
+    stay as they are on the other micro-steps, and the inner count (so the
+    schedule) moves only on applied updates. optax restarts its mean by
+    multiplying it by 0, so a NaN micro-batch stays in its accumulator for
+    good; here the accumulator is zeroed."""
+
+    def __init__(self, inner, every_k_schedule: int):
+        self.inner, self.every_k = inner, int(every_k_schedule)
+
+    def init(self, leaves: list) -> dict:
+        return {"mini_step": 0, "gradient_step": 0, "inner": self.inner.init(leaves),
+                "acc_grads": [torch.zeros_like(p, dtype=torch.float32) for p in leaves]}
+
+    @torch.no_grad()
+    def step(self, leaves: list, grads: list, state: dict) -> None:
+        acc, n = state["acc_grads"], state["mini_step"]
+        grads = [torch.zeros_like(a) if g is None else g.float() for a, g in zip(acc, grads)]
+        delta = torch._foreach_sub(grads, acc)
+        torch._foreach_div_(delta, float(n + 1))
+        torch._foreach_add_(acc, delta)
+        if n < self.every_k - 1:
+            state["mini_step"] = n + 1
+            return
+        self.inner.step(leaves, acc, state["inner"])
+        torch._foreach_zero_(acc)
+        state["mini_step"], state["gradient_step"] = 0, state["gradient_step"] + 1
+
+
+class ApplyIfFinite:
+    """optax.apply_if_finite(inner, max_consecutive_errors=n): a step whose
+    gradients hold a NaN or an inf leaves the leaves and the inner state (the
+    moments, the count) as they are and counts the error; once more than n
+    come in a row, the update goes through. The finiteness test reads one
+    flag off the device a step."""
+
+    def __init__(self, inner, max_consecutive_errors: int):
+        self.inner, self.max_errors = inner, int(max_consecutive_errors)
+
+    def init(self, leaves: list) -> dict:
+        return {"notfinite_count": 0, "last_finite": True, "total_notfinite": 0,
+                "inner": self.inner.init(leaves)}
+
+    @torch.no_grad()
+    def step(self, leaves: list, grads: list, state: dict) -> None:
+        flags = [torch.isfinite(g).all() for g in grads if g is not None]
+        finite = bool(torch.stack(flags).all()) if flags else True
+        state["notfinite_count"] = 0 if finite else state["notfinite_count"] + 1
+        state["last_finite"] = finite
+        state["total_notfinite"] += 0 if finite else 1
+        if finite or state["notfinite_count"] > self.max_errors:
+            self.inner.step(leaves, grads, state["inner"])
 
 
 def create_optimizer(params, *, lr: float | Callable, weight_decay: float = 0.01,

@@ -153,9 +153,10 @@ class RetrievalTrainStep:
     """One pruning fine-tune step (Eff_Retrieval's train loop body):
     step(state, batch, generator, noise=None) -> metrics, updating `state`
     in place. batch: {"image" [B,H,W,3], "text_ids" [B,T], "text_atts"
-    [B,T], "idx" [B] (optional)}. `generator` draws the concrete noise (or
-    pass `noise`, {group: uniform draws}), the text tower's dropout and the
-    hard negatives."""
+    [B,T], "idx" [B] (optional)}. `generator` draws the teacher's hard
+    negatives first (JAX gives the teacher a key of its own), then the
+    concrete noise (or pass `noise`, {group: uniform draws}), the text
+    tower's dropout and the student's hard negatives."""
 
     def __init__(self, student_model, teacher_model, l0_module: L0Module, optimizers, *,
                  teacher_params, temperature: float = 1.0, dtype=None, impl: str = "fused"):
@@ -164,11 +165,11 @@ class RetrievalTrainStep:
         self.temperature, self.dtype, self.impl = temperature, dtype, impl
 
     @torch.no_grad()
-    def teacher_forward(self, batch: dict) -> dict:
+    def teacher_forward(self, batch: dict, generator: Optional[torch.Generator] = None) -> dict:
         out = self.teacher.forward(
             self.teacher_params, batch["image"], batch["text_ids"], batch["text_atts"],
-            idx=batch.get("idx"), zs=None, output_attentions=True, output_hidden_states=True,
-            train=False, dtype=self.dtype, impl=self.impl)
+            idx=batch.get("idx"), zs=None, generator=generator, output_attentions=True,
+            output_hidden_states=True, train=False, dtype=self.dtype, impl=self.impl)
         vcfg, tcfg = self.student.vision_cfg, self.student.text_cfg
         return subset_teacher_taps(
             out, vision_layers=vcfg["num_hidden_layers"], text_fusion=tcfg["fusion_layer"],
@@ -209,7 +210,7 @@ class RetrievalTrainStep:
     def __call__(self, state: TrainState, batch: dict,
                  generator: Optional[torch.Generator] = None, *,
                  noise: Optional[dict] = None) -> dict:
-        teacher_outputs = self.teacher_forward(batch)
+        teacher_outputs = self.teacher_forward(batch, generator)
         metrics, grads = self.loss_and_grads(state, batch, teacher_outputs, generator,
                                              noise=noise)
         del teacher_outputs

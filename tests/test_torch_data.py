@@ -19,6 +19,7 @@ import itertools
 import json
 import os
 import shutil
+import signal
 
 import numpy as np
 import pytest
@@ -53,6 +54,7 @@ from efficientvlm_tpu_torch.drivers import gd as TG
 from efficientvlm_tpu_torch.drivers import grounding as TDgr
 from efficientvlm_tpu_torch.drivers import nlvr as TDnlvr
 from efficientvlm_tpu_torch.drivers import vqa as TDvqa
+from efficientvlm_tpu_torch.train import optim as TO
 
 torch.set_num_threads(1)
 
@@ -555,9 +557,21 @@ def test_region_stream_matches_jax(corpus, pretrain_shards, n_shards):
 # ---------------------------------------------------------------------------
 
 
+@pytest.fixture()
+def default_sigterm():
+    """SIGTERM at its default action while the test runs: JAX's
+    ProcessMapLoader forks its pool and ends it with terminate(), and a
+    forked worker keeps the handler its parent had, so a handler another
+    test left in this process (run.py's main installs one that only sets a
+    flag) would keep the workers alive and terminate() waiting forever."""
+    before = signal.signal(signal.SIGTERM, signal.SIG_DFL)
+    yield
+    signal.signal(signal.SIGTERM, before)
+
+
 @pytest.mark.parametrize("kind,workers", [("thread", 1), ("thread", 2), ("process", 1),
                                           ("process", 2)])
-def test_loaders_match_jax(corpus, kind, workers):
+def test_loaders_match_jax(corpus, kind, workers, default_sigterm):
     """ParallelMapLoader over the deterministic eval transform, and
     ProcessMapLoader over the train transform (reseeded per batch from
     (seed, epoch, start), so the batches are the JAX package's at any
@@ -704,16 +718,23 @@ OPTIMIZER_BUILDERS = {"common": TC.build_optimizers, "vqa": TDvqa.build_optimize
 @pytest.mark.parametrize("key", ["GRAD_ACCUMULATE_STEPS", "skip_nonfinite_updates"])
 @pytest.mark.parametrize("task", list(OPTIMIZER_BUILDERS))
 def test_build_optimizers_refuses_keys_not_ported(task, key):
-    """Gradient accumulation and the skip of non-finite updates are not
-    ported yet: every task's build_optimizers raises and names the key
-    rather than train without it; accumulation 1 and skip 0 build."""
+    """Gradient accumulation and the skip of non-finite updates (C2, once
+    refused here) are ported: every task's build_optimizers takes the key
+    and wraps all three optimizers on the same cadence, as JAX's
+    build_optimizers wraps them in optax.MultiSteps / apply_if_finite;
+    accumulation 1 and skip 0 leave them bare."""
     params = {"w": torch.zeros(3, requires_grad=True)}
     conf = {"optimizer": {"lr": 1e-4}, "accelerator": {"GRAD_ACCUMULATE_STEPS": 1},
             "skip_nonfinite_updates": 0}
-    assert len(OPTIMIZER_BUILDERS[task](params, tcfg.Config(conf), 10)) == 3
+    assert all(isinstance(o, TO.AdamW)
+               for o in OPTIMIZER_BUILDERS[task](params, tcfg.Config(conf), 10))
     if key == "GRAD_ACCUMULATE_STEPS":
         conf["accelerator"] = {"GRAD_ACCUMULATE_STEPS": 4}
+        wrapper, attr, n = TO.MultiSteps, "every_k", 4
     else:
         conf[key] = 3
-    with pytest.raises(ValueError, match=key):
-        OPTIMIZER_BUILDERS[task](params, tcfg.Config(conf), 10)
+        wrapper, attr, n = TO.ApplyIfFinite, "max_errors", 3
+    opts = OPTIMIZER_BUILDERS[task](params, tcfg.Config(conf), 10)
+    assert len(opts) == 3
+    assert all(isinstance(o, wrapper) and getattr(o, attr) == n and isinstance(o.inner, TO.AdamW)
+               for o in opts)
