@@ -113,6 +113,25 @@ It builds the port's CUDA kernels from csrc/ (into build/kernels/), then:
      load seconds, the epoch's samples/s beside the step's own, the loop's
      wait for batches, the validation's, save's and resume's seconds and
      the peak memory;
+   - the other drivers' loops (phase_loops), each through the port's CLI in
+     this process, from a corpus of the same kind (a region shard, VQA,
+     caption, NLVR and grounding annotations beside it) and the shipped
+     YAMLs at full width with the corpus's files, vocab and length:
+     general distillation (Pretrain_XVLM_small_4m.yaml: b128 from uint8 on
+     the card, region batches of 48 images / 128 texts, 8 steps in JAX's
+     interleave, a snapshot and a background full-state save at step 4;
+     twice uninterrupted, then preempted after 5 steps and resumed: the host
+     batches after the cut bit-equal, the losses held to the uninterrupted
+     run's), then one epoch of 3 steps and its evaluation of VQA (b8 at 480,
+     --stop_prune_epoch 0, its student from a seeded 6L / 6L .th at 224 px,
+     the decoder derived from the cross layers), captioning (b16 at 384, 3
+     beams, coco_caption_eval), NLVR (16 pairs, validation and test) and
+     grounding (b16), each followed by --evaluate from the epoch's snapshot
+     (VQA's ranked probabilities and captioning's replayed beams held to the
+     plain path; grounding_eval_bbox); exact launches a step and an
+     evaluation; it prints each loop's samples/s beside the steps' own, its
+     wait for batches, its evaluation's seconds and its peak memory, and
+     GD's background save on the caller's thread and its resume;
    with exact launch counts, finite outputs, and the kernel path against the
    plain path (f32 params for retrieval; the same bf16 params for
    generation, with a teacher-forced replay of the generated captions, and
@@ -3502,6 +3521,19 @@ def reference_resize(table, n_new: int):
     return torch.cat([table[:1], grid.permute(0, 2, 3, 1).reshape(n_new * n_new, d)])
 
 
+def write_th(params, path: str, fusion_layer: int) -> float:
+    """params as a reference-keyed .th ({"model": the state dict of
+    xvlm_state_dict_from_params}, torch.save); returns the write's
+    seconds."""
+    import torch
+
+    from efficientvlm_tpu_torch.train.checkpoint import xvlm_state_dict_from_params
+
+    t0 = time.perf_counter()
+    torch.save({"model": xvlm_state_dict_from_params(params, fusion_layer=fusion_layer)}, path)
+    return time.perf_counter() - t0
+
+
 def driver_checkpoints(config, root: str, smi: str) -> dict:
     """Two reference-keyed .th files from seeded 12L / 12L X-VLM params
     (xvlm_state_dict_from_params, torch.save): the teacher at 384 px and the
@@ -3516,7 +3548,6 @@ def driver_checkpoints(config, root: str, smi: str) -> dict:
     from efficientvlm_tpu_torch.drivers import common
     from efficientvlm_tpu_torch.drivers.retrieval import build_models
     from efficientvlm_tpu_torch.models.model_retrieval import XVLMForRetrieval
-    from efficientvlm_tpu_torch.train.checkpoint import xvlm_state_dict_from_params
     from efficientvlm_tpu_torch.train.optim import tree_leaves
 
     student, teacher = build_models(config)
@@ -3527,9 +3558,7 @@ def driver_checkpoints(config, root: str, smi: str) -> dict:
                               ("student", XVLMForRetrieval(init_v, tt, config), 12)):
         params = model.init(seed, device="cuda")
         out[name] = path = os.path.join(root, f"{name}.th")
-        t0 = time.perf_counter()
-        torch.save({"model": xvlm_state_dict_from_params(params, fusion_layer=6)}, path)
-        write_s = time.perf_counter() - t0
+        write_s = write_th(params, path, 6)
         target = teacher if name == "teacher" else student
         torch.cuda.synchronize()
         t0 = time.perf_counter()
@@ -3578,38 +3607,50 @@ def patched(obj, name: str, make):
 
 
 @contextlib.contextmanager
-def driver_recorder(flag_after: int = 0, timed: bool = False):
-    """Inside the block every retrieval train step's call is recorded:
+def driver_recorder(flag_after: int = 0, timed: bool = False,
+                    step_class: str = "RetrievalTrainStep"):
+    """Inside the block every call of a train step (train/steps.<step_class>:
+    the retrieval step, GDTrainStep, TaskTrainStep) is recorded:
     {"launches": the wrappers' launches of each call, "metrics": its losses
     (floats, read after the block), "ms": with timed, its host time
     synchronised with the card before and after (else the loop runs as it
-    would, unsynchronised)}; flag_after > 0 sends this process SIGTERM
-    after that many calls (the preemption handler flags it)."""
+    would, unsynchronised), "device_ms": the card's time from the call's
+    first queued work to its last (CUDA events, read after the block; no
+    synchronisation in the loop), "frozen": whether a TaskTrainStep ran with
+    frozen gates}; flag_after > 0 sends this process SIGTERM after that many
+    calls (the preemption handler flags it)."""
     import torch
 
     from efficientvlm_tpu_torch.train import steps
 
-    rec = {"launches": [], "metrics": [], "ms": []}
+    rec = {"launches": [], "metrics": [], "ms": [], "events": [], "frozen": []}
 
     def make(orig):
         def call(self, state, batch, generator=None, **kw):
             if timed:
                 torch.cuda.synchronize()
             before, t0 = counts(), time.perf_counter()
+            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            start.record()
             out = orig(self, state, batch, generator, **kw)
+            end.record()
+            rec["events"].append((start, end))
             if timed:
                 torch.cuda.synchronize()
                 rec["ms"].append((time.perf_counter() - t0) * 1e3)
             now = counts()
             rec["launches"].append(tuple(now[k] - before[k] for k in wrappers()))
             rec["metrics"].append(out)
+            rec["frozen"].append(getattr(self, "frozen_zs", None) is not None)
             if flag_after and len(rec["metrics"]) == flag_after:
                 os.kill(os.getpid(), signal.SIGTERM)  # the handler run.main installed
             return out
         return call
 
-    with patched(steps.RetrievalTrainStep, "__call__", make):
+    with patched(getattr(steps, step_class), "__call__", make):
         yield rec
+    torch.cuda.synchronize()
+    rec["device_ms"] = [a.elapsed_time(b) for a, b in rec.pop("events")]
     rec["metrics"] = [{k: float(v) for k, v in m.items()} for m in rec["metrics"]]
 
 
@@ -3999,6 +4040,596 @@ def phase_driver(smi: str, yardstick: float) -> dict:
 
 
 # --------------------------------------------------------------------------
+# phase 3d: the other drivers' loops, through the port's CLI
+# --------------------------------------------------------------------------
+
+LOOP_UNIT = dict(gd_steps=8, gd_ckpt=4, gd_preempt=5, region_records=64, task_steps=3,
+                 eval_items=16, seed=42)
+# launches of one evaluation batch, wrappers() order, for the 6L / 6L
+# student: VQA's forward_eval (k 128; its 3-layer decoder's #5 / #6),
+# NLVR's pair (ViT 6, text 3 + 6 replicated self, 6 cross), grounding's
+# (ViT 6, text 3 + fusion 3 self, 3 cross); captioning's generate is
+# (1, 6, 0, 0, 6 n, 3 n) for n decoder calls
+LOOP_EVAL = {"vqa": (1, 12, 3, 0, 9, 3), "nlvr": (1, 15, 6), "grounding": (1, 12, 3)}
+
+
+def write_loop_corpus(files: dict, rng) -> dict:
+    """Beside write_data_corpus's files (its 640 x 480 JPEGs, vocab, answer
+    list, VQA test questions, caption references and general JSONL shard),
+    the files the five loops read: a region shard (base64 JPEGs, each with
+    a caption and 4 boxed elements), VQA train questions (1-10 answers of
+    the answer list), caption train records, NLVR pairs (train, val, test),
+    grounding records (train, test) and their ref_boxes."""
+    import base64
+
+    from efficientvlm_tpu_torch.data.utils import write_jsonl
+
+    u, root = LOOP_UNIT, files["root"]
+    w, h = DATA_UNIT["raw"]
+    names = [f"COCO_val2014_{i + 1:012d}.jpg" for i in range(DATA_UNIT["eval_images"])]
+    with open(files["answer_list"]) as f:
+        answers = json.load(f)[:40]
+
+    def box():
+        bw, bh = int(rng.integers(60, 320)), int(rng.integers(60, 240))
+        return [int(rng.integers(0, w - bw)), int(rng.integers(0, h - bh)), bw, bh]
+
+    def dump(name, obj):
+        files[name] = os.path.join(root, f"{name}.json")
+        with open(files[name], "w") as f:
+            json.dump(obj, f)
+
+    regions = []
+    for i in range(u["region_records"]):
+        with open(os.path.join(root, names[i % len(names)]), "rb") as f:
+            blob = base64.b64encode(f.read()).decode()
+        regions.append({"binary": blob, "caption": [data_caption(rng), data_caption(rng)],
+                        "elems": [{"bb": box(), "caption": data_caption(rng, (2, 5))}
+                                  for _ in range(4)]})
+    files["gd_regions"] = os.path.join(root, "regions-00000.jsonl")
+    write_jsonl(regions, files["gd_regions"])
+    n = u["task_steps"] * 16
+    dump("vqa_train", [{"image": names[i], "question": f"what is {data_caption(rng, (2, 6))}?",
+                        "answer": [answers[k] for k in rng.integers(0, 40, rng.integers(1, 11))],
+                        "question_id": 5000 + i}
+                       for i in range(u["task_steps"] * 8)])
+    dump("caption_train", [{"image": names[i], "caption": data_caption(rng), "image_id": i}
+                           for i in range(n)])
+    for split, count, off in (("nlvr_train", n, 0), ("nlvr_val", u["eval_items"], 60),
+                              ("nlvr_test", u["eval_items"], 90)):
+        dump(split, [{"images": [names[off + i], names[off + i + 1]],
+                      "sentence": data_caption(rng), "label": bool(rng.integers(0, 2))}
+                     for i in range(count)])
+    refs = {}
+    for split, count, off in (("grounding_train", n, 0), ("grounding_test", u["eval_items"], 80)):
+        records = [{"image": names[off + i], "text": data_caption(rng, (3, 8)), "bbox": box(),
+                    "ref_id": 7000 + off + i} for i in range(count)]
+        dump(split, records)
+        refs.update({str(r["ref_id"]): {"bbox": r["bbox"],
+                                        "split": ("val", "testA", "testB")[k % 3]}
+                     for k, r in enumerate(records)})
+    dump("ref_boxes", refs)
+    return files
+
+
+def loop_yaml(shipped: str, root: str, name: str, **updates) -> str:
+    """The shipped YAML configs/<shipped> with `updates` (the corpus's
+    files, its vocab, the length); everything else as shipped."""
+    import yaml
+
+    here = os.path.dirname(os.path.abspath(__file__))
+    with open(os.path.join(here, "configs", shipped)) as f:
+        cfg = yaml.safe_load(f)
+    for k, v in updates.items():
+        if isinstance(v, dict):
+            cfg.setdefault(k, {}).update(v)
+        else:
+            cfg[k] = v
+    path = os.path.join(root, f"{name}.yaml")
+    with open(path, "w") as f:
+        yaml.safe_dump(cfg, f)
+    return path
+
+
+@contextlib.contextmanager
+def uncounted():
+    """Launches inside the block (a comparison's kernel call) are taken out
+    of the launch counts again."""
+    from efficientvlm_tpu_torch.kernels import bindings
+
+    before = counts()
+    try:
+        yield
+    finally:
+        for name, (w, attr) in wrappers().items():
+            setattr(w, attr, before[name])
+        for r in ROUTES:
+            bindings.probs_routes[r] = before[f"route_{r}"]
+
+
+@contextlib.contextmanager
+def recording(obj, name: str, rec: list):
+    """obj.name's calls appended to rec as (args, kwargs, result)."""
+    def make(orig):
+        def fn(*a, **kw):
+            out = orig(*a, **kw)
+            rec.append((a, kw, out))
+            return out
+        return fn
+
+    with patched(obj, name, make):
+        yield rec
+
+
+def cli_run(argv, rec_kw: dict, *extra_patches):
+    """run.main(argv) in this process under driver_recorder(**rec_kw) and the
+    given patches: (main's return or {"exit": code}, the record, seconds)."""
+    import torch
+
+    from efficientvlm_tpu_torch import run as cli
+
+    with contextlib.ExitStack() as stack:
+        rec = stack.enter_context(driver_recorder(**rec_kw))
+        for p in extra_patches:
+            stack.enter_context(p)
+        t0 = time.perf_counter()
+        try:
+            out = cli.main(argv)
+        except SystemExit as e:
+            out = {"exit": e.code}
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+    return out, rec, seconds
+
+
+def step_launches(rec: dict, expected, what: str):
+    """Each recorded step's launches: expected (a tuple, or one a step)."""
+    got = rec["launches"]
+    want = expected if isinstance(expected, list) else [tuple(expected)] * len(got)
+    want = [tuple(w) + (0,) * (len(wrappers()) - len(w)) for w in want]
+    check(got == want, f"{what}: launches a step {got} != {want}")
+
+
+def total(steps: list, *more) -> tuple:
+    """The elementwise sum of launch tuples (padded to wrappers())."""
+    n = len(wrappers())
+    rows = [tuple(r) + (0,) * (n - len(r)) for r in list(steps) + list(more)]
+    return tuple(sum(col) for col in zip(*rows)) if rows else (0,) * n
+
+
+def loop_rates(rec: dict, samples: int, train_s: float, wait_s: float) -> dict:
+    """A loop's samples/s end to end beside its steps' own (the card's time
+    from each step's first queued work to its last, median), and its share
+    waiting for batches."""
+    own = statistics.median(rec["device_ms"]) if rec["device_ms"] else float("nan")
+    return {"samples_per_s": samples / train_s, "step_samples_per_s": samples /
+            len(rec["device_ms"]) / own * 1e3, "step_device_ms_median": own,
+            "wait_share": wait_s / train_s, "train_s": train_s}
+
+
+def loop_gd(files, root: str, smi: str, yardstick: float, c: dict):
+    """General distillation through run.main --task gd_4m_small: the shipped
+    Pretrain_XVLM_small_4m.yaml (b128 at 224 px from uint8 on the card, the
+    region batch of 48 images / 128 texts, the 12L / 12L teacher) with the
+    corpus's two shards, its vocab and ckpt_frequent_step 4, --max_steps 8,
+    from seeded params. A: the run (JAX's interleave, each step's launches,
+    finite losses, log.txt, the step-4 and final snapshots, the background
+    save); B: its twin; C: preempted after 5 steps (SystemExit 0); D:
+    --resume (the step count, the host batches after the cut bit-equal to
+    A's, both streams' final cursors and generator states equal to A's, the
+    losses within TRAIN_FACTOR x yardstick)."""
+    import numpy as np
+    import torch
+
+    from efficientvlm_tpu_torch.drivers import common, gd
+    from efficientvlm_tpu_torch.train import checkpoint as ckpt_io
+
+    u, seed = LOOP_UNIT, LOOP_UNIT["seed"]
+    yaml_path = loop_yaml("Pretrain_XVLM_small_4m.yaml", root, "gd",
+                          train_file=[files["gd_shard"]], train_file_regions=[files["gd_regions"]],
+                          text_encoder=files["vocab"], ckpt_frequent_step=u["gd_ckpt"])
+    kinds = [bool(np.random.default_rng((seed, i)).random() < 0.5) for i in range(u["gd_steps"])]
+    check(any(kinds) and not all(kinds), f"gd: the interleave {kinds} lacks a step kind")
+
+    def run(name, *extra, flag_after=0):
+        host, saves = [], []
+
+        def keep_host(orig):
+            def fn(batch, device):
+                host.append({k: np.array(v, copy=True) for k, v in batch.items()})
+                return orig(batch, device)
+            return fn
+
+        def timed_save(orig):
+            def fn(out_dir, state, extra, *, background=False):
+                t0 = time.perf_counter()
+                orig(out_dir, state, extra, background=background)
+                saves.append({"background": background, "caller_s": time.perf_counter() - t0,
+                              "step": extra.get("step")})
+            return fn
+
+        argv = ["--task", "gd_4m_small", "--config", yaml_path, "--max_steps",
+                str(u["gd_steps"]), "--output_dir", os.path.join(root, name), *extra]
+        out, rec, seconds = cli_run(argv, {"flag_after": flag_after, "step_class": "GDTrainStep"},
+                                    patched(gd, "to_device", keep_host),
+                                    patched(common, "save_full_state", timed_save))
+        rec.update(host=host, saves=saves, seconds=seconds)
+        return out, rec
+
+    report = {"card": smi}
+    torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated() / 2**30
+    out_a, rec_a = run("A")
+    peak = torch.cuda.max_memory_allocated() / 2**30 - held
+    region = [i for i, k in enumerate(kinds) if k]
+    check(out_a["region_steps"] == region,
+          f"gd A: region steps {out_a['region_steps']}, default_rng((seed, i)) gives {region}")
+    step_launches(rec_a, [GD_LAUNCHES[k] for k in kinds], "gd A")
+    c = expect_launches(c, total(GD_LAUNCHES[k] for k in kinds), "gd A: the run")
+    check(all(math.isfinite(v) for m in rec_a["metrics"] for v in m.values()),
+          "gd A: a non-finite loss")
+    a_dir = os.path.join(root, "A")
+    with open(os.path.join(a_dir, "log.txt")) as f:
+        log = [json.loads(line) for line in f]
+    check([x["step"] for x in log] == [4, 8] and all(
+        k == "step" or k.startswith("train_") for x in log for k in x)
+        and {"train_loss", "train_loss_mlm", "train_loss_kd", "train_loss_bbox"} <= set(log[1]),
+        f"gd A: log.txt {log}")
+    for name in ("model_state_step_4.ckpt", "model_state_step_final.ckpt",
+                 "training_state_latest.ckpt"):
+        check(os.path.exists(os.path.join(a_dir, name)), f"gd A: no {name}")
+    bg = [s for s in rec_a["saves"] if s["background"]]
+    check([s["step"] for s in bg] == [4, 8] and not rec_a["saves"][-1]["background"],
+          f"gd A: saves {rec_a['saves']}")  # every 4 steps in the background, then the end's
+    batch = GD_UNIT["batch"]
+    rates = loop_rates(rec_a, batch * u["gd_steps"], out_a["train_s"], out_a["wait_s"])
+    general_ms = statistics.median(ms for ms, k in zip(rec_a["device_ms"], kinds) if not k)
+    region_ms = statistics.median(ms for ms, k in zip(rec_a["device_ms"], kinds) if k)
+    report["A"] = dict(rates, peak_gib=peak, held_gib=held, general_device_ms=general_ms,
+                       region_device_ms=region_ms, background_caller_s=bg[0]["caller_s"],
+                       background_share=bg[0]["caller_s"] / out_a["train_s"],
+                       saves=rec_a["saves"], run_s=rec_a["seconds"])
+    print(f"gd loop A (--task gd_4m_small, {u['gd_steps']} steps at b{batch}, region steps "
+          f"{region}): losses " + "/".join(f"{m['loss']:.4f}" for m in rec_a["metrics"]))
+    print(f"gd loop A: {rates['samples_per_s']:.1f} samples/s end to end against the steps' own "
+          f"{rates['step_samples_per_s']:.1f} (device span a step: general "
+          f"{general_ms:.1f} ms, region {region_ms:.1f} ms, median); waiting for batches "
+          f"{rates['wait_share']:.3f} of the loop; the step-4 background save "
+          f"{bg[0]['caller_s']:.2f} s on the caller's thread "
+          f"({report['A']['background_share']:.3f} of the loop); peak {peak:.2f} GiB above "
+          f"{held:.2f} GiB held; run {rec_a['seconds']:.1f} s; card {smi}", flush=True)
+    del out_a
+    torch.cuda.empty_cache()
+
+    out_b, rec_b = run("B")
+    step_launches(rec_b, [GD_LAUNCHES[k] for k in kinds], "gd B")
+    c = expect_launches(c, total(GD_LAUNCHES[k] for k in kinds), "gd B: the twin")
+    del out_b
+    cut = u["gd_preempt"]
+    out_c, rec_c = run("C", flag_after=cut)
+    check(out_c == {"exit": 0}, f"gd C: {out_c}")
+    c = expect_launches(c, total(GD_LAUNCHES[k] for k in kinds[:cut]), "gd C (preempted)")
+    saved = ckpt_io.load_pytree(os.path.join(root, "C", "training_state_latest.ckpt"))
+    extra = saved["extra"]
+    check(extra["step"] == cut and saved["state"]["step"] == cut
+          and {"general_stream", "region_stream"} <= set(extra)
+          and "mask_rng" in extra["general_stream"],
+          f"gd C: saved step {extra.get('step')}, keys {sorted(extra)}")
+    del saved
+    report["resume_s"] = None
+
+    def timed_restore(orig):
+        def fn(*a, **kw):
+            t0 = time.perf_counter()
+            out = orig(*a, **kw)
+            report["resume_s"] = time.perf_counter() - t0
+            return out
+        return fn
+
+    with patched(common, "restore_full_state", timed_restore):
+        out_d, rec_d = run("C", "--resume")
+    c = expect_launches(c, total(GD_LAUNCHES[k] for k in kinds[cut:]), "gd D (resumed)")
+    state = out_d["state"]
+    check(state.step == u["gd_steps"] and out_d["steps"] == u["gd_steps"] - cut
+          and out_d["region_steps"] == region[sum(1 for i in region if i < cut):]
+          and state.opt_state.get("count", u["gd_steps"]) == u["gd_steps"],
+          f"gd D: step {state.step}, {out_d['steps']} steps, region {out_d['region_steps']}")
+    same = [all(np.array_equal(a[k], b[k]) for k in b) and sorted(a) == sorted(b)
+            for a, b in zip(rec_d["host"], rec_a["host"][cut:])]
+    check(len(same) == u["gd_steps"] - cut and all(same),
+          f"gd D: the host batches after the cut differ from A's ({same})")
+    ends = [ckpt_io.load_pytree(os.path.join(root, name, "training_state_latest.ckpt"))["extra"]
+            for name in ("A", "C")]
+    check(all(ends[0][k] == ends[1][k] for k in ("step", "general_stream", "region_stream")),
+          f"gd D: the streams' final cursors or generators differ from A's: {ends}")
+    resumed = rec_c["metrics"] + rec_d["metrics"]
+
+    def distance(a, b, first):
+        return max((abs(a[i][k] - b[i][k]) / max(abs(b[i][k]), 1e-3), i + 1, k)
+                   for i in range(first, u["gd_steps"]) for k in b[i])
+
+    worst = distance(resumed, rec_a["metrics"], cut)
+    twin = distance(rec_b["metrics"], rec_a["metrics"], 0)
+    report["D"] = {"resume_s": report.pop("resume_s"), "worst_rel": worst[0], "twin_rel": twin[0]}
+    print(f"gd loop D (--resume after {cut} steps): step {state.step}; the host batches of steps "
+          f"{cut + 1}-{u['gd_steps']} (uint8 images, masks, drawn captions, region crops and "
+          f"boxes) bit-equal to A's, and both streams' final cursors and generator states "
+          f"({ends[0]['general_stream']['file']}:{ends[0]['general_stream']['line']}, "
+          f"{ends[0]['region_stream']['file']}:{ends[0]['region_stream']['line']}); losses against A worst relative {worst[0]:.3e} (step "
+          f"{worst[1]}, {worst[2]}); two uninterrupted runs {twin[0]:.3e} (step {twin[1]}, "
+          f"{twin[2]}); tol {TRAIN_FACTOR * yardstick:.3e}; restore_full_state "
+          f"{report['D']['resume_s']:.2f} s; card {smi}", flush=True)
+    check(worst[0] <= TRAIN_FACTOR * yardstick, "gd D: the resumed losses left the tolerance")
+    del out_d, state
+    torch.cuda.empty_cache()
+    return report, c
+
+
+def loop_task(task: str, files, root: str, smi: str, c: dict, th: str = "") -> tuple:
+    """One fine-tune through run.main: its shipped YAML with the corpus's
+    files, vocab and one epoch (3 steps), from seeded params (VQA's student
+    from `th`); each step's launches, the epoch's evaluation and its files;
+    then --evaluate from the epoch's snapshot (grounding: from the full
+    state). Returns (report, c, the --evaluate record)."""
+    import torch
+
+    from efficientvlm_tpu_torch.models import model_generation as MG
+
+    u = LOOP_UNIT
+    shipped = {"vqa": "x-vlm-small-ft/VQA_480.yaml", "captioning": "x-vlm-small-ft/Captioning.yaml",
+               "nlvr": "x-vlm-small-ft/NLVR.yaml", "grounding": "x-vlm-small-ft/Grounding.yaml"}
+    updates = {
+        "vqa": dict(train_file=[files["vqa_train"]], test_file=[files["vqa_test"]],
+                    answer_list=files["answer_list"], vqa_root=files["root"], vg_root=""),
+        "captioning": dict(train_file=[files["caption_train"]], val_file=files["caption_eval"],
+                           test_file=files["caption_eval"], val_gt_file=files["caption_refs"],
+                           image_root=files["root"]),
+        "nlvr": dict(train_file=[files["nlvr_train"]], val_file=files["nlvr_val"],
+                     test_file=files["nlvr_test"], image_root=files["root"]),
+        "grounding": dict(train_file=[files["grounding_train"]],
+                          test_file=[files["grounding_test"]], ref_boxes=files["ref_boxes"],
+                          image_root=files["root"])}[task]
+    yaml_path = loop_yaml(shipped[task], root, task, text_encoder=files["vocab"],
+                          schedular={"epochs": 1}, **updates)
+    cli_task = {"vqa": "vqa_480", "captioning": "coco_captioning", "nlvr": "nlvr",
+                "grounding": "grounding"}[task]
+    out_dir = os.path.join(root, task)
+    argv = ["--task", cli_task, "--config", yaml_path, "--output_dir", out_dir]
+    if task == "vqa":
+        argv += ["--checkpoint", th, "--stop_prune_epoch", "0"]
+    gen, patches, derived = [], [], []
+
+    def with_stats(orig):
+        def fn(*a, **kw):
+            kw.setdefault("stats", {})
+            out = orig(*a, **kw)
+            gen.append(kw["stats"]["decoder_calls"])
+            return out
+        return fn
+
+    def check_derived(orig):
+        def fn(model, *a, **kw):
+            params = orig(model, *a, **kw)
+            if params is not None and not derived:  # the student: its decoder from the file
+                text, dec = params["text"]["layers"], params["text_decoder"]["layers"]
+                fusion = model.text_cfg["fusion_layer"]
+                derived.append(all(
+                    torch.equal(x, y) for i, layer in enumerate(dec)
+                    for part in ("attention", "crossattention")
+                    for x, y in zip(tree_leaves(layer[part]), tree_leaves(text[fusion + i][part]))))
+            return params
+        return fn
+
+    if task == "captioning":
+        patches = [patched(MG.XVLMForCaptioning, "generate", with_stats)]
+    if task == "vqa":
+        from efficientvlm_tpu_torch.drivers import vqa
+        from efficientvlm_tpu_torch.train.optim import tree_leaves
+
+        patches = [patched(vqa, "load_torch_params", check_derived)]
+    torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated() / 2**30
+    out, rec, run_s = cli_run(argv, {"step_class": "TaskTrainStep"}, *patches)
+    peak = torch.cuda.max_memory_allocated() / 2**30 - held
+    steps = u["task_steps"]
+    ep = out["epochs"][0]
+    check(ep["steps"] == steps and len(rec["launches"]) == steps,
+          f"{task} loop: {ep['steps']} steps")
+    step_launches(rec, TASK_LAUNCHES[task], f"{task} loop")
+    if task == "vqa":
+        check(derived == [True], "vqa loop: the student's decoder is not its cross layers")
+        check(all(rec["frozen"]), f"vqa loop: --stop_prune_epoch 0, steps frozen {rec['frozen']}")
+        evals = [LOOP_EVAL["vqa"]]
+    elif task == "captioning":
+        evals = [(1, 6, 0, 0, 6 * n, 3 * n) for n in gen]
+    elif task == "nlvr":
+        evals = [LOOP_EVAL["nlvr"]] * 2  # validation and test, one batch each
+    else:
+        evals = []
+    c = expect_launches(c, total([TASK_LAUNCHES[task]] * steps, *evals),
+                        f"{task} loop: the epoch's steps and evaluation")
+    check(all(math.isfinite(v) for m in rec["metrics"] for v in m.values()),
+          f"{task} loop: a non-finite loss")
+    with open(os.path.join(out_dir, "log.txt")) as f:
+        log = [json.loads(line) for line in f]
+    keys = set().union(*log)
+    want = {"vqa": {"eval_result_file"}, "captioning": {"CIDEr", "Bleu_4"},
+            "nlvr": {"val_acc", "test_acc"}, "grounding": set()}[task]
+    check({"epoch", "train_loss", "train_loss_task"} | want <= keys,
+          f"{task} loop: log.txt keys {sorted(keys)}")
+    snapshot = {"vqa": "model_state_step_0.ckpt", "captioning": "model_state_step_0.ckpt",
+                "nlvr": "model_state_step_best.ckpt",
+                "grounding": "training_state_latest.ckpt"}[task]
+    check(os.path.exists(os.path.join(out_dir, snapshot)), f"{task} loop: no {snapshot}")
+    if task == "vqa":
+        with open(os.path.join(out_dir, "vqa_result_epoch0.json")) as f:
+            results = json.load(f)
+        check(len(results) == u["eval_items"], f"vqa loop: {len(results)} results")
+    if task == "nlvr":
+        check(all(0.0 <= log[0][k] <= 100.0 for k in ("val_acc", "test_acc")),
+              f"nlvr loop: accuracies {log[0]}")
+    batch = ep["batch"]
+    rates = loop_rates(rec, batch * steps, ep["train_s"], ep["wait_s"])
+    report = dict(rates, peak_gib=peak, held_gib=held, eval_s=ep.get("eval_s"), run_s=run_s,
+                  losses=[m["loss"] for m in rec["metrics"]])
+    if task == "captioning":
+        report["metrics"] = ep["metrics"]
+    print(f"{task} loop (--task {cli_task}, 1 epoch of {steps} steps at b{batch}): losses "
+          + "/".join(f"{m['loss']:.4f}" for m in rec["metrics"]) + f"; {rates['samples_per_s']:.1f}"
+          f" samples/s end to end against the steps' own {rates['step_samples_per_s']:.1f} "
+          f"(device span {rates['step_device_ms_median']:.1f} ms a step, median); waiting for "
+          f"batches {rates['wait_share']:.3f} of the loop; evaluation "
+          + (f"{ep['eval_s']:.2f} s" if "eval_s" in ep else "none in the epoch")
+          + f"; peak {peak:.2f} GiB above {held:.2f} GiB held; run {run_s:.1f} s; card {smi}",
+          flush=True)
+    del out, rec
+    torch.cuda.empty_cache()
+
+    # --evaluate from the snapshot, its outputs recorded
+    ev = []
+    patches = [recording(MG.XVLMForVQA, "forward_eval", ev)] if task == "vqa" else []
+    argv = ["--task", cli_task, "--config", yaml_path, "--evaluate", "--checkpoint",
+            os.path.join(out_dir, snapshot), "--output_dir", os.path.join(root, f"{task}-eval")]
+    if task == "captioning":
+        patches = [patched(MG.XVLMForCaptioning, "generate", with_stats),
+                   recording(MG.XVLMForCaptioning, "generate", ev)]
+        gen.clear()
+    t0 = time.perf_counter()
+    out, _, _ = cli_run(argv, {"step_class": "TaskTrainStep"}, *patches)
+    report["evaluate_s"] = time.perf_counter() - t0
+    if task == "captioning":
+        evals = [(1, 6, 0, 0, 6 * n, 3 * n) for n in gen]
+    else:
+        evals = [LOOP_EVAL[task]]
+    c = expect_launches(c, total(evals), f"{task} --evaluate from {snapshot}")
+    if task == "grounding":
+        check(set(out) >= {"results", "val", "testA", "testB"} and all(
+            0.0 <= out[k] <= 100.0 for k in ("val", "testA", "testB")),
+            f"grounding --evaluate: {sorted(out)}")
+        report["evaluate"] = {k: out[k] for k in ("val", "testA", "testB")}
+    elif task == "nlvr":
+        check(0.0 <= out["test_acc"] <= 100.0, f"nlvr --evaluate: {out}")
+        report["evaluate"] = {"test_acc": out["test_acc"]}
+    else:
+        check(len(out["results"]) == u["eval_items"], f"{task} --evaluate: {len(out['results'])}")
+    print(f"{task} --evaluate from {snapshot}: {report['evaluate_s']:.2f} s"
+          + (f", {report['evaluate']}" if "evaluate" in report else "") + f"; card {smi}",
+          flush=True)
+    return report, c, ev
+
+
+def hold_vqa_evaluate(ev: list, smi: str):
+    """VQA --evaluate's ranked answer probabilities (the kernel path, as
+    recorded) against the plain path in bf16 and in f32 compute on the same
+    params, gates and inputs: the per-question distance from the plain path,
+    the kernel path's per-question distance from f32, by its median, within
+    VQA_MEDIAN_FACTOR x the plain bf16 path's (medians, as phase_generation
+    holds its draws)."""
+    import torch
+
+    (model, params, *inputs), kw, (ids_k, p_k) = ev[0][0], ev[0][1], ev[0][2]
+    zs, k = kw.get("zs"), kw["k"]
+    with torch.inference_mode(), uncounted():
+        ids_p, p_p = model.forward_eval(params, *inputs, k=k, zs=zs, dtype=torch.bfloat16,
+                                        impl="plain")
+        ids_32, p_32 = model.forward_eval(params, inputs[0].float(), *inputs[1:], k=k, zs=zs,
+                                          dtype=torch.float32, impl="plain")
+    d_kf = (p_k.float() - p_32.float()).abs().amax(1)
+    d_pf = (p_p.float() - p_32.float()).abs().amax(1)
+    med_kf, med_pf = d_kf.median().item(), d_pf.median().item()
+    top1 = (ids_k[:, 0] == ids_p[:, 0]).float().mean().item()
+    print(f"vqa --evaluate ranked probabilities ({p_k.shape[0]} questions, k {k}): kernel vs "
+          f"f32 median {med_kf:.4e} (max {d_kf.max().item():.4e}); plain bf16 vs f32 median "
+          f"{med_pf:.4e} (max {d_pf.max().item():.4e}); tol {VQA_MEDIAN_FACTOR} x the latter; "
+          f"top-1 as the plain path's on {top1:.3f}; card {smi}")
+    check(med_kf <= VQA_MEDIAN_FACTOR * med_pf, "vqa --evaluate: the kernel path disagrees")
+    return {"median_kernel_f32": med_kf, "median_plain_f32": med_pf, "top1_equal": top1}
+
+
+def hold_caption_evaluate(ev: list, smi: str):
+    """Captioning --evaluate's beam tokens (the kernel path, as recorded)
+    replayed teacher-forced (forward_logits, the snapshot's gates) on the
+    kernel path, the plain path and the plain path in f32: held as
+    hold_outputs holds logits."""
+    import torch
+
+    (model, params, image, prompt_ids), kw, tokens = ev[0][0], ev[0][1], ev[0][2]
+    zs, pad = kw.get("zs"), kw.get("pad_id", 0)
+    atts = (tokens != pad).long()
+    atts[:, :prompt_ids.shape[1]] = 1
+    with torch.inference_mode(), uncounted():
+        kern = model.forward_logits(params, image, tokens, atts, zs=zs, dtype=torch.bfloat16)
+        plain = model.forward_logits(params, image, tokens, atts, zs=zs, dtype=torch.bfloat16,
+                                     impl="plain")
+        f32 = model.forward_logits(params, image.float(), tokens, atts, zs=zs,
+                                   dtype=torch.float32, impl="plain")
+    keep = atts.bool()
+    hold_outputs(f"caption --evaluate, the beam tokens replayed ({int(keep.sum())} positions)",
+                 kern[keep], plain[keep], f32[keep])
+    print(f"caption --evaluate: {tokens.shape[0]} captions of {tokens.shape[1]} tokens; card {smi}")
+
+
+def phase_loops(smi: str, yardstick: float) -> dict:
+    """The other drivers' loops on the card, each through
+    efficientvlm_tpu_torch.run.main (the port's CLI) in this process, from
+    files under build/ (removed after): write_data_corpus's and
+    write_loop_corpus's, and the shipped YAMLs at full width with the
+    corpus's files, vocab and length: general distillation (loop_gd: 8
+    steps, a snapshot and a background save at step 4, preempted after 5
+    and resumed), then the VQA (its student from a seeded 6L / 6L .th at 224
+    px: the decoder from the cross layers, the positions resized to 480;
+    --stop_prune_epoch 0), captioning, NLVR and grounding fine-tunes (one
+    epoch of 3 steps and its evaluation, then --evaluate from the epoch's
+    snapshot; VQA's and captioning's held to the plain path). Every other
+    model starts from seeded params. Launches counted over the phase, the
+    comparisons' own taken out."""
+    import shutil
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from efficientvlm_tpu_torch.drivers import gd
+
+    t_phase = time.perf_counter()
+    build = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build")
+    os.makedirs(build, exist_ok=True)
+    root = tempfile.mkdtemp(prefix="loops-", dir=build)
+    report = {"card": smi}
+    try:
+        t0 = time.perf_counter()
+        files = write_loop_corpus(write_data_corpus(root, np.random.default_rng(2)),
+                                  np.random.default_rng(3))
+        print(f"loops corpus written in {time.perf_counter() - t0:.1f} s")
+        student = gd.build_models(gd_config())[0]
+        th = os.path.join(root, "vqa_student.th")
+        write_s = write_th(student.init(13, device="cuda", with_bbox_head=True), th, 3)
+        print(f"vqa student .th (6L / 6L at 224 px, {os.path.getsize(th) / 2**20:.0f} MiB) "
+              f"written in {write_s:.2f} s")
+        del student
+        c = reset_counts()  # the loops' main path starts here
+        t0 = time.perf_counter()
+        report["gd"], c = loop_gd(files, root, smi, yardstick, c)
+        report["gd"]["seconds"] = time.perf_counter() - t0
+        for task in ("vqa", "captioning", "nlvr", "grounding"):
+            t0 = time.perf_counter()
+            report[task], c, ev = loop_task(task, files, root, smi, c, th)
+            if task == "vqa":
+                report[task]["hold"] = hold_vqa_evaluate(ev, smi)
+            elif task == "captioning":
+                hold_caption_evaluate(ev, smi)
+            del ev
+            torch.cuda.empty_cache()
+            report[task]["seconds"] = time.perf_counter() - t0
+        launches = counts()
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    print(json.dumps({"loops_phase": report}, default=float))
+    print(f"phase loops: {time.perf_counter() - t_phase:.1f} s")
+    return {"launches": launches}
+
+
+# --------------------------------------------------------------------------
 # phase 4: times
 # --------------------------------------------------------------------------
 
@@ -4375,8 +5006,9 @@ def main(argv) -> int:
     del grounding_state
     data_launches = phase_data(smi)["launches"]
     driver_launches = phase_driver(smi, yardstick)["launches"]
+    loops_launches = phase_loops(smi, yardstick)["launches"]
     later = [gd_launches, task_launches, nlvr_launches, grounding_launches, data_launches,
-             driver_launches]
+             driver_launches, loops_launches]
     kernels = phase_times(cases, device_cases, errs, slice_state, gen_state,
                           [train_launches] + later)
     for row in train_rows:  # the probs forms run on every training path

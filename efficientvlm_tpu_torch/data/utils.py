@@ -1,8 +1,10 @@
 """Text normalisation and JSONL files of the host data layer (the port's
 copy of pre_question, pre_caption, write_jsonl and read_jsonl of
 efficientvlm_tpu/data/utils.py, which follow the reference's
-dataset/utils.py:17-57). The rank-sharded result merge (collect_result)
-comes with distribution.
+dataset/utils.py:17-57), and the single-process part of collect_result
+(dataset/utils.py:104-141): the per-rank file, the merge, the de-duplication,
+the saved result and the hdfs:// copies. Merging the files of several
+processes comes with distribution (ROADMAP A6).
 """
 
 from __future__ import annotations
@@ -10,7 +12,7 @@ from __future__ import annotations
 import json
 import os
 import re
-from typing import List
+from typing import List, Optional, Union
 
 _PUNCT = r"([,.'!?\"()*#:;~])"
 
@@ -55,3 +57,46 @@ def read_jsonl(path: str) -> List[dict]:
     """The objects of a JSONL file; blank lines are skipped."""
     with open(path) as f:
         return [json.loads(line) for line in f if line.strip()]
+
+
+def collect_result(result: List[dict], filename: str, local_wdir: str, *, hdfs_wdir: str = "",
+                   rank: Optional[int] = None, world_size: Optional[int] = None,
+                   remove_duplicate: str = "",
+                   save_result: bool = False) -> Union[List[dict], str]:
+    """The evaluation's records through the reference's merge
+    (efficientvlm_tpu/data/utils.py:65-120): this rank's records to
+    <local_wdir>/<filename>_rank<r>.json (JSONL), copied to hdfs_wdir when
+    given; then the ranks' files read back and merged, the first record of
+    each remove_duplicate key kept. Returns the merged list, or with
+    save_result the path of <filename>.json (the merged list as one JSON
+    array, copied to hdfs_wdir too). One process: the barrier is a no-op,
+    and a world size above 1 raises (ROADMAP A6)."""
+    from ..utils.dist import get_rank, get_world_size
+    from ..utils.io import hcopy
+
+    rank = get_rank() if rank is None else rank
+    world_size = get_world_size() if world_size is None else world_size
+    if world_size > 1:
+        raise NotImplementedError(f"collect_result over {world_size} processes: the merge "
+                                  "across processes comes with distribution (ROADMAP A6)")
+    remote = hdfs_wdir.rstrip("/")
+    rank_file = os.path.join(local_wdir, f"{filename}_rank{rank}.json")
+    write_jsonl(result, rank_file)
+    if remote:
+        hcopy(rank_file, f"{remote}/{filename}_rank{rank}.json")
+    merged = read_jsonl(rank_file)
+    if remove_duplicate:
+        seen, kept = set(), []
+        for res in merged:
+            if res[remove_duplicate] not in seen:
+                seen.add(res[remove_duplicate])
+                kept.append(res)
+        merged = kept
+    if not save_result:
+        return merged
+    final = os.path.join(local_wdir, f"{filename}.json")
+    with open(final, "w") as f:
+        json.dump(merged, f, ensure_ascii=False, indent=4)
+    if remote:
+        hcopy(final, f"{remote}/{filename}.json")
+    return final

@@ -1,5 +1,7 @@
-"""The captioning pruning fine-tune (stage 2): the models, the gates and the
-step of efficientvlm_tpu/drivers/captioning.py. The 12L/12L teacher
+"""The captioning pruning fine-tune (stage 2, the reference's
+Eff_Captioning.py): the models, the gates, the step, checkpoint import, the
+beam-search evaluation and the loop of efficientvlm_tpu/drivers/
+captioning.py. The 12L/12L teacher
 distils into the 6L/6L student; the decoder is the whole fusion text stack
 (layers [0, fusion) text-only, the rest cross-attending into the image), so
 the gates are XVLML0Module's over that stack. loss = 0.7 x the caption LM
@@ -8,20 +10,37 @@ loss (prompt and PAD masked, label smoothing) + 0.3 x captioning_kd_losses
 and normalises uint8 images on the device first.
 
 Batches: {"image", "caption_ids", "caption_atts"}; config["prompt_length"]
-is the prompt's token count without [SEP] (efficientvlm_tpu/drivers/
-captioning.py takes it from the tokenizer). Beam-search evaluation, SCST and checkpoint
-import come with later slices.
+is the prompt's token count without [SEP], which main takes from the
+tokenizer. main runs on the device args["device"] names (default cuda),
+with JAX's loop but for these: one process; --checkpoint may also name a
+native .ckpt; --evaluate builds no teacher; with compute_dtype bf16 the
+frozen teacher is stored in bf16. --scst (self-critical sequence training,
+efficientvlm_tpu/drivers/captioning.py:241-351) comes with ROADMAP A4.
 """
 
 from __future__ import annotations
 
+import json
+import os
+import time
 from typing import Optional
 
+import numpy as np
+import torch
+
 from ..config import Config
+from ..data.datasets import CaptioningEvalDataset, CaptioningTrainDataset, SimpleLoader
+from ..data.tokenizer import build_tokenizer
+from ..data.transforms import ImageTransform
+from ..data.utils import collect_result
+from ..device import resolve_device
+from ..evaluation.caption_metrics import coco_caption_eval
 from ..models.model_generation import XVLMForCaptioning
 from ..pruning.l0_module import L0Module, XVLML0Module
+from ..train import checkpoint as ckpt_io
 from ..train.steps import (
-    TaskTrainStep, captioning_kd_losses, make_task_train_step, subset_teacher_taps,
+    TaskTrainStep, captioning_kd_losses, init_train_state, make_task_train_step,
+    subset_teacher_taps,
 )
 from . import common
 from .common import DevicePreprocess
@@ -35,6 +54,23 @@ def build_models(config: Config):
     vcfg, tcfg = common.model_configs(config)
     tv, tt = common.teacher_configs(config)
     return XVLMForCaptioning(vcfg, tcfg, config), XVLMForCaptioning(tv, tt, config)
+
+
+def load_torch_params(model: XVLMForCaptioning, ckpt_path, load_capt_pretrain: bool = False, *,
+                      device=None) -> Optional[dict]:
+    """A reference-keyed torch checkpoint for `model` on `device` (default
+    cuda), or None when the path is absent (efficientvlm_tpu/drivers/
+    captioning.py:37-55): the decoder from text_encoder.*, or with
+    load_capt_pretrain a captioning domain pretrain's text_decoder.*."""
+    if not (ckpt_path and os.path.exists(ckpt_path)):
+        return None
+    device = resolve_device(device)
+    return ckpt_io.captioning_params_from_state_dict(
+        ckpt_io.load_torch_state_dict(ckpt_path),
+        vision_layers=model.vision_cfg["num_hidden_layers"],
+        text_layers=model.text_cfg["num_hidden_layers"],
+        fusion_layer=model.text_cfg["fusion_layer"], num_patches=model.vision_cfg.num_patches,
+        load_capt_pretrain=load_capt_pretrain, device=device)
 
 
 def build_l0(config: Config) -> L0Module:
@@ -57,7 +93,7 @@ def build_optimizers(params, config: Config, total_steps: int):
 
 def build_step(config: Config, student: XVLMForCaptioning, teacher: XVLMForCaptioning,
                l0: L0Module, optimizers, *, teacher_params, frozen_zs: Optional[dict] = None,
-               dtype=None, impl: str = "fused"):
+               temperature: float = 1.0, dtype=None, impl: str = "fused"):
     """The step (a TaskTrainStep, in DevicePreprocess when
     config["device_preprocess"] is set): the student in train mode with its
     KD taps, the teacher in eval mode with its maps, its taps cut to the
@@ -82,9 +118,146 @@ def build_step(config: Config, student: XVLMForCaptioning, teacher: XVLMForCapti
             by_key={"decoder_hidden_states": depth, "decoder_attentions": depth})
 
     step: TaskTrainStep = make_task_train_step(
-        student_forward, teacher_forward, captioning_kd_losses, l0, optimizers,
+        student_forward, teacher_forward,
+        lambda s, t: captioning_kd_losses(s, t, temperature=temperature), l0, optimizers,
         teacher_params=teacher_params, task_weight=TASK_WEIGHT, kd_weight=KD_WEIGHT,
         frozen_zs=frozen_zs)
     if config.get("device_preprocess"):
         return DevicePreprocess(step, int(config.get("image_res", 384)))
     return step
+
+
+def strip_prompt(caption: str, prompt: str) -> str:
+    """The decoded caption without the prompt it starts with."""
+    p = prompt.strip()
+    return caption[len(p):].strip() if caption.startswith(p) else caption
+
+
+@torch.no_grad()
+def evaluation(model: XVLMForCaptioning, params, loader, tokenizer, config: Config, *, zs=None,
+               dtype=None) -> list:
+    """Beam search from the prompt (efficientvlm_tpu/drivers/
+    captioning.py:72-96, the reference's Eff_Captioning.py:184-208): the
+    prompt's ids without [SEP], num_beams, max_length and min_length of the
+    config, the prompt stripped from each decoded caption, on the params'
+    device. Returns [{"image_id", "caption"}]."""
+    prompt = config.get("prompt", "a picture of ")
+    prompt_ids = np.asarray(tokenizer([prompt])["input_ids"], np.int64)[:, :-1]  # drop [SEP]
+    device = common.device_of(params)
+    dtype = dtype or common.compute_dtype(config)
+    results = []
+    for images, image_ids in loader:
+        tokens = model.generate(
+            params, common.to_device(images, device),
+            common.to_device(np.repeat(prompt_ids, len(image_ids), axis=0), device),
+            max_length=int(config.get("max_length", 20)),
+            min_length=int(config.get("min_length", 5)), num_beams=int(config.get("num_beams", 3)),
+            eos_id=tokenizer.sep_token_id, pad_id=tokenizer.pad_token_id, zs=zs, dtype=dtype,
+            impl=config.get("attn_impl", "fused"))
+        for img_id, toks in zip(image_ids, tokens.cpu().numpy()):
+            results.append({"image_id": int(img_id), "caption": strip_prompt(
+                tokenizer.decode(toks, skip_special_tokens=True), prompt)})
+    return results
+
+
+def make_batch(items, tokenizer, config: Config, device) -> dict:
+    """A loader batch (images, prompt + caption, image index) as the step's
+    batch on `device`, the captions at padding "max_length" (max_tokens)."""
+    images, captions, _ = items
+    tok = tokenizer(list(captions), padding="max_length", truncation=True,
+                    max_length=config.get("max_tokens", 30))
+    return {"image": common.to_device(images, device),
+            "caption_ids": common.to_device(tok["input_ids"], device, torch.int64),
+            "caption_atts": common.to_device(tok["attention_mask"], device)}
+
+
+def main(args: Config, config: Config) -> dict:
+    """The fine-tune (efficientvlm_tpu/drivers/captioning.py:98-238):
+    config["prompt_length"] from the tokenizer, the student (a native
+    --checkpoint as stored, else a .th through load_torch_params with
+    --load_capt_pretrain, else the seeded init) and the teacher
+    (--teacher_chkpt), the gates, --evaluate (the validation split with a
+    native checkpoint's stored gates or the init gates' deterministic ones,
+    merged by collect_result into caption_result, one caption an image),
+    --resume, and per epoch the loop, the evaluation, coco_caption_eval
+    against val_gt_file when the config names one, log.txt, the epoch's
+    snapshot and the full state. Returns {"state", "epochs"} (each epoch's
+    steps, seconds and metrics); with --evaluate {"results"}."""
+    if args.get("scst") and not args.get("evaluate"):
+        raise NotImplementedError("--scst: self-critical sequence training (captioning."
+                                  "scst_train, sampling and the CIDEr reward) comes with "
+                                  "ROADMAP A4")
+    info = common.setup(args, config)
+    device = resolve_device(args.get("device"))
+    out_dir = args.get("output_dir") or "output"
+    seed = int(args.get("seed", 42))
+    tokenizer = build_tokenizer(config.get("text_encoder", ""))
+    image_res = config.get("image_res", 384)
+    prompt = config.get("prompt", "a picture of ")
+    prompt_len = len(tokenizer([prompt])["input_ids"][0]) - 1
+    config["prompt_length"], config["pad_token_id"] = prompt_len, tokenizer.pad_token_id
+    student, teacher = build_models(config)
+    student.prompt_length = teacher.prompt_length = prompt_len
+
+    pretrain = bool(args.get("load_capt_pretrain"))
+    sparams = common.load_student(
+        student, args, lambda: student.init(0, device=device),
+        lambda path: load_torch_params(student, path, pretrain, device=device), device=device)
+    l0 = build_l0(config)
+    l0_params = l0.init(2, device=device)
+    val_ds = CaptioningEvalDataset(config["val_file"], common.eval_transform(config, image_res),
+                                   config.get("image_root", ""))
+    val_loader = SimpleLoader(val_ds, batch_size=config.get("batch_size_test", 16))
+
+    if args.get("evaluate"):
+        zs = common.eval_gates(l0, l0_params, args, Config(), device=device)
+        results = evaluation(student, sparams, val_loader, tokenizer, config, zs=zs)
+        return {"results": collect_result(
+            results, "caption_result", out_dir, hdfs_wdir=args.get("output_hdfs", ""),
+            rank=info["rank"], world_size=info["world_size"], remove_duplicate="image_id")}
+
+    dtype = common.compute_dtype(config)
+    tparams = common.frozen_teacher(
+        load_torch_params(teacher, args.get("teacher_chkpt"), pretrain, device=device)
+        or teacher.init(1, device=device), dtype)
+    train_ds = CaptioningTrainDataset(
+        config["train_file"],
+        common.preprocess_transform(config, default=ImageTransform.train(image_res, seed=seed)),
+        config.get("image_root", ""), prompt=prompt, max_words=config.get("max_tokens", 30))
+    bs = int(args.get("bs") or config.get("batch_size_train", 16))
+    train_loader = common.maybe_parallel_loader(SimpleLoader(
+        train_ds, batch_size=bs, shuffle=True, drop_last=True, rank=info["rank"],
+        world_size=info["world_size"]), config)
+    epochs = int(args.get("epoch") or config.get("schedular", {}).get("epochs", 5))
+    steps_per_epoch = max(len(train_loader), 1)
+    l0.lagrangian_warmup = int(float(config.get("L0_schedular", {}).get(
+        "lagrangian_warmup_epochs", 1)) * steps_per_epoch)
+    optimizers = build_optimizers(sparams, config, epochs * steps_per_epoch)
+    state = init_train_state(sparams, l0_params, optimizers)
+    step = common.build_train_step(build_step(
+        config, student, teacher, l0, optimizers, teacher_params=tparams,
+        temperature=float(args.get("temperature", 1.0)), dtype=dtype,
+        impl=config.get("attn_impl", "fused")), config)
+    state, start_epoch, resume_batches = common.resume_epochs(args, state)
+
+    epochs_run = []
+    prof = common.StepProfiler(config, out_dir)
+    for epoch in range(start_epoch, epochs):
+        state, logger, record = common.train_epoch(
+            train_loader, step, state, lambda items: make_batch(items, tokenizer, config, device),
+            prof, epoch=epoch, seed=seed, device=device, output_dir=out_dir,
+            resume_batches=resume_batches if epoch == start_epoch else 0, batch_size=bs)
+        zs = l0.forward_deterministic({"loga": state.loga})
+        t0 = time.perf_counter()
+        results = evaluation(student, state.params, val_loader, tokenizer, config, zs=zs)
+        record["eval_s"] = time.perf_counter() - t0
+        metrics = {}
+        if config.get("val_gt_file"):
+            with open(config["val_gt_file"]) as f:
+                metrics = coco_caption_eval(json.load(f), results)
+        common.log_stats({"epoch": epoch, **metrics, **common.train_stats(logger)}, out_dir)
+        common.save_training_state(out_dir, epoch, {
+            "model": state.params, "l0": {"loga": state.loga, **state.lam}, "epoch": epoch})
+        common.save_full_state(out_dir, state, {"epoch": epoch})
+        epochs_run.append(dict(record, metrics=metrics, results=results))
+    return {"state": state, "epochs": epochs_run}

@@ -1,10 +1,13 @@
 """Shared driver plumbing (port of efficientvlm_tpu/drivers/common.py): run
 set-up, the model configs, the optimizer trio with gradient accumulation and
 the skip of non-finite updates, checkpoint loading, the fine-tunes' train
-epoch with its metric fetch, preemption and full-state saves, the host
-loaders and on-device preprocessing around a step. The retrieval driver's
-loop (drivers/retrieval.main) runs on it; the other drivers' loops come
-next (ROADMAP A3).
+epoch with its metric fetch and bookkeeping (resume, the epoch's record, the
+log.txt line), preemption and full-state saves, the pretraining streams'
+saved state, the host loaders and on-device preprocessing around a step.
+Every driver's loop runs on it: retrieval, VQA, captioning, NLVR and
+grounding (`main` of each drivers/<task>.py) and general distillation
+(drivers/gd.main, step by step over two streams). Still to come: SCST
+(ROADMAP A4) and distribution (A6).
 
 Where JAX's design does not carry over to eager PyTorch:
 - the metrics of a step are read one step later, from pinned host buffers
@@ -25,6 +28,7 @@ import json
 import os
 import signal
 import threading
+import time
 from typing import Optional, Tuple
 
 import numpy as np
@@ -38,6 +42,7 @@ from ..train.optim import (ApplyIfFinite, MultiSteps, create_l0_optimizer,
                            create_lagrangian_optimizer, create_optimizer)
 from ..train.scheduler import create_scheduler
 from ..utils.dist import get_rank, init_distributed_mode
+from ..utils.logger import MetricLogger
 
 
 def setup(args: Config, config: Config) -> Config:
@@ -111,6 +116,26 @@ def log_stats(stats: dict, output_dir: str, filename: str = "log.txt") -> None:
         return
     with open(os.path.join(output_dir, filename), "a") as f:
         f.write(json.dumps(stats, default=str) + "\n")
+
+
+def compute_dtype(config: Config):
+    """bf16 unless config compute_dtype says otherwise (then f32, None)."""
+    return torch.bfloat16 if config.get("compute_dtype", "bf16") == "bf16" else None
+
+
+def device_of(params) -> torch.device:
+    """The device of a param tree's first leaf (an evaluation runs where its
+    params are)."""
+    from ..train.optim import tree_leaves
+
+    return tree_leaves(params)[0].device
+
+
+def to_device(x, device, dtype=None) -> torch.Tensor:
+    """A host array (numpy or a list) as a tensor on `device`, cast to
+    `dtype` when given (ids to int64: the models gather with them)."""
+    t = torch.from_numpy(np.asarray(x)).to(device)
+    return t if dtype is None else t.to(dtype)
 
 
 def model_configs(config: Config) -> Tuple[VisionConfig, TextConfig]:
@@ -219,6 +244,34 @@ def native_eval_gates(l0, args: Config, config: Config, *, device=None):
         return None
     device = resolve_device(device)
     return l0.forward_deterministic({"loga": {k: v.to(device) for k, v in gates["loga"].items()}})
+
+
+def load_student(model, args: Config, init, from_torch, *, device=None):
+    """A fine-tune's student params: a native --checkpoint as stored
+    (maybe_load_params), else from_torch(path) (the task's import of a
+    reference .th, None when there is no file), else init()."""
+    if is_native_checkpoint(args, Config()):
+        return maybe_load_params(model, args, Config(), init, device=device)
+    return from_torch(args.get("checkpoint")) or init()
+
+
+def eval_gates(l0, l0_params: dict, args: Config, config: Config, *, device=None):
+    """--evaluate's gates: a native checkpoint's stored ones
+    (native_eval_gates; None for a physical export), else
+    forward_deterministic of l0_params (the seeded init's)."""
+    if is_native_checkpoint(args, config):
+        return native_eval_gates(l0, args, config, device=device)
+    return l0.forward_deterministic({"loga": l0_params["loga"]})
+
+
+def frozen_teacher(params, dtype):
+    """The frozen teacher's params stored in the compute dtype (the values
+    its matmuls round to), or as they are (dtype None: f32)."""
+    if dtype is None:
+        return params
+    from ..bridge import cast_floating
+
+    return cast_floating(params, dtype)
 
 
 # ---------------------------------------------------------------------------
@@ -358,6 +411,49 @@ def run_train_epoch(loader, logger, step_fn, state, make_batch, prof, *, epoch: 
     return state
 
 
+def resume_epochs(args: Config, state):
+    """(state, start_epoch, resume_batches): with --resume and a saved full
+    state in the output directory, the state restored and the epoch and
+    batch it stopped at; else the state as given, 0, 0."""
+    out_dir = args.get("output_dir", "")
+    restored = restore_full_state(out_dir, state) if args.get("resume") and out_dir else None
+    if restored is None:
+        return state, 0, 0
+    state, extra = restored
+    start_epoch = int(extra.get("epoch", -1)) + 1
+    resume_batches = int(extra.get("batches_done", 0))
+    print(f"### resumed from epoch {start_epoch} (full state incl. optimizers)"
+          + (f" at batch {resume_batches}" if resume_batches else ""))
+    return state, start_epoch, resume_batches
+
+
+def train_epoch(loader, step_fn, state, make_batch, prof, *, epoch: int, seed: int, device,
+                output_dir: str = "", resume_batches: int = 0, batch_size: int = 0):
+    """One epoch of a fine-tune's loop: the loader's epoch set,
+    run_train_epoch under a fresh MetricLogger, the profiler's window
+    closed. Returns (state, logger, record), record {"epoch", "steps" (run
+    in this process), "batch", "train_s" (the loop's seconds), "wait_s"
+    (of them, waiting for batches)}."""
+    loader.set_epoch(epoch)
+    logger = MetricLogger()
+    t0 = time.perf_counter()
+    state = run_train_epoch(loader, logger, step_fn, state, make_batch, prof, epoch=epoch,
+                            seed=seed, device=device, output_dir=output_dir,
+                            resume_batches=resume_batches, header=f"Train Epoch: [{epoch}]")
+    train_s = time.perf_counter() - t0
+    prof.close()
+    logger.synchronize_between_processes()
+    return state, logger, {"epoch": epoch, "steps": logger.iterations - resume_batches,
+                           "batch": batch_size, "train_s": train_s,
+                           "wait_s": logger.wait_seconds}
+
+
+def train_stats(logger: MetricLogger) -> dict:
+    """The log.txt keys of the train meters: train_<name>, the global
+    average to 5 decimals (a string, as JAX writes it)."""
+    return {f"train_{k}": f"{m.global_avg:.5f}" for k, m in logger.meters.items()}
+
+
 def save_training_state(output_dir: str, tag, payload: dict) -> None:
     """A snapshot, model_state_{tag}.ckpt; training_state_latest (the full
     resumable state) is save_full_state's alone."""
@@ -468,6 +564,46 @@ def restore_full_state(output_dir: str, template_state):
         return None
     payload = ckpt_io.load_pytree(path)
     return ckpt_io.restore_pytree_like(template_state, payload["state"]), payload.get("extra", {})
+
+
+# ---------------------------------------------------------------------------
+# A pretraining stream's saved state: the JSONL cursor and the host generators.
+
+
+def _transform_draws(transform) -> bool:
+    """Whether the host transform draws from its generator (a crop, flip or
+    RandAugment; not the evaluation's or the uint8 resize)."""
+    return transform is not None and transform.mode not in ("test", "uint8")
+
+
+def stream_state(dataset) -> dict:
+    """Where a pretraining stream (PretrainImageTextDataset or
+    RegionTextDataset) stands: its JSONL cursor under JAX's keys ("epoch",
+    "file", "line") and the states (bit_generator.state: ints and strings,
+    which torch.load(weights_only=True) reads) of the host generators its
+    batches draw from: the dataset's own (captions, region crops, text
+    choice), the masking's and, when the host augments, the transform's.
+    JAX's GD saves the cursor alone, so its resumed stream draws what step 0
+    drew (ROADMAP C)."""
+    cursor = dataset.stream.state_dict()
+    state = {"epoch": int(cursor["epoch"]), "file": int(cursor["cursor"][0]),
+             "line": int(cursor["cursor"][1]), "rng": dataset.rng.bit_generator.state,
+             "mask_rng": dataset.mask_generator.rng.bit_generator.state}
+    if _transform_draws(dataset.transform):
+        state["transform_rng"] = dataset.transform.rng.bit_generator.state
+    return state
+
+
+def load_stream_state(dataset, state: dict) -> None:
+    """stream_state's dict back into a freshly built stream: the cursor and
+    each generator's state (in place: the transform's RandAugment shares its
+    generator)."""
+    dataset.stream.load_state_dict({"epoch": int(state["epoch"]),
+                                    "cursor": [int(state["file"]), int(state["line"])]})
+    dataset.rng.bit_generator.state = state["rng"]
+    dataset.mask_generator.rng.bit_generator.state = state["mask_rng"]
+    if "transform_rng" in state:
+        dataset.transform.rng.bit_generator.state = state["transform_rng"]
 
 
 class DevicePreprocess:

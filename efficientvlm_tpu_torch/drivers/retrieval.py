@@ -17,7 +17,6 @@ import time
 import numpy as np
 import torch
 
-from ..bridge import cast_floating
 from ..config import Config
 from ..data.datasets import RetrievalEvalDataset, RetrievalTrainDataset, SimpleLoader
 from ..data.tokenizer import build_tokenizer
@@ -28,7 +27,6 @@ from ..models.model_retrieval import XVLMForRetrieval
 from ..pruning.l0_module import L0Module, XVLML0Module
 from ..train.steps import init_train_state, make_retrieval_train_step
 from ..utils.dist import get_rank, get_world_size
-from ..utils.logger import MetricLogger
 from . import common
 
 
@@ -57,11 +55,6 @@ def build_l0(config: Config) -> L0Module:
         head_group=int(config.get("head_gate_group", 1)))
 
 
-def compute_dtype(config: Config):
-    """bf16 unless config compute_dtype says otherwise (then f32, None)."""
-    return torch.bfloat16 if config.get("compute_dtype", "bf16") == "bf16" else None
-
-
 def evaluate(model, params, eval_loader, eval_dataset, tokenizer, config: Config, *, zs=None,
              dtype=None) -> dict:
     """The two-stage evaluation (ITC shortlist, k_test ITM rerank) and
@@ -71,7 +64,7 @@ def evaluate(model, params, eval_loader, eval_dataset, tokenizer, config: Config
                     max_length=config.get("max_tokens", 40))
     ids, atts = np.asarray(tok["input_ids"], np.int64), np.asarray(tok["attention_mask"])
     impl = config.get("attn_impl", "fused")
-    dtype = dtype or compute_dtype(config)
+    dtype = dtype or common.compute_dtype(config)
     text_feats, text_embeds = R.encode_texts(
         model, params, ids, atts, zs=zs, batch_size=config.get("batch_size_test_text", 64),
         dtype=dtype, impl=impl)
@@ -146,30 +139,18 @@ def main(args: Config, config: Config) -> dict:
     optimizers = common.build_optimizers(sparams, config, epochs * steps_per_epoch)
     state = init_train_state(sparams, l0.init(2, device=device), optimizers)
 
-    start_epoch, resume_batches = 0, 0
-    if args.get("resume") and out_dir:
-        restored = common.restore_full_state(out_dir, state)
-        if restored is not None:
-            state, extra = restored
-            start_epoch = int(extra.get("epoch", -1)) + 1
-            resume_batches = int(extra.get("batches_done", 0))
-            print(f"### resumed from epoch {start_epoch} (full state incl. optimizers)"
-                  + (f" at batch {resume_batches}" if resume_batches else ""))
+    state, start_epoch, resume_batches = common.resume_epochs(args, state)
 
     if args.get("evaluate"):
-        zs = (common.native_eval_gates(l0, args, config, device=device)
-              if common.is_native_checkpoint(args, config)
-              else l0.forward_deterministic({"loga": state.loga}))
+        zs = common.eval_gates(l0, {"loga": state.loga}, args, config, device=device)
         results = evaluate(student, state.params, test_loader, test_ds, tokenizer, config, zs=zs)
         common.log_stats({"test": results}, out_dir)
         return results
 
-    dtype = compute_dtype(config)
-    tparams = common.maybe_load_params(teacher, Config({"checkpoint": args.get("teacher_chkpt")}),
-                                       Config(), lambda: teacher.init(1, device=device),
-                                       device=device)
-    if dtype is not None:
-        tparams = cast_floating(tparams, dtype)  # frozen: the values its matmuls round to
+    dtype = common.compute_dtype(config)
+    tparams = common.frozen_teacher(common.maybe_load_params(
+        teacher, Config({"checkpoint": args.get("teacher_chkpt")}), Config(),
+        lambda: teacher.init(1, device=device), device=device), dtype)
     step = common.build_train_step(common.wrap_step_with_preprocess(
         make_retrieval_train_step(student, teacher, l0, optimizers, teacher_params=tparams,
                                   temperature=float(args.get("temperature", 1.0)), dtype=dtype,
@@ -178,26 +159,17 @@ def main(args: Config, config: Config) -> dict:
     best, best_epoch, epochs_run = 0.0, 0, []
     prof = common.StepProfiler(config, out_dir)
     for epoch in range(start_epoch, epochs):
-        train_loader.set_epoch(epoch)
-        logger = MetricLogger()
-        skip = resume_batches if epoch == start_epoch else 0
-        t0 = time.perf_counter()
-        state = common.run_train_epoch(
-            train_loader, logger, step, state,
-            lambda items: make_batch(items, tokenizer, config, device), prof, epoch=epoch,
-            seed=seed, device=device, output_dir=out_dir, resume_batches=skip,
-            header=f"Train Epoch: [{epoch}]")
-        train_s = time.perf_counter() - t0
-        prof.close()
-        logger.synchronize_between_processes()
+        state, logger, record = common.train_epoch(
+            train_loader, step, state, lambda items: make_batch(items, tokenizer, config, device),
+            prof, epoch=epoch, seed=seed, device=device, output_dir=out_dir,
+            resume_batches=resume_batches if epoch == start_epoch else 0, batch_size=bs)
 
         zs = l0.forward_deterministic({"loga": state.loga})
         t0 = time.perf_counter()
         val_results = evaluate(student, state.params, val_loader, val_ds, tokenizer, config,
                                zs=zs)
         val_s = time.perf_counter() - t0
-        stats = {"epoch": epoch,
-                 **{f"train_{k}": f"{m.global_avg:.5f}" for k, m in logger.meters.items()},
+        stats = {"epoch": epoch, **common.train_stats(logger),
                  **{f"val_{k}": v for k, v in val_results.items()},
                  "sparsity": l0.calculate_model_size(zs)["pruned_model_sparsity"]}
         common.log_stats(stats, out_dir)
@@ -208,8 +180,6 @@ def main(args: Config, config: Config) -> dict:
             best, best_epoch = val_results["r_mean"], epoch
             common.save_training_state(out_dir, "best", {
                 "model": state.params, "l0": {"loga": state.loga, **state.lam}, "epoch": epoch})
-        epochs_run.append({"epoch": epoch, "steps": logger.iterations - skip, "batch": bs,
-                           "train_s": train_s, "wait_s": logger.wait_seconds, "val_s": val_s,
-                           "save_s": save_s})
+        epochs_run.append(dict(record, val_s=val_s, save_s=save_s))
     common.log_stats({"best_epoch": best_epoch, "best_r_mean": best}, out_dir)
     return {"best_epoch": best_epoch, "best_r_mean": best, "state": state, "epochs": epochs_run}

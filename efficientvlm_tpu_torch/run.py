@@ -7,8 +7,12 @@ run.py (the reference's run.py):
 runs on the card unless --device says otherwise (--device cpu runs the
 plain versions on the CPU). The config is the task's YAML under configs/
 (or --config), with the CLI's overrides merged as the reference's mains
-merge them. itr_coco runs drivers/retrieval.main; every other task raises
-NotImplementedError naming its ROADMAP item until its loop is ported.
+merge them. Each task runs its driver's main, as run.py routes it:
+gd_4m_small and pretrain_4m_* drivers/gd.main (pretrain_* without a
+teacher), itr_coco drivers/retrieval.main, vqa_480 drivers/vqa.main, nlvr
+and nlvr_domain drivers/nlvr.main, coco_captioning and coco_capt_domain
+drivers/captioning.main, grounding drivers/grounding.main. --scst
+(captioning's self-critical sequence training) raises until ROADMAP A4.
 """
 
 from __future__ import annotations
@@ -34,29 +38,22 @@ TASK_CONFIGS = {
     "grounding": "configs/x-vlm-small-ft/Grounding.yaml",
 }
 
-# the loops still to port, by task (ROADMAP A3; SCST is A4)
-NOT_PORTED = {
-    "gd_4m_small": "ROADMAP A3 (the general distillation loop, drivers/gd.py main)",
-    "pretrain_4m_base": "ROADMAP A3 (the pretraining loop, drivers/gd.py main)",
-    "pretrain_4m_small": "ROADMAP A3 (the pretraining loop, drivers/gd.py main)",
-    "vqa_480": "ROADMAP A3 (the VQA loop, drivers/vqa.py main)",
-    "nlvr": "ROADMAP A3 (the NLVR loop, drivers/nlvr.py main)",
-    "nlvr_domain": "ROADMAP A3 (the NLVR domain pretraining loop, drivers/nlvr.py main)",
-    "coco_captioning": "ROADMAP A3 (the captioning loop, drivers/captioning.py main; SCST A4)",
-    "coco_capt_domain": "ROADMAP A3 (the captioning domain pretraining loop)",
-    "grounding": "ROADMAP A3 (the grounding loop, drivers/grounding.py main)",
+# the driver module of each task (run.py:39-64)
+TASK_DRIVERS = {
+    "gd_4m_small": "gd", "pretrain_4m_base": "gd", "pretrain_4m_small": "gd",
+    "itr_coco": "retrieval", "vqa_480": "vqa", "nlvr": "nlvr", "nlvr_domain": "nlvr",
+    "coco_captioning": "captioning", "coco_capt_domain": "captioning", "grounding": "grounding",
 }
 
 
 def run(args: Config, config: Config):
+    """The task's driver main (imported here: a task loads only its own)."""
     task = args["task"]
-    if task == "itr_coco":
-        from .drivers import retrieval
+    if task not in TASK_DRIVERS:
+        raise ValueError(f"unknown task: {task}")
+    import importlib
 
-        return retrieval.main(args, config)
-    if task in NOT_PORTED:
-        raise NotImplementedError(f"--task {task}: not ported yet, {NOT_PORTED[task]}")
-    raise ValueError(f"unknown task: {task}")
+    return importlib.import_module(f".drivers.{TASK_DRIVERS[task]}", __package__).main(args, config)
 
 
 def parse_args(argv=None) -> argparse.Namespace:
