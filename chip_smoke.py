@@ -19,7 +19,9 @@ It builds the port's CUDA kernels from csrc/ (into build/kernels/), then:
    edge cases of the split-KV and small-problem regimes: a ragged last
    split, a split whose keys are all masked, a row whose only key is in the
    last split, (b, h) counts no block size divides, batch-broadcast biases,
-   dh 32 and 128; misaligned or wrongly shaped operands must raise), and
+   dh 32 and 128; misaligned or wrongly shaped operands must raise; and the
+   shapes of the sampling, cross-generation and DeiT paths:
+   new_path_flash_cases), and
    the device kernels under #1-#4 on their own: gemm_bias at the ViT's
    fused Q/K/V shape, gemm_ln (the LayerNorm epilogue over a cluster) at
    #4's output projection, attn_core and attn_wgmma (the wgmma core of #4)
@@ -132,6 +134,30 @@ It builds the port's CUDA kernels from csrc/ (into build/kernels/), then:
      evaluation; it prints each loop's samples/s beside the steps' own, its
      wait for batches, its evaluation's seconds and its peak memory, and
      GD's background save on the caller's thread and its resume;
+   - self-critical sequence training (phase_scst) through the port's CLI
+     (--task coco_captioning --scst) from the shipped Captioning.yaml
+     (384 px, batch 16, 5 sampled captions an image over the image's shared
+     cross K/V, max_length 20; the 6L / 6L student's gates frozen
+     deterministic): an epoch of 3 steps, one preempted after 2 steps and
+     resumed (the epoch replayed: its generator states, ground truths and
+     images bit-equal to the uninterrupted epoch's, its first loss against
+     the step by hand from the saved state), the first grad step (the
+     teacher-forced log-probs under autograd: #1-#3's training forms) on the
+     kernel, plain and f32 paths, the sampled tokens replayed through the
+     cached kernel decoder against the plain decoder, every reward finite;
+     each part's ms (sampled and greedy decode, host CIDEr-D, grad step),
+     images/s and peak memory;
+   - cross generation (phase_crossgen): XVLMForCrossGeneration and
+     TextTranslater at X-VLM widths (12L / 12L, 384 px, 6 decoder layers, a
+     21,128-token target vocabulary) from a seeded reference-keyed .th
+     through crossgen_params_from_state_dict: the loss, greedy and 3-beam
+     generation at batch 16, held to the plain path;
+   - the other vision towers (phase_alt_vision): the retrieval model with
+     DeiT-B/16 at 224 and 384 px (its attention on flash_attention at Tq =
+     Tk = 197 / 577) and Swin-B at 224 px, forward and one i2t rerank chunk
+     held to the plain path; the CLIP-ViT retrieval forward with int8
+     weights (w8, w8a8) against bf16, the quantized layers off #2-#4; one
+     moe_ffn call against the CPU;
    with exact launch counts, finite outputs, and the kernel path against the
    plain path (f32 params for retrieval; the same bf16 params for
    generation, with a teacher-forced replay of the generated captions, and
@@ -390,6 +416,9 @@ def kernel_cases(rnd):
     cases.append(cross_case("fusion_b32", 32, 40, 577, 768, 12))
     cases.append(cross_case("t2i_b1024", 1024, 40, 577, 768, 12))
     cases.append(cross_case("rect_a512_h8", 32, 40, 577, 512, 8))
+    # the translation decoder's teacher-forced cross (the loss's forward):
+    # 30 target tokens over 30 source states, drawn apart from the others
+    cases.append(cross_case("crossgen_decoder_b16_t30_s30", 16, 30, 30, 768, 12, r=Rand(11)))
 
     def grouped_case(case, a, heads, with_ln):
         bk, g, t, s = 4, 256, 40, 577
@@ -525,6 +554,65 @@ def kernel_cases(rnd):
     cases.append(self_case("nlvr_pretrain_text_b64_t40", 64, 40, 768, 12, r))
     cases.append(cross_case("nlvr_pretrain_cross_b64_tq40_s197", 64, 40, 197, 768, 12, r))
     return cases
+
+
+def new_path_flash_cases(r):
+    """#5 / #6 at the shapes the sampling, cross-generation and DeiT paths
+    give them, drawn from their own generator `r`: DeiT's full
+    self-attention at 224 px (Tq = Tk = 197, no bias) and 384 px (577); the
+    SCST sampler's decode (80 sampled rows: the cached self-attention, and
+    the cross over each image's 577 keys shared by its 5 rows, G = 5); the
+    translation decoder's teacher-forced self-attention (the loss's forward:
+    30 target tokens, causal with padding) and its steps over 30 source keys
+    (greedy, and 3 beams sharing them)."""
+    import torch
+
+    from efficientvlm_tpu_torch.ops import attention as A
+    from efficientvlm_tpu_torch.ops import flash_attention as FA
+
+    h, dh = 12, 64
+
+    def view(b, t):
+        return r(b, t, h * dh).view(b, t, h, dh).transpose(1, 2)
+
+    def case(name, b, tq, tk, bias, kv_view=False):
+        q = view(b, tq)
+        k, v = (view(b, tk), view(b, tk)) if kv_view else (r(b, h, tk, dh), r(b, h, tk, dh))
+        scale = dh ** -0.5
+        nbytes = 2 * (2 * q.numel() + k.numel() + v.numel()) + (
+            0 if bias is None else 4 * bias[:, 0].numel())
+        return ("flash_attention", name,
+                lambda: FA.flash_attention(q, k, v, bias=bias, scale=scale),
+                lambda: FA.flash_attention_plain(q, k, v, bias, scale),
+                4 * b * h * tq * tk * dh, nbytes, (q, k, v, bias, scale))
+
+    def grouped(name, bk, g, tq, s):
+        q, k, v = view(bk * g, tq), r(bk, h, s, dh), r(bk, h, s, dh)
+        bias = A.make_attention_bias(r.mask(bk, s, s // 4))
+        scale = dh ** -0.5
+        return ("flash_attention_grouped", name,
+                lambda: FA.flash_attention_grouped(q, k, v, kv_groups=g, bias=bias, scale=scale),
+                lambda: FA.flash_attention_grouped_plain(q, k, v, g, bias, scale),
+                4 * bk * g * h * tq * s * dh,
+                2 * (2 * q.numel() + k.numel() + v.numel()) + 4 * bias.numel(),
+                (q, k, v, bias, g, scale))
+
+    def decode(length, filled):
+        return A.decode_bias(length, filled - 1, q_len=1, device="cuda")
+
+    return [
+        case("deit_self_b32_t197", 32, 197, 197, None, kv_view=True),
+        case("deit_self_b16_t577", 16, 577, 577, None, kv_view=True),
+        case("sample_step_self_b80_l20", 80, 1, 20, decode(20, 10)),
+        grouped("sample_step_cross_bk16_g5_tq1_s577", 16, 5, 1, 577),
+        case("crossgen_forward_self_b16_t30", 16, 30, 30,
+             A.causal_bias(30, 30, device="cuda") + A.make_attention_bias(r.mask(16, 30, 8)),
+             kv_view=True),
+        case("crossgen_greedy_cross_b16_tq1_s30", 16, 1, 30,
+             A.make_attention_bias(r.mask(16, 30, 8))),
+        case("crossgen_beam_self_b48_l20", 48, 1, 20, decode(20, 10)),
+        grouped("crossgen_beam_cross_bk16_g3_tq1_s30", 16, 3, 1, 30),
+    ]
 
 
 def device_kernel_cases(rnd):
@@ -864,18 +952,28 @@ def caption_replay_logits(model, params, image, tokens, prompt_len, impl):
     generate does); impl="plain" runs the plain decoder without a cache."""
     import torch
 
+    embeds, atts, _ = model.encode_image(params, image, dtype=torch.bfloat16, impl=impl)
+    return decoder_replay_logits(params["text_decoder"], model.text_cfg, embeds, atts, tokens,
+                                 prompt_len, impl)
+
+
+def decoder_replay_logits(dec, cfg, embeds, atts, tokens, prompt_len, impl, **gates):
+    """caption_replay_logits' decoder part for any BERT LM decoder `dec`
+    (config `cfg`) over encoder states `embeds` / `atts` of tokens' batch,
+    with the decoder's gates (bert_apply's text / cross head and mlp z)."""
+    import torch
+
     from efficientvlm_tpu_torch.generation import make_bert_decode_fn
     from efficientvlm_tpu_torch.models import bert as B
 
     bf16 = torch.bfloat16
-    dec, cfg = params["text_decoder"], model.text_cfg
-    embeds, atts, _ = model.encode_image(params, image, dtype=bf16, impl=impl)
     if impl == "plain":
         out = B.bert_apply(dec, tokens, cfg, encoder_hidden=embeds, encoder_attention_mask=atts,
-                           mode="multi_modal", is_decoder=True, dtype=bf16, impl="plain")
+                           mode="multi_modal", is_decoder=True, dtype=bf16, impl="plain",
+                           **gates)
         return B.mlm_head_apply(dec["cls"], out["last_hidden"], cfg, dtype=bf16)
     decode_fn = make_bert_decode_fn(dec, cfg, encoder_hidden=embeds, encoder_atts=atts,
-                                    dtype=bf16, impl=impl)
+                                    dtype=bf16, impl=impl, **gates)
     cache = B.init_bert_cache(dec, cfg, tokens.shape[0], tokens.shape[1], dtype=bf16)
     logits, cache = decode_fn(tokens[:, :prompt_len], cache, 0)
     steps = [logits]
@@ -4630,6 +4728,687 @@ def phase_loops(smi: str, yardstick: float) -> dict:
 
 
 # --------------------------------------------------------------------------
+# phase 3e: SCST, cross generation, the other vision towers, int8, MoE
+# --------------------------------------------------------------------------
+
+SCST_UNIT = dict(images=24, records=48, batch=16, steps=3, preempt_after=2, k=5)
+SCST_GRAD = (1, 6, 3)  # the grad step: #1, #2 x6 (ViT), #3 x3, their differentiable forms
+
+
+def scst_gen_launches(kind: str, n: int) -> tuple:
+    """One generate of the 6L / 6L student over n decoder calls: the ViT
+    (#1, #2 x6), then a call's cached self-attention (#6 x6) and its cross
+    over the image's K/V, shared by the 5 sampled rows (#5 x3) or one row
+    (#6 x3)."""
+    return (1, 6, 0, 0, 6 * n, 3 * n) if kind == "sample" else (1, 6, 0, 0, 9 * n, 0)
+
+
+@contextlib.contextmanager
+def scst_recorder(flag_after: int = 0):
+    """Inside the block: each XVLMForCaptioning.generate (its kind, host ms
+    synchronised, decoder calls, launches, tokens), each ScstGradStep call
+    (ms synchronised, launches, metrics, batch, the host clock at its end),
+    each reward computation
+    (the ground truths and advantages) and each step generator (its key and
+    state) are recorded; flag_after > 0 sends SIGTERM after that many grad
+    steps."""
+    import torch
+
+    from efficientvlm_tpu_torch.drivers import common
+    from efficientvlm_tpu_torch.models import model_generation as MG
+    from efficientvlm_tpu_torch.train import scst as S
+
+    rec = {"gen": [], "grad": [], "metrics": [], "batches": [], "gts": [], "adv": [], "gens": [],
+           "step_t": []}
+
+    def timed(orig, fn_rec):
+        def fn(self, *a, **kw):
+            torch.cuda.synchronize()
+            before, t0 = counts(), time.perf_counter()
+            out = orig(self, *a, **kw)
+            torch.cuda.synchronize()
+            now = counts()
+            fn_rec(kw, out, (time.perf_counter() - t0) * 1e3,
+                   tuple(now[k] - before[k] for k in wrappers()))
+            return out
+        return fn
+
+    def gen(orig):
+        def with_stats(self, *a, **kw):
+            kw.setdefault("stats", {})
+            return timed(orig, lambda kw_, out, ms, launches: rec["gen"].append(
+                {"kind": "sample" if kw_.get("do_sample") else "greedy", "ms": ms,
+                 "calls": kw_["stats"]["decoder_calls"], "launches": launches,
+                 "tokens": out}))(self, *a, **kw)
+        return with_stats
+
+    def grad(orig):
+        def fn(self, state, batch):
+            def keep(kw_, out, ms, launches):
+                rec["grad"].append({"ms": ms, "launches": launches})
+                rec["metrics"].append({k: float(v) for k, v in out.items()})
+                rec["batches"].append(batch)
+            out = timed(orig, keep)(self, state, batch)
+            rec["step_t"].append(time.perf_counter())
+            if flag_after and len(rec["grad"]) == flag_after:
+                os.kill(os.getpid(), signal.SIGTERM)  # the handler run.main installed
+            return out
+        return fn
+
+    def rewards(orig):
+        def fn(self, gt_captions, sampled, greedy=None):
+            out = orig(self, gt_captions, sampled, greedy)
+            rec["gts"].append([list(g) for g in gt_captions])
+            rec["adv"].append(out)
+            return out
+        return fn
+
+    def step_gen(orig):
+        def fn(seed, epoch, index, device):
+            g = orig(seed, epoch, index, device)
+            rec["gens"].append(((seed, epoch, index), g.get_state().clone()))
+            return g
+        return fn
+
+    with patched(MG.XVLMForCaptioning, "generate", gen), \
+            patched(S.ScstGradStep, "__call__", grad), \
+            patched(S.ScstRewardCriterion, "rewards", rewards), \
+            patched(common, "step_generator", step_gen):
+        yield rec
+
+
+def scst_cli(argv, flag_after: int = 0):
+    """run.main(argv) in this process under scst_recorder: (its return or
+    {"exit": code}, the record, seconds)."""
+    import torch
+
+    from efficientvlm_tpu_torch import run as cli
+
+    with scst_recorder(flag_after) as rec:
+        t0 = time.perf_counter()
+        try:
+            out = cli.main(argv)
+        except SystemExit as e:
+            out = {"exit": e.code}
+        torch.cuda.synchronize()
+    return out, rec, time.perf_counter() - t0
+
+
+def scst_run_launches(rec: dict, what: str) -> tuple:
+    """Each recorded part's launches (scst_gen_launches, SCST_GRAD); their
+    sum."""
+    n = len(wrappers())
+    pad = lambda t: tuple(t) + (0,) * (n - len(t))  # noqa: E731
+    for g in rec["gen"]:
+        check(g["launches"] == pad(scst_gen_launches(g["kind"], g["calls"])),
+              f"{what}: {g['kind']} generate ({g['calls']} decoder calls) launched "
+              f"{g['launches']}")
+    for g in rec["grad"]:
+        check(g["launches"] == pad(SCST_GRAD), f"{what}: grad step launched {g['launches']}")
+    return total([g["launches"] for g in rec["gen"] + rec["grad"]])
+
+
+def scst_precision(student, params, zs, rec: dict, tok, prompt: str, prompt_len: int) -> dict:
+    """What the port's bf16 SCST (its default compute_dtype, through the
+    kernels) changes against f32 compute (JAX's SCST computes in f32; here
+    the plain path, since the kernels compute in bf16) on the same params,
+    the recorded batches of a run and the same sampling noise (each batch's
+    step generator state): the share of sampled and greedy rows identical,
+    each path's mean sampled and greedy CIDEr-D reward, and the f32 samples'
+    sequence log-probs teacher-forced through both (median and max
+    |difference|, median |log-prob|). Checks that every number is finite."""
+    import numpy as np
+    import torch
+
+    from efficientvlm_tpu_torch.train import scst as S
+
+    u = SCST_UNIT
+    paths = {"bf16_kernel": (torch.bfloat16, "fused"), "f32_plain": (None, "plain")}
+    kw = dict(prompt_length=prompt_len, pad_token_id=tok.pad_token_id, eos_id=tok.sep_token_id,
+              sample_n=u["k"], max_length=20, min_length=5, top_p=1.0, zs=zs)
+    prompt_ids = torch.tensor(tok([prompt])["input_ids"], device="cuda")[:, :-1]
+    out = {name: {"sample_reward": [], "greedy_reward": []} for name in paths}
+    same_sample, same_greedy, dlogp, logp = [], [], [], []
+    for batch, gts, (_, state) in zip(rec["batches"], rec["gts"], rec["gens"]):
+        image = batch["image"]
+        pids = prompt_ids.repeat(image.shape[0], 1)
+        toks = {}
+        for name, (dtype, impl) in paths.items():
+            sample_fn, _ = S.make_scst_step(student, None, dtype=dtype, impl=impl, **kw)
+            g = torch.Generator(device="cuda")
+            g.set_state(state.clone())
+            with uncounted():
+                toks[name] = sample_fn(params, image, pids, g)
+            crit = S.ScstRewardCriterion(sample_n=u["k"], baseline_type="greedy")
+            text = [[tok.decode(t, skip_special_tokens=True) for t in x.cpu().numpy()]
+                    for x in toks[name]]
+            adv = crit.rewards(gts, *text)
+            out[name]["sample_reward"].append(crit.get_score())
+            out[name]["greedy_reward"].append(crit.get_score() - float(np.mean(adv)))
+        (sk, gk), (sf, gf) = toks["bf16_kernel"], toks["f32_plain"]
+        same_sample.append((sk == sf).all(1).float().mean().item())
+        same_greedy.append((gk == gf).all(1).float().mean().item())
+        atts = (sf != tok.pad_token_id).to(torch.int32)
+        lp = []
+        with torch.inference_mode(), uncounted():
+            for dtype, impl in paths.values():
+                logits = student.forward_logits(params, image, sf, atts, zs=zs,
+                                                image_repeats=u["k"], dtype=dtype, impl=impl)
+                lp.append(S.sequence_logprobs(logits, sf, prompt_length=prompt_len,
+                                              eos_id=tok.sep_token_id,
+                                              pad_id=tok.pad_token_id).float())
+                del logits
+        dlogp += (lp[0] - lp[1]).abs().tolist()
+        logp += lp[1].abs().tolist()
+    res = {"identical_sampled_rows": statistics.mean(same_sample),
+           "identical_greedy_rows": statistics.mean(same_greedy),
+           "median_abs_dlogp": statistics.median(dlogp), "max_abs_dlogp": max(dlogp),
+           "median_abs_logp_f32": statistics.median(logp),
+           **{f"{name}_{k}": statistics.mean(v) for name, o in out.items() for k, v in o.items()}}
+    check(all(math.isfinite(v) for v in res.values()), f"scst precision: {res}")
+    print(f"scst bf16 kernel path vs f32 plain path over {len(rec['batches'])} batches, same "
+          "params and noise: " + ", ".join(f"{k} {v:.4e}" for k, v in res.items()))
+    return res
+
+
+def phase_scst(smi: str, yardstick: float) -> dict:
+    """Self-critical sequence training through the port's CLI
+    (`--task coco_captioning --scst`, efficientvlm_tpu_torch.run.main in this
+    process) from the shipped Captioning.yaml (384 px, batch 16, K = 5
+    samples, max_length 20; the 6L / 6L student from its seeded init, its
+    gates frozen deterministic at sparsity 0.25) with a corpus written under
+    build/ (removed after): one epoch of 3 steps (A), then the same preempted
+    after 2 steps (B) and resumed (C, the epoch replayed). Held: each part's
+    launches; every reward finite; C's generator states, ground truths and
+    images bit-equal to A's; C's first loss against the same step by hand
+    from B's saved state (TRAIN_FACTOR x the loss yardstick); the first grad
+    step on the kernel path against the plain and f32 paths (hold_to_plain);
+    the first batch's sampled tokens replayed through the cached kernel
+    decoder against the plain decoder (5% of the largest logit); what bf16
+    compute changes against f32 (scst_precision). Prints each part's ms,
+    images/s and sampled captions/s end to end, the peak memory."""
+    import shutil
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from efficientvlm_tpu_torch.config import load_task_config
+    from efficientvlm_tpu_torch.data.tokenizer import build_tokenizer
+    from efficientvlm_tpu_torch.drivers import captioning as cap
+    from efficientvlm_tpu_torch.models import model_generation as MG
+    from efficientvlm_tpu_torch.train import checkpoint as ckpt_io
+    from efficientvlm_tpu_torch.train import scst as S
+    from efficientvlm_tpu_torch.train.steps import PretrainState
+
+    u, bf16 = SCST_UNIT, torch.bfloat16
+    t_phase = time.perf_counter()
+    here = os.path.dirname(os.path.abspath(__file__))
+    build = os.path.join(here, "build")
+    os.makedirs(build, exist_ok=True)
+    root = tempfile.mkdtemp(prefix="scst-", dir=build)
+    report = {"card": smi}
+    try:
+        files = write_data_corpus(root, np.random.default_rng(4))
+        rng = np.random.default_rng(5)
+        names = [f"COCO_val2014_{i + 1:012d}.jpg" for i in range(u["images"])]
+        train = os.path.join(root, "scst_train.json")
+        with open(train, "w") as f:
+            json.dump([{"image": names[i % u["images"]], "caption": data_caption(rng),
+                        "image_id": i % u["images"]} for i in range(u["records"])], f)
+        yaml_path = loop_yaml("x-vlm-small-ft/Captioning.yaml", root, "scst",
+                              train_file=[train], val_file=files["caption_eval"],
+                              val_gt_file=files["caption_refs"], image_root=root,
+                              text_encoder=files["vocab"], schedular={"epochs": 1},
+                              num_workers=1)
+        argv = ["--task", "coco_captioning", "--scst", "--config", yaml_path, "--output_dir"]
+        c = reset_counts()  # the SCST path's run starts here
+        torch.cuda.reset_peak_memory_stats()
+        out_a, rec_a, sec_a = scst_cli(argv + [os.path.join(root, "a")])
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        check("state" in out_a and len(rec_a["grad"]) == u["steps"],
+              f"scst A: {out_a.get('exit')}, {len(rec_a['grad'])} steps")
+        c = expect_launches(c, scst_run_launches(rec_a, "scst A"), "scst A")
+        check(all(np.isfinite(a).all() for a in rec_a["adv"]) and
+              np.isfinite(out_a["reward_history"]).all(), "scst A: a reward is not finite")
+        check(all(np.isfinite(m["loss_scst"]) for m in rec_a["metrics"]), "scst A: loss")
+        out_b, rec_b, _ = scst_cli(argv + [os.path.join(root, "b")],
+                                   flag_after=u["preempt_after"])
+        check(out_b == {"exit": 0} and len(rec_b["grad"]) == u["preempt_after"],
+              f"scst B: {out_b}, {len(rec_b['grad'])} steps")
+        c = expect_launches(c, scst_run_launches(rec_b, "scst B"), "scst B (preempted)")
+        saved = ckpt_io.load_pytree(os.path.join(root, "b", "training_state_latest.ckpt"))
+        check(saved["extra"]["epoch"] == -1 and saved["state"]["step"] == u["preempt_after"],
+              f"scst B saved {saved['extra']}")
+        out_c, rec_c, _ = scst_cli(argv + [os.path.join(root, "b"), "--resume"])
+        check([(e["epoch"], e["steps"]) for e in out_c.get("epochs", [])] == [(0, u["steps"])],
+              f"scst C: {out_c.get('exit')}")
+        c = expect_launches(c, scst_run_launches(rec_c, "scst C"), "scst C (resumed)")
+        launches = counts()
+        # the replayed epoch draws what the uninterrupted one drew
+        same_gens = [a[0] == b[0] and torch.equal(a[1], b[1])
+                     for a, b in zip(rec_a["gens"], rec_c["gens"])]
+        same_images = [torch.equal(a["image"], b["image"])
+                       for a, b in zip(rec_a["batches"], rec_c["batches"])]
+        check(len(same_gens) == u["steps"] and all(same_gens) and all(same_images)
+              and rec_a["gts"] == rec_c["gts"], "scst C: the replayed epoch's host draws or "
+              f"generator states differ (gens {same_gens}, images {same_images})")
+
+        config = load_task_config(yaml_path, repo_root=here)
+        tok = build_tokenizer(files["vocab"])
+        prompt_len = len(tok([config["prompt"]])["input_ids"][0]) - 1
+        student = cap.build_models(config)[0]
+        l0 = cap.build_l0(config)
+        zs = l0.forward_deterministic({"loga": l0.init(2, device="cuda")["loga"]})
+        kw = dict(prompt_length=prompt_len, pad_token_id=tok.pad_token_id,
+                  eos_id=tok.sep_token_id, sample_n=u["k"], zs=zs)
+        with uncounted():
+            step = S.ScstGradStep(student, None, dtype=bf16, **kw)
+            with torch.no_grad():
+                loss = step.loss(ckpt_io.place(saved["state"]["params"], torch.device("cuda")),
+                                 rec_c["batches"][0])[0].item()
+        got = rec_c["metrics"][0]["loss_scst"]
+        rel = abs(got - loss) / max(abs(loss), 1e-3)
+        print(f"scst C (--resume after {u['preempt_after']} steps): first replayed loss "
+              f"{got:.6e} vs by hand from the saved state {loss:.6e}, relative {rel:.3e}, tol "
+              f"{TRAIN_FACTOR * yardstick:.3e}; host draws and generator states bit-equal")
+        check(rel <= TRAIN_FACTOR * yardstick, "scst C: the replayed loss left the tolerance")
+
+        # the first grad step, three paths from the init
+        params0 = student.init(0, device="cuda")
+        batch = rec_a["batches"][0]
+        results = {}
+        for path, dtype, impl in (("kernel", bf16, "fused"), ("plain", bf16, "plain"),
+                                  ("f32", None, "plain")):
+            with uncounted():
+                st = PretrainState(params=clone_tree(params0), opt_state={}, step=0)
+                m, g = S.ScstGradStep(student, None, dtype=dtype, impl=impl,
+                                      **kw).loss_and_grads(st, batch)
+            results[path] = ([{k: float(v) for k, v in m.items()}], [g])
+            del st
+        hold_to_plain(results, 1, ["student"], "scst grad step")
+        del results
+
+        # the sampled tokens of batch 1, replayed
+        tokens = rec_a["gen"][0]["tokens"]
+        check(rec_a["gen"][0]["kind"] == "sample" and tokens.shape == (u["batch"] * u["k"], 20),
+              f"scst sampled tokens {tuple(tokens.shape)}")
+        image = batch["image"].repeat_interleave(u["k"], 0)
+        gates = MG._text_stack_zs(zs)
+        with torch.inference_mode(), uncounted():
+            reps = {}
+            for impl in ("fused", "plain"):
+                emb, atts, _ = student.encode_image(params0, image, zs=zs, dtype=bf16, impl=impl)
+                reps[impl] = decoder_replay_logits(params0["text_decoder"], student.text_cfg,
+                                                   emb, atts, tokens, prompt_len, impl,
+                                                   **gates).float()
+        err, tol = (reps["fused"] - reps["plain"]).abs().max().item(), \
+            0.05 * reps["plain"].abs().max().item()
+        print(f"scst sampled tokens [{tokens.shape[0]} x {tokens.shape[1]}] replayed, cached "
+              f"kernel decoder vs plain: max_abs_err {err:.4e} tol {tol:.4e}")
+        check(err <= tol, "scst: the sampled tokens' replayed logits disagree")
+        del reps, image
+        report["precision"] = scst_precision(student, params0, zs, rec_a, tok,
+                                             config["prompt"], prompt_len)
+
+        ep = out_a["epochs"][0]
+        part = lambda kind: statistics.median(  # noqa: E731
+            g["ms"] for g in rec_a["gen"] if g["kind"] == kind)
+        report.update({
+            "sample_ms": part("sample"), "greedy_ms": part("greedy"),
+            "reward_ms": statistics.median(ep["reward_s"]) * 1e3,
+            "grad_ms": statistics.median(g["ms"] for g in rec_a["grad"]),
+            "images_per_s": u["batch"] * ep["steps"] / ep["train_s"],
+            "steady_step_s": statistics.median(
+                b - a for a, b in zip(rec_a["step_t"], rec_a["step_t"][1:])),
+            "steady_images_per_s": u["batch"] / statistics.median(
+                b - a for a, b in zip(rec_a["step_t"], rec_a["step_t"][1:])),
+            "sampled_captions_per_s": u["batch"] * u["k"] * ep["steps"] / ep["train_s"],
+            "train_s": ep["train_s"], "run_a_s": sec_a, "peak_gib": peak,
+            "decoder_calls": [g["calls"] for g in rec_a["gen"]],
+            "launches": {"sample": next(g["launches"] for g in rec_a["gen"]
+                                        if g["kind"] == "sample"),
+                         "greedy": next(g["launches"] for g in rec_a["gen"]
+                                        if g["kind"] == "greedy"),
+                         "grad": SCST_GRAD},
+            "mean_reward": float(np.mean(out_a["reward_history"])), "resume_rel": rel})
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    print(json.dumps({"scst_phase": report}, default=float))
+    print(f"phase scst: {time.perf_counter() - t_phase:.1f} s")
+    return {"launches": launches}
+
+
+CROSSGEN_UNIT = dict(batch=16, res=384, src_len=30, tgt_len=30, vocab=21128, beams=3,
+                     max_length=20, min_length=5, bos=101, eos=102)
+
+
+def crossgen_launches(model: str, kind: str, n: int = 0) -> tuple:
+    """A 12L / 12L (fusion 6, 6 decoder layers) translation model's
+    launches: "forward" (the loss: source, decoder self #6 and cross #3),
+    "greedy" / "beams" generate over n decoder calls (the source encode, then
+    a call's cached self #6 x6 and its cross #6 x6, or #5 x6 shared by the
+    beams). The cross-generation source runs the ViT (#1, #2 x12) and the
+    whole text stack (#2 x12, #3 x6); the translater's the text layers
+    (#2 x6)."""
+    vit = (1, 12, 0) if model == "crossgen" else (0, 0, 0)
+    src = (vit[0], vit[1] + (12 if model == "crossgen" else 6), 6 if model == "crossgen" else 0)
+    if kind == "forward":
+        return (src[0], src[1], src[2] + 6, 0, 6, 0)
+    if kind == "greedy":
+        return (src[0], src[1], src[2], 0, 12 * n, 0)
+    return (src[0], src[1], src[2], 0, 6 * n, 6 * n)
+
+
+def phase_crossgen(smi: str) -> dict:
+    """XVLMForCrossGeneration and TextTranslater at X-VLM widths (ViT-B/16 at
+    384 px, BERT-base 12 layers fusion 6, the default 6 decoder layers, a
+    21,128-token target vocabulary) from a seeded reference-keyed .th
+    (written under build/, removed after) through
+    crossgen_params_from_state_dict: the loss, greedy and 3-beam generation
+    at batch 16 on the kernel path with exact launches, the loss against the
+    plain path (1% of the f32 loss) and its teacher-forced logits (5% of the
+    largest), and each generation's tokens replayed through the cached
+    kernel decoder against the plain decoder (5% of the largest logit)."""
+    import shutil
+    import tempfile
+
+    import torch
+
+    from efficientvlm_tpu_torch.config import Config, TextConfig, VisionConfig
+    from efficientvlm_tpu_torch.models.model_generation import (TextTranslater,
+                                                                XVLMForCrossGeneration)
+    from efficientvlm_tpu_torch.train import checkpoint as ckpt_io
+
+    u, bf16 = CROSSGEN_UNIT, torch.bfloat16
+    t_phase = time.perf_counter()
+    build = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build")
+    os.makedirs(build, exist_ok=True)
+    root = tempfile.mkdtemp(prefix="crossgen-", dir=build)
+    report = {"card": smi}
+    try:
+        src_model, src_params = build_model(12)
+        th = os.path.join(root, "xvlm.th")
+        write_th(src_params, th, 6)
+        text_src = src_params["text"]["layers"][6]["attention"]["q"]["kernel"].clone()
+        del src_params
+        sd = ckpt_io.load_torch_state_dict(th)
+        vcfg = VisionConfig.create(num_hidden_layers=12, image_res=u["res"])
+        tcfg = TextConfig.create(num_hidden_layers=12, fusion_layer=6, encoder_width=768,
+                                 hidden_dropout_prob=0.0, attention_probs_dropout_prob=0.0)
+        config = Config({"decoder_vocab_size": u["vocab"], "label_smoothing": 0.1})
+        models = {"crossgen": XVLMForCrossGeneration(vcfg, tcfg, config),
+                  "translater": TextTranslater(tcfg, config)}
+        params = {}
+        for name, model in models.items():
+            fresh = model.init(1, device="cuda")
+            p = ckpt_io.crossgen_params_from_state_dict(
+                sd, fresh, vision_layers=12 if name == "crossgen" else None, text_layers=12,
+                fusion_layer=6, num_patches=vcfg.num_patches, device="cuda")
+            dec = p["text_decoder"]
+            check(torch.equal(dec["layers"][0]["attention"]["q"]["kernel"], text_src)
+                  and torch.equal(dec["embeddings"]["word"]["embedding"],
+                                  fresh["text_decoder"]["embeddings"]["word"]["embedding"])
+                  and len(dec["layers"]) == 6 and ("vision" in p) == (name == "crossgen"),
+                  f"{name}: the loader's tree")
+            params[name] = p
+            del fresh
+        del sd
+        r = Rand(9)
+        b = u["batch"]
+        image = r(b, u["res"], u["res"], 3)
+        src = torch.randint(1000, 30522, (b, u["src_len"]), generator=r.g, device="cuda")
+        src_atts = r.mask(b, u["src_len"], 8)
+        tgt = torch.randint(1000, u["vocab"], (b, u["tgt_len"]), generator=r.g, device="cuda")
+        tgt[:, 0] = u["bos"]
+        tgt_atts = r.mask(b, u["tgt_len"], 8)
+        tgt = torch.where(tgt_atts.bool(), tgt, 0)
+        gen_kw = dict(bos_id=u["bos"], eos_id=u["eos"], pad_id=0, max_length=u["max_length"],
+                      min_length=u["min_length"], dtype=bf16)
+        c = reset_counts()  # the cross-generation path's run starts here
+        outs = {}
+        with torch.inference_mode():
+            for name, model in models.items():
+                p = params[name]
+                loss = model.forward(p, image, src, src_atts, tgt, tgt_atts, dtype=bf16)
+                c = expect_launches(c, crossgen_launches(name, "forward"), f"{name} forward")
+                check(bool(torch.isfinite(loss)), f"{name}: loss not finite")
+                outs[(name, "loss")] = loss.item()
+                for beams in (1, u["beams"]):
+                    stats = {}
+                    tokens = model.generate(p, image, src, src_atts, num_beams=beams, stats=stats,
+                                            **gen_kw)
+                    n = stats["decoder_calls"]
+                    c = expect_launches(c, crossgen_launches(
+                        name, "greedy" if beams == 1 else "beams", n),
+                        f"{name} generate beams={beams} ({n} decoder calls)")
+                    check(tuple(tokens.shape) == (b, u["max_length"])
+                          and bool((tokens[:, 0] == u["bos"]).all())
+                          and bool(((tokens >= 0) & (tokens < u["vocab"])).all()),
+                          f"{name} beams={beams}: tokens")
+                    outs[(name, beams)] = tokens
+        launches = counts()
+        for name, model in models.items():
+            p = params[name]
+            with torch.inference_mode(), uncounted():
+                lp = model.forward(p, image, src, src_atts, tgt, tgt_atts, dtype=bf16,
+                                   impl="plain").item()
+                lf = model.forward(p, image.float(), src, src_atts, tgt, tgt_atts,
+                                   impl="plain").item()
+            with torch.inference_mode(), uncounted():
+                report[f"{name}_forward_ms"] = timed_ms(lambda: model.forward(
+                    p, image, src, src_atts, tgt, tgt_atts, dtype=bf16), iters=3, runs=3,
+                    warmup=1)
+                for beams in (1, u["beams"]):
+                    report[f"{name}_beams{beams}_ms"] = timed_ms(lambda: model.generate(
+                        p, image, src, src_atts, num_beams=beams, **gen_kw), iters=1, runs=3,
+                        warmup=1)
+            lk = outs[(name, "loss")]
+            print(f"{name} loss: kernel {lk:.6f}, plain {lp:.6f}, f32 {lf:.6f}; kernel vs plain "
+                  f"{abs(lk - lp):.4e} tol {0.01 * abs(lf):.4e}")
+            check(abs(lk - lp) <= 0.01 * abs(lf), f"{name}: the loss disagrees with the plain "
+                                                  "path")
+            # the loss averages over a 21,128-token vocabulary and says little
+            # of the decoder: its teacher-forced logits are held as well
+            with torch.inference_mode(), uncounted():
+                gk, gp = (model.forward_logits(p, image, src, src_atts, tgt, tgt_atts, dtype=bf16,
+                                               impl=impl).float() for impl in ("fused", "plain"))
+            err, tol = (gk - gp).abs().max().item(), 0.05 * gp.abs().max().item()
+            print(f"{name} forward logits [{', '.join(map(str, gk.shape))}], kernel vs plain "
+                  f"path: max_abs_err {err:.4e} tol {tol:.4e}")
+            check(err <= tol, f"{name}: the forward's logits disagree with the plain path")
+            report[f"{name}_forward_logits_err"] = err
+            del gk, gp
+            for beams in (1, u["beams"]):
+                tokens = outs[(name, beams)]
+                with torch.inference_mode(), uncounted():
+                    reps = []
+                    for impl in ("fused", "plain"):
+                        emb, atts = model.encode_source(p, image, src, src_atts, dtype=bf16,
+                                                        impl=impl)
+                        reps.append(decoder_replay_logits(p["text_decoder"], model.decoder_cfg,
+                                                          emb, atts, tokens, 1, impl).float())
+                    plain_tokens = model.generate(p, image, src, src_atts, num_beams=beams,
+                                                  impl="plain", **gen_kw)
+                err, tol = (reps[0] - reps[1]).abs().max().item(), \
+                    0.05 * reps[1].abs().max().item()
+                same = (plain_tokens == tokens).all(1).float().mean().item()
+                print(f"{name} beams={beams} replay, cached kernel decoder vs plain: max_abs_err "
+                      f"{err:.4e} tol {tol:.4e}; identical outputs kernel vs plain path {same:.3f}")
+                check(err <= tol, f"{name} beams={beams}: replayed logits disagree")
+                report[f"{name}_beams{beams}_identical"] = same
+        report["losses"] = {k[0]: v for k, v in outs.items() if k[1] == "loss"}
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    print(json.dumps({"crossgen_phase": report}, default=float))
+    print(f"phase crossgen: {time.perf_counter() - t_phase:.1f} s")
+    return {"launches": launches}
+
+
+ALT_UNIT = dict(batch=16, tokens=40, rows=4, k=64)
+
+
+def alt_tower(kind: str):
+    """(XVLMForRetrieval, f32 params, image res) with the DeiT-B/16 tower at
+    224 or 384 px or Swin-B at 224 px (window 7), BERT-base 12 layers
+    (fusion 6, cross K/V from the tower's width), seed 0."""
+    from efficientvlm_tpu_torch.config import Config, TextConfig, VisionConfig
+    from efficientvlm_tpu_torch.models.model_retrieval import XVLMForRetrieval
+    from efficientvlm_tpu_torch.models.swin import swin_config
+
+    if kind == "swin224":
+        vcfg, flags, res = swin_config(image_res=224, window_size=7), {"use_swin": True}, 224
+    else:
+        res = int(kind[4:])
+        vcfg = VisionConfig.create(vision_width=768, num_attention_heads=12,
+                                   intermediate_size=3072, num_hidden_layers=12, image_res=res,
+                                   patch_size=16)
+        flags = {"use_deit": True}
+    tcfg = TextConfig.create(num_hidden_layers=12, fusion_layer=6,
+                             encoder_width=vcfg["vision_width"], hidden_dropout_prob=0.0,
+                             attention_probs_dropout_prob=0.0)
+    model = XVLMForRetrieval(vcfg, tcfg, Config({"embed_dim": 256, **flags}))
+    return model, model.init(0, device="cuda"), res
+
+
+def phase_alt_vision(smi: str) -> dict:
+    """The retrieval model through vision_encoder_dispatch with DeiT-B/16 at
+    224 and 384 px (its attention on #6 at Tq = Tk = 197 / 577) and Swin-B
+    at 224 px (plain), BERT-base 12 layers: the retrieval forward at batch
+    16 and one i2t rerank chunk (4 x 64, #4) with exact launches, each held
+    to the plain path (f32 params, bf16 compute, 5% of the largest value);
+    then the CLIP-ViT retrieval model with its weights int8-quantized (w8,
+    w8a8: torch._int_mm) against bf16 (cosine > 0.98, JAX's tests/
+    test_quant.py bar) with the quantized layers routed off #2 / #3 (their
+    cores on #6); and one moe_ffn call (768 wide, 8 experts, 16 x 197
+    tokens) against its CPU result."""
+    import torch
+
+    from efficientvlm_tpu_torch.bridge import cast_floating
+    from efficientvlm_tpu_torch.evaluation import retrieval as R
+    from efficientvlm_tpu_torch.ops.moe import init_moe_ffn, moe_ffn
+    from efficientvlm_tpu_torch.ops.quant import quantize_params, quantized_bytes
+
+    u, bf16 = ALT_UNIT, torch.bfloat16
+    t_phase = time.perf_counter()
+    report = {"card": smi}
+    r = Rand(10)
+    b = u["batch"]
+    ids = torch.randint(0, 30522, (b, u["tokens"]), generator=r.g, device="cuda")
+    atts = r.mask(b, u["tokens"], 8)
+    txt = r(u["rows"] * u["k"], u["tokens"], 768)
+    txt_atts = r.mask(u["rows"] * u["k"], u["tokens"], 8)
+    c = reset_counts()  # the other towers' path starts here
+    held = []
+    for kind in ("deit224", "deit384", "swin224"):
+        model, params, res = alt_tower(kind)
+        p16 = cast_floating(params, bf16)
+        image = r(b, res, res, 3)
+        deit = kind.startswith("deit")
+        with torch.inference_mode():
+            out = R.retrieval_forward(model, p16, image, ids, atts, dtype=bf16)
+            # DeiT's 12 attention cores on #6; the text tower's self (#2 x12) and
+            # fusion (#3 x6) sublayers
+            c = expect_launches(c, (0, 12, 6, 0, 12 if deit else 0, 0), f"{kind} forward")
+            emb = model.get_vision_embeds(p16, image[:u["rows"]], dtype=bf16)[0]
+            c = expect_launches(c, (0, 0, 0, 0, 12 if deit else 0, 0), f"{kind} image rows")
+            scores = R.itm_rerank_scores(model, p16, emb, txt, txt_atts, u["rows"], u["k"],
+                                         dtype=bf16)
+            c = expect_launches(c, (0, 6, 0, 6, 0, 0), f"{kind} i2t rerank chunk")
+        check(all(bool(torch.isfinite(x.float()).all()) for x in (*out, scores)),
+              f"{kind}: not finite")
+        with torch.inference_mode(), uncounted():
+            report[f"{kind}_forward_ms"] = timed_ms(lambda: R.retrieval_forward(
+                model, p16, image, ids, atts, dtype=bf16), iters=3, runs=3, warmup=1)
+            report[f"{kind}_plain_forward_ms"] = timed_ms(lambda: R.retrieval_forward(
+                model, p16, image, ids, atts, dtype=bf16, impl="plain"), iters=3, runs=3,
+                warmup=1)
+        held.append((kind, model, params, image, emb, scores))
+        del p16
+    launches = counts()
+    for kind, model, params, image, emb, scores in held:
+        sl = slice(0, 8)
+        with torch.inference_mode(), uncounted():
+            kern = R.retrieval_forward(model, params, image[sl], ids[sl], atts[sl], dtype=bf16)
+            plain = R.retrieval_forward(model, params, image[sl], ids[sl], atts[sl], dtype=bf16,
+                                        impl="plain")
+            plain32 = R.retrieval_forward(model, params, image[sl].float(), ids[sl], atts[sl],
+                                          impl="plain")
+            p16 = cast_floating(params, bf16)
+            sp = R.itm_rerank_scores(model, p16, emb, txt, txt_atts, u["rows"], u["k"],
+                                     dtype=bf16, impl="plain")
+        pairs = list(zip(("image_feat", "text_feat", "itm_logits"), kern, plain)) + [
+            ("rerank", scores, sp)]
+        for name, a, ref in pairs:
+            err, tol = (a.float() - ref.float()).abs().max().item(), \
+                0.05 * ref.float().abs().max().item()
+            extra = ""
+            if name != "rerank":
+                i = ("image_feat", "text_feat", "itm_logits").index(name)
+                extra = f"; vs f32 {(a.float() - plain32[i].float()).abs().max().item():.4e}"
+            print(f"{kind} kernel path vs plain path {name}: max_abs_err {err:.4e} tol "
+                  f"{tol:.4e}{extra}")
+            check(err <= tol, f"{kind}: kernel path and plain path disagree on {name}")
+    del held
+
+    # int8: the CLIP-ViT retrieval model 12L / 12L at 384 px, batch 8
+    model, params = build_model(12)
+    image, q_ids, q_atts = r(8, 384, 384, 3), ids[:8], atts[:8]
+    with torch.inference_mode(), uncounted():
+        ref = R.retrieval_forward(model, params, image, q_ids, q_atts, dtype=bf16)
+        p16 = cast_floating(params, bf16)
+        report["bf16_forward_ms"] = timed_ms(lambda: R.retrieval_forward(
+            model, p16, image, q_ids, q_atts, dtype=bf16), iters=3, runs=3, warmup=1)
+        del p16
+    for mode in ("w8", "w8a8"):
+        q = quantize_params(params, mode=mode)
+        with torch.inference_mode():
+            c = counts()
+            got = R.retrieval_forward(model, q, image, q_ids, q_atts, dtype=bf16)
+            # the patch embedding stays float (#1); every attention sublayer
+            # is quantized: its core on #6 (ViT 12, text 12 self, 6 cross)
+            c = expect_launches(c, (1, 0, 0, 0, 30, 0), f"{mode} retrieval forward")
+        cos = [torch.nn.functional.cosine_similarity(a.float().flatten(), b_.float().flatten(),
+                                                     dim=0).item() for a, b_ in zip(got, ref)]
+        qb = quantized_bytes(q)
+        print(f"{mode} retrieval forward vs bf16: cosine image_feat {cos[0]:.5f}, text_feat "
+              f"{cos[1]:.5f}, itm {cos[2]:.5f} (tol > 0.98); params {qb['quantized_bytes'] / 2**20:.1f}"
+              f" MiB of {qb['float32_bytes'] / 2**20:.1f} in f32")
+        check(min(cos) > 0.98, f"{mode}: the quantized forward left bf16's")
+        report[f"{mode}_cosine"] = cos
+        with torch.inference_mode(), uncounted():
+            report[f"{mode}_forward_ms"] = timed_ms(lambda: R.retrieval_forward(
+                model, q, image, q_ids, q_atts, dtype=bf16), iters=3, runs=3, warmup=1)
+        del q
+    launches = counts()
+    del params
+
+    # MoE: one call on the card against the CPU
+    g = torch.Generator(device="cuda").manual_seed(11)
+    mp = init_moe_ffn(g, hidden=768, ffn=3072, num_experts=8, device="cuda")
+    h = torch.randn(16, 197, 768, generator=g, device="cuda")
+    out, aux = moe_ffn(mp, h)
+    torch.cuda.synchronize()
+    out_cpu, aux_cpu = moe_ffn({k: (v.cpu() if torch.is_tensor(v) else
+                                    {kk: vv.cpu() for kk, vv in v.items()})
+                                for k, v in mp.items()}, h.cpu())
+    err, tol = (out.cpu() - out_cpu).abs().max().item(), 1e-3 * out_cpu.abs().max().item()
+    dropped = (out.cpu().abs().sum(-1) == 0)
+    same_drops = bool(torch.equal(dropped, out_cpu.abs().sum(-1) == 0))
+    ms = timed_ms(lambda: moe_ffn(mp, h), iters=5, runs=3)
+    print(f"moe_ffn [16 x 197 x 768, 8 experts, capacity 1.25]: card vs CPU max_abs_err "
+          f"{err:.4e} tol {tol:.4e}, aux {aux.item():.6f} vs {aux_cpu.item():.6f}, "
+          f"{int(dropped.sum())} tokens dropped (the same on both: {same_drops}); {ms:.3f} ms")
+    check(err <= tol and abs(aux.item() - aux_cpu.item()) <= 1e-4 and same_drops,
+          "moe_ffn: the card disagrees with the CPU")
+    report["moe"] = {"max_abs_err": err, "ms": ms, "dropped": int(dropped.sum())}
+    print(json.dumps({"alt_vision_phase": report}, default=float))
+    print(f"phase alt vision: {time.perf_counter() - t_phase:.1f} s")
+    return {"launches": launches}
+
+
+
+# --------------------------------------------------------------------------
 # phase 4: times
 # --------------------------------------------------------------------------
 
@@ -4673,7 +5452,7 @@ def library_yardstick(name, args):
                                      ln["scale"].to(x.dtype), ln["bias"].to(x.dtype), 1e-12)
     if name == "flash_attention":  # on the same views, scaled by SDPA
         q, k, v, bias, scale = args
-        mask = bias.to(q.dtype)
+        mask = None if bias is None else bias.to(q.dtype)
         return lambda: Fn.scaled_dot_product_attention(q, k, v, attn_mask=mask, scale=scale)
     if name == "flash_attention_grouped":  # one call over the group-folded queries
         from efficientvlm_tpu_torch.ops.flash_attention import _fold
@@ -4754,9 +5533,9 @@ def phase_times(cases, device_cases, errs, slice_state, gen_state, train_launche
                          "max_abs_err": errs[name], "ms": ms, "plain_ms": plain_ms,
                          "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": lib_ms})
     # the other main-path shapes (text, t2i, rect, decode), for the record,
-    # with the plain versions of #1-#4; the two bare cores (#5, #6) at every
-    # shape, with the library call timed in turns (the host sets the pace at
-    # the decode shapes)
+    # with the plain versions; the two bare cores (#5, #6) at every shape,
+    # with the library call timed in turns (the host sets the pace at the
+    # decode shapes)
     seen, flash_cases = set(), []
     for name, case, run, plain, flops, nbytes, *extra in cases:
         first = name not in seen
@@ -4770,7 +5549,7 @@ def phase_times(cases, device_cases, errs, slice_state, gen_state, train_launche
                else library_yardstick(name, extra[0]))
         with torch.inference_mode():
             ms, lib_ms = timed_pair_ms(run, lib) if flash else (timed_ms(run), timed_ms(lib))
-            plain_ms = "" if flash else f", plain {timed_ms(plain, iters=3, runs=3):.4f} ms"
+            plain_ms = f", plain {timed_ms(plain, iters=3, runs=3):.4f} ms"
         if flash:
             flash_cases.append((name, case, run, lib))
         print(f"time {name} [{case}]: {ms:.4f} ms{plain_ms}, library {lib_ms:.4f} ms, "
@@ -4974,6 +5753,7 @@ def main(argv) -> int:
     smi = phase_environment()
     rnd = Rand(0)
     cases, device_cases = kernel_cases(rnd), device_kernel_cases(rnd)
+    cases += new_path_flash_cases(Rand(8))
     errs = phase_kernels(cases + device_cases)
     flash_refusals(rnd)
     p_cases = probs_cases(rnd)
@@ -5007,8 +5787,11 @@ def main(argv) -> int:
     data_launches = phase_data(smi)["launches"]
     driver_launches = phase_driver(smi, yardstick)["launches"]
     loops_launches = phase_loops(smi, yardstick)["launches"]
+    scst_launches = phase_scst(smi, yardstick)["launches"]
+    crossgen_launches = phase_crossgen(smi)["launches"]
+    alt_launches = phase_alt_vision(smi)["launches"]
     later = [gd_launches, task_launches, nlvr_launches, grounding_launches, data_launches,
-             driver_launches, loops_launches]
+             driver_launches, loops_launches, scst_launches, crossgen_launches, alt_launches]
     kernels = phase_times(cases, device_cases, errs, slice_state, gen_state,
                           [train_launches] + later)
     for row in train_rows:  # the probs forms run on every training path

@@ -14,8 +14,18 @@ is the prompt's token count without [SEP], which main takes from the
 tokenizer. main runs on the device args["device"] names (default cuda),
 with JAX's loop but for these: one process; --checkpoint may also name a
 native .ckpt; --evaluate builds no teacher; with compute_dtype bf16 the
-frozen teacher is stored in bf16. --scst (self-critical sequence training,
-efficientvlm_tpu/drivers/captioning.py:241-351) comes with ROADMAP A4.
+frozen teacher is stored in bf16.
+
+--scst runs scst_train (self-critical sequence training after the pruning
+fine-tune, efficientvlm_tpu/drivers/captioning.py:241-351): K sampled
+captions and one greedy caption a image on the device, the CIDEr-D
+advantages on the host, one advantage-weighted log-prob update a batch, the
+gates frozen deterministic when the config prunes. Batch i of epoch e
+samples with common.step_generator(seed, e, i) and the resume replays the
+interrupted epoch, as JAX's does; the port also saves the dataset's and the
+host transform's generator states at the epoch's start, so a replayed epoch
+draws what the interrupted one drew (JAX's replay of an epoch after the
+first starts from the seeded states).
 """
 
 from __future__ import annotations
@@ -29,7 +39,10 @@ import numpy as np
 import torch
 
 from ..config import Config
-from ..data.datasets import CaptioningEvalDataset, CaptioningTrainDataset, SimpleLoader
+from ..data.datasets import (
+    CaptioningEvalDataset, CaptioningSCSTDataset, CaptioningTrainDataset, SimpleLoader,
+    scst_collate,
+)
 from ..data.tokenizer import build_tokenizer
 from ..data.transforms import ImageTransform
 from ..data.utils import collect_result
@@ -38,10 +51,14 @@ from ..evaluation.caption_metrics import coco_caption_eval
 from ..models.model_generation import XVLMForCaptioning
 from ..pruning.l0_module import L0Module, XVLML0Module
 from ..train import checkpoint as ckpt_io
+from ..train.optim import create_optimizer
+from ..train.scheduler import create_scheduler
+from ..train.scst import ScstRewardCriterion, make_scst_step
 from ..train.steps import (
-    TaskTrainStep, captioning_kd_losses, init_train_state, make_task_train_step,
-    subset_teacher_taps,
+    TaskTrainStep, captioning_kd_losses, init_pretrain_state, init_train_state,
+    make_task_train_step, subset_teacher_taps,
 )
+from ..utils.logger import MetricLogger
 from . import common
 from .common import DevicePreprocess
 
@@ -183,10 +200,6 @@ def main(args: Config, config: Config) -> dict:
     against val_gt_file when the config names one, log.txt, the epoch's
     snapshot and the full state. Returns {"state", "epochs"} (each epoch's
     steps, seconds and metrics); with --evaluate {"results"}."""
-    if args.get("scst") and not args.get("evaluate"):
-        raise NotImplementedError("--scst: self-critical sequence training (captioning."
-                                  "scst_train, sampling and the CIDEr reward) comes with "
-                                  "ROADMAP A4")
     info = common.setup(args, config)
     device = resolve_device(args.get("device"))
     out_dir = args.get("output_dir") or "output"
@@ -215,6 +228,10 @@ def main(args: Config, config: Config) -> dict:
         return {"results": collect_result(
             results, "caption_result", out_dir, hdfs_wdir=args.get("output_hdfs", ""),
             rank=info["rank"], world_size=info["world_size"], remove_duplicate="image_id")}
+
+    if args.get("scst"):
+        return scst_train(args, config, student, sparams, l0, l0_params, tokenizer, info,
+                          prompt, device)
 
     dtype = common.compute_dtype(config)
     tparams = common.frozen_teacher(
@@ -261,3 +278,131 @@ def main(args: Config, config: Config) -> dict:
         common.save_full_state(out_dir, state, {"epoch": epoch})
         epochs_run.append(dict(record, metrics=metrics, results=results))
     return {"state": state, "epochs": epochs_run}
+
+
+def _host_draws(dataset) -> dict:
+    """The states of the host generators an SCST epoch draws from: the
+    dataset's (the ground truths picked) and the train transform's."""
+    return {"rng": dataset.rng.bit_generator.state,
+            "transform_rng": dataset.transform.rng.bit_generator.state}
+
+
+def _load_host_draws(dataset, states: dict) -> None:
+    dataset.rng.bit_generator.state = states["rng"]
+    dataset.transform.rng.bit_generator.state = states["transform_rng"]
+
+
+def scst_train(args: Config, config: Config, student: XVLMForCaptioning, sparams, l0: L0Module,
+               l0_params: dict, tokenizer, info: Config, prompt: str, device) -> dict:
+    """The --scst fine-tune (efficientvlm_tpu/drivers/captioning.py:241-351,
+    the reference's Eff_Captioning.py --scst): per batch, sample_n sampled
+    captions (top_p scst_top_p) and the greedy caption of each image from
+    the prompt, their CIDEr-D advantages against the image's ground truths
+    (greedy baseline), and one update of -(advantage x log-prob) by an AdamW
+    at lr_scst (default lr) over a linear schedule, clipped at
+    accelerator.CLIP_GRAD_NORM (default 1). Batch: --bs, else
+    batch_size_train_scst, else batch_size_train. The gates are frozen
+    deterministic when sparsity > 0. Compute in compute_dtype, bf16 by
+    default as in every other loop: JAX's SCST computes in f32 whatever the
+    config says, but the port's kernels compute in bf16, so an f32 SCST
+    runs only on the plain path (compute_dtype other than bf16 with
+    attn_impl plain; ROADMAP C). The full state is saved at each
+    epoch's end; on preemption it is saved as of epoch - 1 with the host
+    generators' states at the epoch's start, and --resume replays the epoch.
+    One process only. Returns {"state", "reward_history", "epochs"} (each
+    epoch's steps, seconds, and per step the seconds of sampling, reward and
+    update)."""
+    if info["world_size"] > 1:
+        raise NotImplementedError("--scst above one process: the data-parallel step comes "
+                                  "with distribution (ROADMAP A6)")
+    out_dir = args.get("output_dir") or ""
+    seed = int(args.get("seed", 42))
+    image_res = config.get("image_res", 384)
+    sample_n = int(config.get("scst_sample_n", 5))
+    bs = int(args.get("bs") or config.get("batch_size_train_scst",
+                                          config.get("batch_size_train", 8)))
+    train_ds = CaptioningSCSTDataset(
+        config["train_file"], ImageTransform.train(image_res, seed=seed),
+        config.get("image_root", ""), max_words=config.get("max_tokens", 30), n_gts=sample_n,
+        seed=seed)
+    train_loader = common.maybe_parallel_loader(SimpleLoader(
+        train_ds, batch_size=bs, shuffle=True, drop_last=True, rank=info["rank"],
+        world_size=info["world_size"], collate_fn=scst_collate), config)
+    epochs = int(args.get("epoch") or config.get("schedular", {}).get("epochs", 3))
+    opt_cfg = config.get("optimizer", Config())
+    sched = create_scheduler(
+        lr=float(opt_cfg.get("lr_scst", opt_cfg.get("lr", 1e-5))),
+        num_training_steps=epochs * max(len(train_loader), 1),
+        num_warmup_steps=config.get("schedular", {}).get("num_warmup_steps", 0))
+    clip = float(config.get("accelerator", {}).get("CLIP_GRAD_NORM", 1.0) or 0) or None
+    optimizer = create_optimizer(sparams, lr=sched,
+                                 weight_decay=float(opt_cfg.get("weight_decay", 0.01)),
+                                 grad_clip=clip)
+    zs = (l0.forward_deterministic({"loga": l0_params["loga"]})
+          if float(config.get("sparsity", 0.0)) > 0 else None)
+    eos_id, pad_id = tokenizer.sep_token_id, tokenizer.pad_token_id
+    sample_fn, grad_step = make_scst_step(
+        student, optimizer, prompt_length=student.prompt_length, pad_token_id=pad_id,
+        eos_id=eos_id, sample_n=sample_n, max_length=int(config.get("max_length", 20)),
+        min_length=int(config.get("min_length", 5)),
+        top_p=float(config.get("scst_top_p", 1.0)), zs=zs,
+        dtype=common.compute_dtype(config), impl=config.get("attn_impl", "fused"))
+    criterion = ScstRewardCriterion(sample_n=sample_n, baseline_type="greedy")
+    prompt_ids = np.asarray(tokenizer([prompt])["input_ids"], np.int64)[:, :-1]  # drop [SEP]
+
+    state = init_pretrain_state(sparams, optimizer)
+    start_epoch = 0
+    restored = (common.restore_full_state(out_dir, state)
+                if args.get("resume") and out_dir else None)
+    if restored is not None:
+        state, extra = restored
+        start_epoch = int(extra.get("epoch", -1)) + 1
+        if "host_draws" in extra:
+            _load_host_draws(train_ds, extra["host_draws"])
+        print(f"### scst resumed from epoch {start_epoch}")
+    reward_hist, epochs_run = [], []
+    for epoch in range(start_epoch, epochs):
+        train_loader.set_epoch(epoch)
+        draws = _host_draws(train_ds)
+        logger = MetricLogger()
+        parts = {"sample_s": [], "reward_s": [], "grad_s": []}
+        t_epoch = time.perf_counter()
+        for i, (images, gt_lists) in enumerate(
+                logger.log_every(train_loader, 10, f"SCST Epoch: [{epoch}]")):
+            t0 = time.perf_counter()
+            image = common.to_device(images, device)
+            pids = common.to_device(np.repeat(prompt_ids, len(gt_lists), axis=0), device)
+            sample_toks, greedy_toks = sample_fn(
+                state.params, image, pids, common.step_generator(seed, epoch, i, device))
+            sample_np, greedy_np = sample_toks.cpu().numpy(), greedy_toks.cpu().numpy()
+            t1 = time.perf_counter()
+            sampled = [tokenizer.decode(t, skip_special_tokens=True) for t in sample_np]
+            greedy = [tokenizer.decode(t, skip_special_tokens=True) for t in greedy_np]
+            adv = criterion.rewards(gt_lists, sampled, greedy)
+            t2 = time.perf_counter()
+            metrics = grad_step(state, {"image": image, "tokens": sample_toks,
+                                        "advantages": common.to_device(adv, device)})
+            metrics = {k: float(v) for k, v in metrics.items()}
+            t3 = time.perf_counter()
+            for key, seconds in zip(parts, (t1 - t0, t2 - t1, t3 - t2)):
+                parts[key].append(seconds)
+            logger.update(reward=criterion.get_score(), **metrics)
+            reward_hist.append(criterion.get_score())
+            # the loop reads the reward on the host every batch, so the
+            # interrupted epoch is replayed whole on resume
+            if common.preempted():
+                if out_dir:
+                    common.save_full_state(out_dir, state, {"epoch": epoch - 1, "scst": True,
+                                                            "host_draws": draws})
+                    common.wait_for_saves()
+                    common.log_stats({"preempted": True, "epoch": epoch, "scst": True},
+                                     out_dir)
+                print(f"### scst preempted in epoch {epoch}: state saved, exiting")
+                raise SystemExit(0)
+        logger.synchronize_between_processes()
+        common.log_stats({"epoch": epoch, "scst": True, **common.train_stats(logger)}, out_dir)
+        common.save_full_state(out_dir, state, {"epoch": epoch, "scst": True,
+                                                "host_draws": _host_draws(train_ds)})
+        epochs_run.append({"epoch": epoch, "steps": len(parts["grad_s"]), "batch": bs,
+                           "train_s": time.perf_counter() - t_epoch, **parts})
+    return {"state": state, "reward_history": reward_hist, "epochs": epochs_run}

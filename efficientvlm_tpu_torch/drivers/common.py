@@ -6,8 +6,9 @@ log.txt line), preemption and full-state saves, the pretraining streams'
 saved state, the host loaders and on-device preprocessing around a step.
 Every driver's loop runs on it: retrieval, VQA, captioning, NLVR and
 grounding (`main` of each drivers/<task>.py) and general distillation
-(drivers/gd.main, step by step over two streams). Still to come: SCST
-(ROADMAP A4) and distribution (A6).
+(drivers/gd.main, step by step over two streams); captioning's SCST loop
+(drivers/captioning.scst_train) uses its saves and preemption. Still to
+come: distribution (ROADMAP A6).
 
 Where JAX's design does not carry over to eager PyTorch:
 - the metrics of a step are read one step later, from pinned host buffers
@@ -202,15 +203,22 @@ def maybe_load_params(model, args: Config, config: Config, build_fn, *, device=N
     `.ckpt` (any payload shape, a physically pruned export included) is
     taken as stored (f32 masters); any other file is read as the
     reference's state dict and remapped (xvlm_params_from_state_dict, with
-    load_kw)."""
+    load_kw). Without a checkpoint, a Swin or DeiT model (use_swin /
+    use_deit) takes its tower from config["vision"]["ckpt"] when that file
+    exists (alt_vision_params_from_file)."""
     device = resolve_device(device)
-    if config.get("use_swin") or config.get("use_deit"):
-        raise NotImplementedError("Swin and DeiT vision towers come with ROADMAP A5")
     ckpt = args.get("checkpoint") or config.get("checkpoint")
     if not ckpt or not os.path.exists(ckpt):
         if ckpt:
             print(f"### checkpoint {ckpt} not found: params from their initialisation")
-        return build_fn()
+        params = build_fn()
+        vision_ckpt = (config.get("vision") or {}).get("ckpt")
+        if vision_ckpt and os.path.exists(vision_ckpt) and \
+                (config.get("use_swin") or config.get("use_deit")):
+            params["vision"] = ckpt_io.alt_vision_params_from_file(
+                vision_ckpt, config, model.vision_cfg, device=device)
+            print(f"### loaded vision tower from {vision_ckpt}")
+        return params
     if ckpt.endswith(".ckpt"):
         params, _ = ckpt_io.extract_model_and_gates(ckpt_io.load_params(ckpt))
         print(f"### loaded native checkpoint from {ckpt}")

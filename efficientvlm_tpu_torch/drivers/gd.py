@@ -22,7 +22,8 @@ common.step_generator(seed, 0, i). Where it differs from JAX:
 - with compute_dtype bf16 the frozen teacher is stored in bf16.
 
 The fine-tunes' loops are drivers/{retrieval,vqa,captioning,nlvr,
-grounding}.main, on drivers/common.py's shared epoch; SCST is ROADMAP A4.
+grounding}.main, on drivers/common.py's shared epoch; SCST is
+drivers/captioning.scst_train.
 """
 
 from __future__ import annotations

@@ -23,7 +23,7 @@ from ..models.xvlm import XVLM, mlp_head_apply
 
 
 def _device(params) -> torch.device:
-    return params["itm_head"]["fc1"]["kernel"].device
+    return params["itm_head"]["fc1"]["bias"].device
 
 
 def _numpy(t: torch.Tensor) -> np.ndarray:

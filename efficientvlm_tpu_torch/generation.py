@@ -17,8 +17,14 @@ stack) and any other cross-attending BERT decoder.
 Every ranking uses `top_k`, a stable descending sort: ties go to the lower
 index, as in `jax.lax.top_k` (`torch.topk` promises no tie order, and equal
 scores are common here: runs of -1e9 in the beam pool, answers that share a
-first token in VQA ranking). Sampling (`do_sample`, `top_p`) comes with the
-SCST training slice.
+first token in VQA ranking).
+
+Sampling (`do_sample`) draws by Gumbel-max, as `jax.random.categorical`
+does: the next token is argmax(filtered logits + g), g = -log(-log(u)), u
+uniform from an explicit torch.Generator on the logits' device
+(`gumbel_noise`), one [B, V] draw a step and no host read beyond the loop's
+own. Two generators seeded alike give the same noise, so a test can replay
+the draws.
 """
 
 from __future__ import annotations
@@ -90,6 +96,22 @@ def top_p_filter(logits: torch.Tensor, top_p: float) -> torch.Tensor:
     return torch.where(logits < cutoff, NEG_INF, logits)
 
 
+def gumbel_noise(shape, generator: Optional[torch.Generator], device) -> torch.Tensor:
+    """Standard Gumbel noise [shape] in f32: -log(-log(u)), u uniform in
+    [tiny, 1) from `generator` (torch's default one when None)."""
+    u = torch.rand(shape, generator=generator, device=device)
+    return -torch.log(-torch.log(u.clamp_min(torch.finfo(torch.float32).tiny)))
+
+
+def sample_tokens(logits: torch.Tensor, *, top_p: float = 1.0,
+                  generator: Optional[torch.Generator] = None) -> torch.Tensor:
+    """One token a row [B] from softmax(top_p_filter(logits)) by Gumbel-max
+    (jax.random.categorical's draw), the noise from `generator`."""
+    filtered = top_p_filter(logits.float(), top_p)
+    noise = gumbel_noise(filtered.shape, generator, filtered.device)
+    return (filtered + noise).argmax(-1)
+
+
 def _valid(max_length: int, cur_len: int, device) -> torch.Tensor:
     return (torch.arange(max_length, device=device) < cur_len).float()[None, :]
 
@@ -101,13 +123,18 @@ def _report(stats: Optional[dict], calls: int) -> None:
 
 def generate_no_beam(decode_fn: Callable, init_cache: list, prompt_ids: torch.Tensor, *,
                      max_length: int, eos_id: int, pad_id: int, do_sample: bool = False,
+                     temperature: float = 1.0, top_p: float = 1.0,
                      repetition_penalty: float = 1.0, min_length: int = 0,
+                     generator: Optional[torch.Generator] = None,
                      stats: Optional[dict] = None) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Greedy decode (OSCAR _generate_no_beam_search semantics). Returns
-    (tokens [B, max_length], sum_logprobs [B]). `stats`, when given, gets
-    "decoder_calls" (the prefill plus one call per step)."""
-    if do_sample:
-        raise NotImplementedError("sampling comes with the SCST training slice")
+    """Greedy or sampled decode (OSCAR _generate_no_beam_search semantics).
+    Returns (tokens [B, max_length], sum_logprobs [B]): each step's logits
+    divided by `temperature`, the repetition penalty and min_length's EOS
+    mask applied, then the argmax or, with do_sample, a draw from the top_p
+    filtered softmax (`sample_tokens`, noise from `generator`); the summed
+    log-prob is the unfiltered log-softmax's. Finished rows write pad and
+    keep their sum. `stats`, when given, gets "decoder_calls" (the prefill
+    plus one call per step)."""
     bsz, prompt_len = prompt_ids.shape
     dev = prompt_ids.device
     tokens = torch.full((bsz, max_length), pad_id, dtype=torch.long, device=dev)
@@ -120,13 +147,15 @@ def generate_no_beam(decode_fn: Callable, init_cache: list, prompt_ids: torch.Te
     finished = torch.zeros(bsz, dtype=torch.bool, device=dev)
     sum_logprobs = torch.zeros(bsz, device=dev)
     while cur_len < max_length and not bool(finished.all()):
-        scores = apply_repetition_penalty(next_logits.float(), tokens, _valid(max_length, cur_len, dev),
-                                          repetition_penalty)
+        scores = apply_repetition_penalty(next_logits.float() / temperature, tokens,
+                                          _valid(max_length, cur_len, dev), repetition_penalty)
         if cur_len < min_length:
             scores = scores.clone()
             scores[:, eos_id] = NEG_INF
         logp = torch.log_softmax(scores, dim=-1)
-        next_tok = torch.where(finished, pad_id, scores.argmax(-1))
+        choice = (sample_tokens(scores, top_p=top_p, generator=generator) if do_sample
+                  else scores.argmax(-1))
+        next_tok = torch.where(finished, pad_id, choice)
         tok_logp = logp.gather(1, next_tok[:, None])[:, 0]
         sum_logprobs = sum_logprobs + torch.where(finished, 0.0, tok_logp)
         tokens[:, cur_len] = next_tok

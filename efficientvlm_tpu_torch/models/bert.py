@@ -26,6 +26,8 @@ impl="fused" dispatch, per attention sublayer:
 - other cross-attention: the fused cross kernel, or the grouped one when
   `encoder_groups` > 1, whose epilogue also applies the layer's residual +
   post-LN; a matrix encoder bias has no kernel there and raises.
+A sublayer with int8 projections (ops/quant.py) takes none of the fused
+sublayer kernels: multi_head_attention runs its projections quantized.
 impl="plain" runs the plain PyTorch path.
 
 Training (train=True with a torch.Generator): dropout after the embeddings,
@@ -34,8 +36,10 @@ in JAX; the PAD embedding row gets no gradient (nn.Embedding's padding_idx).
 A sublayer takes its fused kernel in training only through the kernel's
 differentiable form and only when the layer's dropout rates are 0, as JAX
 dispatches; otherwise it runs multi_head_attention, whose plain core serves
-any forward that autograd records. output_attentions / output_hidden_states
-collect the KD taps: each layer's input and the last output, and the
+any forward that autograd records. An eval-mode forward (train=False) that
+autograd records (SCST's teacher-forced log-probs) takes the differentiable
+forms too (ops/attention.graded is the rule). output_attentions /
+output_hidden_states collect the KD taps: each layer's input and the last output, and the
 pre-dropout probabilities (the fused kernels' probs forms where they run).
 """
 
@@ -47,7 +51,7 @@ import torch
 
 from ..config import TextConfig
 from ..ops.attention import (
-    causal_bias, decode_bias, init_attention, init_decode_cache, make_attention_bias,
+    causal_bias, decode_bias, graded, init_attention, init_decode_cache, make_attention_bias,
     multi_head_attention, project_kv,
 )
 from ..ops.basic import (
@@ -57,6 +61,7 @@ from ..ops.basic import (
 from ..ops.fused_mha import (
     fused_cross_attention, fused_cross_attention_grouped, fused_self_attention,
 )
+from ..ops.quant import is_fusable, out_width
 
 
 def init_bert_layer(generator, cfg: TextConfig, layer_idx: int, device=None) -> dict:
@@ -121,7 +126,7 @@ def bert_embeddings(params: dict, input_ids: torch.Tensor, cfg: TextConfig, *,
 
 
 def _num_heads(attn_params: dict, head_dim: int) -> int:
-    return attn_params["q"]["kernel"].shape[1] // head_dim
+    return out_width(attn_params["q"]) // head_dim
 
 
 def _key_vector(bias: Optional[torch.Tensor], what: str) -> Optional[torch.Tensor]:
@@ -167,11 +172,13 @@ def bert_layer_apply(lp: dict, h: torch.Tensor, cfg: TextConfig, *,
     self_cache = cache.get("self") if cache is not None else None
     if lp.get("attention") is not None:  # fully-pruned self-attn -> identity
         nh = _num_heads(lp["attention"], head_dim)
-        if fused and self_cache is None and not is_decoder and _is_key_vector(bias):
+        if fused and self_cache is None and not is_decoder and _is_key_vector(bias) \
+                and is_fusable(lp["attention"]):
             res = fused_self_attention(
                 lp["attention"], h.to(dtype) if dtype is not None else h, num_heads=nh,
                 key_bias=None if bias is None else bias[:, 0, 0, :], head_z=self_head_z,
-                return_probs=output_probs, differentiable=train)
+                return_probs=output_probs,
+                differentiable=graded(h, self_head_z, lp["attention"]))
             attn_out, self_probs = res if output_probs else (res, None)
         else:
             attn_out, self_probs, self_cache = multi_head_attention(
@@ -185,7 +192,8 @@ def bert_layer_apply(lp: dict, h: torch.Tensor, cfg: TextConfig, *,
             encoder_hidden is not None or cross_kv is not None):
         nh = _num_heads(lp["crossattention"], head_dim)
         hq = h.to(dtype) if dtype is not None else h
-        if fused and cross_kv is None and encoder_groups > 1 and not train and not output_probs:
+        fused_x = fused and cross_kv is None and is_fusable(lp["crossattention"])
+        if fused_x and encoder_groups > 1 and not train and not output_probs:
             kb = _key_vector(encoder_bias, "grouped cross-attention")
             # the kernel's epilogue applies this layer's residual + post-LN
             h = fused_cross_attention_grouped(
@@ -195,11 +203,13 @@ def bert_layer_apply(lp: dict, h: torch.Tensor, cfg: TextConfig, *,
                     encoder_hidden.shape[0], encoder_hidden.shape[1]),
                 head_z=cross_head_z, ln_params=lp["crossattention_ln"], ln_eps=eps)
         else:
-            if fused and cross_kv is None and encoder_groups == 1:
+            if fused_x and encoder_groups == 1:
                 res = fused_cross_attention(
                     lp["crossattention"], hq, encoder_hidden, num_heads=nh,
                     key_bias=_key_vector(encoder_bias, "cross-attention"),
-                    head_z=cross_head_z, return_probs=output_probs, differentiable=train)
+                    head_z=cross_head_z, return_probs=output_probs,
+                    differentiable=graded(hq, encoder_hidden, cross_head_z,
+                                          lp["crossattention"]))
                 x_out, cross_probs = res if output_probs else (res, None)
             else:
                 x_out, cross_probs, _ = multi_head_attention(

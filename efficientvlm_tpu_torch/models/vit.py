@@ -21,7 +21,12 @@ fused_self_attention(mask=...), whose kernel takes it as a key vector.
 
 Training (train=True): a layer fuses through the kernels' differentiable
 forms, and only while attention_dropout is 0 (CLIP's is); otherwise
-multi_head_attention runs with dropout on the probabilities.
+multi_head_attention runs with dropout on the probabilities. A layer with
+int8 projections (ops/quant.py) runs multi_head_attention too: its
+projections quantized, its core the flash kernel under impl="fused".
+An eval-mode forward (train=False) that autograd records (SCST's
+teacher-forced log-probs) takes the differentiable forms too
+(ops/attention.graded is the rule).
 output_attentions / output_hidden_states collect the KD taps: each layer's
 input and the last layer's output (before the post-LN), and each layer's
 pre-gate f32 probabilities.
@@ -34,10 +39,11 @@ from typing import Optional
 import torch
 
 from ..config import VisionConfig
-from ..ops.attention import init_attention, make_attention_bias, multi_head_attention
+from ..ops.attention import graded, init_attention, make_attention_bias, multi_head_attention
 from ..ops.basic import ACT2FN, dense, init_dense, init_layer_norm, layer_norm
 from ..ops.fused_mha import fused_self_attention
 from ..ops.patch_embed import fused_patch_embed, patch_embed_plain
+from ..ops.quant import is_fusable, out_width
 
 
 def init_vit(generator: torch.Generator, cfg: VisionConfig, device=None) -> dict:
@@ -72,7 +78,7 @@ def init_vit(generator: torch.Generator, cfg: VisionConfig, device=None) -> dict
 def _num_heads(layer_params: dict, head_dim: int) -> int:
     if layer_params.get("attn") is None:
         return 0
-    return layer_params["attn"]["q"]["kernel"].shape[1] // head_dim
+    return out_width(layer_params["attn"]["q"]) // head_dim
 
 
 def vit_layer(lp: dict, h: torch.Tensor, *, num_heads: int, act,
@@ -86,11 +92,12 @@ def vit_layer(lp: dict, h: torch.Tensor, *, num_heads: int, act,
     probs = None
     if lp.get("attn") is not None:  # fully-pruned attention -> identity
         x = layer_norm(lp["ln1"], h, eps=1e-5)
-        if impl == "fused" and (not train or dropout_rate == 0.0):
+        if impl == "fused" and (not train or dropout_rate == 0.0) and is_fusable(lp["attn"]):
             res = fused_self_attention(
                 lp["attn"], x.to(dtype) if dtype is not None else x,
                 num_heads=num_heads, mask=key_mask, head_z=head_z,
-                return_probs=output_probs, differentiable=train)
+                return_probs=output_probs,
+                differentiable=graded(x, head_z, lp["attn"]))
             attn_out, probs = res if output_probs else (res, None)
             if head_layer_z is not None:
                 attn_out = attn_out * torch.as_tensor(
@@ -100,7 +107,8 @@ def vit_layer(lp: dict, h: torch.Tensor, *, num_heads: int, act,
                 lp["attn"], x, num_heads=num_heads,
                 bias=None if key_mask is None else make_attention_bias(key_mask),
                 head_z=head_z, head_layer_z=head_layer_z, output_probs=output_probs,
-                dropout_rate=dropout_rate, generator=generator, train=train, dtype=dtype)
+                dropout_rate=dropout_rate, generator=generator, train=train, dtype=dtype,
+                impl=impl)
         h = h + attn_out
 
     if lp.get("mlp") is not None:  # fully-pruned FFN -> identity
@@ -138,7 +146,10 @@ def vit_apply(params: dict, images: torch.Tensor, cfg: VisionConfig, *,
                                                params["patch_embed"]["kernel"].dtype)
     if impl == "fused":
         h = fused_patch_embed(params, images, patch_size=cfg["patch_size"], eps=1e-5,
-                              dtype=embed_dtype, differentiable=train)
+                              dtype=embed_dtype,
+                              differentiable=graded(images, *(
+                                  params.get(k) for k in ("patch_embed", "class_embedding",
+                                                          "pos_embed", "pre_ln"))))
     else:
         h = patch_embed_plain(params, images, patch_size=cfg["patch_size"], eps=1e-5,
                               dtype=embed_dtype)

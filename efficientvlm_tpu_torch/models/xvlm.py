@@ -46,9 +46,9 @@ def mlp_head_apply(params: dict, x: torch.Tensor, *, dtype=None) -> torch.Tensor
 
 def init_xvlm(generator, vision_cfg: VisionConfig, text_cfg: TextConfig, *,
               embed_dim: int = 256, temp: float = 0.07, with_mlm_head: bool = True,
-              with_bbox_head: bool = False, device=None) -> dict:
+              with_bbox_head: bool = False, vision_init=None, device=None) -> dict:
     params = {
-        "vision": V.init_vit(generator, vision_cfg, device),
+        "vision": (vision_init or V.init_vit)(generator, vision_cfg, device),
         "text": B.init_bert(generator, text_cfg, with_mlm_head=with_mlm_head, device=device),
         "vision_proj": init_dense(generator, vision_cfg["vision_width"], embed_dim,
                                   device=device),
@@ -77,9 +77,27 @@ def split_zs(zs: Optional[dict]):
     return vision, text
 
 
+def vision_encoder_dispatch(config: Optional[Config]):
+    """(init_fn(generator, cfg, device), apply_fn(params, images, cfg, **kw))
+    of the tower the config selects: Swin with use_swin, DeiT with
+    use_deit, else CLIP-ViT (the reference's build_vision_encoder). The gated
+    students and the task models run CLIP-ViT only, as JAX's do."""
+    config = config or {}
+    if config.get("use_swin"):
+        from .swin import init_swin, swin_apply
+
+        return init_swin, swin_apply
+    if config.get("use_deit"):
+        from .deit import deit_apply, init_deit
+
+        return init_deit, deit_apply
+    return V.init_vit, V.vit_apply
+
+
 class XVLM:
     """Stateless namespace bundling the configs; every method is a function
-    of (params, inputs)."""
+    of (params, inputs). The vision tower is the one config selects
+    (vision_encoder_dispatch)."""
 
     def __init__(self, vision_cfg: VisionConfig, text_cfg: TextConfig,
                  config: Optional[Config] = None):
@@ -87,6 +105,7 @@ class XVLM:
         self.text_cfg = text_cfg
         self.config = config or Config()
         self.embed_dim = self.config.get("embed_dim", 256)
+        self.vision_init, self.vision_apply = vision_encoder_dispatch(self.config)
 
     def init(self, seed: int, *, device=None, **kw) -> dict:
         """Params from a seed, on `device` (default cuda)."""
@@ -95,7 +114,7 @@ class XVLM:
         generator.manual_seed(seed)
         return init_xvlm(generator, self.vision_cfg, self.text_cfg,
                          embed_dim=self.embed_dim, temp=self.config.get("temp", 0.07),
-                         device=device, **kw)
+                         vision_init=self.vision_init, device=device, **kw)
 
     def get_vision_embeds(self, params, image, *, idx_to_group_img=None, image_atts=None,
                           zs=None, output_attentions=False, output_hidden_states=False,
@@ -109,11 +128,14 @@ class XVLM:
         sees one image row per text; the JAX package returns the B image rows
         ungathered, which breaks predict_bbox when n_txt != B."""
         vz, _ = split_zs(zs)
-        out = V.vit_apply(params["vision"], image, self.vision_cfg,
-                          idx_to_group_img=idx_to_group_img, image_atts=image_atts,
-                          output_attentions=output_attentions,
-                          output_hidden_states=output_hidden_states, train=train,
-                          generator=generator, dtype=dtype, impl=impl, **vz)
+        kw = dict(output_attentions=output_attentions,
+                  output_hidden_states=output_hidden_states, train=train, generator=generator,
+                  dtype=dtype, impl=impl, **vz)
+        if self.vision_apply is V.vit_apply:
+            kw.update(idx_to_group_img=idx_to_group_img, image_atts=image_atts)
+        elif idx_to_group_img is not None:
+            raise ValueError("region batches (idx_to_group_img) need the CLIP-ViT tower")
+        out = self.vision_apply(params["vision"], image, self.vision_cfg, **kw)
         embeds = out["last_hidden"]
         if idx_to_group_img is None:
             atts = torch.ones(embeds.shape[:2], dtype=torch.int32, device=embeds.device)

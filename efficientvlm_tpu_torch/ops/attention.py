@@ -195,12 +195,30 @@ def multi_head_attention(
     return out, (probs if output_probs else None), new_cache
 
 
+def _requires_grad(x) -> bool:
+    if isinstance(x, torch.Tensor):
+        return x.requires_grad
+    if isinstance(x, dict):
+        return any(_requires_grad(v) for v in x.values())
+    if isinstance(x, (list, tuple)):
+        return any(_requires_grad(v) for v in x)
+    return False
+
+
+def graded(*inputs) -> bool:
+    """The one rule for which form a kernel call takes: graded when autograd
+    records through one of `inputs` (tensors, or trees of them such as a
+    sublayer's params; None is skipped), in training or not. A graded call
+    of a fused sublayer takes its differentiable form; the flash cores,
+    which have no backward, give way to the plain core."""
+    return torch.is_grad_enabled() and _requires_grad(inputs)
+
+
 def _kernel_core(impl, output_probs, dropout_rate, train, generator, *tensors) -> bool:
     """The flash cores serve impl="fused" only where they compute all that
     is asked: no probs, no active dropout, and no autograd through them."""
     dropout_on = train and dropout_rate > 0.0 and generator is not None
-    graded = torch.is_grad_enabled() and any(t.requires_grad for t in tensors)
-    return impl == "fused" and not output_probs and not dropout_on and not graded
+    return impl == "fused" and not output_probs and not dropout_on and not graded(*tensors)
 
 
 def _grouped_kv_attention(

@@ -5,6 +5,7 @@
 - LayerNorm computes its statistics in f32 and casts back.
 - `dropout` draws from an explicit torch.Generator (JAX's explicit keys);
   without one it is the identity, as JAX's is without a key.
+- `dense` also applies the int8 dicts of ops/quant.py.
 """
 
 from __future__ import annotations
@@ -37,7 +38,13 @@ def init_embedding(generator, n: int, d: int, stddev: float = 0.02, device=None)
 
 
 def dense(params, x: torch.Tensor, *, dtype=None) -> torch.Tensor:
-    """x @ kernel + bias; the bias add rides in the matmul's epilogue."""
+    """x @ kernel + bias; the bias add rides in the matmul's epilogue. An
+    int8 dict (ops/quant.py: kernel_q8 / kernel_q8a8 and scale) runs
+    quant.dense_quantized."""
+    if "kernel" not in params:
+        from .quant import dense_quantized
+
+        return dense_quantized(params, x, dtype=dtype)
     kernel = params["kernel"]
     if dtype is not None:
         kernel = kernel.to(dtype)
@@ -71,7 +78,12 @@ def gelu(x: torch.Tensor) -> torch.Tensor:
     return F.gelu(x)
 
 
-ACT2FN = {"gelu": gelu, "quick_gelu": quick_gelu}
+def gelu_new(x: torch.Tensor) -> torch.Tensor:
+    """The tanh approximation of GELU (HF's gelu_new)."""
+    return F.gelu(x, approximate="tanh")
+
+
+ACT2FN = {"gelu": gelu, "quick_gelu": quick_gelu, "relu": F.relu, "gelu_new": gelu_new}
 
 
 def recompute_grads(fn, saved, needs, cotangents) -> tuple:

@@ -6,7 +6,11 @@ retrieval and captioning layout: vision_head [Lv,H], text_head [Lt,H],
 cross_head [2*Lc,H] (self/cross interleaved), vision/text/cross_intermediate
 [L,I]; `VQAL0Module` adds the answer decoder's decoder_head [2*Ld,H] and
 decoder_intermediate [Ld,I]; `NLVRL0Module` is XVLML0Module's over NLVR's
-replicated stack (twice the cross layers).
+replicated stack (twice the cross layers). The single-modality layouts
+(the reference's modal_l0_module.py): `VisionL0Module` (vision_head,
+vision_intermediate), `TextL0Module` (text_head, text_intermediate), each
+optionally with a per-layer `*_head_layer` gate, and `CrossL0Module`
+(cross_head [2L,H] emitted [L,2,H], cross_intermediate).
 
 Params: {"loga": {group: [L, size] tensor}, "lambda_1", "lambda_2"}; the
 λs are trained by gradient ascent (train/optim.create_lagrangian_optimizer).
@@ -91,6 +95,16 @@ class L0Module:
                              for row in loga.detach().float().cpu().numpy()])
             zs[f"{name}_z"] = self._emit(name, torch.from_numpy(rows).to(loga.device))
         return zs
+
+    def forward(self, params: dict, *, training: bool,
+                generator: Optional[torch.Generator] = None) -> dict:
+        """forward_train (drawing from `generator`) when training, else
+        forward_deterministic."""
+        if training:
+            if generator is None:
+                raise ValueError("training gates draw from a generator")
+            return self.forward_train(params, generator)
+        return self.forward_deterministic(params)
 
     # -- sparsity / Lagrangian -------------------------------------------------
 
@@ -252,3 +266,42 @@ def VQAL0Module(*, vision_layers: int, text_layers: int, cross_layers: int,
         vision_hidden_size=vision_hidden_size,
         vision_intermediate_size=vision_intermediate_size, vision_num_heads=vision_num_heads,
         head_group=head_group), **kw)
+
+
+def _single_modal_module(num_layers: int, *, hidden_size=768, intermediate_size=3072,
+                         num_heads=12, prefix: str = "", with_head_layer: bool = False,
+                         **kw) -> L0Module:
+    pph, ppi = _bert_sizes(hidden_size, intermediate_size, num_heads)
+    p = f"{prefix}_" if prefix else ""
+    groups = {f"{p}head": _head_group(num_layers, num_heads, pph),
+              f"{p}intermediate": _int_group(num_layers, intermediate_size, ppi,
+                                             _mlp_layer_params(hidden_size, intermediate_size))}
+    if with_head_layer:
+        groups[f"{p}head_layer"] = dict(shape=(num_layers, 1), params_per_dim=pph * num_heads,
+                                        init_mean=10.0)
+    return L0Module(groups, **kw)
+
+
+def VisionL0Module(num_layers: int, **kw) -> L0Module:
+    """The vision tower's gates alone: vision_head [L,H], vision_intermediate
+    [L,I] (and vision_head_layer [L,1] with with_head_layer)."""
+    return _single_modal_module(num_layers, prefix="vision", **kw)
+
+
+def TextL0Module(num_layers: int, **kw) -> L0Module:
+    """The text tower's gates alone: text_head [L,H], text_intermediate
+    [L,I] (and text_head_layer [L,1] with with_head_layer)."""
+    return _single_modal_module(num_layers, prefix="text", **kw)
+
+
+def CrossL0Module(num_layers: int, *, hidden_size=768, intermediate_size=3072, num_heads=12,
+                  **kw) -> L0Module:
+    """The fusion layers' gates alone: cross_head [2L,H] (self / cross rows
+    interleaved, emitted [L,2,H]) and cross_intermediate [L,I]."""
+    pph, ppi = _bert_sizes(hidden_size, intermediate_size, num_heads)
+    return L0Module({
+        "cross_head": {**_head_group(num_layers * 2, num_heads, pph),
+                       "emit": _interleave_to_pairs},
+        "cross_intermediate": _int_group(num_layers, intermediate_size, ppi,
+                                         _mlp_layer_params(hidden_size, intermediate_size)),
+    }, **kw)

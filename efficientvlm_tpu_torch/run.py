@@ -11,8 +11,9 @@ merge them. Each task runs its driver's main, as run.py routes it:
 gd_4m_small and pretrain_4m_* drivers/gd.main (pretrain_* without a
 teacher), itr_coco drivers/retrieval.main, vqa_480 drivers/vqa.main, nlvr
 and nlvr_domain drivers/nlvr.main, coco_captioning and coco_capt_domain
-drivers/captioning.main, grounding drivers/grounding.main. --scst
-(captioning's self-critical sequence training) raises until ROADMAP A4.
+drivers/captioning.main, grounding drivers/grounding.main;
+coco_captioning with --scst runs captioning's self-critical sequence
+training (drivers/captioning.scst_train).
 """
 
 from __future__ import annotations

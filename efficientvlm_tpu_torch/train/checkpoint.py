@@ -17,8 +17,10 @@ own native files.
 The loaders give the tree JAX's loaders give (the same keys and layouts:
 dense kernels [in, out], the patch kernel HWIO), as f32 tensors on the
 requested device (default cuda), each leaf with storage of its own (the
-optimizers update leaves in place). The Swin and DeiT loaders and the
-cross-generation loader are not ported (ROADMAP A4, A5).
+optimizers update leaves in place). The other vision towers' files (a
+Microsoft Swin, a timm DeiT) fill the vision subtree
+(alt_vision_params_from_file), and crossgen_params_from_state_dict builds the
+two translation models from an X-VLM checkpoint.
 
 Native files (`.ckpt`) are torch.save payloads, not JAX's msgpack: a
 params-only tree, a snapshot {"model", "l0", "epoch"} or a full training
@@ -37,6 +39,7 @@ import os
 import re
 from typing import Dict, Optional
 
+import numpy as np
 import torch
 
 from ..device import resolve_device
@@ -177,6 +180,132 @@ def vit_params_from_state_dict(sd: StateDict, num_layers: int, *,
     `device`: the 12 -> 6 mapper when the checkpoint has 12 layers and the
     target 6, and the positional table resized when num_patches differs."""
     return place(_vit(sd, num_layers, num_patches), resolve_device(device))
+
+
+def interpolate_relative_pos_embed(rel_pos_bias, dst_num_pos: int) -> torch.Tensor:
+    """A Swin relative-position bias table [(2w-1)^2, nH] resized to
+    dst_num_pos = (2w'-1)^2 entries (the reference's swin_transformer.py,
+    the BEiT recipe): the source grid's points spaced outward from the centre
+    in a geometric progression, the target grid uniform, each head's table
+    through scipy's bicubic RectBivariateSpline, in f32 on the CPU."""
+    rel = np.asarray(torch.as_tensor(rel_pos_bias).detach().float().cpu())
+    src_num_pos, num_heads = rel.shape
+    src_size, dst_size = int(src_num_pos ** 0.5), int(dst_num_pos ** 0.5)
+    if src_size == dst_size:
+        return torch.from_numpy(rel.copy())
+
+    def geometric_progression(a, r, n):
+        return a * (1.0 - r ** n) / (1.0 - r)
+
+    left, right = 1.01, 1.5
+    while right - left > 1e-6:
+        q = (left + right) / 2.0
+        if geometric_progression(1, q, src_size // 2) > dst_size // 2:
+            right = q
+        else:
+            left = q
+    dis, cur = [], 1.0
+    for i in range(src_size // 2):
+        dis.append(cur)
+        cur += q ** (i + 1)
+    x = np.asarray([-v for v in reversed(dis)] + [0] + dis)
+    t = dst_size // 2.0
+    dx = np.arange(-t, t + 0.1, 1.0)
+
+    from scipy.interpolate import RectBivariateSpline
+
+    cols = [RectBivariateSpline(x, x, rel[:, h].reshape(src_size, src_size), kx=3, ky=3)(
+        dx, dx).reshape(-1, 1) for h in range(num_heads)]
+    return torch.from_numpy(np.concatenate(cols, axis=-1).astype(np.float32))
+
+
+def swin_params_from_state_dict(sd: StateDict, *, depths, window_size: int,
+                                device=None) -> dict:
+    """A Microsoft Swin-Transformer state dict -> the swin param tree on
+    `device`: each relative-position bias table resized to the configured
+    window, the relative_position_index / attn_mask buffers and head.*
+    ignored."""
+    dst_num_pos = (2 * window_size - 1) ** 2
+    params: dict = {
+        "patch_embed": {"kernel": sd["patch_embed.proj.weight"].permute(2, 3, 1, 0),
+                        "bias": sd["patch_embed.proj.bias"]},
+        "patch_norm": _ln(sd, "patch_embed.norm"),
+        "stages": [],
+        "norm": _ln(sd, "norm"),
+    }
+    for s, depth in enumerate(depths):
+        stage: dict = {"blocks": []}
+        for b in range(depth):
+            p = f"layers.{s}.blocks.{b}"
+            stage["blocks"].append({
+                "ln1": _ln(sd, f"{p}.norm1"),
+                "qkv": _dense(sd, f"{p}.attn.qkv"),
+                "proj": _dense(sd, f"{p}.attn.proj"),
+                "rel_bias": interpolate_relative_pos_embed(
+                    sd[f"{p}.attn.relative_position_bias_table"], dst_num_pos),
+                "ln2": _ln(sd, f"{p}.norm2"),
+                "fc1": _dense(sd, f"{p}.mlp.fc1"),
+                "fc2": _dense(sd, f"{p}.mlp.fc2"),
+            })
+        if f"layers.{s}.downsample.reduction.weight" in sd:
+            stage["downsample"] = {"reduction": _dense(sd, f"layers.{s}.downsample.reduction"),
+                                   "norm": _ln(sd, f"layers.{s}.downsample.norm")}
+        params["stages"].append(stage)
+    return place(params, resolve_device(device))
+
+
+def deit_params_from_state_dict(sd: StateDict, num_layers: int, *,
+                                num_patches: Optional[int] = None, device=None) -> dict:
+    """A DeiT (timm ViT) state dict -> the deit param tree on `device`: the
+    12 -> 6 mapper when the checkpoint has 12 blocks and the target 6, the
+    positional table resized when num_patches differs (the reference's
+    bicubic, as for the CLIP tower), the fused qkv split into q / k / v (zero
+    biases where it has none), head.* ignored."""
+    n_ckpt = _layer_count(sd, r"blocks\.(\d+)\.")
+    if n_ckpt == 12 and num_layers == 6:
+        sd = subsample_layers(sd, "blocks", LAYER_MAPPER_12_TO_6)
+    elif n_ckpt != num_layers:
+        raise ValueError(f"checkpoint has {n_ckpt} deit layers, target {num_layers}")
+    pos = sd["pos_embed"].reshape(sd["pos_embed"].shape[-2], -1)
+    if num_patches is not None and pos.shape[0] != num_patches + 1:
+        pos = interpolate_pos_embed(pos, num_patches)
+    params: dict = {
+        "patch_embed": {"kernel": sd["patch_embed.proj.weight"].permute(2, 3, 1, 0),
+                        "bias": sd["patch_embed.proj.bias"]},
+        "cls_token": sd["cls_token"].reshape(-1),
+        "pos_embed": {"embedding": pos},
+        "norm": _ln(sd, "norm"),
+        "layers": [],
+    }
+    for i in range(num_layers):
+        p = f"blocks.{i}"
+        qkv_w = sd[f"{p}.attn.qkv.weight"]  # [3D, D]
+        d = qkv_w.shape[1]
+        qkv_b = sd.get(f"{p}.attn.qkv.bias")
+        if qkv_b is None:
+            qkv_b = torch.zeros(3 * d, dtype=qkv_w.dtype)
+        attn = {name: {"kernel": qkv_w[j * d:(j + 1) * d].t(), "bias": qkv_b[j * d:(j + 1) * d]}
+                for j, name in enumerate(("q", "k", "v"))}
+        attn["out"] = _dense(sd, f"{p}.attn.proj")
+        params["layers"].append({
+            "ln1": _ln(sd, f"{p}.norm1"), "attn": attn, "ln2": _ln(sd, f"{p}.norm2"),
+            "mlp": {"fc1": _dense(sd, f"{p}.mlp.fc1"), "fc2": _dense(sd, f"{p}.mlp.fc2")},
+        })
+    return place(params, resolve_device(device))
+
+
+def alt_vision_params_from_file(path: str, config, vision_cfg, *, device=None) -> dict:
+    """A Swin or DeiT torch checkpoint file -> the vision subtree of the
+    tower config["use_swin"] / config["use_deit"] selects (the reference's
+    build_vision_encoder(load_params=True))."""
+    sd = load_torch_state_dict(path)
+    if config.get("use_swin"):
+        return swin_params_from_state_dict(sd, depths=vision_cfg["depths"],
+                                           window_size=vision_cfg["window_size"], device=device)
+    if config.get("use_deit"):
+        return deit_params_from_state_dict(sd, vision_cfg["num_hidden_layers"],
+                                           num_patches=vision_cfg.num_patches, device=device)
+    raise ValueError("alt_vision_params_from_file: the config selects neither swin nor deit")
 
 
 # ---------------------------------------------------------------------------
@@ -329,6 +458,38 @@ def captioning_params_from_state_dict(sd: StateDict, *, vision_layers: int, text
         "text_decoder": _bert(split_by_prefix(sd, prefix), text_layers, fusion_layer, True,
                               False),
     }
+    return place(params, resolve_device(device))
+
+
+def crossgen_params_from_state_dict(sd: StateDict, fresh: dict, *,
+                                    vision_layers: Optional[int] = None, text_layers: int,
+                                    fusion_layer: int, num_dec_layers: Optional[int] = None,
+                                    num_patches: Optional[int] = None, device=None) -> dict:
+    """An X-VLM checkpoint -> XVLMForCrossGeneration / TextTranslater params
+    on `device`: the source text encoder whole; decoder layer i from text
+    layer fusion_layer + i; the decoder's word embeddings and cls head as
+    the `fresh` tree (the model's init) has them, its target vocabulary
+    being another; each decoder cross K/V whose kernel shape differs from
+    the fresh one's (a decoder K/V width other than the text tower's cross
+    width) stays fresh too. The vision tower loads when vision_layers is
+    given and `fresh` has one."""
+    num_dec_layers = num_dec_layers or (text_layers - fusion_layer)
+    text_sd = strip_bert_prefix(split_by_prefix(sd, "text_encoder."))
+    decoder = _bert(_decoder_from_cross(text_sd, fusion_layer, num_dec_layers), num_dec_layers,
+                    0, False, False)
+    fresh_dec = fresh["text_decoder"]
+    decoder["embeddings"]["word"] = fresh_dec["embeddings"]["word"]
+    decoder["cls"] = fresh_dec["cls"]
+    for layer, fresh_layer in zip(decoder["layers"], fresh_dec["layers"]):
+        for kv in ("k", "v"):
+            want = fresh_layer["crossattention"][kv]
+            if tuple(layer["crossattention"][kv]["kernel"].shape) != tuple(want["kernel"].shape):
+                layer["crossattention"][kv] = want
+    params = {"text": _bert(text_sd, text_layers, fusion_layer, False, False),
+              "text_decoder": decoder}
+    if vision_layers is not None and "vision" in fresh:
+        params["vision"] = _vit(split_by_prefix(sd, "vision_encoder."), vision_layers,
+                                num_patches)
     return place(params, resolve_device(device))
 
 

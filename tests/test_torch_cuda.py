@@ -1148,3 +1148,86 @@ def test_attention_at_the_nlvr_and_grounding_shapes(rnd, name):
     ref, ref_probs = plain(True)
     _close(out, ref)
     _probs_close(probs, ref_probs, mask)
+
+
+# ---------------------------------------------------------------------------
+# the slice of sampling, the other towers, int8 and MoE, on the card
+# ---------------------------------------------------------------------------
+
+
+def test_sampling_draws_from_the_card_generator(rnd):
+    """generate_no_beam(do_sample=True) over a fixed logits table on the
+    card: two generators seeded alike give the same tokens, the top_p
+    filter's excluded tokens never come, and greedy ignores the generator."""
+    from efficientvlm_tpu_torch import generation as G
+
+    table = torch.full((12, 12), -4.0, device="cuda")
+    table[:, 3:6] = torch.tensor([2.0, 1.5, 1.0], device="cuda")
+
+    def decode_fn(tokens, cache, offset):
+        return table[tokens], cache
+
+    prompt = torch.ones(64, 1, dtype=torch.long, device="cuda")
+
+    def draw(seed, **kw):
+        g = torch.Generator(device="cuda").manual_seed(seed)
+        return G.generate_no_beam(decode_fn, [], prompt, max_length=8, eos_id=2, pad_id=0,
+                                  generator=g, **kw)[0]
+
+    a, b = draw(1, do_sample=True, top_p=0.9), draw(1, do_sample=True, top_p=0.9)
+    assert torch.equal(a, b) and ((a[:, 1:] >= 3) & (a[:, 1:] <= 5)).all()
+    assert len(torch.unique(a[:, 1:])) > 1
+    assert torch.equal(draw(1), draw(2)) and (draw(1)[:, 1:] == 3).all()
+
+
+def test_deit_attention_launches_flash(rnd):
+    """A DeiT layer at 224 px (Tq = Tk = 197, head dim 64) under
+    impl="fused": one flash_attention launch, the output held to the plain
+    path's."""
+    from efficientvlm_tpu_torch.bridge import cast_floating
+    from efficientvlm_tpu_torch.config import VisionConfig
+    from efficientvlm_tpu_torch.models import deit as D
+
+    cfg = VisionConfig.create(vision_width=128, num_attention_heads=2, intermediate_size=256,
+                              num_hidden_layers=1, image_res=224, patch_size=16)
+    params = cast_floating(D.init_deit(torch.Generator(device="cuda").manual_seed(0), cfg,
+                                       "cuda"), torch.bfloat16)
+    image = rnd(2, 224, 224, 3)
+    before = FA.flash_attention.launches
+    with torch.inference_mode():
+        out = D.deit_apply(params, image, cfg, dtype=torch.bfloat16)["last_hidden"]
+        ref = D.deit_apply(params, image, cfg, dtype=torch.bfloat16, impl="plain")["last_hidden"]
+    assert FA.flash_attention.launches == before + 1 and out.shape == (2, 197, 128)
+    torch.cuda.synchronize()
+    assert (out.float() - ref.float()).abs().max().item() <= 0.05 * ref.float().abs().max().item()
+
+
+@pytest.mark.parametrize("rows", [5, 40])
+def test_int8_product_on_the_card(rnd, rows):
+    """w8a8's dense on the card (torch._int_mm, rows padded to at least 32)
+    against the same arithmetic on the CPU."""
+    from efficientvlm_tpu_torch.ops.quant import dense_quantized, quantize_dense
+
+    p = {"kernel": rnd(256, 384, std=0.05, dtype=torch.float32),
+         "bias": rnd(384, std=0.1, dtype=torch.float32)}
+    q = quantize_dense(p, mode="w8a8")
+    x = rnd(rows, 256, dtype=torch.float32)
+    got = dense_quantized(q, x)
+    want = dense_quantized({k: v.cpu() for k, v in q.items()}, x.cpu())
+    assert got.shape == (rows, 384)
+    assert (got.cpu() - want).abs().max().item() <= 1e-4 * want.abs().max().item() + 1e-5
+
+
+def test_moe_on_the_card(rnd):
+    from efficientvlm_tpu_torch.ops.moe import init_moe_ffn, moe_ffn
+
+    params = init_moe_ffn(torch.Generator(device="cuda").manual_seed(0), hidden=64, ffn=128,
+                          num_experts=4, device="cuda")
+    h = rnd(2, 24, 64, dtype=torch.float32)
+    out, aux = moe_ffn(params, h, capacity_factor=0.5)
+    cpu = {k: ({kk: vv.cpu() for kk, vv in v.items()} if isinstance(v, dict) else v.cpu())
+           for k, v in params.items()}
+    want, want_aux = moe_ffn(cpu, h.cpu(), capacity_factor=0.5)
+    assert (out.cpu() - want).abs().max().item() <= 1e-4 * want.abs().max().item()
+    assert abs(aux.item() - want_aux.item()) <= 1e-5
+    assert torch.equal(out.cpu().abs().sum(-1) == 0, want.abs().sum(-1) == 0)

@@ -13,7 +13,7 @@ train/optim.py), against the JAX package where JAX has the function:
   export against JAX's evaluate on the same params and gates (recalls
   equal, score matrices within 1e-4);
 - the CLI: itr_coco on the CPU, every other task name routed to its
-  driver's main, --scst naming ROADMAP A4.
+  driver's main, --scst reaching captioning's main.
 
 The corpus (16 JPEGs of 40 x 40, one caption each; 4 validation images x 2
 captions) and the YAML (configs/tests/Retrieval_synth.yaml with its paths,
@@ -627,12 +627,17 @@ def test_cli_names_the_roadmap_item_of_a_task_not_ported(task, tmp_path, monkeyp
     assert TRUN.TASK_DRIVERS[task] == ROUTES[task]
 
 
-def test_cli_scst_names_roadmap_a4(tmp_path):
-    """--scst (captioning's self-critical sequence training) is the one mode
-    left: it raises naming ROADMAP A4 before anything is loaded."""
-    with pytest.raises(NotImplementedError, match="ROADMAP A4"):
-        TRUN.main(["--task", "coco_captioning", "--scst", "--device", "cpu", "--output_dir",
-                   str(tmp_path)])
+def test_cli_scst_names_roadmap_a4(tmp_path, monkeypatch):
+    """--scst (captioning's self-critical sequence training, ROADMAP A4,
+    ported since) reaches the captioning driver's main with the flag set;
+    its loop, scst_train, is held in tests/test_torch_scst.py."""
+    from efficientvlm_tpu_torch.drivers import captioning as TCap
+
+    calls = []
+    monkeypatch.setattr(TCap, "main", lambda args, config: calls.append(args) or "ran")
+    assert TRUN.main(["--task", "coco_captioning", "--scst", "--device", "cpu",
+                      "--output_dir", str(tmp_path)]) == "ran"
+    assert calls[0]["scst"] is True and calls[0]["task"] == "coco_captioning"
 
 
 def test_main_runs_on_the_card_by_default(corpus, tmp_path):

@@ -196,11 +196,21 @@ def test_generate_matches_jax(decoder, name):
 
 
 def test_sampling_waits_for_the_scst_slice(decoder):
+    """Sampling came with the SCST slice (held to JAX with pinned noise in
+    tests/test_torch_scst.py): over the real decoder its draws come from the
+    generator alone, so two generators seeded alike give the same tokens."""
     _, _, cfg, tp, enc, atts, *_ = decoder
     tfn = TG.make_bert_decode_fn(tp, cfg, encoder_hidden=_t(enc), encoder_atts=_t(atts))
-    with pytest.raises(NotImplementedError):
-        TG.generate_no_beam(tfn, TB.init_bert_cache(tp, cfg, 2, 6), torch.ones(2, 1).long(),
-                            max_length=6, eos_id=EOS, pad_id=PAD, do_sample=True)
+
+    def draw(seed):
+        return TG.generate_no_beam(tfn, TB.init_bert_cache(tp, cfg, 2, 6),
+                                   torch.ones(2, 1).long(), max_length=6, eos_id=EOS,
+                                   pad_id=PAD, do_sample=True, top_p=0.9,
+                                   generator=torch.Generator().manual_seed(seed))
+
+    (a, la), (b, lb) = draw(3), draw(3)
+    assert torch.equal(a, b) and torch.equal(la, lb) and a.shape == (2, 6)
+    assert bool(torch.isfinite(la).all())
 
 
 def test_helpers_match_jax():

@@ -205,3 +205,49 @@ def test_forward_train_draws_from_the_generator():
     a, b, c = draw(1), draw(1), draw(2)
     assert all(torch.equal(a[k], b[k]) for k in a)
     assert not torch.equal(a["vision_intermediate_z"], c["vision_intermediate_z"])
+
+
+MODAL = [("vision", dict(with_head_layer=False)), ("vision", dict(with_head_layer=True)),
+         ("text", dict(with_head_layer=False)), ("text", dict(with_head_layer=True)),
+         ("cross", {})]
+
+
+@pytest.mark.parametrize("kind,extra", MODAL,
+                         ids=["vision", "vision-head_layer", "text", "text-head_layer", "cross"])
+def test_single_modal_gates_match_jax(kind, extra):
+    """VisionL0Module / TextL0Module (with and without the per-layer
+    head_layer gate) and CrossL0Module (pairs emitted [L,2,H]): the layout and
+    prunable size, the deterministic masks, the gates from pinned noise (1e-6)
+    and the size accounting of the masks, against the JAX modules;
+    forward(training=) routes to the two."""
+    from efficientvlm_tpu.pruning import l0_module as JLM
+    from efficientvlm_tpu_torch.pruning import l0_module as TLM
+
+    name = {"vision": "VisionL0Module", "text": "TextL0Module", "cross": "CrossL0Module"}[kind]
+    kw = dict(hidden_size=64, intermediate_size=96, num_heads=4, target_sparsity=0.3, **extra)
+    jm, tm = getattr(JLM, name)(3, **kw), getattr(TLM, name)(3, **kw)
+    assert list(tm.groups) == list(jm.groups) and tm.prunable_model_size == jm.prunable_model_size
+    for k in jm.groups:
+        assert tm.groups[k]["shape"] == jm.groups[k]["shape"]
+        assert tm.groups[k]["params_per_dim"] == jm.groups[k]["params_per_dim"]
+    params = _loga(jm, seed=4)
+    tp = l0_params_from_numpy(params, device="cpu")
+    jdet = jm.forward(params, training=False)
+    tdet = tm.forward(tp, training=False)
+    assert set(tdet) == set(jdet)
+    for k in jdet:
+        np.testing.assert_array_equal(tdet[k].numpy(), np.asarray(jdet[k]), err_msg=k)
+    if kind == "cross":
+        assert tdet["cross_head_z"].shape == (3, 2, 4)
+    assert tm.calculate_model_size(tdet) == jm.calculate_model_size(jdet)
+    rng = np.random.default_rng(5)
+    noise = {k: rng.uniform(1e-6, 1 - 1e-6, g["shape"]).astype(np.float32)
+             for k, g in jm.groups.items()}
+    jz = jm.forward_train(params, jax.random.PRNGKey(0), noise=noise)
+    tz = tm.forward_train(tp, noise=noise)
+    for k in jz:
+        np.testing.assert_allclose(tz[k].numpy(), np.asarray(jz[k]), atol=1e-6, rtol=0)
+    drawn = tm.forward(tp, training=True, generator=torch.Generator().manual_seed(0))
+    assert {k: v.shape for k, v in drawn.items()} == {k: v.shape for k, v in tdet.items()}
+    with pytest.raises(ValueError):
+        tm.forward(tp, training=True)

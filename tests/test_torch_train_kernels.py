@@ -241,3 +241,16 @@ def test_no_kernel_without_a_backward_under_autograd():
     assert not TA._kernel_core("fused", False, 0.0, False, None, q.requires_grad_(True))
     with torch.no_grad():
         assert TA._kernel_core("fused", False, 0.0, False, None, q)
+
+
+def test_graded_is_whether_autograd_records():
+    """ops/attention.graded, the one rule for the kernel forms: true only
+    with grad enabled and a tensor of the inputs (trees included, None
+    skipped) requiring grad, in training or not."""
+    w = torch.zeros(2, 2)
+    tree = {"q": {"kernel": w, "bias": None}, "out": [w]}
+    assert not TA.graded(w, None, tree)
+    tree["out"].append(torch.zeros(2).requires_grad_(True))
+    assert TA.graded(None, tree)
+    with torch.no_grad():
+        assert not TA.graded(None, tree)
