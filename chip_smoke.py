@@ -158,6 +158,25 @@ It builds the port's CUDA kernels from csrc/ (into build/kernels/), then:
      held to the plain path; the CLIP-ViT retrieval forward with int8
      weights (w8, w8a8) against bf16, the quantized layers off #2-#4; one
      moe_ffn call against the CPU;
+   - serving (phase_serving): the caption service (the shipped
+     Captioning.yaml student, 384 px, 3 beams) and the VQA service
+     (VQA_480.yaml, 480 px, 3,128 answers, k 128) over HTTP on 127.0.0.1,
+     max_batch_size 16, max_wait_ms 10, 16 client threads, each from an
+     export of a gated snapshot by `python -m
+     efficientvlm_tpu_torch.scripts.export_pruned` (64 requests) and from a
+     dense reference-keyed .th (16 requests): every batch a service ran
+     replayed through the offline unit at its bucket (tokens / answers
+     equal), scripts/infer.py at fixed batches equal to the offline unit;
+     requests/s, latency percentiles, stage ms, buckets, the device-busy
+     share, launches a bucket-16 batch;
+   - data parallelism (phase_ddp): parallel/multihost_check at full width
+     (the Retrieval_coco.yaml pruning step) for three steps over world
+     batches of 24, one rank over NCCL, then two ranks on the one card
+     (NCCL tried, gloo with CUDA tensors where it refuses): the ranks'
+     params bit-equal, the losses and step-1 gradients held to the one
+     rank's by hold_to_plain's rule, the rank-sharded retrieval scores
+     summed equal to one rank's; step ms, all-reduce ms and bytes, peak
+     memory per rank;
    with exact launch counts, finite outputs, and the kernel path against the
    plain path (f32 params for retrieval; the same bf16 params for
    generation, with a teacher-forced replay of the generated captions, and
@@ -1650,13 +1669,17 @@ def phase_train(rnd):
 
     yardstick = hold_to_plain({n: r[:2] for n, r in results.items()}, u["steps"],
                               ("params", "loga", "lambda"), "train")
+    # the step-1 gradients' distance of the plain bf16 path from f32, by group
+    # (phase_ddp holds two ranks against one rank in these units)
+    grad_yardstick = {g: grad_distance(results["plain"][1][j], results["f32"][1][j])
+                      for j, g in enumerate(("params", "loga", "lambda"))}
     step, state, _ = paths["kernel"]
     for name in ("plain", "f32"):
         del paths[name]
     del results
     return {"step": step, "state": state, "batch": batch, "noise": noises[-1], "l0": l0,
             "student": student, "config": config, "launches": launches,
-            "loss_yardstick": yardstick}
+            "loss_yardstick": yardstick, "grad_yardstick": grad_yardstick}
 
 
 # the export's FFN width alignment on the H100 (NVIDIA H100 80GB HBM3, 700
@@ -5409,6 +5432,577 @@ def phase_alt_vision(smi: str) -> dict:
 
 
 # --------------------------------------------------------------------------
+# phase 3 (continued): serving and data parallelism
+# --------------------------------------------------------------------------
+
+
+SERVE_UNIT = dict(max_batch=16, max_wait_ms=10.0, clients=16, requests=64, dense_requests=16,
+                  infer_items=32, infer_batch=16, export_timeout=600)
+SERVE_YAML = {"caption": "x-vlm-small-ft/Captioning.yaml", "vqa": "x-vlm-small-ft/VQA_480.yaml"}
+SERVE_KERNELS = ("patch_embed", "fused_self_attention", "fused_cross_attention",
+                 "flash_attention", "flash_attention_grouped")  # #1, #2, #3, #6, #5
+
+
+def free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def pct(values, q: float) -> float:
+    vals = sorted(values)
+    return vals[min(len(vals) - 1, int(len(vals) * q))]
+
+
+def serve_export(task: str, config, root: str, here: str) -> str:
+    """A gated snapshot of the task's seeded 6L / 6L student with log-alphas
+    drawn from a seed (drawn_loga: about a quarter of the units pruned),
+    then `python -m efficientvlm_tpu_torch.scripts.export_pruned` on it;
+    returns the export's .ckpt."""
+    import types
+
+    from efficientvlm_tpu_torch.drivers import captioning as cap
+    from efficientvlm_tpu_torch.drivers import vqa as V
+    from efficientvlm_tpu_torch.train import checkpoint as ckpt_io
+
+    drv = cap if task == "caption" else V
+    student = drv.build_models(config)[0]
+    l0 = drv.build_l0(config)
+    loga = drawn_loga(types.SimpleNamespace(loga=l0.init(2, device="cuda")["loga"]),
+                      Rand(21 if task == "caption" else 22))
+    snap = os.path.join(root, f"{task}_gated.ckpt")
+    ckpt_io.save_pytree(snap, {"model": student.init(0, device="cuda"),
+                               "l0": {"loga": loga, "lambda_1": 0.0, "lambda_2": 0.0},
+                               "epoch": 0})
+    out = os.path.join(root, f"{task}_pruned")
+    cmd = [sys.executable, "-m", "efficientvlm_tpu_torch.scripts.export_pruned",
+           "--training_state", snap, "--task", task, "--out", out,
+           "--fusion_layer", str(student.text_cfg["fusion_layer"])]
+    if task == "vqa":
+        cmd += ["--decoder_layers", str(student.decoder_cfg["num_hidden_layers"])]
+    t0 = time.perf_counter()
+    r = subprocess.run(cmd, cwd=here, capture_output=True, text=True,
+                       timeout=SERVE_UNIT["export_timeout"])
+    print(f"serving {task}: export_pruned exit {r.returncode} in "
+          f"{time.perf_counter() - t0:.1f} s: " + " | ".join(
+              ln.strip() for ln in r.stdout.splitlines()
+              if ln.startswith(("params:", "saved", "torch export", '  "pruned_model_sparsity'))))
+    check(r.returncode == 0, f"export_pruned ({task}) failed: {r.stderr[-2000:]}")
+    os.remove(snap)
+    return out + ".ckpt"
+
+
+def serve_payloads(task: str, files: dict, n: int) -> list:
+    """n request bodies: the corpus's JPEGs in turn (base64), with the VQA
+    test questions for vqa."""
+    import base64
+
+    names = sorted(p for p in os.listdir(files["root"]) if p.endswith(".jpg"))
+    with open(files["vqa_test"]) as f:
+        questions = [q["question"] for q in json.load(f)]
+    out = []
+    for i in range(n):
+        with open(os.path.join(files["root"], names[i % len(names)]), "rb") as f:
+            body = {"image_b64": base64.b64encode(f.read()).decode()}
+        if task == "vqa":
+            body["question"] = questions[i % len(questions)]
+        out.append(body)
+    return out
+
+
+def offline(svc, images, questions=None):
+    """The task's evaluation unit called directly on a batch (uint8 images
+    [B,H,W,3] normalised on the card, as the service does): 3-beam generate
+    from the prompt, or forward_eval's top answer. Returns token rows or
+    answer indices, on the host."""
+    import numpy as np
+    import torch
+
+    from efficientvlm_tpu_torch.data.device_pipeline import normalize
+
+    image = normalize(torch.as_tensor(np.asarray(images), device="cuda").float())
+    cfg, tok = svc.config, svc.tokenizer
+    with torch.inference_mode():
+        if svc.task == "caption":
+            pids = torch.as_tensor(np.repeat(svc._prompt_ids, len(image), axis=0), device="cuda")
+            return svc.model.generate(
+                svc.params, image, pids, max_length=int(cfg["max_length"]),
+                min_length=int(cfg["min_length"]), num_beams=int(cfg["num_beams"]),
+                eos_id=tok.sep_token_id, pad_id=tok.pad_token_id, zs=svc.zs,
+                dtype=torch.bfloat16).cpu()
+        q = tok(list(questions), padding="max_length", truncation=True,
+                max_length=int(cfg.get("max_tokens", 40)))
+        ids, _ = svc.model.forward_eval(
+            svc.params, image, torch.as_tensor(np.asarray(q["input_ids"], np.int64), device="cuda"),
+            torch.as_tensor(np.asarray(q["attention_mask"]), device="cuda"), svc._answer_ids,
+            svc._answer_atts, k=svc._k, zs=svc.zs, dtype=torch.bfloat16)
+        return ids[:, 0].cpu()
+
+
+def serve_traffic(task: str, config, ckpt: str, files: dict, n: int, smi: str) -> dict:
+    """The service from `ckpt` (every bucket warmed in its constructor),
+    then n requests from SERVE_UNIT["clients"] client threads over HTTP on
+    127.0.0.1 (an ephemeral port); every batch the service ran is recorded
+    (its items, padding and result) and replayed through the offline unit
+    at the same bucket: the tokens (answers) must be equal. Returns the
+    report; the launches of the traffic are in the counts."""
+    import queue
+    import threading
+    import urllib.request
+
+    import numpy as np
+    import torch
+
+    from efficientvlm_tpu_torch.serving import (InferenceService, make_http_server, pad_items,
+                                                pad_to_bucket, serve_forever_in_thread)
+
+    u = SERVE_UNIT
+    t0 = time.perf_counter()
+    svc = InferenceService(task, config, checkpoint=ckpt, max_batch_size=u["max_batch"],
+                           max_wait_ms=u["max_wait_ms"])
+    build_s = time.perf_counter() - t0
+    ran = []
+    dispatch = svc._batcher._run
+
+    def recorded(items):
+        handle = dispatch(items)
+        ran.append((items, handle))
+        return handle
+
+    svc._batcher._run = recorded
+    svc.reset_stats()
+    server = make_http_server(svc, "127.0.0.1", 0)
+    serve_forever_in_thread(server)
+    url = f"http://127.0.0.1:{server.server_address[1]}/{task}"
+    work = queue.Queue()
+    for i, body in enumerate(serve_payloads(task, files, n)):
+        work.put((i, json.dumps(body).encode()))
+    answers, lat, errors = {}, {}, []
+
+    def client():
+        while True:
+            try:
+                i, body = work.get_nowait()
+            except queue.Empty:
+                return
+            t = time.perf_counter()
+            try:
+                req = urllib.request.Request(url, data=body,
+                                             headers={"Content-Type": "application/json"})
+                with urllib.request.urlopen(req, timeout=300) as r:
+                    answers[i] = json.loads(r.read())["caption" if task == "caption" else "answer"]
+            except Exception as e:  # noqa: BLE001 (held below)
+                errors.append(repr(e))
+            lat[i] = (time.perf_counter() - t) * 1e3
+
+    t0 = time.perf_counter()
+    threads = [threading.Thread(target=client) for _ in range(u["clients"])]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=600)
+    wall = time.perf_counter() - t0
+    stats = svc.stats()
+    server.shutdown()
+    server.server_close()
+    svc.close()
+    check(not errors and len(answers) == n, f"serving {task}: {len(errors)} failed requests "
+                                            f"{errors[:3]}")
+    check(sum(len(items) for items, _ in ran) == n, f"serving {task}: the batches ran "
+                                                     f"{sum(len(i) for i, _ in ran)} of {n}")
+    # every batch the service ran, replayed offline at its bucket
+    with uncounted():
+        for items, (host, _) in ran:
+            bucket = pad_to_bucket(len(items), u["max_batch"])
+            padded = pad_items(items, bucket)
+            ref = offline(svc, [it["image"] for it in padded],
+                          [it.get("question") for it in padded])
+            check(torch.equal(ref, host), f"serving {task}: a batch of {len(items)} (bucket "
+                                          f"{bucket}) differs from the offline unit")
+        # the launches of one bucket-16 batch (the first 16 requests)
+        first16 = [it for items, _ in ran for it in items][:u["max_batch"]]
+        before = counts()
+        offline(svc, [it["image"] for it in first16], [it.get("question") for it in first16])
+        now = counts()
+        per16 = {k: now[k] - before[k] for k in SERVE_KERNELS}
+        # each request alone (bucket 1): printed, not held
+        alone = []
+        for items, (host, _) in ran:
+            for j, it in enumerate(items):
+                one = offline(svc, [it["image"]], [it.get("question")])
+                alone.append(bool(torch.equal(one[0], host[j])))
+    busy = stats["device_busy_s"] / max(stats["window_s"], 1e-9)
+    rep = {"requests": n, "requests_per_s": n / wall, "p50_ms": pct(lat.values(), 0.5),
+           "p95_ms": pct(lat.values(), 0.95), "p99_ms": pct(lat.values(), 0.99),
+           "queue_wait_p50_ms": stats["queue_wait_p50_ms"],
+           "queue_wait_p95_ms": stats["queue_wait_p95_ms"],
+           "dispatch_mean_ms": stats["dispatch_mean_ms"], "finish_mean_ms": stats["finish_mean_ms"],
+           "buckets": stats["buckets"], "batches": stats["batches"], "device_busy_share": busy,
+           "preprocess_mean_ms": stats["preprocess_mean_ms"], "launches_per_b16": per16,
+           "same_as_bucket1": sum(alone) / len(alone), "service_build_s": build_s,
+           "card": smi}
+    print(f"serving {task} from {os.path.basename(ckpt)}: {n} requests from {u['clients']} "
+          f"clients in {wall:.2f} s = {rep['requests_per_s']:.1f} requests/s; latency p50 / p95 "
+          f"/ p99 {rep['p50_ms']:.1f} / {rep['p95_ms']:.1f} / {rep['p99_ms']:.1f} ms; queue wait "
+          f"p50 / p95 {rep['queue_wait_p50_ms']:.1f} / {rep['queue_wait_p95_ms']:.1f} ms, "
+          f"dispatch {rep['dispatch_mean_ms']:.1f} ms, finish {rep['finish_mean_ms']:.2f} ms a "
+          f"batch; buckets {rep['buckets']}; device busy share {busy:.3f}; preprocess "
+          f"{rep['preprocess_mean_ms']:.2f} ms a request; launches a bucket-16 batch {per16}; "
+          f"{100 * rep['same_as_bucket1']:.1f}% of the requests' results equal their bucket-1 "
+          f"result (not held); every one of the {len(ran)} batches replayed equal; {smi}")
+    return rep
+
+
+def serve_infer(task: str, config, yaml_path: str, ckpt: str, files: dict, root: str):
+    """scripts/infer.py (in this process) on infer_items of the corpus at
+    batches of infer_batch against the offline unit at those batches on
+    ImageTransform.test's images."""
+    import numpy as np
+    import torch
+
+    from efficientvlm_tpu_torch.data.datasets import load_transformed
+    from efficientvlm_tpu_torch.data.transforms import ImageTransform
+    from efficientvlm_tpu_torch.drivers.captioning import strip_prompt
+    from efficientvlm_tpu_torch.scripts import infer
+    from efficientvlm_tpu_torch.serving import InferenceService
+
+    u = SERVE_UNIT
+    names = sorted(p for p in os.listdir(files["root"]) if p.endswith(".jpg"))[:u["infer_items"]]
+    out = os.path.join(root, f"infer_{task}.json")
+    argv = ["--task", task, "--checkpoint", ckpt, "--config", yaml_path, "--out", out,
+            "--batch_size", str(u["infer_batch"])]
+    if task == "caption":
+        folder = os.path.join(root, "infer_images")
+        os.makedirs(folder, exist_ok=True)
+        for n in names:
+            os.link(os.path.join(files["root"], n), os.path.join(folder, n))
+        argv += ["--images", folder]
+        questions = [None] * len(names)
+    else:
+        with open(files["vqa_test"]) as f:
+            questions = [q["question"] for q in json.load(f)]
+        questions = [questions[i % len(questions)] for i in range(len(names))]
+        reqs = os.path.join(root, "infer_requests.json")
+        with open(reqs, "w") as f:
+            json.dump([{"image": n, "question": q} for n, q in zip(names, questions)], f)
+        argv += ["--requests", reqs, "--answer_list", files["answer_list"], "--image_root",
+                 files["root"]]
+    t0 = time.perf_counter()
+    infer.main(argv)
+    infer_s = time.perf_counter() - t0
+    with open(out) as f:
+        got = json.load(f)
+    svc = InferenceService(task, config, checkpoint=ckpt, warmup=False)
+    svc.close()
+    tf = ImageTransform.test(int(config["image_res"]))
+    want = []
+    with uncounted(), torch.inference_mode():
+        for s in range(0, len(names), u["infer_batch"]):
+            chunk = names[s:s + u["infer_batch"]]
+            image = torch.from_numpy(np.stack([np.asarray(load_transformed(
+                tf, n, is_path=True, image_root=files["root"])) for n in chunk])).cuda()
+            cfg, tok = svc.config, svc.tokenizer
+            if task == "caption":
+                pids = torch.as_tensor(np.repeat(svc._prompt_ids, len(chunk), axis=0),
+                                       device="cuda")
+                toks = svc.model.generate(
+                    svc.params, image, pids, max_length=int(cfg["max_length"]),
+                    min_length=int(cfg["min_length"]), num_beams=int(cfg["num_beams"]),
+                    eos_id=tok.sep_token_id, pad_id=tok.pad_token_id, zs=svc.zs,
+                    dtype=torch.bfloat16)
+                want += [strip_prompt(tok.decode(t, skip_special_tokens=True),
+                                      svc._prompt) for t in toks.cpu().numpy()]
+            else:
+                q = tok(questions[s:s + len(chunk)], padding="max_length", truncation=True,
+                        max_length=int(cfg.get("max_tokens", 40)))
+                ids, _ = svc.model.forward_eval(
+                    svc.params, image,
+                    torch.as_tensor(np.asarray(q["input_ids"], np.int64), device="cuda"),
+                    torch.as_tensor(np.asarray(q["attention_mask"]), device="cuda"),
+                    svc._answer_ids, svc._answer_atts, k=svc._k, zs=svc.zs,
+                    dtype=torch.bfloat16)
+                want += [svc.answers[int(a)] for a in ids[:, 0].tolist()]
+    key = "caption" if task == "caption" else "answer"
+    check([r[key] for r in got] == want, f"infer ({task}) differs from the offline unit")
+    print(f"serving {task}: infer.py on {len(names)} items at batch {u['infer_batch']} in "
+          f"{infer_s:.1f} s equals the offline unit at those batches")
+    return infer_s
+
+
+def phase_serving(smi: str) -> dict:
+    """The service (serving/service.InferenceService behind
+    make_http_server) for the shipped Captioning.yaml student (6L / 6L,
+    CLIP-ViT-B/16 at 384 px, 3 beams, max_length 20, min_length 5) and
+    VQA_480.yaml student (480 px, a 3,128-answer list, k_test 128), each on
+    seeded weights, from files it writes under build/ (removed after): the
+    corpus of write_data_corpus; a gated snapshot with drawn log-alphas,
+    exported by `python -m efficientvlm_tpu_torch.scripts.export_pruned`
+    and served (SERVE_UNIT["requests"] requests from 16 client threads,
+    max_batch_size 16, max_wait_ms 10); a dense reference-keyed .th of a
+    seeded XVLMForPretrain through the same service (dense_requests). Every
+    batch a service ran is replayed through the offline unit at its bucket
+    (tokens / answers equal), and scripts/infer.py on the corpus at fixed
+    batches equals the offline unit at those batches. Prints requests/s,
+    latency percentiles, stage ms, buckets, the device-busy share,
+    preprocess ms, launches a bucket-16 batch and the share of requests
+    whose result equals their bucket-1 result (not held)."""
+    import shutil
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from efficientvlm_tpu_torch.config import load_task_config
+    from efficientvlm_tpu_torch.drivers.common import model_configs
+    from efficientvlm_tpu_torch.models.model_pretrain import XVLMForPretrain
+
+    t_phase = time.perf_counter()
+    here = os.path.dirname(os.path.abspath(__file__))
+    build = os.path.join(here, "build")
+    os.makedirs(build, exist_ok=True)
+    root = tempfile.mkdtemp(prefix="serve-", dir=build)
+    report = {"card": smi}
+    try:
+        files = write_data_corpus(root, np.random.default_rng(6))
+        c = reset_counts()  # the serving path starts here
+        for task in ("caption", "vqa"):
+            updates = {"text_encoder": files["vocab"]}
+            if task == "vqa":
+                updates["answer_list"] = files["answer_list"]
+            yaml_path = loop_yaml(SERVE_YAML[task], root, f"serve_{task}", **updates)
+            config = load_task_config(yaml_path, repo_root=here)
+            with uncounted():
+                export = serve_export(task, config, root, here)
+            report[f"{task}_export"] = serve_traffic(task, config, export, files,
+                                                     SERVE_UNIT["requests"], smi)
+            report[f"{task}_infer_s"] = serve_infer(task, config, yaml_path, export, files, root)
+            vcfg, tcfg = model_configs(config)
+            th = os.path.join(root, f"{task}_dense.th")
+            write_th(XVLMForPretrain(vcfg, tcfg, config).init(3, device="cuda"), th,
+                     tcfg["fusion_layer"])
+            report[f"{task}_dense"] = serve_traffic(task, config, th, files,
+                                                    SERVE_UNIT["dense_requests"], smi)
+            torch.cuda.empty_cache()
+        launches = counts()
+        missing = [k for k in SERVE_KERNELS if launches[k] - c[k] == 0]
+        check(not missing, f"serving: no launch of {missing}")
+        print(f"launches serving: { {k: launches[k] - c[k] for k in launches} }")
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    print(json.dumps({"serving_phase": report}, default=float))
+    print(f"phase serving: {time.perf_counter() - t_phase:.1f} s")
+    return {"launches": launches}
+
+
+DDP_UNIT = dict(steps=3, world_batch=24, timeout=480, nccl_timeout=120)
+# a multihost_check step: DRIVER_STEP's and, at dropout 0, the student's BERT
+# sublayers on the probs forms too (text 3 + ITM pos / neg fusion 3 + 3 self,
+# 2 x 3 cross): #1 x2, #2p x45, #3p x18
+DDP_STEP = (2, 0, 0, 0, 0, 0, 45, 18)
+DDP_GROUPS = (("params", "params"), ("loga", "loga"), ("lam", "lambda"))
+
+
+def ddp_launch(root: str, here: str, tag: str, world: int, backend=None, timeout=None):
+    """`world` processes of parallel/multihost_check --width full under
+    torchrun's environment (all on cuda:0, a fresh MASTER_PORT), each in a
+    session of its own, killed at the timeout. Returns (exit codes, outputs,
+    seconds)."""
+    port = str(free_port())
+    cmd = [sys.executable, "-m", "efficientvlm_tpu_torch.parallel.multihost_check", "--width",
+           "full", "--steps", str(DDP_UNIT["steps"]), "--world-batch",
+           str(DDP_UNIT["world_batch"]), "--out", os.path.join(root, f"{tag}.npz")]
+    if backend:
+        cmd += ["--backend", backend]
+    t0 = time.perf_counter()
+    procs = [subprocess.Popen(cmd, cwd=here, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                              text=True, start_new_session=True,
+                              env=dict(os.environ, MASTER_ADDR="127.0.0.1", MASTER_PORT=port,
+                                       WORLD_SIZE=str(world), RANK=str(r), LOCAL_RANK="0",
+                                       NCCL_DEBUG="WARN"))
+             for r in range(world)]
+    outs = []
+    try:
+        for p in procs:
+            try:
+                outs.append(p.communicate(timeout=timeout or DDP_UNIT["timeout"])[0])
+            except subprocess.TimeoutExpired:
+                outs.append("timed out")
+                break
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                os.killpg(p.pid, signal.SIGKILL)
+                p.wait()
+    return [p.returncode for p in procs], outs, time.perf_counter() - t0
+
+
+def ddp_dump(root: str, tag: str, rank: int) -> dict:
+    import numpy as np
+
+    with np.load(os.path.join(root, f"{tag}.rank{rank}.npz")) as z:
+        out = {k: z[k] for k in z.files}
+    out["report"] = json.loads(str(out["report"]))
+    return out
+
+
+def ddp_grads(dump: dict, group: str):
+    """The step-1 gradients of a group (tree order) as torch tensors."""
+    import torch
+
+    keys = sorted((k for k in dump if k.startswith(f"grad1/{group}/")),
+                  key=lambda k: int(k.rsplit("/", 1)[1]))
+    return [torch.from_numpy(dump[k]).cuda() for k in keys]
+
+
+def ddp_scores(smi: str) -> None:
+    """retrieval_scores over a synthetic bank (the 6L / 6L model, 32 images
+    x 2 texts, k_test 16) as rank 0 and rank 1 of two, summed, against one
+    rank's: every entry shifted by -100, within 4 bf16 ulps of the largest
+    score; the recalls equal."""
+    import numpy as np
+    import torch
+
+    from efficientvlm_tpu_torch.bridge import cast_floating
+    from efficientvlm_tpu_torch.evaluation import retrieval as R
+
+    model, params = build_model(6)
+    p16 = cast_floating(params, torch.bfloat16)
+    n_img, per, k_test = 32, 2, 16
+    gen = np.random.default_rng(9)
+    img_feats = gen.standard_normal((n_img, 577, 768), dtype=np.float32)
+    txt_feats = gen.standard_normal((n_img * per, 40, 768), dtype=np.float32)
+    atts = np.ones((n_img * per, 40), np.int32)
+    atts[::2, 20:] = 0
+    img_emb = gen.standard_normal((n_img, 256)).astype(np.float32)
+    txt_emb = img_emb[np.arange(n_img * per) // per] + 0.5 * gen.standard_normal((n_img * per, 256))
+    img_emb /= np.linalg.norm(img_emb, axis=1, keepdims=True)
+    txt_emb = (txt_emb / np.linalg.norm(txt_emb, axis=1, keepdims=True)).astype(np.float32)
+    args = (model, p16, img_feats, img_emb, txt_feats, atts, txt_emb)
+    one = R.retrieval_scores(*args, k_test=k_test, dtype=torch.bfloat16)
+    parts = [R.retrieval_scores(*args, k_test=k_test, rank=r, world_size=2, dtype=torch.bfloat16)
+             for r in range(2)]
+    txt2img = np.arange(n_img * per) // per
+    img2txt = [list(range(i * per, (i + 1) * per)) for i in range(n_img)]
+    for d, name in enumerate(("i2t", "t2i")):
+        summed = parts[0][d] + parts[1][d]
+        err = float(np.abs(summed - (one[d] - 100.0)).max())
+        tol = 4 * BF16_ULP * float(np.abs(one[d][one[d] > -100]).max())
+        print(f"ddp retrieval_scores {name}: two ranks' matrices summed vs one rank's - 100: "
+              f"max_abs_err {err:.3e} tol {tol:.3e}")
+        check(err <= tol, f"ddp: the rank-sharded {name} scores differ from one rank's")
+    check(R.itm_eval(parts[0][0] + parts[1][0], parts[0][1] + parts[1][1], txt2img, img2txt)
+          == R.itm_eval(*one, txt2img, img2txt), "ddp: the summed scores' recalls differ")
+
+
+def phase_ddp(smi: str, yardstick: float, grad_yardstick: dict) -> dict:
+    """Data parallelism on the one card: parallel/multihost_check --width
+    full (the shipped Retrieval_coco.yaml pruning step: 6L / 6L student with
+    L0 gates, 12L / 12L teacher, KD, ITC over the world batch, three AdamWs;
+    dropout 0, the noise and negatives pinned alike on every rank) for three
+    steps over world batches of 24: one rank over NCCL through
+    init_distributed_mode with WORLD_SIZE=1, then two ranks at 12 each on the
+    same world batches, over NCCL if it takes two ranks on one device (it is
+    tried and what it said is printed), else over gloo with CUDA tensors.
+    Held: each process's launches (DDP_STEP a step); the two ranks' final
+    params, log-alphas and λs bit-equal; against the one rank, every loss of
+    every step and the step-1 gradients under hold_to_plain's rule (the
+    plain bf16 path's distance from f32 in phase_train as the yardstick);
+    the rank-sharded retrieval scores summed (ddp_scores). Prints step ms
+    per rank, all-reduce ms and bytes a step, peak memory per rank. The
+    .npz dumps live under build/ (removed after)."""
+    import shutil
+    import tempfile
+
+    import torch
+
+    t_phase = time.perf_counter()
+    here = os.path.dirname(os.path.abspath(__file__))
+    build = os.path.join(here, "build")
+    os.makedirs(build, exist_ok=True)
+    root = tempfile.mkdtemp(prefix="ddp-", dir=build)
+    report = {"card": smi}
+    names = list(wrappers())
+    total = {k: 0 for k in counts()}
+    try:
+        c = reset_counts()  # the data-parallel path starts here (its scores check)
+        ddp_scores(smi)
+        now = counts()
+        for k in total:
+            total[k] += now[k] - c[k]
+        rcs, outs, secs = ddp_launch(root, here, "one", 1)
+        check(rcs == [0], f"ddp: the one-rank run failed: {outs[0][-3000:]}")
+        runs = {"one": [ddp_dump(root, "one", 0)]}
+        rcs, outs, secs2 = ddp_launch(root, here, "nccl2", 2, timeout=DDP_UNIT["nccl_timeout"])
+        if rcs == [0, 0]:
+            tag = "nccl2"
+            print("ddp: NCCL ran two ranks on one device")
+        else:
+            said = [ln.strip() for out in outs for ln in out.splitlines()
+                    if any(w in ln for w in ("NCCL WARN", "Duplicate", "DistBackendError"))]
+            print(f"ddp: NCCL with two ranks on one device: exit codes {rcs}; it said: "
+                  + " | ".join(dict.fromkeys(said[-6:])))
+            rcs, outs, secs2 = ddp_launch(root, here, "gloo2", 2, backend="gloo")
+            check(rcs == [0, 0], "ddp: the two gloo ranks failed: "
+                                 + " || ".join(o[-2000:] for o in outs))
+            tag = "gloo2"
+        runs["two"] = [ddp_dump(root, tag, r) for r in range(2)]
+        steps = DDP_UNIT["steps"]
+        for name, dumps in runs.items():
+            for d in dumps:
+                rep = d["report"]
+                launches = rep["launches"]
+                expected = tuple(steps * n for n in DDP_STEP)
+                check(tuple(launches[k] for k in names) == expected,
+                      f"ddp {name} rank {rep['rank']}: launches "
+                      f"{tuple(launches[k] for k in names)} != {expected}")
+                probs = launches["fused_self_attention_probs"] + launches["fused_cross_attention_probs"]
+                check(launches["route_attn_probs"] == probs, f"ddp {name}: a probs launch "
+                                                             "missed attn_probs")
+                for k in total:
+                    total[k] += launches[k]
+                ms = rep["allreduce_ms"]
+                print(f"ddp {name} rank {rep['rank']}/{rep['world']} ({rep['backend']}, "
+                      f"{rep['local_batch']} rows): step ms "
+                      + " / ".join(f"{x:.1f}" for x in rep["step_ms"])
+                      + (f"; all-reduce ms " + " / ".join(f"{x:.1f}" for x in ms)
+                         + f", {rep['allreduce_bytes'][0] / 2 ** 20:.1f} MiB a step" if ms else "")
+                      + f"; peak {rep['peak_gib']:.2f} GiB; {smi}")
+                report[f"{name}_rank{rep['rank']}"] = rep
+        a, b = runs["two"]
+        same = [k for k in a if k != "report" and not (a[k] == b[k]).all()]
+        check(not same, f"ddp: the ranks' {same[:5]} differ")
+        one = runs["one"][0]
+        keys = sorted(k for k in one if k.startswith("metric/"))
+        worst = max((abs(float(a[k][i]) - float(one[k][i])) / max(abs(float(one[k][i])), 1e-3), k)
+                    for k in keys for i in range(steps))
+        print(f"ddp two ranks vs one: losses worst relative {worst[0]:.3e} ({worst[1]}); "
+              f"tol {TRAIN_FACTOR * yardstick:.3e} (the plain bf16 path's distance from f32)")
+        check(worst[0] <= TRAIN_FACTOR * yardstick, f"ddp: {worst[1]} of two ranks differs")
+        for group, yard_key in DDP_GROUPS:
+            rel, cos = grad_distance(ddp_grads(a, group), ddp_grads(one, group))
+            rel_pf, cos_pf = grad_yardstick[yard_key]
+            print(f"ddp step-1 gradients [{group}]: two ranks vs one rel {rel:.3e} cos {cos:.6f};"
+                  f" plain bf16 vs f32 rel {rel_pf:.3e} cos {cos_pf:.6f}")
+            check(rel <= TRAIN_FACTOR * rel_pf and 1 - cos <= TRAIN_FACTOR * (1 - cos_pf) + 1e-7,
+                  f"ddp: the step-1 gradients [{group}] of two ranks differ from one rank's")
+        diffs = [float(abs(a[k] - one[k]).max()) for k in a
+                 if k.split("/")[0] in ("params", "loga", "lam")]
+        print(f"ddp final leaves, two ranks vs one: largest |difference| {max(diffs):.3e} over "
+              f"{len(diffs)} leaves; the ranks bit-equal; one rank {secs:.1f} s, two {secs2:.1f} s "
+              "of wall with start-up")
+        report["backend"] = a["report"]["backend"]
+        del runs
+        torch.cuda.empty_cache()
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    print(json.dumps({"ddp_phase": report}, default=float))
+    print(f"phase ddp: {time.perf_counter() - t_phase:.1f} s")
+    return {"launches": total}
+
+
+# --------------------------------------------------------------------------
 # phase 4: times
 # --------------------------------------------------------------------------
 
@@ -5767,6 +6361,7 @@ def main(argv) -> int:
     phase_export(train_state, slice_state, rnd)
     train_rows = train_times(train_state, p_cases, errs)
     train_launches, yardstick = train_state["launches"], train_state["loss_yardstick"]
+    grad_yardstick = train_state["grad_yardstick"]
     del train_state  # each training path's peak memory is its own
     gd_state = phase_gd(rnd, seeds)
     gd_times(gd_state, smi)
@@ -5790,8 +6385,11 @@ def main(argv) -> int:
     scst_launches = phase_scst(smi, yardstick)["launches"]
     crossgen_launches = phase_crossgen(smi)["launches"]
     alt_launches = phase_alt_vision(smi)["launches"]
+    serving_launches = phase_serving(smi)["launches"]
+    ddp_launches = phase_ddp(smi, yardstick, grad_yardstick)["launches"]
     later = [gd_launches, task_launches, nlvr_launches, grounding_launches, data_launches,
-             driver_launches, loops_launches, scst_launches, crossgen_launches, alt_launches]
+             driver_launches, loops_launches, scst_launches, crossgen_launches, alt_launches,
+             serving_launches, ddp_launches]
     kernels = phase_times(cases, device_cases, errs, slice_state, gen_state,
                           [train_launches] + later)
     for row in train_rows:  # the probs forms run on every training path

@@ -1,10 +1,9 @@
 """Text normalisation and JSONL files of the host data layer (the port's
 copy of pre_question, pre_caption, write_jsonl and read_jsonl of
 efficientvlm_tpu/data/utils.py, which follow the reference's
-dataset/utils.py:17-57), and the single-process part of collect_result
-(dataset/utils.py:104-141): the per-rank file, the merge, the de-duplication,
-the saved result and the hdfs:// copies. Merging the files of several
-processes comes with distribution (ROADMAP A6).
+dataset/utils.py:17-57), and collect_result (dataset/utils.py:104-141): the
+per-rank file, a barrier, rank 0's merge of every rank's file, the
+de-duplication, the saved result and the hdfs:// copies.
 """
 
 from __future__ import annotations
@@ -62,29 +61,41 @@ def read_jsonl(path: str) -> List[dict]:
 def collect_result(result: List[dict], filename: str, local_wdir: str, *, hdfs_wdir: str = "",
                    rank: Optional[int] = None, world_size: Optional[int] = None,
                    remove_duplicate: str = "",
-                   save_result: bool = False) -> Union[List[dict], str]:
+                   save_result: bool = False) -> Union[List[dict], str, None]:
     """The evaluation's records through the reference's merge
     (efficientvlm_tpu/data/utils.py:65-120): this rank's records to
     <local_wdir>/<filename>_rank<r>.json (JSONL), copied to hdfs_wdir when
-    given; then the ranks' files read back and merged, the first record of
-    each remove_duplicate key kept. Returns the merged list, or with
-    save_result the path of <filename>.json (the merged list as one JSON
-    array, copied to hdfs_wdir too). One process: the barrier is a no-op,
-    and a world size above 1 raises (ROADMAP A6)."""
-    from ..utils.dist import get_rank, get_world_size
+    given; a barrier over the processes (utils/dist); then rank 0 reads
+    every rank's file back (from hdfs_wdir for the other ranks' when given:
+    hosts without a shared filesystem) and merges them in rank order,
+    keeping the first record of each remove_duplicate key. Rank 0 returns
+    the merged list, or with save_result the path of <filename>.json (the
+    merged list as one JSON array, copied to hdfs_wdir too); the other ranks
+    return None after a second barrier. Above one process it needs the
+    process group (init_distributed_mode); without one it raises."""
+    from ..utils.dist import barrier, get_rank, get_world_size, is_initialized
     from ..utils.io import hcopy
 
     rank = get_rank() if rank is None else rank
     world_size = get_world_size() if world_size is None else world_size
-    if world_size > 1:
-        raise NotImplementedError(f"collect_result over {world_size} processes: the merge "
-                                  "across processes comes with distribution (ROADMAP A6)")
+    if world_size > 1 and not is_initialized():
+        raise RuntimeError(f"collect_result over {world_size} processes needs their process "
+                           "group: launch with torchrun (utils/dist.init_distributed_mode)")
     remote = hdfs_wdir.rstrip("/")
     rank_file = os.path.join(local_wdir, f"{filename}_rank{rank}.json")
     write_jsonl(result, rank_file)
     if remote:
         hcopy(rank_file, f"{remote}/{filename}_rank{rank}.json")
-    merged = read_jsonl(rank_file)
+    barrier()
+    if rank != 0:
+        barrier()
+        return None
+    merged: List[dict] = []
+    for r in range(world_size):
+        path = os.path.join(local_wdir, f"{filename}_rank{r}.json")
+        if remote and r != rank:
+            hcopy(f"{remote}/{filename}_rank{r}.json", path)
+        merged += read_jsonl(path)
     if remove_duplicate:
         seen, kept = set(), []
         for res in merged:
@@ -92,11 +103,12 @@ def collect_result(result: List[dict], filename: str, local_wdir: str, *, hdfs_w
                 seen.add(res[remove_duplicate])
                 kept.append(res)
         merged = kept
-    if not save_result:
-        return merged
-    final = os.path.join(local_wdir, f"{filename}.json")
-    with open(final, "w") as f:
-        json.dump(merged, f, ensure_ascii=False, indent=4)
-    if remote:
-        hcopy(final, f"{remote}/{filename}.json")
-    return final
+    out: Union[List[dict], str] = merged
+    if save_result:
+        out = os.path.join(local_wdir, f"{filename}.json")
+        with open(out, "w") as f:
+            json.dump(merged, f, ensure_ascii=False, indent=4)
+        if remote:
+            hcopy(out, f"{remote}/{filename}.json")
+    barrier()
+    return out

@@ -12,7 +12,7 @@ and normalises uint8 images on the device first.
 Batches: {"image", "caption_ids", "caption_atts"}; config["prompt_length"]
 is the prompt's token count without [SEP], which main takes from the
 tokenizer. main runs on the device args["device"] names (default cuda),
-with JAX's loop but for these: one process; --checkpoint may also name a
+with JAX's loop but for these: --checkpoint may also name a
 native .ckpt; --evaluate builds no teacher; with compute_dtype bf16 the
 frozen teacher is stored in bf16.
 
@@ -292,6 +292,18 @@ def _load_host_draws(dataset, states: dict) -> None:
     dataset.transform.rng.bit_generator.state = states["transform_rng"]
 
 
+def _preempted_exit(out_dir: str, state, epoch: int, draws: dict) -> None:
+    """SCST's preemption: the state saved as of epoch - 1 with the host
+    generators' states at the epoch's start, then exit 0."""
+    if out_dir:
+        common.save_full_state(out_dir, state, {"epoch": epoch - 1, "scst": True,
+                                                "host_draws": draws})
+        common.wait_for_saves()
+        common.log_stats({"preempted": True, "epoch": epoch, "scst": True}, out_dir)
+    print(f"### scst preempted in epoch {epoch}: state saved, exiting")
+    raise SystemExit(0)
+
+
 def scst_train(args: Config, config: Config, student: XVLMForCaptioning, sparams, l0: L0Module,
                l0_params: dict, tokenizer, info: Config, prompt: str, device) -> dict:
     """The --scst fine-tune (efficientvlm_tpu/drivers/captioning.py:241-351,
@@ -309,12 +321,13 @@ def scst_train(args: Config, config: Config, student: XVLMForCaptioning, sparams
     attn_impl plain; ROADMAP C). The full state is saved at each
     epoch's end; on preemption it is saved as of epoch - 1 with the host
     generators' states at the epoch's start, and --resume replays the epoch.
-    One process only. Returns {"state", "reward_history", "epochs"} (each
-    epoch's steps, seconds, and per step the seconds of sampling, reward and
-    update)."""
-    if info["world_size"] > 1:
-        raise NotImplementedError("--scst above one process: the data-parallel step comes "
-                                  "with distribution (ROADMAP A6)")
+    Above one process each rank samples its loader shard with its own
+    generator and the grad step averages the gradients over the ranks
+    (common.build_train_step), the ranks agreeing on a preemption every 10
+    batches and at the epoch's end, as JAX's does. Returns {"state",
+    "reward_history", "epochs"} (each epoch's steps, seconds, and per step
+    the seconds of sampling, reward and update)."""
+    world = info["world_size"]
     out_dir = args.get("output_dir") or ""
     seed = int(args.get("seed", 42))
     image_res = config.get("image_res", 384)
@@ -347,6 +360,7 @@ def scst_train(args: Config, config: Config, student: XVLMForCaptioning, sparams
         min_length=int(config.get("min_length", 5)),
         top_p=float(config.get("scst_top_p", 1.0)), zs=zs,
         dtype=common.compute_dtype(config), impl=config.get("attn_impl", "fused"))
+    grad_step = common.build_train_step(grad_step, config)
     criterion = ScstRewardCriterion(sample_n=sample_n, baseline_type="greedy")
     prompt_ids = np.asarray(tokenizer([prompt])["input_ids"], np.int64)[:, :-1]  # drop [SEP]
 
@@ -390,15 +404,11 @@ def scst_train(args: Config, config: Config, student: XVLMForCaptioning, sparams
             reward_hist.append(criterion.get_score())
             # the loop reads the reward on the host every batch, so the
             # interrupted epoch is replayed whole on resume
-            if common.preempted():
-                if out_dir:
-                    common.save_full_state(out_dir, state, {"epoch": epoch - 1, "scst": True,
-                                                            "host_draws": draws})
-                    common.wait_for_saves()
-                    common.log_stats({"preempted": True, "epoch": epoch, "scst": True},
-                                     out_dir)
-                print(f"### scst preempted in epoch {epoch}: state saved, exiting")
-                raise SystemExit(0)
+            if common.preempted() if world == 1 else (
+                    (i + 1) % 10 == 0 and common.preempted_sync()):
+                _preempted_exit(out_dir, state, epoch, draws)
+        if world > 1 and common.preempted_sync():  # an epoch shorter than 10 batches
+            _preempted_exit(out_dir, state, epoch, draws)
         logger.synchronize_between_processes()
         common.log_stats({"epoch": epoch, "scst": True, **common.train_stats(logger)}, out_dir)
         common.save_full_state(out_dir, state, {"epoch": epoch, "scst": True,

@@ -7,8 +7,11 @@ saved state, the host loaders and on-device preprocessing around a step.
 Every driver's loop runs on it: retrieval, VQA, captioning, NLVR and
 grounding (`main` of each drivers/<task>.py) and general distillation
 (drivers/gd.main, step by step over two streams); captioning's SCST loop
-(drivers/captioning.scst_train) uses its saves and preemption. Still to
-come: distribution (ROADMAP A6).
+(drivers/captioning.scst_train) uses its saves and preemption. Above one
+process (torchrun's WORLD_SIZE) build_train_step makes each step data
+parallel: every rank steps on its loader shard, the gradients and metrics
+are averaged over the ranks between the backward and the update
+(utils/dist.GradientSync), and the ITC gathers the world batch.
 
 Where JAX's design does not carry over to eager PyTorch:
 - the metrics of a step are read one step later, from pinned host buffers
@@ -18,9 +21,11 @@ Where JAX's design does not carry over to eager PyTorch:
   drew without replaying the skipped batches' draws;
 - a background save copies the state to the CPU on the caller's thread
   before the write is handed over (AdamW updates the tensors in place);
-- one process on one device: the data-parallel wrap, the mesh, batch
-  placement across processes, ZeRO-1 and the sharded checkpoint backend come
-  with distribution (ROADMAP A6).
+- data parallelism is one process a device (torchrun), not a mesh: there
+  is no batch placement across devices, and each rank's step generator
+  folds in its rank (step_generator), as JAX folds in the axis index; ZeRO-1
+  and the sharded checkpoint backend come with the second part of ROADMAP
+  A6 and raise until then.
 """
 
 from __future__ import annotations
@@ -42,19 +47,23 @@ from ..train import checkpoint as ckpt_io
 from ..train.optim import (ApplyIfFinite, MultiSteps, create_l0_optimizer,
                            create_lagrangian_optimizer, create_optimizer)
 from ..train.scheduler import create_scheduler
-from ..utils.dist import get_rank, init_distributed_mode
+from ..utils.dist import (GradientSync, get_rank, get_world_size, host_all_reduce_sum,
+                          init_distributed_mode)
 from ..utils.logger import MetricLogger
 
 
 def setup(args: Config, config: Config) -> Config:
-    """The run's topology (one process), numpy's global seed, and
-    <output_dir>/config.json with the args and the config."""
-    info = init_distributed_mode()
+    """The run's topology (utils/dist.init_distributed_mode: one process, or
+    the rank of a torchrun launch over NCCL, gloo with --device cpu), numpy's
+    global seed (+ rank), and <output_dir>/config.json with the args and the
+    config."""
+    info = init_distributed_mode(device=args.get("device"))
     np.random.seed(int(args.get("seed", 42)) + info["rank"])
     backend = str(config.get("checkpoint_backend", "msgpack"))
     if backend != "msgpack":
         raise NotImplementedError(f"checkpoint_backend: {backend}: the sharded checkpoint "
-                                  "backend comes with distribution (ROADMAP A6)")
+                                  "backend comes with the second part of distribution "
+                                  "(ROADMAP A6: train/orbax_io.py)")
     if args.get("output_dir"):
         os.makedirs(args["output_dir"], exist_ok=True)
         if get_rank() == 0:
@@ -254,6 +263,30 @@ def native_eval_gates(l0, args: Config, config: Config, *, device=None):
     return l0.forward_deterministic({"loga": {k: v.to(device) for k, v in gates["loga"].items()}})
 
 
+def load_eval_params(model, l0, ckpt_path: str, torch_loader, device):
+    """(params on `device`, evaluation gates) from one read of a checkpoint
+    (the service's and infer's load, JAX's InferenceService._resolve_params
+    and scripts/infer._load_params_and_gates): a native .ckpt's tree (any
+    payload shape: a snapshot, a full state, a pruned or int8 export) and,
+    when it stores log-alphas, forward_deterministic of them (None for a
+    tree without gates); any other file through torch_loader(model, path,
+    device=) (the task driver's import of a reference .th, no gates)."""
+    if not os.path.exists(ckpt_path):
+        raise FileNotFoundError(f"checkpoint not found: {ckpt_path}")
+    if not ckpt_path.endswith(".ckpt"):
+        params = torch_loader(model, ckpt_path, device=device)
+        if params is None:
+            raise ValueError(f"could not import torch checkpoint: {ckpt_path}")
+        return params, None
+    params, gates = ckpt_io.extract_model_and_gates(ckpt_io.load_params(ckpt_path))
+    ckpt_io.clear_load_memo()
+    zs = None
+    if gates is not None:
+        zs = l0.forward_deterministic({"loga": {k: v.to(device)
+                                                for k, v in gates["loga"].items()}})
+    return ckpt_io.place(params, device), zs
+
+
 def load_student(model, args: Config, init, from_torch, *, device=None):
     """A fine-tune's student params: a native --checkpoint as stored
     (maybe_load_params), else from_torch(path) (the task's import of a
@@ -320,15 +353,23 @@ def preempted() -> bool:
 
 
 def preempted_sync() -> bool:
-    """The flag as all processes agree on it: one process, its own."""
-    return preempted()
+    """The flag as all processes agree on it (any rank flagged): signal
+    delivery races rank to rank, so every rank calls this at the same loop
+    position; one process reads its own."""
+    if get_world_size() == 1:
+        return preempted()
+    return host_all_reduce_sum([float(preempted())])[0] > 0
 
 
 def step_generator(seed: int, epoch: int, index: int, device) -> torch.Generator:
     """The generator of batch `index` of `epoch` (its L0 noise, dropout, hard
     negatives and on-device preprocessing), seeded from the three numbers
-    alone."""
-    s = np.random.SeedSequence([int(seed), int(epoch), int(index)]).generate_state(1, np.uint64)
+    alone and, above one process, the rank (each rank draws its own noise,
+    as JAX folds the axis index into each shard's key)."""
+    entropy = [int(seed), int(epoch), int(index)]
+    if get_world_size() > 1:
+        entropy.append(get_rank())
+    s = np.random.SeedSequence(entropy).generate_state(1, np.uint64)
     return torch.Generator(device=torch.device(device)).manual_seed(int(s[0]))
 
 
@@ -373,7 +414,7 @@ class LaggedMetrics:
 
 def run_train_epoch(loader, logger, step_fn, state, make_batch, prof, *, epoch: int, seed: int,
                     device, output_dir: str = "", resume_batches: int = 0, header: str = "",
-                    log_freq: int = 50):
+                    log_freq: int = 50, sync_every: int = 10):
     """One fine-tune epoch: items -> make_batch -> step_fn(state, batch,
     generator), which updates `state` in place and returns its metrics,
     with profiler ticks and the metrics logged one step late
@@ -386,8 +427,11 @@ def run_train_epoch(loader, logger, step_fn, state, make_batch, prof, *, epoch: 
     exactly what the uninterrupted epoch drew. Host augmentation replays
     exactly with a loader of one worker or with device_preprocess; a worker
     pool's threads share the transform's generator in the order they run.
-    Returns the state."""
+    Above one process the ranks agree on the flag (preempted_sync) every
+    sync_every batches and at the epoch's end, as JAX's loop does. Returns
+    the state."""
     ckpt_io.clear_load_memo()  # the params live on the device now
+    world = get_world_size()
     lagged = LaggedMetrics()
 
     def _save_and_exit(batches_done: int) -> None:
@@ -403,7 +447,9 @@ def run_train_epoch(loader, logger, step_fn, state, make_batch, prof, *, epoch: 
         print(f"### preempted at epoch {epoch} batch {batches_done}: full state saved, exiting")
         raise SystemExit(0)
 
+    done = 0
     for i, items in enumerate(logger.log_every(loader, log_freq, header)):
+        done = i + 1
         if i < resume_batches:
             continue
         metrics = step_fn(state, make_batch(items), step_generator(seed, epoch, i, device))
@@ -411,8 +457,10 @@ def run_train_epoch(loader, logger, step_fn, state, make_batch, prof, *, epoch: 
         prev = lagged.push(metrics)
         if prev:
             logger.update(**prev)
-        if preempted():
-            _save_and_exit(i + 1)
+        if preempted() if world == 1 else (done % sync_every == 0 and preempted_sync()):
+            _save_and_exit(done)
+    if world > 1 and preempted_sync():  # an epoch shorter than sync_every
+        _save_and_exit(done)
     last = lagged.pop()
     if last:
         logger.update(**last)
@@ -471,10 +519,18 @@ def save_training_state(output_dir: str, tag, payload: dict) -> None:
 
 
 def build_train_step(step, config: Config):
-    """The driver's step: on one device, the step itself. zero1 raises."""
+    """The driver's step (efficientvlm_tpu/drivers/common.py:412-499): in one
+    process the step itself; above one process the same step made data
+    parallel, a utils/dist.GradientSync on the step inside any
+    DevicePreprocess (rank 0's state broadcast at its first call, the
+    gradients and metrics averaged before each update, the ITC over the
+    world batch). zero1 raises until ZeRO-1 is ported."""
     if config.get("zero1"):
-        raise NotImplementedError("zero1: ZeRO-1 optimizer-state sharding comes with "
-                                  "distribution (ROADMAP A6)")
+        raise NotImplementedError("zero1: ZeRO-1 optimizer-state sharding comes with the "
+                                  "second part of distribution (ROADMAP A6: parallel/zero.py)")
+    if get_world_size() > 1:
+        inner = step.step if isinstance(step, DevicePreprocess) else step
+        inner.data_parallel = GradientSync()
     return step
 
 

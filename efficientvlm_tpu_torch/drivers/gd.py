@@ -14,7 +14,8 @@ granularity, a snapshot and a background full-state save every
 ckpt_frequent_step steps and at the end. Step i draws on the device from
 common.step_generator(seed, 0, i). Where it differs from JAX:
 
-- one process feeds one device (no n_dev multiple of the batch);
+- each process feeds one device (no n_dev multiple of the batch); above
+  one process the ranks agree on a preemption every 50 steps, as JAX's do;
 - the saved state holds each stream's host generators beside its cursor
   (common.stream_state), so a resumed run's batches are the uninterrupted
   run's: JAX's restores the cursor alone and redraws from the seed (ROADMAP
@@ -207,7 +208,8 @@ def main(args: Config, config: Config) -> dict:
         prev = lagged.push(metrics)
         if prev:
             logger.update(**prev)
-        if common.preempted():
+        if common.preempted() if info["world_size"] == 1 else (
+                (step + 1) % 50 == 0 and common.preempted_sync()):
             last = lagged.pop()
             if last:
                 logger.update(**last)

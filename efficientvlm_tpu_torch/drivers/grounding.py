@@ -7,7 +7,7 @@ no teacher, loss_kd 0: the reference has no grounding KD recipe).
 
 Batches: {"image" [B,H,W,3], "text_ids", "text_atts" [B,T], "target_bbox"
 [B,4] (cx, cy, w, h in [0, 1])}. main runs on the device args["device"]
-names (default cuda), with JAX's loop (one process, one device).
+names (default cuda), with JAX's loop (one device a process).
 """
 
 from __future__ import annotations

@@ -10,7 +10,7 @@ augments and normalises image0 and then image1 on the device first.
 Batches: {"image0", "image1" [B,H,W,3], "text_ids", "text_atts" [B,T],
 "targets" [B]}; the model reads the 2B image batch, image0 rows first.
 main runs on the device args["device"] names (default cuda), with JAX's
-loop but for these: one process; --checkpoint may also name a native
+loop but for these: --checkpoint may also name a native
 .ckpt; --evaluate builds no teacher; with compute_dtype bf16 the frozen
 teacher is stored in bf16; each epoch also scores the test split. The
 domain task nlvr_domain runs this loop too, as run.py routes it: neither

@@ -7,7 +7,9 @@ JAX's loop with these differences: the loader's batch is
 batch_size_train (no mesh to pad to); `split_kd_step` needs no step of its
 own, since the port's step already cuts the teacher's taps right after its
 forward; with compute_dtype bf16 the frozen teacher is stored in bf16;
---evaluate builds no teacher; `zero1` raises (ROADMAP A6).
+--evaluate builds no teacher; above one process the step is data parallel
+(common.build_train_step) and the evaluation's rank-sharded score matrices
+are summed over the ranks; `zero1` raises (ROADMAP A6, its second part).
 """
 
 from __future__ import annotations
@@ -26,7 +28,7 @@ from ..evaluation import retrieval as R
 from ..models.model_retrieval import XVLMForRetrieval
 from ..pruning.l0_module import L0Module, XVLML0Module
 from ..train.steps import init_train_state, make_retrieval_train_step
-from ..utils.dist import get_rank, get_world_size
+from ..utils.dist import get_rank, get_world_size, host_group
 from . import common
 
 
@@ -55,11 +57,23 @@ def build_l0(config: Config) -> L0Module:
         head_group=int(config.get("head_gate_group", 1)))
 
 
+def sum_over_ranks(scores: np.ndarray) -> np.ndarray:
+    """A rank-sharded score matrix (this rank's rows filled, -100 elsewhere)
+    summed over the ranks on the host group, as JAX's process_allgather(...)
+    .sum(0) and the reference's all_reduce: every entry gains (world - 1) x
+    -100, so each row's order is the filling rank's."""
+    t = torch.from_numpy(np.ascontiguousarray(scores))
+    torch.distributed.all_reduce(t, group=host_group())
+    return t.numpy()
+
+
 def evaluate(model, params, eval_loader, eval_dataset, tokenizer, config: Config, *, zs=None,
              dtype=None) -> dict:
     """The two-stage evaluation (ITC shortlist, k_test ITM rerank) and
     itm_eval's recalls, over eval_dataset's captions and eval_loader's
-    images, on the params' device."""
+    images, on the params' device; above one process each rank reranks its
+    share of the rows and the score matrices are summed over the ranks
+    (sum_over_ranks)."""
     tok = tokenizer(eval_dataset.text, padding="max_length", truncation=True,
                     max_length=config.get("max_tokens", 40))
     ids, atts = np.asarray(tok["input_ids"], np.int64), np.asarray(tok["attention_mask"])
@@ -74,6 +88,8 @@ def evaluate(model, params, eval_loader, eval_dataset, tokenizer, config: Config
         model, params, image_feats, image_embeds, text_feats, atts, text_embeds, zs=zs,
         k_test=config.get("k_test", 256), rank=get_rank(), world_size=get_world_size(),
         dtype=dtype, impl=impl)
+    if get_world_size() > 1:
+        score_i2t, score_t2i = sum_over_ranks(score_i2t), sum_over_ranks(score_t2i)
     return R.itm_eval(score_i2t, score_t2i, eval_dataset.txt2img, eval_dataset.img2txt)
 
 

@@ -10,7 +10,7 @@ flip (the reference's VQA transform has none).
 Batches: {"image", "q_ids", "q_atts", "a_ids", "a_atts", "weights",
 "k_index"}, the answers flattened by data/collate.vqa_collate. main runs
 on the device args["device"] names (default cuda), with JAX's loop but for
-these: one process (the loader's batch is batch_size_train); --checkpoint
+these: the loader's batch is a rank's batch_size_train; --checkpoint
 may also name a native .ckpt (a snapshot, evaluated with its stored gates,
 or a physical export, evaluated dense); --evaluate builds no teacher; with
 compute_dtype bf16 the frozen teacher is stored in bf16.

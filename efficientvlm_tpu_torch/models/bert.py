@@ -298,6 +298,9 @@ def bert_apply(params: dict, input_ids: Optional[torch.Tensor], cfg: TextConfig,
     """BertModel.forward. In 'fusion' mode pass inputs_embeds (the text
     tower's output). For cached decode pass `cache` (init_bert_cache) and
     position_offset = the number of tokens already decoded."""
+    if cfg.get("act_partition"):
+        raise NotImplementedError("act_partition: the sequence axis comes with the second part "
+                                  "of distribution (ROADMAP A6: parallel/sharding.py)")
     if inputs_embeds is None:
         h = bert_embeddings(params["embeddings"], input_ids, cfg,
                             position_offset=position_offset, train=train, generator=generator,

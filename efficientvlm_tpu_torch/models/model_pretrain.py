@@ -39,13 +39,14 @@ class XVLMForPretrain(XVLM):
                 is_image: Optional[torch.Tensor] = None, ret_bbox_loss: bool = False,
                 zs: Optional[dict] = None, generator: Optional[torch.Generator] = None,
                 output_attentions: bool = False, output_hidden_states: bool = False,
-                train: bool = False, dtype=None, impl: str = "fused") -> dict:
+                train: bool = False, dtype=None, impl: str = "fused", group=None) -> dict:
         """{"loss": {"loss_itc", "loss_itm", "loss_mlm"[, "loss_bbox",
         "loss_giou"]}, "hidden_dict", "attention_dict",
         "cross_attention_dict", "logits_dict"}: the dicts hold the KD taps
         (image_*, text_*, itm_pos_*, itm_neg_*, mlm_*, bbox_* lists and the
         itm_head / mlm logits) with output_hidden_states, else are empty.
-        The bbox losses and taps need ret_bbox_loss and target_bbox."""
+        The bbox losses and taps need ret_bbox_loss and target_bbox. `group`:
+        the ITC over the world batch of that process group."""
         taps = dict(output_attentions=output_attentions,
                     output_hidden_states=output_hidden_states, dtype=dtype, impl=impl)
         if ret_bbox_loss:
@@ -66,7 +67,7 @@ class XVLMForPretrain(XVLM):
         logits_dict: dict = {}
 
         image_feat, text_feat = self.get_features(params, image_embeds, text_embeds, dtype=dtype)
-        loss_itc = self.get_contrastive_loss(params, image_feat, text_feat)
+        loss_itc = self.get_contrastive_loss(params, image_feat, text_feat, group=group)
 
         itm = self.get_matching_loss(params, generator, image_embeds, image_atts, image_feat,
                                      text_embeds, text_atts, text_feat, zs=zs, train=train,

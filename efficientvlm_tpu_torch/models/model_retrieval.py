@@ -21,11 +21,13 @@ class XVLMForRetrieval(XVLM):
                 text_atts: torch.Tensor, *, idx: Optional[torch.Tensor] = None,
                 zs: Optional[dict] = None, generator: Optional[torch.Generator] = None,
                 output_attentions: bool = False, output_hidden_states: bool = False,
-                train: bool = False, dtype=None, impl: str = "fused"):
+                train: bool = False, dtype=None, impl: str = "fused", group=None):
         """(loss_itc, loss_itm), or in KD mode (output_hidden_states) {"loss",
         "hidden_dict", "attention_dict", "cross_attention_dict",
         "logits_dict"}. One generator drives the text tower's dropout and the
-        hard-negative draw, in that order."""
+        hard-negative draw, in that order. `group`: the ITC over the world batch
+        of that process group (the hard negatives stay in this process's
+        batch)."""
         kw = dict(zs=zs, output_attentions=output_attentions,
                   output_hidden_states=output_hidden_states, train=train, generator=generator,
                   dtype=dtype, impl=impl)
@@ -33,7 +35,7 @@ class XVLMForRetrieval(XVLM):
         tout = self.get_text_embeds(params, text_ids, text_atts, **kw)
         text_embeds = tout["last_hidden"]
         image_feat, text_feat = self.get_features(params, image_embeds, text_embeds, dtype=dtype)
-        loss_itc = self.get_contrastive_loss(params, image_feat, text_feat, idx=idx)
+        loss_itc = self.get_contrastive_loss(params, image_feat, text_feat, idx=idx, group=group)
         itm = self.get_matching_loss(
             params, generator, image_embeds, image_atts, image_feat, text_embeds, text_atts,
             text_feat, idx=idx, zs=zs, output_attentions=output_attentions,

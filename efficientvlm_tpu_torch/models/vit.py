@@ -133,6 +133,9 @@ def vit_apply(params: dict, images: torch.Tensor, cfg: VisionConfig, *,
     [B, 1+Np, D], "hidden_states", "attentions"} (the lists None unless
     asked for); a region batch's last_hidden holds its n_txt region rows
     and "full_atts_hidden" [B, 1+Np, D] the full images."""
+    if cfg.get("act_partition"):
+        raise NotImplementedError("act_partition: the sequence axis comes with the second part "
+                                  "of distribution (ROADMAP A6: parallel/sharding.py)")
     act = ACT2FN[cfg["hidden_act"]]
     depth = cfg["num_hidden_layers"]
     local_depth = cfg.get("local_attn_depth", 0)

@@ -1,8 +1,9 @@
 """X-VLM composite base: vision + text towers, ITC projections, the ITM
 and bbox heads and the losses (port of efficientvlm_tpu/models/xvlm.py):
 
-- get_contrastive_loss: ITC with idx-aware soft labels, on one device (the
-  all-gather across devices comes with the distribution slice);
+- get_contrastive_loss: ITC with idx-aware soft labels over the world batch:
+  with a process group, every rank's features and idx are gathered
+  (utils/dist.all_gather_with_grad), as JAX's all_gather over its axis;
 - get_matching_loss: ITM with in-batch hard negatives drawn from the softmax
   of the similarities (`sample_hard_negatives`, torch.multinomial with the
   step's generator; a method, so a test can pin the draw);
@@ -183,9 +184,19 @@ class XVLM:
 
     # -- losses --------------------------------------------------------------
 
-    def get_contrastive_loss(self, params, image_feat, text_feat, *, idx=None):
-        """ITC over this device's batch, with idx-aware soft labels (texts of
-        one image are all positives)."""
+    def get_contrastive_loss(self, params, image_feat, text_feat, *, idx=None, group=None):
+        """ITC with idx-aware soft labels (texts of one image are all
+        positives) over this process's batch, or with `group` (a process
+        group) over the world batch: the features and idx of every rank
+        gathered, the gradient of the gather summed back to each rank's rows
+        (efficientvlm_tpu/models/xvlm.py:215-237)."""
+        if group is not None:
+            from ..utils.dist import all_gather_with_grad
+
+            image_feat = all_gather_with_grad(image_feat, group)
+            text_feat = all_gather_with_grad(text_feat, group)
+            if idx is not None:
+                idx = all_gather_with_grad(idx, group)
         logits = (image_feat @ text_feat.t()).float() / params["temp"]
         bsz = logits.shape[0]
         if idx is None:

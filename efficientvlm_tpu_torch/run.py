@@ -13,7 +13,10 @@ teacher), itr_coco drivers/retrieval.main, vqa_480 drivers/vqa.main, nlvr
 and nlvr_domain drivers/nlvr.main, coco_captioning and coco_capt_domain
 drivers/captioning.main, grounding drivers/grounding.main;
 coco_captioning with --scst runs captioning's self-critical sequence
-training (drivers/captioning.scst_train).
+training (drivers/captioning.scst_train). Under torchrun (one process a
+GPU; gloo with --device cpu) every task trains data parallel:
+
+    torchrun --nproc_per_node 8 -m efficientvlm_tpu_torch.run --task itr_coco ...
 """
 
 from __future__ import annotations
@@ -64,7 +67,8 @@ def parse_args(argv=None) -> argparse.Namespace:
     parser.add_argument("--model", default="x-vlm-small-ft", type=str,
                         help="fine-tune config set under configs/")
     parser.add_argument("--dist", default="", type=str,
-                        help="accepted for the reference's scripts and ignored: one process")
+                        help="accepted for the reference's scripts and ignored: the "
+                             "processes come from torchrun's variables")
     parser.add_argument("--device", default="cuda", type=str,
                         help="cuda (default) or cpu (the plain versions)")
     parser.add_argument("--output_dir", default="output", type=str)

@@ -28,7 +28,7 @@ import torch
 
 from ..evaluation.caption_metrics import CiderD
 from .optim import tree_leaves
-from .steps import PretrainState
+from .steps import PretrainState, _dp_begin, _dp_sync
 
 
 class ScstRewardCriterion:
@@ -112,7 +112,11 @@ class ScstGradStep:
     batch {"image" [B,H,W,3], "tokens" [B*K, L] sampled ids, "advantages"
     [B*K]}. The forward is teacher-forced in eval mode (no dropout): the
     fused sublayers run their differentiable forms. loss_and_grads and apply
-    are its parts, for timing."""
+    are its parts, for timing. Above one process `data_parallel` (a
+    utils/dist.GradientSync) averages the gradients and metrics over the
+    ranks before the update, as the other steps do."""
+
+    data_parallel = None  # a utils/dist.GradientSync above one process
 
     def __init__(self, model, optimizer, *, prompt_length: int, pad_token_id: int,
                  eos_id: int, sample_n: int, zs=None, dtype=None, impl: str = "fused"):
@@ -148,7 +152,8 @@ class ScstGradStep:
         return state
 
     def __call__(self, state: PretrainState, batch: dict) -> dict:
-        metrics, grads = self.loss_and_grads(state, batch)
+        _dp_begin(self, state)
+        metrics, grads = _dp_sync(self, *self.loss_and_grads(state, batch))
         self.apply(state, grads)
         return metrics
 

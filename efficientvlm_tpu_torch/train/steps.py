@@ -19,6 +19,13 @@ teacher runs under torch.no_grad and its taps are cut to the ones the
 student is matched with (subset_teacher_taps) right after its forward, as
 JAX's split step does. The step's parts are methods, so a caller can time
 them: teacher_forward, loss_and_grads (student forward + backward), apply.
+
+Above one process each step carries a utils/dist.GradientSync as
+`data_parallel` (drivers/common.build_train_step sets it): __call__ first
+sets the state to rank 0's (once per state), and between loss_and_grads and
+apply averages the metrics and every gradient group over the ranks in one
+all-reduce, where JAX's steps pmean them over their axis; the retrieval and
+pretrain students' ITC gathers the world batch over its group.
 """
 
 from __future__ import annotations
@@ -83,6 +90,24 @@ def _grads_by_group(loss: torch.Tensor, groups: list) -> tuple:
         out.append(list(grads[at:at + len(g)]))
         at += len(g)
     return tuple(out)
+
+
+def _dp_group(step) -> Optional[Any]:
+    """The ITC's process group of a data-parallel step, else None."""
+    return None if step.data_parallel is None else step.data_parallel.group
+
+
+def _dp_begin(step, state) -> None:
+    if step.data_parallel is not None:
+        step.data_parallel.begin(state)
+
+
+def _dp_sync(step, metrics: dict, grads):
+    """(metrics, grads) averaged over the ranks of a data-parallel step, else
+    as they are."""
+    if step.data_parallel is None:
+        return metrics, grads
+    return step.data_parallel(metrics, grads)
 
 
 def retrieval_kd_losses(student_outputs: dict, teacher_outputs: dict, *,
@@ -158,6 +183,8 @@ class RetrievalTrainStep:
     concrete noise (or pass `noise`, {group: uniform draws}), the text
     tower's dropout and the student's hard negatives."""
 
+    data_parallel = None  # a utils/dist.GradientSync above one process
+
     def __init__(self, student_model, teacher_model, l0_module: L0Module, optimizers, *,
                  teacher_params, temperature: float = 1.0, dtype=None, impl: str = "fused"):
         self.student, self.teacher, self.l0 = student_model, teacher_model, l0_module
@@ -188,7 +215,8 @@ class RetrievalTrainStep:
             student_outputs = self.student.forward(
                 state.params, batch["image"], batch["text_ids"], batch["text_atts"],
                 idx=batch.get("idx"), zs=zs, generator=generator, output_attentions=True,
-                output_hidden_states=True, train=True, dtype=self.dtype, impl=self.impl)
+                output_hidden_states=True, train=True, dtype=self.dtype, impl=self.impl,
+                group=_dp_group(self))
             kd = retrieval_kd_losses(student_outputs, teacher_outputs,
                                      temperature=self.temperature)
             loss_itc = student_outputs["loss"]["loss_itc"]
@@ -210,9 +238,10 @@ class RetrievalTrainStep:
     def __call__(self, state: TrainState, batch: dict,
                  generator: Optional[torch.Generator] = None, *,
                  noise: Optional[dict] = None) -> dict:
+        _dp_begin(self, state)
         teacher_outputs = self.teacher_forward(batch, generator)
-        metrics, grads = self.loss_and_grads(state, batch, teacher_outputs, generator,
-                                             noise=noise)
+        metrics, grads = _dp_sync(self, *self.loss_and_grads(state, batch, teacher_outputs,
+                                                             generator, noise=noise))
         del teacher_outputs
         self.apply(state, grads)
         return metrics
@@ -355,6 +384,8 @@ class TaskTrainStep:
     caller can time them: teacher_forward, loss_and_grads (student forward +
     backward), apply."""
 
+    data_parallel = None  # a utils/dist.GradientSync above one process
+
     def __init__(self, student_forward, teacher_forward, kd_fn, l0_module: L0Module,
                  optimizers, *, teacher_params, task_weight: float, kd_weight: float,
                  frozen_zs: Optional[dict] = None):
@@ -413,9 +444,10 @@ class TaskTrainStep:
     def __call__(self, state: TrainState, batch: dict,
                  generator: Optional[torch.Generator] = None, *,
                  noise: Optional[dict] = None) -> dict:
+        _dp_begin(self, state)
         teacher_outputs = self.teacher_forward(batch)
-        metrics, grads = self.loss_and_grads(state, batch, teacher_outputs, generator,
-                                             noise=noise)
+        metrics, grads = _dp_sync(self, *self.loss_and_grads(state, batch, teacher_outputs,
+                                                             generator, noise=noise))
         del teacher_outputs
         self.apply(state, grads)
         return metrics
@@ -526,6 +558,8 @@ class PretrainTrainStep:
     "idx_to_group_img", "target_bbox", "is_image"}. `generator` drives the
     dropout and the hard negatives (XVLMForPretrain's order)."""
 
+    data_parallel = None  # a utils/dist.GradientSync above one process
+
     def __init__(self, model, optimizer, *, with_bbox: bool = False, dtype=None,
                  impl: str = "fused"):
         self.model, self.optimizer = model, optimizer
@@ -534,7 +568,8 @@ class PretrainTrainStep:
     def _student(self, params, batch, generator, **kw) -> dict:
         return self.model.forward(params, batch["image"], batch["text_ids"], batch["text_atts"],
                                   generator=generator, train=True, dtype=self.dtype,
-                                  impl=self.impl, **_forward_kw(batch, self.with_bbox), **kw)
+                                  impl=self.impl, group=_dp_group(self),
+                                  **_forward_kw(batch, self.with_bbox), **kw)
 
     def _grads(self, state: PretrainState, loss_fn):
         """(metrics, loss_fn's gradient over the params in tree order)."""
@@ -563,7 +598,8 @@ class PretrainTrainStep:
 
     def __call__(self, state: PretrainState, batch: dict,
                  generator: Optional[torch.Generator] = None) -> dict:
-        metrics, grads = self.loss_and_grads(state, batch, generator)
+        _dp_begin(self, state)
+        metrics, grads = _dp_sync(self, *self.loss_and_grads(state, batch, generator))
         self.apply(state, grads)
         return metrics
 
@@ -618,8 +654,10 @@ class GDTrainStep(PretrainTrainStep):
 
     def __call__(self, state: PretrainState, batch: dict,
                  generator: Optional[torch.Generator] = None) -> dict:
+        _dp_begin(self, state)
         teacher_outputs = self.teacher_forward(batch, generator)
-        metrics, grads = self.loss_and_grads(state, batch, teacher_outputs, generator)
+        metrics, grads = _dp_sync(self, *self.loss_and_grads(state, batch, teacher_outputs,
+                                                             generator))
         del teacher_outputs
         self.apply(state, grads)
         return metrics

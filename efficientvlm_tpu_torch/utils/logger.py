@@ -1,7 +1,9 @@
 """Windowed metric smoothing and iteration logging (port of
 efficientvlm_tpu/utils/logger.py, the reference's utils/__init__.py
-SmoothedValue and MetricLogger.log_every with its ETA lines). One process:
-the cross-rank sync is a no-op until distribution is ported (ROADMAP A6).
+SmoothedValue and MetricLogger.log_every with its ETA lines). Above one
+process synchronize_between_processes sums each meter's (count, total) over
+the ranks (the host group of utils/dist), so every rank logs the world's
+global averages.
 """
 
 from __future__ import annotations
@@ -25,7 +27,14 @@ class SmoothedValue:
         self.total += float(value) * n
 
     def synchronize_between_processes(self) -> None:
-        """(count, total) summed over processes: one process, nothing to do."""
+        """(count, total) summed over the processes (reference :118-129); one
+        process keeps its own."""
+        from .dist import get_world_size, host_all_reduce_sum
+
+        if get_world_size() == 1:
+            return
+        count, total = host_all_reduce_sum([self.count, self.total])
+        self.count, self.total = int(count), total
 
     @property
     def median(self) -> float:

@@ -264,8 +264,12 @@ def test_dist_is_one_process(monkeypatch):
     assert TD.init_distributed_mode() == {"rank": 0, "world_size": 1, "num_devices": 1,
                                           "local_devices": 1}
     assert TD.get_rank() == 0 and TD.get_world_size() == 1 and TD.is_main_process()
+    # a launch of two processes without torchrun's other variables refuses
+    # to wait for peers that were never started
     monkeypatch.setenv("WORLD_SIZE", "2")
-    with pytest.raises(NotImplementedError, match="ROADMAP A6"):
+    for k in ("RANK", "MASTER_ADDR", "MASTER_PORT"):
+        monkeypatch.delenv(k, raising=False)
+    with pytest.raises(ValueError, match="RANK, MASTER_ADDR, MASTER_PORT"):
         TD.init_distributed_mode()
 
 

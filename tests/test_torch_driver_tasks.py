@@ -586,7 +586,9 @@ def test_collect_result_matches_jax(case, tmp_path, monkeypatch):
 
 
 def test_collect_result_refuses_processes():
-    with pytest.raises(NotImplementedError, match="ROADMAP A6"):
+    """Above one process the merge needs the ranks' process group
+    (tests/test_torch_ddp.py merges over two); without one it refuses."""
+    with pytest.raises(RuntimeError, match="process group"):
         TU.collect_result([], "x", "/nonexistent", rank=0, world_size=2)
 
 
