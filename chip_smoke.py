@@ -177,6 +177,17 @@ It builds the port's CUDA kernels from csrc/ (into build/kernels/), then:
      rank's by hold_to_plain's rule, the rank-sharded retrieval scores
      summed equal to one rank's; step ms, all-reduce ms and bytes, peak
      memory per rank;
+   - the rest of distribution (phase_parallel): parallel/parallel_check
+     --width full as two ranks of the one card over gloo: ZeRO-1 against
+     the replicated step (moment bytes per rank), the sharded checkpoint
+     backend (sync and background saves, restore, the next step bit-equal),
+     the tensor-parallel pruning step at tp 2 (each rank's 6 heads on #2p /
+     #3p) against one rank's, a vocab-parallel MLM loss, the ViT and BERT
+     forwards by token shards (#3 over the gathered tokens), a 12-layer
+     BERT stack pipelined over 2 stages, forward and backward, moe_ffn with
+     its 8 experts over the ranks; then JAX-format files (flax msgpack,
+     written without JAX): --evaluate at k_test 256 and one infer caption,
+     each equal to the same weights from a torch.save file;
    with exact launch counts, finite outputs, and the kernel path against the
    plain path (f32 params for retrieval; the same bf16 params for
    generation, with a teacher-forced replay of the generated captions, and
@@ -4362,9 +4373,9 @@ def loop_gd(files, root: str, smi: str, yardstick: float, c: dict):
             return fn
 
         def timed_save(orig):
-            def fn(out_dir, state, extra, *, background=False):
+            def fn(out_dir, state, extra, *, background=False, **kw):
                 t0 = time.perf_counter()
-                orig(out_dir, state, extra, background=background)
+                orig(out_dir, state, extra, background=background, **kw)
                 saves.append({"background": background, "caller_s": time.perf_counter() - t0,
                               "step": extra.get("step")})
             return fn
@@ -5847,15 +5858,6 @@ def ddp_dump(root: str, tag: str, rank: int) -> dict:
     return out
 
 
-def ddp_grads(dump: dict, group: str):
-    """The step-1 gradients of a group (tree order) as torch tensors."""
-    import torch
-
-    keys = sorted((k for k in dump if k.startswith(f"grad1/{group}/")),
-                  key=lambda k: int(k.rsplit("/", 1)[1]))
-    return [torch.from_numpy(dump[k]).cuda() for k in keys]
-
-
 def ddp_scores(smi: str) -> None:
     """retrieval_scores over a synthetic bank (the 6L / 6L model, 32 images
     x 2 texts, k_test 16) as rank 0 and rank 1 of two, summed, against one
@@ -5981,7 +5983,7 @@ def phase_ddp(smi: str, yardstick: float, grad_yardstick: dict) -> dict:
               f"tol {TRAIN_FACTOR * yardstick:.3e} (the plain bf16 path's distance from f32)")
         check(worst[0] <= TRAIN_FACTOR * yardstick, f"ddp: {worst[1]} of two ranks differs")
         for group, yard_key in DDP_GROUPS:
-            rel, cos = grad_distance(ddp_grads(a, group), ddp_grads(one, group))
+            rel, cos = grad_distance(dump_grads(a, "", group), dump_grads(one, "", group))
             rel_pf, cos_pf = grad_yardstick[yard_key]
             print(f"ddp step-1 gradients [{group}]: two ranks vs one rel {rel:.3e} cos {cos:.6f};"
                   f" plain bf16 vs f32 rel {rel_pf:.3e} cos {cos_pf:.6f}")
@@ -5999,6 +6001,499 @@ def phase_ddp(smi: str, yardstick: float, grad_yardstick: dict) -> dict:
         shutil.rmtree(root, ignore_errors=True)
     print(json.dumps({"ddp_phase": report}, default=float))
     print(f"phase ddp: {time.perf_counter() - t_phase:.1f} s")
+    return {"launches": total}
+
+
+# --------------------------------------------------------------------------
+# phase 3g: the rest of distribution, and JAX's .ckpt files
+# --------------------------------------------------------------------------
+
+PARALLEL_UNIT = dict(timeout=900, steps=3)
+F32_CLOSE = 1e-6  # f32 rounding of the same arithmetic in another order, relative
+
+
+def parallel_config():
+    """parallel_check --width full's config (the shipped Retrieval_coco.yaml)."""
+    from efficientvlm_tpu_torch.parallel import multihost_check
+
+    return multihost_check.full_config()
+PARALLEL_PARTS = ("zero1", "sharded", "tp", "vocab", "sp", "pipeline", "ep")
+
+
+def parallel_start(root: str, here: str, world: int = 2) -> list:
+    """Start `world` processes of parallel/parallel_check --width full, every
+    part, under torchrun's environment, all on cuda:0 over gloo (NCCL refuses
+    two ranks on one device, phase_ddp), each in a session of its own, its
+    output to <root>/rank<r>.log."""
+    port = str(free_port())
+    cmd = [sys.executable, "-m", "efficientvlm_tpu_torch.parallel.parallel_check", "--parts",
+           ",".join(PARALLEL_PARTS), "--width", "full", "--backend", "gloo", "--out", root]
+    procs = []
+    for r in range(world):
+        with open(os.path.join(root, f"rank{r}.log"), "w") as log:
+            procs.append(subprocess.Popen(
+                cmd, cwd=here, stdout=log, stderr=subprocess.STDOUT, start_new_session=True,
+                env=dict(os.environ, MASTER_ADDR="127.0.0.1", MASTER_PORT=port,
+                         WORLD_SIZE=str(world), RANK=str(r), LOCAL_RANK="0")))
+    return procs
+
+
+def parallel_wait(procs: list, root: str, t0: float):
+    """Wait for parallel_start's processes (killed at the timeout left since
+    t0). Returns (exit codes, outputs, seconds since t0)."""
+    for p in procs:
+        try:
+            p.wait(timeout=max(1.0, PARALLEL_UNIT["timeout"] - (time.perf_counter() - t0)))
+        except subprocess.TimeoutExpired:
+            break
+    outs = []
+    for r in range(len(procs)):
+        with open(os.path.join(root, f"rank{r}.log")) as f:
+            outs.append(f.read())
+    return [p.returncode for p in procs], outs, time.perf_counter() - t0
+
+
+def parallel_stop(procs: list) -> None:
+    for p in procs:
+        if p.poll() is None:
+            os.killpg(p.pid, signal.SIGKILL)
+            p.wait()
+
+
+def parallel_dump(root: str, part: str, rank: int) -> dict:
+    import numpy as np
+
+    with np.load(os.path.join(root, f"{part}.rank{rank}.npz")) as z:
+        out = {k: z[k] for k in z.files}
+    out["report"] = json.loads(str(out["report"]))
+    return out
+
+
+def dump_grads(dump: dict, prefix: str, group: str):
+    """A dump's step-1 gradients of a group (tree order) as tensors."""
+    import torch
+
+    keys = sorted((k for k in dump if k.startswith(f"{prefix}grad1/{group}/")),
+                  key=lambda k: int(k.rsplit("/", 1)[1]))
+    return [torch.from_numpy(dump[k]) for k in keys]
+
+
+def hold_losses(got: dict, want: dict, prefix: tuple, tol: float, why: str, what: str) -> None:
+    """Every loss of every step of `got` against `want` (dump keys
+    <prefix>/metric/<name>), relative, within `tol` (`why` says whence)."""
+    a, b = prefix
+    keys = sorted(k for k in got if k.startswith(f"{a}/metric/"))
+    worst = max((abs(float(got[k][i]) - float(want[k.replace(a, b, 1)][i]))
+                 / max(abs(float(want[k.replace(a, b, 1)][i])), 1e-3), k)
+                for k in keys for i in range(len(got[k])))
+    print(f"{what}: losses worst relative {worst[0]:.3e} ({worst[1]}); tol {tol:.3e} ({why})")
+    check(worst[0] <= tol, f"{what}: {worst[1]} differs")
+
+
+def hold_leaves(got: dict, want: dict, prefix: tuple, what: str) -> dict:
+    """The largest |difference| of the final params, log-alphas and λs, by
+    group, and the largest |value| of `want`'s (key "scale")."""
+    a, b = prefix
+    out = {"params": 0.0, "loga": 0.0, "lam": 0.0, "scale": 0.0}
+    for k in got:
+        group = k.split("/")[1] if k.startswith(a + "/") else None
+        if group in ("params", "loga", "lam"):
+            ref = want[k.replace(a, b, 1)]
+            out[group] = max(out[group], float(abs(got[k] - ref).max()))
+            out["scale"] = max(out["scale"], float(abs(ref).max()))
+    print(f"{what}: final leaves largest |difference| params {out['params']:.3e}, loga "
+          f"{out['loga']:.3e}, lam {out['lam']:.3e} (largest |leaf| {out['scale']:.3e})")
+    return out
+
+
+def flax_ext(x):
+    """flax's msgpack extension types (flax.serialization._msgpack_ext_pack):
+    1 an ndarray as msgpack of (shape, dtype name, C bytes), 3 a numpy
+    scalar as a 0-d one."""
+    import msgpack
+    import numpy as np
+
+    if isinstance(x, np.ndarray):
+        return msgpack.ExtType(1, msgpack.packb((x.shape, x.dtype.name, x.tobytes("C")),
+                                                use_bin_type=True))
+    if isinstance(x, np.generic):
+        return msgpack.ExtType(3, msgpack.packb(((), x.dtype.name, np.asarray(x).tobytes("C")),
+                                                use_bin_type=True))
+    return x
+
+
+def write_flax_ckpt(path: str, tree, bf16_leaf: str = "") -> None:
+    """`tree` (torch tensors, dicts, lists, numbers) as JAX's save_pytree
+    writes it: flax's state dict (a list's entries under "0".."n-1"), numpy
+    leaves (jax.tree.map(np.asarray)), msgpack with flax's extension types.
+    The leaf whose path is bf16_leaf is written as bfloat16 (its uint16
+    bits under the dtype name "bfloat16", as ml_dtypes names it)."""
+    import msgpack
+    import numpy as np
+    import torch
+
+    def walk(node, path):
+        if isinstance(node, dict):
+            return {str(k): walk(v, f"{path}/{k}") for k, v in node.items()}
+        if isinstance(node, (list, tuple)):
+            return {str(i): walk(v, f"{path}/{i}") for i, v in enumerate(node)}
+        if torch.is_tensor(node):
+            if path == bf16_leaf:
+                bits = node.detach().cpu().to(torch.bfloat16).view(torch.uint16).numpy()
+                return ("bfloat16", bits)
+            return np.array(node.detach().cpu().numpy(), order="C")  # keeps 0-d leaves 0-d
+        return np.asarray(node)
+
+    def ext(x):
+        if isinstance(x, tuple) and len(x) == 2 and x[0] == "bfloat16":
+            return msgpack.ExtType(1, msgpack.packb((x[1].shape, "bfloat16", x[1].tobytes("C")),
+                                                    use_bin_type=True))
+        return flax_ext(x)
+
+    with open(path, "wb") as f:
+        f.write(msgpack.packb(walk(tree, ""), default=ext, strict_types=True))
+
+
+def parallel_jax_files(smi: str) -> dict:
+    """JAX-format files on the card (the card has no JAX: write_flax_ckpt
+    writes flax's layout): a gated snapshot of the shipped Retrieval_coco.yaml
+    student (seeded, drawn log-alphas, one leaf in bf16) through
+    `--evaluate` at k_test 256 over write_data_corpus's retrieval split, and
+    a gated snapshot of the Captioning.yaml student through scripts/infer.py
+    on one image; each against the same weights in a torch.save file: the
+    loaded params and gates, the embeddings and score matrices, the caption,
+    all equal. Returns the launches."""
+    import shutil
+    import tempfile
+    import types
+
+    import numpy as np
+    import torch
+
+    from efficientvlm_tpu_torch import run as cli
+    from efficientvlm_tpu_torch.config import load_task_config
+    from efficientvlm_tpu_torch.drivers import captioning as cap
+    from efficientvlm_tpu_torch.drivers import retrieval
+    from efficientvlm_tpu_torch.scripts import infer
+    from efficientvlm_tpu_torch.train import checkpoint as ckpt_io
+
+    here = os.path.dirname(os.path.abspath(__file__))
+    build = os.path.join(here, "build")
+    root = tempfile.mkdtemp(prefix="jaxfile-", dir=build)
+    try:
+        files = write_data_corpus(root, np.random.default_rng(7))
+        yaml_path = driver_yaml(files, root)
+        config = load_task_config(yaml_path, repo_root=here)
+        student, l0 = retrieval.build_models(config)[0], retrieval.build_l0(config)
+        loga = drawn_loga(types.SimpleNamespace(loga=l0.init(2, device="cuda")["loga"]), Rand(24))
+        params = student.init(0, device="cuda")
+        params["vision_proj"]["kernel"] = params["vision_proj"]["kernel"].bfloat16().float()
+        snap = {"model": params, "l0": {"loga": loga, "lambda_1": 0.0, "lambda_2": 0.0},
+                "epoch": 1}
+        paths = {"msgpack": os.path.join(root, "model_state_epoch_1.ckpt"),
+                 "torch": os.path.join(root, "torch_snapshot.ckpt")}
+        write_flax_ckpt(paths["msgpack"], snap, bf16_leaf="/model/vision_proj/kernel")
+        ckpt_io.save_pytree(paths["torch"], snap)
+        check(ckpt_io.is_msgpack(paths["msgpack"]) and not ckpt_io.is_msgpack(paths["torch"]),
+              "jax file: the formats are not told apart")
+        n_img = n_txt = None
+        recs, c = {}, counts()
+        for name, path in paths.items():
+            with eval_recorder() as rec:
+                cli.main(["--task", "itr_coco", "--config", yaml_path, "--evaluate",
+                          "--checkpoint", path, "--output_dir", os.path.join(root, name)])
+            test_ds = retrieval.build_datasets(config, 42)[2]
+            n_img, n_txt = len(test_ds), len(test_ds.text)
+            c = expect_launches(c, eval_launches(config, n_img, n_txt),
+                                f"jax file --evaluate from the {name} file")
+            recs[name] = rec
+        rj, rt = recs["msgpack"], recs["torch"]
+        same = [k for k in rt["zs"] if not torch.equal(rj["zs"][k], rt["zs"][k])]
+        from efficientvlm_tpu_torch.train.optim import tree_leaves_with_path
+
+        lj, lt = tree_leaves_with_path(rj["params"]), tree_leaves_with_path(rt["params"])
+        # the bf16 leaf comes back as bf16 (the torch file holds its f32 value)
+        differ = [p for (p, a), (_, b) in zip(lj, lt) if not torch.equal(a.float(), b.float())]
+        check(len(lj) == len(lt) and not differ and not same,
+              f"jax file: the params {differ[:3]} or gates {same[:3]} differ from the torch file's")
+        for key in ("text", "image"):
+            check(np.array_equal(rj[key], rt[key]), f"jax file: the {key} embeddings differ")
+        for a, b in zip(rj["scores"], rt["scores"]):
+            check(np.array_equal(a, b), "jax file: the score matrices differ")
+        print(f"jax file --evaluate ({n_img} images x {n_txt} texts, k_test {config['k_test']}) "
+              f"from flax msgpack equals the torch.save file's: params, gates, embeddings and "
+              f"scores bit-equal; {rj['seconds']:.2f} / {rt['seconds']:.2f} s; card {smi}")
+
+        cap_yaml = loop_yaml(SERVE_YAML["caption"], root, "jax_caption",
+                             text_encoder=files["vocab"])
+        cconf = load_task_config(cap_yaml, repo_root=here)
+        cstudent, cl0 = cap.build_models(cconf)[0], cap.build_l0(cconf)
+        cloga = drawn_loga(types.SimpleNamespace(loga=cl0.init(2, device="cuda")["loga"]),
+                           Rand(25))
+        csnap = {"model": cstudent.init(0, device="cuda"),
+                 "l0": {"loga": cloga, "lambda_1": 0.0, "lambda_2": 0.0}, "epoch": 0}
+        write_flax_ckpt(os.path.join(root, "caption.ckpt"), csnap)
+        ckpt_io.save_pytree(os.path.join(root, "caption_torch.ckpt"), csnap)
+        folder = os.path.join(root, "one_image")
+        os.makedirs(folder)
+        name = sorted(p for p in os.listdir(files["root"]) if p.endswith(".jpg"))[0]
+        os.link(os.path.join(files["root"], name), os.path.join(folder, name))
+        captions = {}
+        for tag in ("caption.ckpt", "caption_torch.ckpt"):
+            out = os.path.join(root, tag + ".json")
+            infer.main(["--task", "caption", "--checkpoint", os.path.join(root, tag), "--config",
+                        cap_yaml, "--images", folder, "--out", out])
+            with open(out) as f:
+                captions[tag] = json.load(f)
+        check(captions["caption.ckpt"] == captions["caption_torch.ckpt"]
+              and len(captions["caption.ckpt"]) == 1,
+              f"jax file: infer's caption differs: {captions}")
+        print(f"jax file infer: the caption from flax msgpack equals the torch.save file's: "
+              f"{captions['caption.ckpt'][0]['caption']!r}")
+        launches = counts()
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    return launches
+
+
+def hold_parallel(dumps: dict, smi: str, yardstick: float, grad_yardstick: dict, report: dict,
+                  total: dict) -> None:
+    """phase_parallel's checks of parts 1-6 on the two ranks' dumps; their
+    launches are added into `total`, their figures into `report`."""
+    import numpy as np
+    import torch
+
+    names = list(wrappers())
+    steps = PARALLEL_UNIT["steps"]
+    for part, ds in dumps.items():
+        a, b = ds
+        # a pipeline stage holds its own layers' gradients (summed below)
+        same = [k for k in a if k != "report" and not np.array_equal(a[k], b[k])
+                and not (part == "pipeline" and "/grad/" in k)]
+        check(not same, f"parallel {part}: the ranks' {same[:5]} differ")
+        for d in ds:
+            for k, v in d["report"].get("launches", {}).items():
+                total[k] += v
+            for k, v in d["report"].get("tp_launches", {}).items():
+                total[k] += v
+
+    # 1. ZeRO-1
+    z = dumps["zero1"][0]
+    rep = z["report"]
+    # the same f32 arithmetic but the clip's norm, summed by shards: f32
+    # rounding, not the bf16 yardstick
+    hold_losses(z, z, ("zero1", "dp"), F32_CLOSE, "f32 rounding",
+                "parallel zero1 vs replicated two ranks")
+    diff = hold_leaves(z, z, ("zero1", "dp"), "parallel zero1 vs replicated two ranks")
+    report["zero1_leaves_diff"] = max(diff[g] for g in ("params", "loga", "lam"))
+    check(report["zero1_leaves_diff"] <= F32_CLOSE * diff["scale"],
+          f"parallel zero1: final leaves {report['zero1_leaves_diff']:.3e} from the replicated "
+          f"step's, above {F32_CLOSE} x the largest leaf {diff['scale']:.3e}")
+    mb = rep["zero1_moment_bytes"]
+    print(f"parallel zero1: optimizer-state bytes per rank {mb['per_device_bytes'] / 2**20:.1f}"
+          f" MiB against {mb['replicated_bytes'] / 2**20:.1f} MiB replicated; step ms "
+          + " / ".join(f"{x:.1f}" for x in rep["zero1_step_ms"]) + " (replicated "
+          + " / ".join(f"{x:.1f}" for x in rep["dp_step_ms"]) + f"); {smi}")
+    check(rep["zero1_sharded"] and mb["per_device_bytes"] < 0.6 * mb["replicated_bytes"],
+          f"parallel zero1: moments not sharded {mb}")
+    check(rep["zero1_calls_recorded"] == rep["dp_calls_recorded"] == 0,
+          "parallel C1: a driver-built GradientSync kept a record")
+    w = rep["wrappers"]
+    check(w["skip/0"] == [1.0] * 24 and w == dumps["zero1"][1]["report"]["wrappers"],
+          "parallel zero1: ApplyIfFinite / MultiSteps disagree across ranks")
+    report["zero1"] = {k: rep[k] for k in ("zero1_moment_bytes", "zero1_step_ms",
+                                           "dp_step_ms")}
+    expected = tuple(8 * n for n in DDP_STEP)  # 3 + 3 steps, the resumed pair
+    for d in dumps["zero1"]:
+        got = tuple(d["report"]["launches"][k] for k in names)
+        check(got == expected, f"parallel zero1: launches {got} != {expected}")
+
+    # 2. the sharded backend
+    for r, d in enumerate(dumps["zero1"]):
+        rp = d["report"]
+        for flag in ("sharded_exact", "background_exact", "next_step_exact", "msgpack_exact",
+                     "msgpack_whole_exact"):
+            check(rp[flag], f"parallel sharded backend rank {r}: {flag} failed")
+        print(f"parallel sharded backend rank {r}: save {rp['sharded_save_s']:.2f} s, "
+              f"restore {rp['sharded_restore_s']:.2f} s, background hand-off "
+              f"{rp['background_handoff_s']:.2f} s of {rp['background_total_s']:.2f} s, "
+              f"{rp['sharded_bytes'] / 2**20:.1f} MiB written; restored, the next step "
+              f"bit-equal; {smi}")
+        report[f"sharded_rank{r}"] = {k: rp[k] for k in (
+            "sharded_save_s", "sharded_restore_s", "background_handoff_s",
+            "background_total_s", "sharded_bytes")}
+
+    # 3. tp 2
+    t = dumps["tp"][0]
+    hold_losses(t, t, ("tp", "one"), TRAIN_FACTOR * yardstick,
+                f"{TRAIN_FACTOR} x the plain bf16 path's distance from f32",
+                "parallel tp 2 vs one rank")
+    for group, yard_key in DDP_GROUPS:
+        rel, cos = grad_distance(dump_grads(t, "tp/", group),
+                                 dump_grads(t, "one/", group))
+        rel_pf, cos_pf = grad_yardstick[yard_key]
+        print(f"parallel tp step-1 gradients [{group}]: tp 2 vs one rank rel {rel:.3e} cos "
+              f"{cos:.6f}; plain bf16 vs f32 rel {rel_pf:.3e} cos {cos_pf:.6f}")
+        check(rel <= TRAIN_FACTOR * rel_pf and 1 - cos <= TRAIN_FACTOR * (1 - cos_pf) + 1e-7,
+              f"parallel tp: the step-1 gradients [{group}] differ from one rank's")
+    # bf16 rounds a rank's 6-head calls otherwise than the 12-head ones, so
+    # a gradient near zero may turn its sign: an entry may then differ by
+    # Adam's whole step on either side, at most 1.01 lr a step in the first
+    # three (|m_hat| / sqrt(v_hat) <= 1.0013 with b1 0.9, b2 0.999)
+    diff = hold_leaves(t, t, ("tp", "one"), "parallel tp 2 vs one rank")
+    opt = parallel_config()["optimizer"]
+    lrs = {"params": float(opt["lr"]) * max(1.0, float(opt.get("lr_mult", 1.0))),
+           "loga": float(opt["reg_learning_rate"]),
+           "lam": float(opt["reg_learning_rate"])}
+    for group, lr in lrs.items():
+        bound = 2 * 1.01 * lr * steps
+        check(diff[group] <= bound, f"parallel tp: final {group} {diff[group]:.3e} from one "
+                                    f"rank's, above Adam's bound {bound:.3e}")
+    report["tp_leaves_diff"] = {g: diff[g] for g in lrs}
+    expected = tuple(steps * n for n in DDP_STEP)
+    for r, d in enumerate(dumps["tp"]):
+        rp = d["report"]
+        for mode in ("one", "tp"):
+            got = tuple(rp[f"{mode}_launches"][k] for k in names)
+            check(got == expected, f"parallel tp ({mode}): launches {got} != {expected}")
+        print(f"parallel tp rank {r}: step ms "
+              + " / ".join(f"{x:.1f}" for x in rp["tp_step_ms"]) + " (one rank "
+              + " / ".join(f"{x:.1f}" for x in rp["one_step_ms"]) + f"); {smi}")
+    report["tp"] = {k: t["report"][k] for k in ("tp_step_ms", "one_step_ms")}
+    v = dumps["vocab"][0]
+    rel = abs(float(v["loss"]) - float(v["ref_loss"])) / abs(float(v["ref_loss"]))
+    gerr = max(float(abs(v[k] - v[f"ref_{k}"]).max()) / float(abs(v[f"ref_{k}"]).max())
+               for k in ("word", "decoder", "dense"))
+    print(f"parallel vocab-parallel embedding + MLM loss (30,522 words): loss relative "
+          f"{rel:.3e}, gradients relative {gerr:.3e} (f32)")
+    check(rel <= 1e-5 and gerr <= 1e-4, "parallel vocab: the sharded MLM loss differs")
+
+    # 4. the sequence axis
+    sp = dumps["sp"][0]
+    for tower in ("vit", "bert"):
+        err = float(abs(sp[tower] - sp[f"ref_{tower}"]).max())
+        tol = 4 * BF16_ULP * float(abs(sp[f"ref_{tower}"]).max())
+        print(f"parallel sequence axis {tower}: token shards vs unsharded max_abs_err "
+              f"{err:.3e} tol {tol:.3e}")
+        check(err <= tol, f"parallel sequence axis: the {tower} forward differs")
+    for d in dumps["sp"]:
+        la = d["report"]["launches"]
+        check(la["patch_embed"] == 1 and la["fused_cross_attention"] > 0
+              and la["fused_self_attention"] == 0,
+              f"parallel sequence axis: launches {la}")
+    report["sp_ms"] = sp["report"]["sp_ms"]
+
+    # 5. the pipeline
+    pp = dumps["pipeline"]
+    n = sum(1 for k in pp[0] if k.startswith("ref_grad/"))
+    for case in ("all", "all_m1"):
+        err = float(abs(pp[0][f"{case}/out"] - pp[0]["ref_out"]).max())
+        tol = 4 * BF16_ULP * float(abs(pp[0]["ref_out"]).max())
+        got = [torch.from_numpy(pp[0][f"{case}/grad/{j}"] + pp[1][f"{case}/grad/{j}"])
+               for j in range(n)]
+        want = [torch.from_numpy(pp[0][f"ref_grad/{j}"]) for j in range(n)]
+        rel, cos = grad_distance(got, want)
+        print(f"parallel pipeline {case} (12 layers, 2 stages): forward max_abs_err "
+              f"{err:.3e} tol {tol:.3e}; gradients rel {rel:.3e} cos {cos:.6f}; "
+              f"{pp[0]['report'][f'{case}_ms']:.1f} ms")
+        check(err <= tol and rel <= 1e-3, f"parallel pipeline {case}: differs")
+    for d in pp:
+        la = d["report"]["launches"]
+        check(la["fused_self_attention"] == 6 * 4 + 6 * 1,
+              f"parallel pipeline: launches {la}")
+
+    # 6. EP
+    for i in (0, 1):
+        e0 = dumps["ep"][0]
+        err = float(abs(e0[f"{i}/out"] - e0[f"{i}/ref"]).max())
+        aux = abs(float(e0[f"{i}/aux"]) - float(e0[f"{i}/ref_aux"]))
+        print(f"parallel EP (8 experts over 2 ranks, capacity {'1.25' if i == 0 else '0.5'}): "
+              f"max_abs_err {err:.3e}, aux {float(e0[f'{i}/aux']):.6f} vs "
+              f"{float(e0[f'{i}/ref_aux']):.6f}; {e0['report'][f'ep_ms/{i}']:.1f} ms")
+        check(err <= 1e-4 * float(abs(e0[f"{i}/ref"]).max()) and aux <= 1e-5,
+              "parallel EP: differs from the one-device op")
+
+
+def phase_parallel(smi: str, yardstick: float, grad_yardstick: dict) -> dict:
+    """The rest of distribution on the one card, as two ranks of
+    parallel/parallel_check --width full over gloo (NCCL refuses two ranks on
+    one device; the ranks share the card, so this checks the code paths and
+    the kernels under them, not scaling), at the shipped Retrieval_coco.yaml
+    widths (6L / 6L student with gates, 12L / 12L teacher, 384 px; dropout
+    0, the noise and negatives pinned):
+    1. ZeRO-1: three steps over world batches of 24 data parallel and with
+       zero1 from one init: the ranks bit-equal, the losses within 1e-6
+       relative and the final leaves within 1e-6 of the largest leaf of the
+       replicated step's (F32_CLOSE: the same f32 arithmetic but the clip's
+       norm, summed by shards), the moment bytes
+       per rank against the replicated bytes; a driver-built sync records
+       nothing (C1);
+    2. the sharded backend: saved (sync and background) and restored into a
+       fresh state, the default backend's gathered file restored, and the
+       next step bit-equal to the uninterrupted one; seconds and bytes per
+       rank;
+    3. tp 2: three steps of the pruning step at b12 tensor-sharded against
+       the one-rank step from one init: the losses and step-1 gradients
+       (hold_losses, grad_distance against phase_train's yardstick), the
+       final leaves within Adam's step bound (2 x 1.01 lr a step), the
+       launches of #1 / #2p / #3p a step equal to the one-rank step's
+       (each rank runs its 6 of the 12 heads); a vocab-parallel embedding
+       and MLM loss at BERT-base's 30,522 words;
+    4. the sequence axis: the student's ViT (b16) and BERT (text and fusion
+       layers) forwards by token shards (577 tokens in blocks of 289, one
+       padded key) against the unsharded forwards; #3 serves the blocks;
+    5. the pipeline: a 12-layer BERT text stack, 2 stages x 4 microbatches
+       and x 1, forward and the gradients of sum(out ** 2) against the
+       sequential stack (#2's training form under each stage);
+    6. EP: moe_ffn_ep, 8 experts of 768 x 3072 over 2 ranks (4 x 40 tokens
+       a rank, capacity 1.25 and 0.5) against moe_ffn, f32;
+    7. JAX's .ckpt files (parallel_jax_files), in this process while the
+       two ranks run.
+    Returns the launches of this phase (both ranks' and this process's)."""
+    import shutil
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    t_phase = time.perf_counter()
+    here = os.path.dirname(os.path.abspath(__file__))
+    build = os.path.join(here, "build")
+    os.makedirs(build, exist_ok=True)
+    root = tempfile.mkdtemp(prefix="parallel-", dir=build)
+    report = {"card": smi}
+    total = {k: 0 for k in counts()}
+    procs = []
+    try:
+        t0 = time.perf_counter()
+        procs = parallel_start(root, here)
+        # 7. JAX's .ckpt files, in this process while the two ranks run
+        c = reset_counts()
+        here_launches = parallel_jax_files(smi)
+        for k in total:
+            total[k] += here_launches[k] - c[k]
+        report["jax_files_s"] = time.perf_counter() - t0
+        rcs, outs, secs = parallel_wait(procs, root, t0)
+        for o in outs:
+            for ln in o.splitlines():
+                if ln.startswith("parallel_check"):
+                    print(ln)
+        check(rcs == [0, 0], "parallel: the two gloo ranks failed: "
+                             + " || ".join(o[-3000:] for o in outs))
+        dumps = {p: [parallel_dump(root, p, r) for r in range(2)]
+                 for p in ("zero1", "tp", "vocab", "sp", "pipeline", "ep")}
+        hold_parallel(dumps, smi, yardstick, grad_yardstick, report, total)
+        print(f"parallel: two ranks {secs:.1f} s of wall with start-up (the .ckpt files' "
+              f"{report['jax_files_s']:.1f} s in this process meanwhile)")
+        report["ranks_s"] = secs
+        del dumps
+        torch.cuda.empty_cache()
+    finally:
+        parallel_stop(procs)
+        shutil.rmtree(root, ignore_errors=True)
+    print(f"launches parallel (both ranks and the .ckpt files): {total}")
+    print(json.dumps({"parallel_phase": report}, default=float))
+    print(f"phase parallel: {time.perf_counter() - t_phase:.1f} s")
     return {"launches": total}
 
 
@@ -6387,9 +6882,10 @@ def main(argv) -> int:
     alt_launches = phase_alt_vision(smi)["launches"]
     serving_launches = phase_serving(smi)["launches"]
     ddp_launches = phase_ddp(smi, yardstick, grad_yardstick)["launches"]
+    parallel_launches = phase_parallel(smi, yardstick, grad_yardstick)["launches"]
     later = [gd_launches, task_launches, nlvr_launches, grounding_launches, data_launches,
              driver_launches, loops_launches, scst_launches, crossgen_launches, alt_launches,
-             serving_launches, ddp_launches]
+             serving_launches, ddp_launches, parallel_launches]
     kernels = phase_times(cases, device_cases, errs, slice_state, gen_state,
                           [train_launches] + later)
     for row in train_rows:  # the probs forms run on every training path

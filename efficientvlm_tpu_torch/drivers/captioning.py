@@ -201,6 +201,7 @@ def main(args: Config, config: Config) -> dict:
     snapshot and the full state. Returns {"state", "epochs"} (each epoch's
     steps, seconds and metrics); with --evaluate {"results"}."""
     info = common.setup(args, config)
+    backend = common.checkpoint_backend(config)
     device = resolve_device(args.get("device"))
     out_dir = args.get("output_dir") or "output"
     seed = int(args.get("seed", 42))
@@ -262,7 +263,7 @@ def main(args: Config, config: Config) -> dict:
     for epoch in range(start_epoch, epochs):
         state, logger, record = common.train_epoch(
             train_loader, step, state, lambda items: make_batch(items, tokenizer, config, device),
-            prof, epoch=epoch, seed=seed, device=device, output_dir=out_dir,
+            prof, epoch=epoch, seed=seed, device=device, output_dir=out_dir, backend=backend,
             resume_batches=resume_batches if epoch == start_epoch else 0, batch_size=bs)
         zs = l0.forward_deterministic({"loga": state.loga})
         t0 = time.perf_counter()
@@ -275,7 +276,7 @@ def main(args: Config, config: Config) -> dict:
         common.log_stats({"epoch": epoch, **metrics, **common.train_stats(logger)}, out_dir)
         common.save_training_state(out_dir, epoch, {
             "model": state.params, "l0": {"loga": state.loga, **state.lam}, "epoch": epoch})
-        common.save_full_state(out_dir, state, {"epoch": epoch})
+        common.save_full_state(out_dir, state, {"epoch": epoch}, backend=backend)
         epochs_run.append(dict(record, metrics=metrics, results=results))
     return {"state": state, "epochs": epochs_run}
 
@@ -292,12 +293,12 @@ def _load_host_draws(dataset, states: dict) -> None:
     dataset.transform.rng.bit_generator.state = states["transform_rng"]
 
 
-def _preempted_exit(out_dir: str, state, epoch: int, draws: dict) -> None:
+def _preempted_exit(out_dir: str, state, epoch: int, draws: dict, backend: str) -> None:
     """SCST's preemption: the state saved as of epoch - 1 with the host
     generators' states at the epoch's start, then exit 0."""
     if out_dir:
         common.save_full_state(out_dir, state, {"epoch": epoch - 1, "scst": True,
-                                                "host_draws": draws})
+                                                "host_draws": draws}, backend=backend)
         common.wait_for_saves()
         common.log_stats({"preempted": True, "epoch": epoch, "scst": True}, out_dir)
     print(f"### scst preempted in epoch {epoch}: state saved, exiting")
@@ -329,6 +330,7 @@ def scst_train(args: Config, config: Config, student: XVLMForCaptioning, sparams
     the seconds of sampling, reward and update)."""
     world = info["world_size"]
     out_dir = args.get("output_dir") or ""
+    backend = common.checkpoint_backend(config)
     seed = int(args.get("seed", 42))
     image_res = config.get("image_res", 384)
     sample_n = int(config.get("scst_sample_n", 5))
@@ -406,13 +408,14 @@ def scst_train(args: Config, config: Config, student: XVLMForCaptioning, sparams
             # interrupted epoch is replayed whole on resume
             if common.preempted() if world == 1 else (
                     (i + 1) % 10 == 0 and common.preempted_sync()):
-                _preempted_exit(out_dir, state, epoch, draws)
+                _preempted_exit(out_dir, state, epoch, draws, backend)
         if world > 1 and common.preempted_sync():  # an epoch shorter than 10 batches
-            _preempted_exit(out_dir, state, epoch, draws)
+            _preempted_exit(out_dir, state, epoch, draws, backend)
         logger.synchronize_between_processes()
         common.log_stats({"epoch": epoch, "scst": True, **common.train_stats(logger)}, out_dir)
         common.save_full_state(out_dir, state, {"epoch": epoch, "scst": True,
-                                                "host_draws": _host_draws(train_ds)})
+                                                "host_draws": _host_draws(train_ds)},
+                               backend=backend)
         epochs_run.append({"epoch": epoch, "steps": len(parts["grad_s"]), "batch": bs,
                            "train_s": time.perf_counter() - t_epoch, **parts})
     return {"state": state, "reward_history": reward_hist, "epochs": epochs_run}

@@ -23,9 +23,14 @@ Where JAX's design does not carry over to eager PyTorch:
   before the write is handed over (AdamW updates the tensors in place);
 - data parallelism is one process a device (torchrun), not a mesh: there
   is no batch placement across devices, and each rank's step generator
-  folds in its rank (step_generator), as JAX folds in the axis index; ZeRO-1
-  and the sharded checkpoint backend come with the second part of ROADMAP
-  A6 and raise until then.
+  folds in its rank (step_generator), as JAX folds in the axis index;
+- `zero1: true` keeps each rank's step and shards the optimizers' moments
+  over the ranks (parallel/zero.py), so every driver takes it, GD's region
+  batches and VQA's k_index included (JAX's pjit step cannot); one process
+  is a no-op, as in JAX;
+- `checkpoint_backend: orbax` writes the full state as a directory of
+  per-rank files (train/sharded_io.py), not orbax's format; JAX's key and
+  value are kept so that a shipped config means the same thing.
 """
 
 from __future__ import annotations
@@ -57,13 +62,9 @@ def setup(args: Config, config: Config) -> Config:
     the rank of a torchrun launch over NCCL, gloo with --device cpu), numpy's
     global seed (+ rank), and <output_dir>/config.json with the args and the
     config."""
+    checkpoint_backend(config)  # a bad value fails before the run starts
     info = init_distributed_mode(device=args.get("device"))
     np.random.seed(int(args.get("seed", 42)) + info["rank"])
-    backend = str(config.get("checkpoint_backend", "msgpack"))
-    if backend != "msgpack":
-        raise NotImplementedError(f"checkpoint_backend: {backend}: the sharded checkpoint "
-                                  "backend comes with the second part of distribution "
-                                  "(ROADMAP A6: train/orbax_io.py)")
     if args.get("output_dir"):
         os.makedirs(args["output_dir"], exist_ok=True)
         if get_rank() == 0:
@@ -413,8 +414,9 @@ class LaggedMetrics:
 
 
 def run_train_epoch(loader, logger, step_fn, state, make_batch, prof, *, epoch: int, seed: int,
-                    device, output_dir: str = "", resume_batches: int = 0, header: str = "",
-                    log_freq: int = 50, sync_every: int = 10):
+                    device, output_dir: str = "", backend: str = "msgpack",
+                    resume_batches: int = 0, header: str = "", log_freq: int = 50,
+                    sync_every: int = 10):
     """One fine-tune epoch: items -> make_batch -> step_fn(state, batch,
     generator), which updates `state` in place and returns its metrics,
     with profiler ticks and the metrics logged one step late
@@ -440,7 +442,7 @@ def run_train_epoch(loader, logger, step_fn, state, make_batch, prof, *, epoch: 
             logger.update(**last)
         if output_dir:
             save_full_state(output_dir, state, {"epoch": epoch - 1, "batches_done": batches_done,
-                                                "preempted": True})
+                                                "preempted": True}, backend=backend)
             wait_for_saves()
             log_stats({"preempted": True, "epoch": epoch, "batches_done": batches_done},
                       output_dir)
@@ -484,7 +486,8 @@ def resume_epochs(args: Config, state):
 
 
 def train_epoch(loader, step_fn, state, make_batch, prof, *, epoch: int, seed: int, device,
-                output_dir: str = "", resume_batches: int = 0, batch_size: int = 0):
+                output_dir: str = "", backend: str = "msgpack", resume_batches: int = 0,
+                batch_size: int = 0):
     """One epoch of a fine-tune's loop: the loader's epoch set,
     run_train_epoch under a fresh MetricLogger, the profiler's window
     closed. Returns (state, logger, record), record {"epoch", "steps" (run
@@ -494,7 +497,7 @@ def train_epoch(loader, step_fn, state, make_batch, prof, *, epoch: int, seed: i
     logger = MetricLogger()
     t0 = time.perf_counter()
     state = run_train_epoch(loader, logger, step_fn, state, make_batch, prof, epoch=epoch,
-                            seed=seed, device=device, output_dir=output_dir,
+                            seed=seed, device=device, output_dir=output_dir, backend=backend,
                             resume_batches=resume_batches, header=f"Train Epoch: [{epoch}]")
     train_s = time.perf_counter() - t0
     prof.close()
@@ -524,13 +527,17 @@ def build_train_step(step, config: Config):
     parallel, a utils/dist.GradientSync on the step inside any
     DevicePreprocess (rank 0's state broadcast at its first call, the
     gradients and metrics averaged before each update, the ITC over the
-    world batch). zero1 raises until ZeRO-1 is ported."""
-    if config.get("zero1"):
-        raise NotImplementedError("zero1: ZeRO-1 optimizer-state sharding comes with the "
-                                  "second part of distribution (ROADMAP A6: parallel/zero.py)")
+    world batch); with zero1 its optimizers wrapped in ZeRO-1 and a
+    Zero1Sync in its place (parallel/zero.make_zero1: the moments cut to
+    this rank's slices at the first call, the gradients reduce-scattered)."""
     if get_world_size() > 1:
         inner = step.step if isinstance(step, DevicePreprocess) else step
-        inner.data_parallel = GradientSync()
+        if config.get("zero1"):
+            from ..parallel.zero import make_zero1
+
+            make_zero1(inner)
+        else:
+            inner.data_parallel = GradientSync()
     return step
 
 
@@ -588,46 +595,107 @@ def wrap_step_with_preprocess(step, config: Config, *, image_keys=("image",),
 
 _SAVE_EXECUTOR = None
 _PENDING_SAVE = None
+_PENDING_COMMIT = None
+CHECKPOINT_BACKENDS = ("msgpack", "orbax")
+SHARDED_DIR = "training_state_latest.shards"
+
+
+def checkpoint_backend(config: Config) -> str:
+    """The full state's backend a config names: "msgpack" (one file from
+    rank 0, the default) or "orbax" (a directory of per-rank files,
+    train/sharded_io.py)."""
+    backend = str(config.get("checkpoint_backend", "msgpack"))
+    if backend not in CHECKPOINT_BACKENDS:
+        raise ValueError(f"checkpoint_backend: {backend}: msgpack (one file from rank 0) or "
+                         "orbax (a directory of per-rank files)")
+    return backend
 
 
 def wait_for_saves() -> None:
-    """Block until a background save has landed."""
-    global _PENDING_SAVE
-    if _PENDING_SAVE is not None:
-        _PENDING_SAVE.result()
-        _PENDING_SAVE = None
+    """Block until a background save has landed, then commit it (the
+    sharded backend's rename synchronises the ranks: every rank calls this
+    at the same point; save_full_state and restore_full_state call it
+    first)."""
+    global _PENDING_SAVE, _PENDING_COMMIT
+    pending, commit, _PENDING_SAVE, _PENDING_COMMIT = _PENDING_SAVE, _PENDING_COMMIT, None, None
+    if pending is not None:
+        pending.result()
+    if commit is not None:
+        commit()
 
 
-def save_full_state(output_dir: str, state, extra: dict, *, background: bool = False) -> None:
+def save_full_state(output_dir: str, state, extra: dict, *, backend: str = "msgpack",
+                    background: bool = False) -> None:
     """The complete training state and `extra`, as the reference saves {model,
     optimizer, lr_scheduler, epoch}. The state is copied to the CPU on the
     caller's thread (synchronised with the device) before anything is
     written; background=True hands only the write to a worker thread. At
-    most one save is in flight: a new one waits for the last."""
-    if get_rank() != 0 or not output_dir:
+    most one save is in flight: a new one waits for the last. Every rank
+    calls it: the sharded backend (checkpoint_backend: orbax) writes each
+    rank's own slices; the default gathers ZeRO-1 moments (a collective)
+    and writes one file from rank 0."""
+    if not output_dir:
         return
     wait_for_saves()
-    path = os.path.join(output_dir, "training_state_latest.ckpt")
-    payload = {"state": ckpt_io.to_cpu(state), "extra": dict(extra)}
+    commit = None
+    if backend == "orbax":
+        from ..train import sharded_io
+
+        write, commit = sharded_io.prepare_save(os.path.join(output_dir, SHARDED_DIR), state,
+                                                extra)
+    else:
+        from ..parallel import zero
+
+        if zero.is_sharded(state):
+            state = zero.gather_moments(state)
+        if get_rank() != 0:
+            return
+        path = os.path.join(output_dir, "training_state_latest.ckpt")
+        payload = {"state": ckpt_io.to_cpu(state), "extra": dict(extra)}
+
+        def write():
+            ckpt_io.save_pytree(path, payload)
+
     if not background:
-        ckpt_io.save_pytree(path, payload)
+        write()
+        if commit is not None:
+            commit()
         return
-    global _SAVE_EXECUTOR, _PENDING_SAVE
+    global _SAVE_EXECUTOR, _PENDING_SAVE, _PENDING_COMMIT
     if _SAVE_EXECUTOR is None:
         from concurrent.futures import ThreadPoolExecutor
 
         _SAVE_EXECUTOR = ThreadPoolExecutor(max_workers=1, thread_name_prefix="ckpt-save")
-    _PENDING_SAVE = _SAVE_EXECUTOR.submit(ckpt_io.save_pytree, path, payload)
+    _PENDING_SAVE, _PENDING_COMMIT = _SAVE_EXECUTOR.submit(write), commit
 
 
 def restore_full_state(output_dir: str, template_state):
     """(state, extra) of save_full_state, rebuilt in `template_state`'s
-    structure on its devices, or None when there is no saved state."""
+    structure on its devices (a ZeRO-1 template gets its own slices), or
+    None when there is no saved state. Both backends are probed, and when
+    both left a state the newer one wins (JAX's rule). A JAX run's full
+    state (flax msgpack) holds optax's moments, which the port does not
+    resume: that raises."""
+    wait_for_saves()
+    shards = os.path.join(output_dir, SHARDED_DIR)
     path = os.path.join(output_dir, "training_state_latest.ckpt")
-    if not os.path.exists(path):
+    have_dir, have_file = os.path.isdir(shards), os.path.exists(path)
+    if have_dir and (not have_file or os.path.getmtime(shards) >= os.path.getmtime(path)):
+        from ..train import sharded_io
+
+        return sharded_io.restore_state_dir(shards, template_state)
+    if not have_file:
         return None
+    if ckpt_io.is_msgpack(path):
+        raise ValueError(f"{path} is a JAX run's full state (flax msgpack): its optax moments do "
+                         "not resume in the port; start from its params with --checkpoint")
+    from ..parallel import zero
+
     payload = ckpt_io.load_pytree(path)
-    return ckpt_io.restore_pytree_like(template_state, payload["state"]), payload.get("extra", {})
+    saved = payload["state"]
+    if zero.is_sharded(template_state):
+        saved = zero.shard_saved(template_state, saved)
+    return ckpt_io.restore_pytree_like(template_state, saved), payload.get("extra", {})
 
 
 # ---------------------------------------------------------------------------

@@ -127,6 +127,7 @@ def main(args: Config, config: Config) -> dict:
     "steps", "train_s" (the loop's seconds), "wait_s" (of them, building
     batches on the host)}."""
     info = common.setup(args, config)
+    backend = common.checkpoint_backend(config)
     device = resolve_device(args.get("device"))
     out_dir = args.get("output_dir", "")
     seed = int(args.get("seed", 42))
@@ -214,7 +215,8 @@ def main(args: Config, config: Config) -> dict:
             if last:
                 logger.update(**last)
             if out_dir:
-                common.save_full_state(out_dir, state, {"step": step + 1, **stream_extra()})
+                common.save_full_state(out_dir, state, {"step": step + 1, **stream_extra()},
+                                       backend=backend)
                 common.wait_for_saves()
                 common.log_stats({"preempted": True, "step": step + 1}, out_dir)
             print(f"### preempted at step {step + 1}: full state saved, exiting")
@@ -226,7 +228,7 @@ def main(args: Config, config: Config) -> dict:
                                                                   "step": step + 1})
             # the full state is copied here; its write overlaps the next steps
             common.save_full_state(out_dir, state, {"step": step + 1, **stream_extra()},
-                                   background=True)
+                                   backend=backend, background=True)
             common.log_stats({"step": step + 1, **common.train_stats(logger)}, out_dir)
     last = lagged.pop()
     if last:
@@ -237,6 +239,7 @@ def main(args: Config, config: Config) -> dict:
         if get_rank() == 0:
             ckpt_io.Checkpointer(out_dir).save_checkpoint(
                 "final", {"model": state.params, "step": max_steps})
-        common.save_full_state(out_dir, state, {"step": max_steps, **stream_extra()})
+        common.save_full_state(out_dir, state, {"step": max_steps, **stream_extra()},
+                               backend=backend)
     return {"state": state, "region_steps": region_steps, "steps": max_steps - start_step,
             "train_s": train_s, "wait_s": wait_s}

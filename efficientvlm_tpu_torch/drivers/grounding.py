@@ -147,6 +147,7 @@ def main(args: Config, config: Config) -> dict:
     Returns {"state", "epochs"}; with --evaluate {"results", and the
     metrics}."""
     info = common.setup(args, config)
+    backend = common.checkpoint_backend(config)
     device = resolve_device(args.get("device"))
     out_dir = args.get("output_dir", "")
     seed = int(args.get("seed", 42))
@@ -195,9 +196,9 @@ def main(args: Config, config: Config) -> dict:
     for epoch in range(start_epoch, epochs):
         state, logger, record = common.train_epoch(
             train_loader, step, state, lambda items: make_batch(items, tokenizer, config, device),
-            prof, epoch=epoch, seed=seed, device=device, output_dir=out_dir,
+            prof, epoch=epoch, seed=seed, device=device, output_dir=out_dir, backend=backend,
             resume_batches=resume_batches if epoch == start_epoch else 0, batch_size=bs)
         common.log_stats({"epoch": epoch, **common.train_stats(logger)}, out_dir)
-        common.save_full_state(out_dir, state, {"epoch": epoch})
+        common.save_full_state(out_dir, state, {"epoch": epoch}, backend=backend)
         epochs_run.append(record)
     return {"state": state, "epochs": epochs_run}

@@ -193,6 +193,7 @@ def main(args: Config, config: Config) -> dict:
     best snapshot (val_acc >= the best so far). Returns {"best_epoch",
     "best_acc", "state", "epochs"}; with --evaluate {"test_acc"}."""
     info = common.setup(args, config)
+    backend = common.checkpoint_backend(config)
     device = resolve_device(args.get("device"))
     out_dir = args.get("output_dir", "")
     seed = int(args.get("seed", 42))
@@ -248,7 +249,7 @@ def main(args: Config, config: Config) -> dict:
     for epoch in range(start_epoch, epochs):
         state, logger, record = common.train_epoch(
             train_loader, step, state, lambda items: make_batch(items, tokenizer, config, device),
-            prof, epoch=epoch, seed=seed, device=device, output_dir=out_dir,
+            prof, epoch=epoch, seed=seed, device=device, output_dir=out_dir, backend=backend,
             resume_batches=resume_batches if epoch == start_epoch else 0, batch_size=bs)
         zs = l0.forward_deterministic({"loga": state.loga})
         t0 = time.perf_counter()
@@ -257,7 +258,7 @@ def main(args: Config, config: Config) -> dict:
         record["eval_s"] = time.perf_counter() - t0
         common.log_stats({"epoch": epoch, "val_acc": val_acc, "test_acc": test_acc,
                           **common.train_stats(logger)}, out_dir)
-        common.save_full_state(out_dir, state, {"epoch": epoch})
+        common.save_full_state(out_dir, state, {"epoch": epoch}, backend=backend)
         if val_acc >= best:
             best, best_epoch = val_acc, epoch
             common.save_training_state(out_dir, "best", {

@@ -8,8 +8,9 @@ batch_size_train (no mesh to pad to); `split_kd_step` needs no step of its
 own, since the port's step already cuts the teacher's taps right after its
 forward; with compute_dtype bf16 the frozen teacher is stored in bf16;
 --evaluate builds no teacher; above one process the step is data parallel
-(common.build_train_step) and the evaluation's rank-sharded score matrices
-are summed over the ranks; `zero1` raises (ROADMAP A6, its second part).
+(common.build_train_step; with `zero1` its optimizer state sharded over
+the ranks) and the evaluation's rank-sharded score matrices are summed over
+the ranks.
 """
 
 from __future__ import annotations
@@ -132,6 +133,7 @@ def main(args: Config, config: Config) -> dict:
     (loop, waiting for batches, validation, save); with --evaluate, the
     test recalls."""
     info = common.setup(args, config)
+    backend = common.checkpoint_backend(config)
     device = resolve_device(args.get("device"))
     out_dir = args.get("output_dir", "")
     seed = int(args.get("seed", 42))
@@ -177,7 +179,7 @@ def main(args: Config, config: Config) -> dict:
     for epoch in range(start_epoch, epochs):
         state, logger, record = common.train_epoch(
             train_loader, step, state, lambda items: make_batch(items, tokenizer, config, device),
-            prof, epoch=epoch, seed=seed, device=device, output_dir=out_dir,
+            prof, epoch=epoch, seed=seed, device=device, output_dir=out_dir, backend=backend,
             resume_batches=resume_batches if epoch == start_epoch else 0, batch_size=bs)
 
         zs = l0.forward_deterministic({"loga": state.loga})
@@ -190,7 +192,7 @@ def main(args: Config, config: Config) -> dict:
                  "sparsity": l0.calculate_model_size(zs)["pruned_model_sparsity"]}
         common.log_stats(stats, out_dir)
         t0 = time.perf_counter()
-        common.save_full_state(out_dir, state, {"epoch": epoch})
+        common.save_full_state(out_dir, state, {"epoch": epoch}, backend=backend)
         save_s = time.perf_counter() - t0
         if val_results["r_mean"] >= best:
             best, best_epoch = val_results["r_mean"], epoch

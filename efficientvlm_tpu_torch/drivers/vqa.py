@@ -202,6 +202,7 @@ def main(args: Config, config: Config) -> dict:
     steps and seconds: loop, waiting for batches, evaluation); with
     --evaluate {"results"}."""
     info = common.setup(args, config)
+    backend = common.checkpoint_backend(config)
     device = resolve_device(args.get("device"))
     out_dir = args.get("output_dir") or "output"
     seed = int(args.get("seed", 42))
@@ -269,12 +270,12 @@ def main(args: Config, config: Config) -> dict:
             print(f"### stop_prune at epoch {epoch}: gates frozen deterministic")
         state, logger, record = common.train_epoch(
             train_loader, step, state, lambda items: make_batch(items, tokenizer, config, device),
-            prof, epoch=epoch, seed=seed, device=device, output_dir=out_dir,
+            prof, epoch=epoch, seed=seed, device=device, output_dir=out_dir, backend=backend,
             resume_batches=resume_batches if epoch == start_epoch else 0, batch_size=bs)
         common.log_stats({"epoch": epoch, **common.train_stats(logger)}, out_dir)
         common.save_training_state(out_dir, epoch, {
             "model": state.params, "l0": {"loga": state.loga, **state.lam}, "epoch": epoch})
-        common.save_full_state(out_dir, state, {"epoch": epoch})
+        common.save_full_state(out_dir, state, {"epoch": epoch}, backend=backend)
         if epoch >= start_eval:
             zs = (frozen_zs if frozen_zs is not None
                   else l0.forward_deterministic({"loga": state.loga}))

@@ -41,10 +41,22 @@ autograd records (SCST's teacher-forced log-probs) takes the differentiable
 forms too (ops/attention.graded is the rule). output_attentions /
 output_hidden_states collect the KD taps: each layer's input and the last output, and the
 pre-dropout probabilities (the fused kernels' probs forms where they run).
+
+A config's `remat: true` recomputes each layer in the backward
+(ops/basic.remat, replaying the generator's dropout draws), as JAX's
+jax.checkpoint on its layer scan. Under parallel/sharding.tensor_parallel a
+layer runs on its rank's heads and FFN units, the word embeddings look up a
+vocab shard and the MLM head's decoder gives vocab-sharded logits (the
+params from sharding.shard_params); the grouped cross kernel then leaves the
+residual + post-LN to the layer, after the sum over the ranks. With
+`act_partition` under sharding.sequence_parallel each rank runs a token
+block of an encoder pass: self-attention is the cross form over the
+gathered tokens, cross-attention reads the whole encoder (forward only).
 """
 
 from __future__ import annotations
 
+import functools
 from typing import Optional
 
 import torch
@@ -56,12 +68,16 @@ from ..ops.attention import (
 )
 from ..ops.basic import (
     ACT2FN, dense, dropout, embedding_lookup, init_dense, init_embedding, init_layer_norm,
-    layer_norm,
+    layer_norm, remat,
 )
 from ..ops.fused_mha import (
     fused_cross_attention, fused_cross_attention_grouped, fused_self_attention,
 )
 from ..ops.quant import is_fusable, out_width
+from ..parallel.sharding import (
+    seq_shard, tp_attention, tp_enter, tp_exit, tp_group, tp_row, tp_slice,
+    vocab_parallel_cross_entropy, vocab_parallel_lookup,
+)
 
 
 def init_bert_layer(generator, cfg: TextConfig, layer_idx: int, device=None) -> dict:
@@ -113,7 +129,10 @@ def bert_embeddings(params: dict, input_ids: torch.Tensor, cfg: TextConfig, *,
                     dtype=None) -> torch.Tensor:
     t = input_ids.shape[1]
     pos_ids = torch.arange(t, device=input_ids.device)[None] + position_offset
-    h = embedding_lookup(params["word"], input_ids, dtype=dtype)
+    if tp_group() is None:
+        h = embedding_lookup(params["word"], input_ids, dtype=dtype)
+    else:
+        h = vocab_parallel_lookup(params["word"]["embedding"], input_ids, dtype=dtype)
     # nn.Embedding(padding_idx=pad) gives the PAD row no gradient; the KD
     # hidden taps see padded positions, so without this the row would drift
     pad = cfg.get("pad_token_id", 0)
@@ -152,12 +171,14 @@ def bert_layer_apply(lp: dict, h: torch.Tensor, cfg: TextConfig, *,
                      cache: Optional[dict] = None, cross_kv: Optional[dict] = None,
                      encoder_groups: int = 1, is_decoder: bool = False,
                      output_probs: bool = False, train: bool = False, generator=None,
-                     dtype=None, impl: str = "fused"):
+                     dtype=None, impl: str = "fused", seq=None):
     """Post-LN BERT layer; returns (h, self_probs, cross_probs, new_cache).
     `cross_kv` supplies pre-projected cross K/V (precompute_cross_kv).
     `encoder_groups` > 1 declares that encoder_hidden / cross_kv rows are
     shared by groups of contiguous query rows (grouped K/V); a batch mismatch
-    without it is a loud error."""
+    without it is a loud error. `seq` (a sharding.SeqShard) makes h a token
+    block whose self-attention reads the gathered tokens' K/V (`bias` then
+    covers the padded token axis)."""
     eps = cfg.get("layer_norm_eps", 1e-12)
     head_dim = cfg["hidden_size"] // cfg["num_attention_heads"]
     act = ACT2FN[cfg.get("hidden_act", "gelu")]
@@ -171,60 +192,70 @@ def bert_layer_apply(lp: dict, h: torch.Tensor, cfg: TextConfig, *,
     self_probs = cross_probs = None
     self_cache = cache.get("self") if cache is not None else None
     if lp.get("attention") is not None:  # fully-pruned self-attn -> identity
-        nh = _num_heads(lp["attention"], head_dim)
+        attn, self_head_z = tp_attention(lp["attention"]), tp_slice(self_head_z)
+        nh = _num_heads(attn, head_dim)
+        hin = tp_enter(h)
+        kv = None if seq is None else seq.gather_tokens(hin)
         if fused and self_cache is None and not is_decoder and _is_key_vector(bias) \
-                and is_fusable(lp["attention"]):
-            res = fused_self_attention(
-                lp["attention"], h.to(dtype) if dtype is not None else h, num_heads=nh,
-                key_bias=None if bias is None else bias[:, 0, 0, :], head_z=self_head_z,
-                return_probs=output_probs,
-                differentiable=graded(h, self_head_z, lp["attention"]))
+                and is_fusable(attn):
+            hd = hin.to(dtype) if dtype is not None else hin
+            kw = dict(num_heads=nh, key_bias=None if bias is None else bias[:, 0, 0, :],
+                      head_z=self_head_z, return_probs=output_probs,
+                      differentiable=graded(hin, self_head_z, attn))
+            res = (fused_self_attention(attn, hd, **kw) if kv is None else
+                   fused_cross_attention(attn, hd, kv.to(hd.dtype), **kw))
             attn_out, self_probs = res if output_probs else (res, None)
+            attn_out = tp_exit(attn_out)
         else:
             attn_out, self_probs, self_cache = multi_head_attention(
-                lp["attention"], h, num_heads=nh, bias=bias, head_z=self_head_z,
+                attn, hin, kv, num_heads=nh, bias=bias, head_z=self_head_z,
                 output_probs=output_probs, dropout_rate=adrop, dtype=dtype, cache=self_cache,
                 impl=impl, **drop)
-            attn_out = dropout(attn_out, hdrop, **drop)
+            attn_out = dropout(tp_exit(attn_out), hdrop, **drop)
         h = layer_norm(lp["attention_ln"], h + attn_out, eps=eps)
 
     if lp.get("crossattention") is not None and (
             encoder_hidden is not None or cross_kv is not None):
-        nh = _num_heads(lp["crossattention"], head_dim)
-        hq = h.to(dtype) if dtype is not None else h
-        fused_x = fused and cross_kv is None and is_fusable(lp["crossattention"])
+        xattn, cross_head_z = tp_attention(lp["crossattention"]), tp_slice(cross_head_z)
+        nh = _num_heads(xattn, head_dim)
+        hin, enc = tp_enter(h), tp_enter(encoder_hidden)
+        hq = hin.to(dtype) if dtype is not None else hin
+        fused_x = fused and cross_kv is None and is_fusable(xattn)
         if fused_x and encoder_groups > 1 and not train and not output_probs:
             kb = _key_vector(encoder_bias, "grouped cross-attention")
-            # the kernel's epilogue applies this layer's residual + post-LN
-            h = fused_cross_attention_grouped(
-                lp["crossattention"], hq, encoder_hidden, num_heads=nh,
-                kv_groups=encoder_groups,
-                key_bias=None if kb is None else kb.expand(
-                    encoder_hidden.shape[0], encoder_hidden.shape[1]),
-                head_z=cross_head_z, ln_params=lp["crossattention_ln"], ln_eps=eps)
+            kw = dict(num_heads=nh, kv_groups=encoder_groups,
+                      key_bias=None if kb is None else kb.expand(enc.shape[0], enc.shape[1]),
+                      head_z=cross_head_z)
+            if tp_group() is None:
+                # the kernel's epilogue applies this layer's residual + post-LN
+                h = fused_cross_attention_grouped(xattn, hq, enc, ln_params=lp["crossattention_ln"],
+                                                  ln_eps=eps, **kw)
+            else:  # the post-LN reads the sum over the ranks
+                x_out = tp_exit(fused_cross_attention_grouped(xattn, hq, enc, **kw))
+                h = layer_norm(lp["crossattention_ln"], h + x_out, eps=eps)
         else:
             if fused_x and encoder_groups == 1:
                 res = fused_cross_attention(
-                    lp["crossattention"], hq, encoder_hidden, num_heads=nh,
+                    xattn, hq, enc, num_heads=nh,
                     key_bias=_key_vector(encoder_bias, "cross-attention"),
                     head_z=cross_head_z, return_probs=output_probs,
-                    differentiable=graded(hq, encoder_hidden, cross_head_z,
-                                          lp["crossattention"]))
+                    differentiable=graded(hq, enc, cross_head_z, xattn))
                 x_out, cross_probs = res if output_probs else (res, None)
+                x_out = tp_exit(x_out)
             else:
                 x_out, cross_probs, _ = multi_head_attention(
-                    lp["crossattention"], h, None if cross_kv is not None else encoder_hidden,
+                    xattn, hin, None if cross_kv is not None else enc,
                     num_heads=nh, bias=encoder_bias, head_z=cross_head_z,
                     output_probs=output_probs, dropout_rate=adrop, dtype=dtype,
                     precomputed_kv=cross_kv, kv_groups=encoder_groups, impl=impl, **drop)
-                x_out = dropout(x_out, hdrop, **drop)
+                x_out = dropout(tp_exit(x_out), hdrop, **drop)
             h = layer_norm(lp["crossattention_ln"], h + x_out, eps=eps)
 
     if lp.get("intermediate") is not None:  # fully-pruned FFN -> identity
-        inter = act(dense(lp["intermediate"], h, dtype=dtype))
+        inter = act(dense(lp["intermediate"], tp_enter(h), dtype=dtype))
         if mlp_z is not None:
-            inter = inter * mlp_z.to(inter.dtype)
-        out = dropout(dense(lp["output"], inter, dtype=dtype), hdrop, **drop)
+            inter = inter * tp_slice(mlp_z).to(inter.dtype)
+        out = dropout(tp_exit(dense(tp_row(lp["output"]), inter, dtype=dtype)), hdrop, **drop)
         h = layer_norm(lp["output_ln"], h + out, eps=eps)
     new_cache = None if cache is None else {**cache, "self": self_cache}
     return h, self_probs, cross_probs, new_cache
@@ -237,7 +268,7 @@ def bert_encoder_apply(params: dict, h: torch.Tensor, cfg: TextConfig, *,
                        cross_kv: Optional[list] = None, encoder_groups: int = 1,
                        is_decoder: bool = False, output_attentions: bool = False,
                        output_hidden_states: bool = False, train: bool = False,
-                       generator=None, dtype=None, impl: str = "fused") -> dict:
+                       generator=None, dtype=None, impl: str = "fused", seq=None) -> dict:
     """Run the layers of `mode`; returns {"last_hidden": h, "hidden_states",
     "attentions", "cross_attentions" (lists, or None when not asked for),
     "cache": new cache list or None}. `cache` has one entry per layer run,
@@ -264,8 +295,8 @@ def bert_encoder_apply(params: dict, h: torch.Tensor, cfg: TextConfig, *,
             self_z = None if text_head_z is None else text_head_z[i]
             cross_z = None
             mlp_zi = None if text_mlp_z is None else text_mlp_z[i]
-        h, sp, cp, layer_cache = bert_layer_apply(
-            params["layers"][i], h, cfg, bias=bias,
+        layer = functools.partial(
+            bert_layer_apply, params["layers"][i], h, cfg, bias=bias,
             encoder_hidden=encoder_hidden if is_cross else None,
             encoder_bias=encoder_bias if is_cross else None,
             self_head_z=self_z, cross_head_z=cross_z, mlp_z=mlp_zi,
@@ -273,7 +304,11 @@ def bert_encoder_apply(params: dict, h: torch.Tensor, cfg: TextConfig, *,
             cross_kv=cross_kv[i - fusion] if (is_cross and cross_kv is not None) else None,
             encoder_groups=encoder_groups if is_cross else 1, is_decoder=is_decoder,
             output_probs=output_attentions, train=train, generator=generator, dtype=dtype,
-            impl=impl)
+            impl=impl, seq=seq)
+        if cfg.get("remat") and cache is None:
+            h, sp, cp, layer_cache = remat(layer, generators=(generator,))
+        else:
+            h, sp, cp, layer_cache = layer()
         if output_attentions:
             all_probs.append(sp)
             if cp is not None:
@@ -298,9 +333,6 @@ def bert_apply(params: dict, input_ids: Optional[torch.Tensor], cfg: TextConfig,
     """BertModel.forward. In 'fusion' mode pass inputs_embeds (the text
     tower's output). For cached decode pass `cache` (init_bert_cache) and
     position_offset = the number of tokens already decoded."""
-    if cfg.get("act_partition"):
-        raise NotImplementedError("act_partition: the sequence axis comes with the second part "
-                                  "of distribution (ROADMAP A6: parallel/sharding.py)")
     if inputs_embeds is None:
         h = bert_embeddings(params["embeddings"], input_ids, cfg,
                             position_offset=position_offset, train=train, generator=generator,
@@ -322,13 +354,28 @@ def bert_apply(params: dict, input_ids: Optional[torch.Tensor], cfg: TextConfig,
     encoder_bias = None
     if encoder_hidden is not None and encoder_attention_mask is not None:
         encoder_bias = make_attention_bias(encoder_attention_mask)
-    return bert_encoder_apply(
+    seq = seq_shard(cfg, t)
+    if seq is not None:
+        if is_decoder or cache is not None or (bias is not None and not _is_key_vector(bias)):
+            raise NotImplementedError("act_partition: a decoder or a matrix bias has no "
+                                      "sequence axis")
+        kb = None if bias is None else bias[:, 0, 0, :]
+        bias = seq.key_bias(kb, h.shape[0], h.device)[:, None, None, :]
+        h = seq.split(h)
+    out = bert_encoder_apply(
         params, h, cfg, bias=bias, mode=mode, encoder_hidden=encoder_hidden,
         encoder_bias=encoder_bias, text_head_z=text_head_z, cross_head_z=cross_head_z,
         text_mlp_z=text_mlp_z, cross_mlp_z=cross_mlp_z, cache=cache, cross_kv=cross_kv,
         encoder_groups=encoder_groups, is_decoder=is_decoder,
         output_attentions=output_attentions, output_hidden_states=output_hidden_states,
-        train=train, generator=generator, dtype=dtype, impl=impl)
+        train=train, generator=generator, dtype=dtype, impl=impl, seq=seq)
+    if seq is not None:
+        out["last_hidden"] = seq.gather(out["last_hidden"])
+        for key, dim, keys in (("hidden_states", 1, False), ("attentions", 2, True),
+                               ("cross_attentions", 2, False)):
+            if out[key] is not None:
+                out[key] = [seq.gather(x, dim, keys) for x in out[key]]
+    return out
 
 
 def precompute_cross_kv(params: dict, cfg: TextConfig, encoder_hidden: torch.Tensor, *,
@@ -365,7 +412,7 @@ def mlm_head_apply(params: dict, h: torch.Tensor, cfg: TextConfig, *,
     x = dense(params["transform"]["dense"], h, dtype=dtype)
     x = ACT2FN[cfg.get("hidden_act", "gelu")](x)
     x = layer_norm(params["transform"]["ln"], x, eps=cfg.get("layer_norm_eps", 1e-12))
-    return dense(params["decoder"], x, dtype=dtype)
+    return dense(params["decoder"], tp_enter(x), dtype=dtype)
 
 
 def gather_seq_out_by_pos(seq: torch.Tensor, pos: torch.Tensor) -> torch.Tensor:
@@ -382,6 +429,15 @@ def cross_entropy_ignore_index(logits: torch.Tensor, labels: torch.Tensor,
     logp = torch.log_softmax(logits.float(), dim=-1)
     nll = -logp.gather(-1, torch.where(valid, labels, 0)[..., None].long())[..., 0]
     return torch.where(valid, nll, 0.0).sum() / valid.sum().clamp(min=1)
+
+
+def mlm_cross_entropy(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
+    """The MLM loss over mlm_head_apply's logits: cross_entropy_ignore_index,
+    or under tensor parallelism over this rank's vocab block of them
+    (sharding.vocab_parallel_cross_entropy)."""
+    if tp_group() is not None:
+        return vocab_parallel_cross_entropy(logits, labels)
+    return cross_entropy_ignore_index(logits, labels)
 
 
 def label_smooth_cross_entropy(logits: torch.Tensor, labels: torch.Tensor, *,

@@ -30,20 +30,30 @@ teacher-forced log-probs) takes the differentiable forms too
 output_attentions / output_hidden_states collect the KD taps: each layer's
 input and the last layer's output (before the post-LN), and each layer's
 pre-gate f32 probabilities.
+
+A config's `remat: true` recomputes each layer in the backward
+(ops/basic.remat, which replays the generator's dropout draws), as JAX's
+jax.checkpoint on its layer scan. Under parallel/sharding.tensor_parallel a
+layer runs on its rank's heads and FFN units (the params from
+sharding.shard_params); with `act_partition` under
+sharding.sequence_parallel each rank runs a token block and
+self-attention is the cross form over the gathered tokens (forward only).
 """
 
 from __future__ import annotations
 
+import functools
 from typing import Optional
 
 import torch
 
 from ..config import VisionConfig
 from ..ops.attention import graded, init_attention, make_attention_bias, multi_head_attention
-from ..ops.basic import ACT2FN, dense, init_dense, init_layer_norm, layer_norm
-from ..ops.fused_mha import fused_self_attention
+from ..ops.basic import ACT2FN, dense, init_dense, init_layer_norm, layer_norm, remat
+from ..ops.fused_mha import fused_cross_attention, fused_self_attention
 from ..ops.patch_embed import fused_patch_embed, patch_embed_plain
 from ..ops.quant import is_fusable, out_width
+from ..parallel.sharding import seq_shard, tp_attention, tp_enter, tp_exit, tp_row, tp_slice
 
 
 def init_vit(generator: torch.Generator, cfg: VisionConfig, device=None) -> dict:
@@ -86,40 +96,47 @@ def vit_layer(lp: dict, h: torch.Tensor, *, num_heads: int, act,
               head_z: Optional[torch.Tensor] = None, head_layer_z=None,
               mlp_z: Optional[torch.Tensor] = None, output_probs: bool = False,
               dropout_rate: float = 0.0, train: bool = False, generator=None, dtype=None,
-              impl: str = "fused"):
+              impl: str = "fused", seq=None, seq_bias: Optional[torch.Tensor] = None):
     """Pre-LN CLIP layer; returns (h, probs or None). key_mask [B, S] (1 =
-    attend) masks keys (the region masks of the local layers)."""
+    attend) masks keys (the region masks of the local layers). `seq` (a
+    sharding.SeqShard) makes h a token block whose self-attention reads the
+    gathered tokens' K/V under `seq_bias` [B, S] (additive)."""
     probs = None
     if lp.get("attn") is not None:  # fully-pruned attention -> identity
-        x = layer_norm(lp["ln1"], h, eps=1e-5)
-        if impl == "fused" and (not train or dropout_rate == 0.0) and is_fusable(lp["attn"]):
-            res = fused_self_attention(
-                lp["attn"], x.to(dtype) if dtype is not None else x,
-                num_heads=num_heads, mask=key_mask, head_z=head_z,
-                return_probs=output_probs,
-                differentiable=graded(x, head_z, lp["attn"]))
+        x = tp_enter(layer_norm(lp["ln1"], h, eps=1e-5))
+        attn, head_z = tp_attention(lp["attn"]), tp_slice(head_z)
+        kv = None if seq is None else seq.gather_tokens(x)
+        if impl == "fused" and (not train or dropout_rate == 0.0) and is_fusable(attn):
+            xd = x.to(dtype) if dtype is not None else x
+            kw = dict(num_heads=num_heads, head_z=head_z, return_probs=output_probs,
+                      differentiable=graded(x, head_z, attn))
+            res = (fused_self_attention(attn, xd, mask=key_mask, **kw) if kv is None else
+                   fused_cross_attention(attn, xd, kv.to(xd.dtype), key_bias=seq_bias, **kw))
             attn_out, probs = res if output_probs else (res, None)
             if head_layer_z is not None:
                 attn_out = attn_out * torch.as_tensor(
                     head_layer_z, dtype=attn_out.dtype, device=attn_out.device)
         else:
+            if kv is not None:
+                bias = seq_bias[:, None, None, :]
+            else:
+                bias = None if key_mask is None else make_attention_bias(key_mask)
             attn_out, probs, _ = multi_head_attention(
-                lp["attn"], x, num_heads=num_heads,
-                bias=None if key_mask is None else make_attention_bias(key_mask),
+                attn, x, kv, num_heads=num_heads, bias=bias,
                 head_z=head_z, head_layer_z=head_layer_z, output_probs=output_probs,
                 dropout_rate=dropout_rate, generator=generator, train=train, dtype=dtype,
                 impl=impl)
-        h = h + attn_out
+        h = h + tp_exit(attn_out)
 
     if lp.get("mlp") is not None:  # fully-pruned FFN -> identity
-        x = layer_norm(lp["ln2"], h, eps=1e-5)
+        x = tp_enter(layer_norm(lp["ln2"], h, eps=1e-5))
         x = dense(lp["mlp"]["fc1"], x, dtype=dtype)
         if mlp_z is not None:
             # the ViT gates the FFN between fc1 and the activation (the text
             # tower gates after it); continuous gates tell the two apart
-            x = x * mlp_z.to(x.dtype)
+            x = x * tp_slice(mlp_z).to(x.dtype)
         x = act(x)
-        h = h + dense(lp["mlp"]["fc2"], x, dtype=dtype)
+        h = h + tp_exit(dense(tp_row(lp["mlp"]["fc2"]), x, dtype=dtype))
     return h, probs
 
 
@@ -133,9 +150,6 @@ def vit_apply(params: dict, images: torch.Tensor, cfg: VisionConfig, *,
     [B, 1+Np, D], "hidden_states", "attentions"} (the lists None unless
     asked for); a region batch's last_hidden holds its n_txt region rows
     and "full_atts_hidden" [B, 1+Np, D] the full images."""
-    if cfg.get("act_partition"):
-        raise NotImplementedError("act_partition: the sequence axis comes with the second part "
-                                  "of distribution (ROADMAP A6: parallel/sharding.py)")
     act = ACT2FN[cfg["hidden_act"]]
     depth = cfg["num_hidden_layers"]
     local_depth = cfg.get("local_attn_depth", 0)
@@ -160,6 +174,13 @@ def vit_apply(params: dict, images: torch.Tensor, cfg: VisionConfig, *,
     if idx_to_group_img is not None and image_atts is not None:
         full = torch.ones(h.shape[:2], dtype=torch.float32, device=h.device)
         local_mask = torch.cat([image_atts.float(), full], 0)
+    seq = seq_shard(cfg, h.shape[1])
+    seq_bias = None
+    if seq is not None:
+        if idx_to_group_img is not None:
+            raise NotImplementedError("act_partition: region batches have no sequence axis")
+        seq_bias = seq.key_bias(None, h.shape[0], h.device)
+        h = seq.split(h)
     all_hidden = [] if output_hidden_states else None
     all_probs = [] if output_attentions else None
     for i, lp in enumerate(params["layers"]):
@@ -168,19 +189,25 @@ def vit_apply(params: dict, images: torch.Tensor, cfg: VisionConfig, *,
         is_local = local_depth > 0 and i >= depth - local_depth
         if idx_to_group_img is not None and i == depth - local_depth:
             h = torch.cat([h[idx_to_group_img], h], 0)
-        h, probs = vit_layer(
-            lp, h, num_heads=_num_heads(lp, head_dim), act=act,
+        layer = functools.partial(
+            vit_layer, lp, h, num_heads=_num_heads(lp, head_dim), act=act,
             key_mask=local_mask if is_local else None,
             head_z=None if head_z is None else head_z[i],
             head_layer_z=None if head_layer_z is None else head_layer_z[i],
             mlp_z=None if mlp_z is None else mlp_z[i], output_probs=output_attentions,
             dropout_rate=cfg.get("attention_dropout", 0.0), train=train, generator=generator,
-            dtype=dtype, impl=impl)
+            dtype=dtype, impl=impl, seq=seq, seq_bias=seq_bias)
+        h, probs = remat(layer, generators=(generator,)) if cfg.get("remat") else layer()
         if output_attentions:
             all_probs.append(probs)
     if output_hidden_states:
         all_hidden.append(h)
     h = layer_norm(params["post_ln"], h, eps=1e-5)
+    if seq is not None:
+        h = seq.gather(h)
+        all_hidden = None if all_hidden is None else [seq.gather(x) for x in all_hidden]
+        all_probs = None if all_probs is None else [seq.gather(p, 2, keys=True)
+                                                    for p in all_probs]
     out = {"last_hidden": h, "hidden_states": all_hidden, "attentions": all_probs}
     if idx_to_group_img is not None:
         n_txt = idx_to_group_img.shape[0]

@@ -282,7 +282,7 @@ class XVLM:
             train=train, generator=generator, dtype=dtype, impl=impl, **tz)
         gathered = B.gather_seq_out_by_pos(out["last_hidden"], masked_pos)
         logits = B.mlm_head_apply(params["text"]["cls"], gathered, self.text_cfg, dtype=dtype)
-        loss = B.cross_entropy_ignore_index(logits, masked_ids)
+        loss = B.mlm_cross_entropy(logits, masked_ids)
         if not output_hidden_states:
             return loss
         return loss, {"logits": logits, "hidden_states": out["hidden_states"],

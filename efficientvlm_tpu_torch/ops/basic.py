@@ -6,6 +6,9 @@
 - `dropout` draws from an explicit torch.Generator (JAX's explicit keys);
   without one it is the identity, as JAX's is without a key.
 - `dense` also applies the int8 dicts of ops/quant.py.
+- `remat` runs a layer under a per-layer recompute (a config's `remat:
+  true`, JAX's jax.checkpoint on its layer scan) that replays the explicit
+  generators' dropout draws.
 """
 
 from __future__ import annotations
@@ -113,3 +116,35 @@ def dropout(x: torch.Tensor, rate: float, *, generator=None, train: bool = False
     keep = 1.0 - rate
     mask = torch.rand(x.shape, generator=generator, device=x.device) < keep
     return torch.where(mask, x / keep, torch.zeros((), dtype=x.dtype, device=x.device))
+
+
+def remat(fn, *, generators=()):
+    """fn() with its activations dropped after the forward and recomputed in
+    the backward (torch.utils.checkpoint, non-reentrant), as jax.checkpoint
+    recomputes a layer. The port draws dropout from explicit generators,
+    whose states torch.utils.checkpoint does not keep: each of `generators`
+    (None entries skipped) is set back, for the recompute, to its state
+    before the forward, so the recompute draws the same masks, and is then
+    put back where the backward found it. Outside autograd fn() runs as is."""
+    if not torch.is_grad_enabled():
+        return fn()
+    from torch.utils.checkpoint import checkpoint
+
+    gens = [g for g in generators if g is not None]
+    before = [g.get_state() for g in gens]
+    calls = [0]
+
+    def run():
+        calls[0] += 1
+        if calls[0] == 1:
+            return fn()
+        now = [g.get_state() for g in gens]
+        for g, st in zip(gens, before):
+            g.set_state(st)
+        try:
+            return fn()
+        finally:
+            for g, st in zip(gens, now):
+                g.set_state(st)
+
+    return checkpoint(run, use_reentrant=False, preserve_rng_state=False)

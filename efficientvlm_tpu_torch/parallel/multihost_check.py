@@ -128,7 +128,8 @@ def launch_counts() -> dict:
 def _flat(tree, prefix: str) -> dict:
     from ..train.optim import tree_leaves_with_path
 
-    return {prefix + "/".join(str(p) for p in path): t.detach().float().cpu().numpy()
+    # a copy: a CPU f32 tensor's numpy() shares the memory the optimizers update
+    return {prefix + "/".join(str(p) for p in path): t.detach().float().cpu().numpy().copy()
             for path, t in tree_leaves_with_path(tree)}
 
 
@@ -167,6 +168,8 @@ def run(*, width: str = "tiny", steps: int = 3, world_batch_size: int = 4, devic
     step = common.build_train_step(make_retrieval_train_step(
         student, teacher, l0, optimizers, teacher_params=common.frozen_teacher(tparams, dtype),
         dtype=dtype, impl=impl), config)
+    if step.data_parallel is not None:
+        step.data_parallel.record = True  # the report reads each all-reduce's bytes and time
 
     first_grads = []
     apply = step.apply

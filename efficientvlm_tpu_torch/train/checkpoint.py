@@ -22,13 +22,23 @@ Microsoft Swin, a timm DeiT) fill the vision subtree
 (alt_vision_params_from_file), and crossgen_params_from_state_dict builds the
 two translation models from an X-VLM checkpoint.
 
-Native files (`.ckpt`) are torch.save payloads, not JAX's msgpack: a
-params-only tree, a snapshot {"model", "l0", "epoch"} or a full training
-state {"state", "extra"}, where a TrainState is saved as its field dict and
-optimizer moments as lists of tensors; they hold only tensors, dicts,
-lists, numbers and strings, and are read with weights_only=True. Names and
-rotation are the reference Checkpointer's (model_state_{step|epoch}_{N},
+Native files (`.ckpt`) are torch.save payloads: a params-only tree, a
+snapshot {"model", "l0", "epoch"} or a full training state {"state",
+"extra"}, where a TrainState is saved as its field dict and optimizer
+moments as lists of tensors; they hold only tensors, dicts, lists, numbers
+and strings, and are read with weights_only=True. Names and rotation are the
+reference Checkpointer's (model_state_{step|epoch}_{N},
 training_state_latest).
+
+load_pytree also reads the JAX package's own `.ckpt` files, flax msgpack
+(efficientvlm_tpu/train/checkpoint.py save_pytree), told apart by their
+first bytes (a zip header against a msgpack map) and decoded on msgpack
+without flax (decode_flax_msgpack): flax's ndarray, numpy-scalar and
+complex extension types, bfloat16 by name, the chunked form of leaves over
+2^30 bytes; list indices come back as lists (_relist). So a JAX snapshot,
+a JAX full state (its params, gates and epoch) and a JAX physical export
+evaluate and serve in the port; a JAX run's optimizer moments do not
+resume (drivers/common.restore_full_state raises).
 """
 
 from __future__ import annotations
@@ -618,12 +628,82 @@ def save_pytree(path: str, tree) -> None:
         f.write(buf.getvalue())
 
 
+_ZIP_MAGIC = b"PK\x03\x04"
+_CHUNKED = "__msgpack_chunked_array__"
+
+
+def _looks_msgpack(head: bytes) -> bool:
+    """A msgpack map (fixmap of 1-15 entries, map16, map32): what flax
+    writes. torch.save writes a zip (and its legacy format a pickle)."""
+    return bool(head) and not head.startswith(_ZIP_MAGIC) and (
+        0x81 <= head[0] <= 0x8F or head[0] in (0xDE, 0xDF))
+
+
+def is_msgpack(path: str) -> bool:
+    """Whether the file at `path` is a JAX (flax msgpack) checkpoint."""
+    with (open(path, "rb") if "://" not in path else hopen(path, "rb")) as f:
+        return _looks_msgpack(f.read(4))
+
+
+def _flax_array(data: bytes):
+    """flax's ndarray extension: msgpack of (shape, dtype name, C bytes), as
+    a CPU tensor (bfloat16 read as uint16 and viewed)."""
+    import msgpack
+
+    shape, name, buf = msgpack.unpackb(data, raw=True)
+    name = name.decode() if isinstance(name, bytes) else name
+    if name == "bfloat16":
+        arr = np.frombuffer(buf, dtype=np.uint16).reshape(shape)
+        return torch.from_numpy(arr.copy()).view(torch.bfloat16)
+    arr = np.frombuffer(buf, dtype=np.dtype(name)).reshape(shape)
+    return torch.from_numpy(arr.copy())
+
+
+def _flax_ext(code: int, data: bytes):
+    import msgpack
+
+    if code == 1:  # ndarray
+        return _flax_array(data)
+    if code == 2:  # native complex
+        re, im = msgpack.unpackb(data)
+        return complex(re, im)
+    if code == 3:  # numpy scalar, packed as a 0-d ndarray
+        return _flax_array(data).item()
+    return msgpack.ExtType(code, data)
+
+
+def _unchunk(node):
+    if isinstance(node, dict):
+        if _CHUNKED in node:
+            shape = tuple(int(node["shape"][k]) for k in sorted(node["shape"], key=int))
+            chunks = [node["chunks"][k] for k in sorted(node["chunks"], key=int)]
+            return torch.cat([c.reshape(-1) for c in chunks]).reshape(shape)
+        return {k: _unchunk(v) for k, v in node.items()}
+    return node
+
+
+def decode_flax_msgpack(data: bytes):
+    """A flax msgpack payload (serialization.msgpack_serialize) as the tree
+    flax's msgpack_restore gives, with tensors for its arrays: dicts keyed
+    by strings ("0".."n-1" for a list's entries), numbers, strings."""
+    import msgpack
+
+    return _unchunk(msgpack.unpackb(data, ext_hook=_flax_ext, raw=False,
+                                    strict_map_key=False))
+
+
 def load_pytree(path: str):
-    """The payload of a native file, tensors on the CPU (weights_only)."""
+    """The payload of a native file, tensors on the CPU (weights_only); a
+    JAX file (flax msgpack) decoded as decode_flax_msgpack."""
     if "://" not in path:
+        if is_msgpack(path):
+            with open(path, "rb") as f:
+                return decode_flax_msgpack(f.read())
         return torch.load(path, map_location="cpu", weights_only=True)
     with hopen(path, "rb") as f:
         data = f.read()
+    if _looks_msgpack(data[:4]):
+        return decode_flax_msgpack(data)
     return torch.load(io.BytesIO(data), map_location="cpu", weights_only=True)
 
 

@@ -7,7 +7,8 @@ of efficientvlm_tpu/train/distill.py).
 - kd_loss: MSE over matched lists; attention maps are scaled by their last
   dim and filtered at <= -1e2 (a no-op on probabilities, kept for parity);
   the image hidden list drops its 7th entry; paired entries must have one
-  shape (no broadcast);
+  shape (no broadcast); under tensor parallelism each rank holds its heads'
+  maps, and a map's MSE is the group's mean (sharding.tp_mean);
 - soft_cross_entropy: KL(batchmean) of the teacher's probabilities against
   the student's log-probabilities.
 Teacher tensors enter detached.
@@ -18,6 +19,8 @@ from __future__ import annotations
 from typing import List, Sequence
 
 import torch
+
+from ..parallel.sharding import tp_mean
 
 
 def get_cor_teacher(teacher_reps: Sequence, student_reps: Sequence, *,
@@ -48,7 +51,7 @@ def kd_loss(student_reps: Sequence[torch.Tensor], teacher_reps: Sequence[torch.T
         if is_attn:
             s = torch.where(s <= -1e2, 0.0, s)
             t = torch.where(t <= -1e2, 0.0, t)
-            total = total + _mse(s, t) * s.shape[-1]
+            total = total + tp_mean(_mse(s, t)) * s.shape[-1]
         elif is_img and layer == 6:
             continue  # the reference drops the 7th image hidden entry
         else:

@@ -26,6 +26,12 @@ leaves), as optax's do in the JAX package's drivers:
   of non-finite updates.
 Their state (the accumulator, the micro-step and error counts) is part of
 the optimizer state, beside the wrapped optimizer's under "inner".
+
+When some leaves are shards of a tensor spread over a process group
+(ZeRO-1's moments, tensor parallelism's params), shard_optimizer tells the
+optimizer so: the clip's global norm then sums the shards' squares over the
+group and counts the replicated leaves once, and ApplyIfFinite skips a step
+on every rank when any rank saw a non-finite gradient.
 """
 
 from __future__ import annotations
@@ -33,6 +39,8 @@ from __future__ import annotations
 from typing import Callable, Iterable, Optional
 
 import torch
+
+from ..utils.dist import all_reduce_sum
 
 NO_DECAY_SUBSTRINGS = ("bias", "ln", "layer_norm", "norm", "temp", "class_embedding")
 
@@ -74,7 +82,11 @@ class AdamW:
     """optax.chain(clip_by_global_norm(grad_clip), adamw(lr, b1, b2, eps,
     weight_decay, mask=decay), scale_by_mask(lr_mult, mult)) as an in-place
     step over a list of leaves. lr is a float or a schedule of the update
-    count (0 for the first update); decay and mult are per-leaf flags."""
+    count (0 for the first update); decay and mult are per-leaf flags.
+    `sharded` (set by shard_optimizer): (per-leaf flags, group) of the
+    leaves that are shards over a process group."""
+
+    sharded = None
 
     def __init__(self, lr: float | Callable, *, b1: float = 0.9, b2: float = 0.98,
                  eps: float = 1e-8, weight_decay: float = 0.0, decay: Optional[list] = None,
@@ -89,6 +101,17 @@ class AdamW:
         return {"count": 0, "mu": [torch.zeros_like(p, dtype=torch.float32) for p in leaves],
                 "nu": [torch.zeros_like(p, dtype=torch.float32) for p in leaves]}
 
+    def global_norm(self, grads: list) -> torch.Tensor:
+        """The f32 norm of all the gradients (over the group, when sharded)."""
+        norms = torch.stack(torch._foreach_norm(grads))
+        if self.sharded is None:
+            return torch.linalg.vector_norm(norms)
+        flags, group = self.sharded
+        sq = norms.square()
+        on = torch.tensor(flags, device=sq.device)
+        spread = all_reduce_sum(torch.where(on, sq, 0.0).sum(), group)
+        return (spread + torch.where(on, 0.0, sq).sum()).sqrt()
+
     def learning_rate(self, count: int) -> float:
         return self.lr(count) if callable(self.lr) else self.lr
 
@@ -98,7 +121,7 @@ class AdamW:
         grads = [torch.zeros_like(p, dtype=torch.float32) if g is None else g.float()
                  for p, g in zip(leaves, grads)]
         if self.grad_clip:
-            norm = torch.linalg.vector_norm(torch.stack(torch._foreach_norm(grads)))
+            norm = self.global_norm(grads)
             keep = norm < self.grad_clip
             scaled = torch._foreach_mul(torch._foreach_div(grads, norm), self.grad_clip)
             grads = [torch.where(keep, g, s) for g, s in zip(grads, scaled)]
@@ -161,7 +184,10 @@ class ApplyIfFinite:
     gradients hold a NaN or an inf leaves the leaves and the inner state (the
     moments, the count) as they are and counts the error; once more than n
     come in a row, the update goes through. The finiteness test reads one
-    flag off the device a step."""
+    flag off the device a step; with a `group` (shard_optimizer) the ranks
+    agree on it."""
+
+    group = None
 
     def __init__(self, inner, max_consecutive_errors: int):
         self.inner, self.max_errors = inner, int(max_consecutive_errors)
@@ -174,11 +200,32 @@ class ApplyIfFinite:
     def step(self, leaves: list, grads: list, state: dict) -> None:
         flags = [torch.isfinite(g).all() for g in grads if g is not None]
         finite = bool(torch.stack(flags).all()) if flags else True
+        if self.group is not None:
+            dev = next((g.device for g in grads if g is not None), torch.device("cpu"))
+            bad = torch.tensor([0.0 if finite else 1.0], device=dev)
+            finite = bool(all_reduce_sum(bad, self.group).item() == 0)
         state["notfinite_count"] = 0 if finite else state["notfinite_count"] + 1
         state["last_finite"] = finite
         state["total_notfinite"] += 0 if finite else 1
         if finite or state["notfinite_count"] > self.max_errors:
             self.inner.step(leaves, grads, state["inner"])
+
+
+def shard_optimizer(opt, flags: list, group=None) -> None:
+    """Mark which of an optimizer's leaves (tree order) are shards over
+    `group` (default: the world), through its wrappers (MultiSteps,
+    ApplyIfFinite, ZeRO-1's)."""
+    if group is None:
+        import torch.distributed as dist
+
+        group = dist.group.WORLD
+    while True:
+        if isinstance(opt, ApplyIfFinite):
+            opt.group = group
+        if isinstance(opt, AdamW):
+            opt.sharded = (list(flags), group)
+            return
+        opt = opt.inner
 
 
 def create_optimizer(params, *, lr: float | Callable, weight_decay: float = 0.01,

@@ -10,16 +10,23 @@ it asks for the CPU. Host values (meters, the preemption flag, evaluation
 scores, barriers around files) go through a gloo group of their own
 (host_group): under NCCL the default group cannot reduce CPU tensors.
 
-The two collectives the port's steps need:
+The collectives of the data-parallel step:
 - all_reduce_mean: a list of tensors (gradients, metrics) averaged over the
   ranks, flattened into buckets of BUCKET_BYTES per device and dtype (sum,
   then / world size, as JAX's pmean);
 - all_gather_with_grad: the ITC's world batch. Its forward gathers every
   rank's rows; its backward sums the cotangent over the ranks and returns
   this rank's slice (jax.lax.all_gather's transpose, the reference's
-  AllGather). The gather is an all_reduce of a zero-padded buffer, so it
-  runs on every backend (gloo gathers no CUDA tensors) and is exact: each
-  entry is one rank's value plus zeros.
+  AllGather): gather_dim along the rows, below.
+
+The collectives of ZeRO-1, tensor, sequence, pipeline and expert
+parallelism go through one set of helpers here: reduce_scatter_sum,
+all_gather_rows, all_to_all_rows, send / recv, and gather_dim (an
+all-gather along a dim whose backward is the reduce-scatter). NCCL runs
+them on CUDA tensors natively; gloo takes CUDA tensors for all_reduce and
+broadcast only, so there each of the others is staged through pinned host
+memory (copy out, the collective on the host, copy back). The two ranks of
+one card run over gloo, because NCCL refuses two ranks on one device.
 
 Without WORLD_SIZE in the environment a run is rank 0 of 1 and joins no
 group."""
@@ -27,6 +34,7 @@ group."""
 from __future__ import annotations
 
 import builtins
+import collections
 import os
 import time
 from typing import List, Optional, Sequence
@@ -35,6 +43,7 @@ import torch
 import torch.distributed as dist
 
 BUCKET_BYTES = 25 * 2 ** 20  # torch DDP's default bucket size
+RECORD_WINDOW = 64  # the calls a recording GradientSync keeps
 
 _HOST_GROUP = {"group": None}
 
@@ -174,28 +183,115 @@ def all_reduce_mean(tensors: Sequence[Optional[torch.Tensor]], group=None, *,
     return out
 
 
-class _AllGatherWithGrad(torch.autograd.Function):
+# ---------------------------------------------------------------------------
+# rows collectives (dim 0), staged through pinned host memory under gloo
+
+
+def _staged(t: torch.Tensor, group) -> bool:
+    """Whether `t` goes through host memory: a CUDA tensor under gloo."""
+    return t.is_cuda and dist.get_backend(group) == "gloo"
+
+
+def _host(t: torch.Tensor) -> torch.Tensor:
+    buf = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+    buf.copy_(t)
+    return buf
+
+
+def _run_staged(fn, x: torch.Tensor, out_shape, group) -> torch.Tensor:
+    """fn(out, inp) on x's device, or on pinned host copies under gloo with a
+    CUDA x (the result copied back)."""
+    x = x.contiguous()
+    if not _staged(x, group):
+        out = x.new_empty(out_shape)
+        fn(out, x)
+        return out
+    out = torch.empty(out_shape, dtype=x.dtype, pin_memory=True)
+    fn(out, _host(x))
+    return out.to(x.device, non_blocking=False)
+
+
+def all_reduce_sum(x: torch.Tensor, group=None) -> torch.Tensor:
+    """A new tensor: x summed over the group's ranks (gloo takes CUDA
+    tensors for this one)."""
+    out = x.detach().clone().contiguous()
+    dist.all_reduce(out, group=group)
+    return out
+
+
+def reduce_scatter_sum(x: torch.Tensor, group=None) -> torch.Tensor:
+    """x [world * m, ...] summed over the ranks; this rank's rows [m, ...]
+    (rank r's are rows r*m:(r+1)*m)."""
+    world = dist.get_world_size(group)
+    if x.shape[0] % world:
+        raise ValueError(f"reduce_scatter_sum: {x.shape[0]} rows over {world} ranks")
+    shape = (x.shape[0] // world,) + tuple(x.shape[1:])
+    return _run_staged(lambda o, i: dist.reduce_scatter_tensor(o, i, group=group),
+                       x, shape, group)
+
+
+def all_gather_rows(x: torch.Tensor, group=None) -> torch.Tensor:
+    """[world * m, ...]: every rank's x [m, ...] (equal shapes) in rank
+    order."""
+    world = dist.get_world_size(group)
+    shape = (world * x.shape[0],) + tuple(x.shape[1:])
+    return _run_staged(lambda o, i: dist.all_gather_into_tensor(o, i, group=group),
+                       x, shape, group)
+
+
+def all_to_all_rows(x: torch.Tensor, group=None) -> torch.Tensor:
+    """x [world * m, ...]: rows j*m:(j+1)*m go to rank j; returns [world * m,
+    ...] whose rows r*m:(r+1)*m came from rank r."""
+    world = dist.get_world_size(group)
+    if x.shape[0] % world:
+        raise ValueError(f"all_to_all_rows: {x.shape[0]} rows over {world} ranks")
+    return _run_staged(lambda o, i: dist.all_to_all_single(o, i, group=group),
+                       x, tuple(x.shape), group)
+
+
+def send(x: torch.Tensor, dst: int, group=None) -> None:
+    """Send x to global rank dst (staged under gloo with a CUDA x)."""
+    x = x.detach().contiguous()
+    dist.send(_host(x) if _staged(x, group) else x, dst, group=group)
+
+
+def recv(like: torch.Tensor, src: int, group=None) -> torch.Tensor:
+    """A tensor of like's shape, dtype and device received from global rank
+    src."""
+    if not _staged(like, group):
+        out = torch.empty_like(like)
+        dist.recv(out, src, group=group)
+        return out
+    buf = torch.empty(like.shape, dtype=like.dtype, pin_memory=True)
+    dist.recv(buf, src, group=group)
+    return buf.to(like.device)
+
+
+class _GatherDim(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, x, group):
-        world, rank = dist.get_world_size(group), dist.get_rank(group)
-        ctx.group, ctx.rank, ctx.rows = group, rank, x.shape[0]
-        full = x.new_zeros((world * x.shape[0],) + tuple(x.shape[1:]))
-        full[rank * x.shape[0]:(rank + 1) * x.shape[0]] = x
-        dist.all_reduce(full, group=group)
-        return full
+    def forward(ctx, x, dim, group):
+        ctx.dim, ctx.group = dim, group
+        rows = all_gather_rows(x.movedim(dim, 0), group)
+        return rows.movedim(0, dim)
 
     @staticmethod
     def backward(ctx, grad):
-        grad = grad.contiguous().clone()
-        dist.all_reduce(grad, group=ctx.group)
-        return grad[ctx.rank * ctx.rows:(ctx.rank + 1) * ctx.rows], None
+        g = reduce_scatter_sum(grad.movedim(ctx.dim, 0), ctx.group)
+        return g.movedim(0, ctx.dim), None, None
+
+
+def gather_dim(x: torch.Tensor, dim: int, group=None) -> torch.Tensor:
+    """Every rank's x concatenated along `dim` in rank order (equal shapes);
+    the gradient of this rank's x is its block of the cotangent summed over
+    the ranks (the reduce-scatter)."""
+    return _GatherDim.apply(x, dim, group)
 
 
 def all_gather_with_grad(x: torch.Tensor, group=None) -> torch.Tensor:
     """[world * B, ...]: every rank's x (equal shapes) in rank order; the
     gradient of this rank's x is the sum over the ranks of the cotangent's
-    rows of this rank."""
-    return _AllGatherWithGrad.apply(x, group)
+    rows of this rank (gather_dim along the rows)."""
+    return gather_dim(x, 0, group)
 
 
 class GradientSync:
@@ -205,13 +301,17 @@ class GradientSync:
     __call__(metrics, grads) averages the step's metrics and every gradient
     group (params, loga, λ, or one list) over the group in one
     all_reduce_mean, so every rank applies the same update. `group` is also
-    the ITC's gather group. Each call appends (bytes, seconds) to `calls`:
-    the seconds from CUDA events on the card (read by call_ms), the host
-    clock on the CPU."""
+    the ITC's gather group. With record=True each call appends (bytes,
+    seconds) to `calls`, which keeps the last RECORD_WINDOW: the seconds
+    from CUDA events on the card (read by call_ms), the host clock on the
+    CPU. A driver's sync records nothing."""
 
-    def __init__(self, group=None):
+    reduce_grads = True  # ZeRO-1's sync leaves the gradients to its optimizers
+
+    def __init__(self, group=None, *, record: bool = False):
         self.group = dist.group.WORLD if group is None else group
-        self.calls: list = []
+        self.record = record
+        self.calls: collections.deque = collections.deque(maxlen=RECORD_WINDOW)
         self._state_id = None
 
     def begin(self, state) -> None:
@@ -228,28 +328,31 @@ class GradientSync:
     def __call__(self, metrics: dict, grads):
         grouped = isinstance(grads, tuple)
         groups = list(grads) if grouped else [grads]
-        flat = [g for group in groups for g in group]
-        dev = next((g.device for g in flat if g is not None), None)
+        flat = [g for group in groups for g in group] if self.reduce_grads else []
+        dev = next((g.device for group in groups for g in group if g is not None), None)
         keys = list(metrics)
         vals = [torch.as_tensor(metrics[k], dtype=torch.float32, device=dev).reshape(())
                 for k in keys]
-        nbytes = sum(t.numel() * t.element_size() for t in flat + vals if t is not None)
-        cuda = dev is not None and dev.type == "cuda"
+        cuda = self.record and dev is not None and dev.type == "cuda"
         if cuda:
             start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
             start.record()
         t0 = time.perf_counter()
         reduced = all_reduce_mean(flat + vals, self.group)
-        if cuda:
-            end.record()
-            self.calls.append((nbytes, (start, end)))
-        else:
-            self.calls.append((nbytes, time.perf_counter() - t0))
+        if self.record:
+            nbytes = sum(t.numel() * t.element_size() for t in flat + vals if t is not None)
+            if cuda:
+                end.record()
+                self.calls.append((nbytes, (start, end)))
+            else:
+                self.calls.append((nbytes, time.perf_counter() - t0))
+        metrics = dict(zip(keys, reduced[len(flat):]))
+        if not self.reduce_grads:
+            return metrics, grads
         out, at = [], 0
         for group in groups:
             out.append(reduced[at:at + len(group)])
             at += len(group)
-        metrics = dict(zip(keys, reduced[len(flat):]))
         return metrics, (tuple(out) if grouped else out[0])
 
     def call_ms(self) -> List[float]:

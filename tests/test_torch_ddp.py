@@ -23,10 +23,11 @@ Held:
   (tiled) under shard_map; collect_result across ranks against JAX's
   single-process merge of the same records; the meters' global averages;
   preempted_sync when one rank alone is flagged; sum_over_ranks of the
-  rank-sharded retrieval scores against one process's scores.
+  rank-sharded retrieval scores against one process's scores;
+- a driver-built GradientSync records no call (C1), a recording one its
+  last RECORD_WINDOW.
 """
 
-import functools
 import json
 import os
 import signal
@@ -37,6 +38,9 @@ import sys
 import numpy as np
 import pytest
 import torch
+
+sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+import jax_pruning_ref as J  # noqa: E402
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 STEPS, WORLD_BATCH = 3, 4
@@ -55,6 +59,7 @@ def _gather_inputs():
 
 def _collectives(out: str) -> dict:
     """The collectives' cases of this rank."""
+    from efficientvlm_tpu_torch.config import Config
     from efficientvlm_tpu_torch.data.utils import collect_result
     from efficientvlm_tpu_torch.drivers import common
     from efficientvlm_tpu_torch.drivers.retrieval import sum_over_ranks
@@ -89,6 +94,18 @@ def _collectives(out: str) -> dict:
         common._PREEMPT.set()
     res["preempt_one"] = common.preempted_sync()
     common._PREEMPT.clear()
+
+    # C1: a driver's sync (build_train_step's) records nothing however many
+    # steps it averages; a recording one keeps its last RECORD_WINDOW calls
+    class _Stub:
+        data_parallel = None
+
+    sync = common.build_train_step(_Stub(), Config()).data_parallel
+    recording = D.GradientSync(record=True)
+    for i in range(3 * D.RECORD_WINDOW):
+        for s_ in (sync, recording):
+            s_({"loss": torch.tensor(float(i))}, [torch.ones(3)])
+    res["c1"] = [type(sync).__name__, len(sync.calls), len(recording.calls), D.RECORD_WINDOW]
 
     rs = np.random.RandomState(5)
     scores = np.full((7, 9), -100.0, np.float32)
@@ -143,22 +160,6 @@ def _free_port() -> int:
         return s.getsockname()[1]
 
 
-def _jax_config(jcfg):
-    vcfg = jcfg.VisionConfig.create(vision_width=64, num_attention_heads=4,
-                                    intermediate_size=128, num_hidden_layers=2, image_res=32,
-                                    patch_size=8, scan_layers=False)
-    tcfg = jcfg.TextConfig.create(vocab_size=128, hidden_size=64, num_hidden_layers=4,
-                                  num_attention_heads=4, intermediate_size=128,
-                                  encoder_width=64, max_position_embeddings=32,
-                                  hidden_dropout_prob=0.0, attention_probs_dropout_prob=0.0,
-                                  scan_layers=False)
-    return jcfg.Config({"embed_dim": 32, "image_res": 32, "vision": vcfg, "text": tcfg,
-                        "teacher_vision": vcfg, "teacher_text": tcfg, "sparsity": 0.25,
-                        "optimizer": {"lr": 1e-3, "reg_learning_rate": 0.01,
-                                      "weight_decay": 0.01},
-                        "schedular": {"num_warmup_steps": 0}})
-
-
 def _scst_yaml(out: str) -> None:
     """<out>/scst.yaml: configs/tests/Captioning_synth.yaml over 4 images
     and 12 captions, f32, K = 2, 3 images a rank's step: two steps an epoch
@@ -192,43 +193,21 @@ def _scst_yaml(out: str) -> None:
         yaml.safe_dump(cfg, f)
 
 
-def _bundle(x):
-    import jax
-
-    return jax.tree.map(lambda a: np.array(a, dtype=np.asarray(a).dtype), x)
-
-
 @pytest.fixture(scope="module")
 def jax_init():
     """JAX's models, gates and optimizers for the tiny towers, and their
     seeded init as numpy trees."""
-    import jax
-
-    from efficientvlm_tpu import config as jcfg
-    from efficientvlm_tpu.drivers import common as JC
-    from efficientvlm_tpu.drivers.retrieval import build_l0, build_models
-
-    config = _jax_config(jcfg)
-    (js, jt), jl0 = build_models(config), build_l0(config)
-    jl0.lagrangian_warmup = 10
-    init = {"student": _bundle(js.init(jax.random.PRNGKey(0))),
-            "teacher": _bundle(jt.init(jax.random.PRNGKey(1))),
-            "l0": _bundle(jl0.init(jax.random.PRNGKey(2)))}
-    return dict(js=js, jt=jt, jl0=jl0, opts=JC.build_optimizers(init["student"], config, 1000),
-                init=init)
+    return J.jax_init()
 
 
 @pytest.fixture(scope="module")
 def runs(tmp_path_factory, jax_init):
     """The two gloo ranks and one process, from JAX's init."""
-    from efficientvlm_tpu_torch.bridge import params_from_numpy
     from efficientvlm_tpu_torch.parallel import multihost_check as M
-    from efficientvlm_tpu_torch.train import checkpoint as TC
 
     out = str(tmp_path_factory.mktemp("ddp"))
     _scst_yaml(out)
-    TC.save_pytree(os.path.join(out, "init.ckpt"),
-                   {k: params_from_numpy(v, "cpu") for k, v in jax_init["init"].items()})
+    J.write_port_init(os.path.join(out, "init.ckpt"), jax_init)
     env = {k: v for k, v in os.environ.items() if k not in ("RANK", "WORLD_SIZE", "LOCAL_RANK")}
     env.update(MASTER_ADDR="127.0.0.1", MASTER_PORT=str(_free_port()), WORLD_SIZE="2",
                OMP_NUM_THREADS="1", PYTHONPATH=ROOT + os.pathsep + env.get("PYTHONPATH", ""))
@@ -286,117 +265,18 @@ def test_ranks_agree_with_one_process(runs):
         np.testing.assert_allclose(a[k], v, rtol=0, atol=1e-4, err_msg=k)
 
 
-def _jax_run(jax_init):
-    """JAX's step under shard_map over two devices, data_parallel_step's
-    wrap (the axis index folded into the key), the same noise and pinned
-    negatives; returns (per-step metrics, final state)."""
-    import jax
-    import jax.numpy as jnp
-    from jax import shard_map
-    from jax.sharding import Mesh, PartitionSpec as P
-
-    from efficientvlm_tpu.pruning.l0_module import L0Module as JL0Base
-    from efficientvlm_tpu.train import steps as JS
-    from efficientvlm_tpu_torch.parallel import multihost_check as M
-
-    js, jt, jl0, opts, init = (jax_init[k] for k in ("js", "jt", "jl0", "opts", "init"))
-
-    def pick(rng, image_feat, text_feat, *, idx=None, temp):
-        pair = jnp.arange(image_feat.shape[0]) ^ 1
-        return pair, pair
-
-    for m in (js, jt):
-        m.sample_hard_negatives = pick
-    raw = JS.make_retrieval_train_step(js, jt, jl0, opts, teacher_params=None,
-                                       axis_name="data", impl="xla")
-
-    def body(state, batch, rng, tp, noise):
-        jl0.forward_train = functools.partial(JL0Base.forward_train, jl0, noise=noise)
-        return raw(state, batch, jax.random.fold_in(rng, jax.lax.axis_index("data")), tp)
-
-    mesh = Mesh(np.asarray(jax.devices()[:2]), ("data",))
-    fn = jax.jit(shard_map(body, mesh=mesh, in_specs=(P(), P("data"), P(), P(), P()),
-                           out_specs=(P(), P()), check_vma=False))
-    state = JS.init_train_state(jax.tree.map(jnp.asarray, init["student"]), init["l0"], opts)
-    tp = jax.tree.map(jnp.asarray, init["teacher"])
-    metrics, moments = [], []
-    for t in range(STEPS):
-        gb = M.world_batch(t, WORLD_BATCH, "tiny", 128, 32)
-        batch = {k: jnp.asarray(v.astype(np.int32) if v.dtype == np.int64 else v)
-                 for k, v in gb.items()}
-        noise = {k: jnp.asarray(v) for k, v in M.step_noise(t, jl0.groups).items()}
-        state, m = fn(state, batch, jax.random.PRNGKey(7), tp, noise)
-        metrics.append({k: float(np.asarray(v)) for k, v in m.items()})
-        moments.append({name: _first_moments(getattr(state, f"{name}_state"))
-                        for name in ("opt", "l0", "lam")})
-    return metrics, state, moments
-
-
-def _first_moments(opt_state):
-    """The first moments (mu) of an optax state, as {path: array}."""
-    import jax
-
-    found = []
-
-    def walk(x):
-        if hasattr(x, "mu") and hasattr(x, "nu"):
-            found.append(x.mu)
-        elif isinstance(x, (tuple, list)):
-            for y in x:
-                walk(y)
-
-    walk(opt_state)
-    return {_key(path): np.asarray(v, np.float64)
-            for path, v in jax.tree_util.tree_leaves_with_path(found[0])}
-
-
-def _key(path) -> str:
-    return "/".join(str(getattr(p, "key", getattr(p, "idx", p))) for p in path)
-
-
-B1, EPS = 0.9, 1e-8
-LRS = {"params": 1e-3, "loga": 0.01, "lam": 0.01}
-
-
-def _update_allowance(moments, group: str, key: str) -> np.ndarray:
-    """The parameter disagreement that a gradient tolerance lets through
-    Adam's normalised update, summed over the steps: 2 lr * min(1, tol /
-    (|g| + eps)) a step, tol = 5e-3 |g| + 5e-4 x the leaf's largest |g|
-    (tests/test_torch_train.py's tolerance; a gradient within tol of zero
-    may change sign, which moves Adam's update, about lr * sign(g) in the
-    first steps, by up to 2 lr); g of step t from JAX's first moments,
-    (mu_t - b1 mu_{t-1}) / (1 - b1)."""
-    name = {"params": "opt", "loga": "l0", "lam": "lam"}[group]
-    prev, total = 0.0, 0.0
-    for mom in moments:
-        mu = mom[name][key]
-        g = np.abs(mu - B1 * prev) / (1 - B1)
-        tol = 5e-3 * g + max(5e-4 * (g.max() if g.size else 0.0), 1e-8)
-        total = total + 2 * LRS[group] * np.minimum(1.0, tol / (g + EPS))
-        prev = mu
-    return total
-
-
 def test_ranks_match_jax_shard_map(runs, jax_init):
     """Every metric of every step within 1e-4 relative; the final leaves
     within 1e-4 plus the update disagreement the gradients' tolerance lets
-    through Adam (_update_allowance: with lr 1e-3, an entry whose step-1
-    gradient is 2e-8 against its leaf's 4e-5 moves by 8e-4 when its sign
-    turns)."""
-    import jax
-
-    metrics, state, moments = _jax_run(jax_init)
+    through Adam (jax_pruning_ref.update_allowance: with lr 1e-3, an entry
+    whose step-1 gradient is 2e-8 against its leaf's 4e-5 moves by 8e-4
+    when its sign turns)."""
+    metrics, states, moments = J.run_steps(jax_init, STEPS, WORLD_BATCH, devices=2)
     a = runs["ranks"][0]
     for k in metrics[0]:
         want = np.asarray([m[k] for m in metrics])
         np.testing.assert_allclose(a[f"metric/{k}"], want, rtol=1e-4, atol=1e-6, err_msg=k)
-    for name, tree in (("params", state.params), ("loga", state.loga), ("lam", state.lam)):
-        for path, leaf in jax.tree_util.tree_leaves_with_path(tree):
-            key = _key(path)
-            want = np.asarray(leaf, np.float64)
-            err = np.abs(a[f"{name}/{key}"] - want)
-            allowed = 1e-4 + _update_allowance(moments, name, key)
-            assert (err <= allowed).all(), f"{name}/{key}: max err {err.max():.3e}"
+    J.assert_leaves_match(a, "", states[-1], moments)
 
 
 def test_all_gather_gradient_matches_jax(runs):
@@ -481,27 +361,52 @@ def test_scst_across_ranks(runs):
     assert params and all(np.array_equal(a[k], b[k]) for k in params)
 
 
+def test_a_driver_sync_keeps_a_bounded_record(runs):
+    """C1: the GradientSync a driver's step gets records no call, however
+    many steps it averages (it used to keep every step's entry and CUDA
+    events); a recording sync (multihost_check's) keeps the last
+    RECORD_WINDOW."""
+    for coll in runs["coll"]:
+        name, driver_calls, recording_calls, window = coll["c1"]
+        assert name == "GradientSync" and driver_calls == 0
+        assert recording_calls == window
+
+
 @pytest.mark.parametrize("case", ["zero1", "orbax", "vision_seq_axis", "text_seq_axis"])
 def test_the_second_part_of_distribution_still_raises(case):
-    """ZeRO-1, the sharded checkpoint backend and the sequence axis (a
-    tower config's act_partition) raise, naming A6's second part."""
+    """ZeRO-1, the sharded checkpoint backend and the sequence axis (a tower
+    config's act_partition) no longer raise: in one process each reaches its
+    implementation, which is then the plain program, as in JAX (ZeRO-1 a
+    no-op, a sequence axis of size 1); the backend is selected."""
     from efficientvlm_tpu_torch.config import Config, TextConfig, VisionConfig
     from efficientvlm_tpu_torch.drivers import common
     from efficientvlm_tpu_torch.models import bert, vit
 
-    with pytest.raises(NotImplementedError, match="second part of distribution"):
-        if case == "zero1":
-            common.build_train_step(object(), Config({"zero1": True}))
-        elif case == "orbax":
-            common.setup(Config({}), Config({"checkpoint_backend": "orbax"}))
-        elif case == "vision_seq_axis":
-            cfg = VisionConfig({**VisionConfig.create(vision_width=32, num_hidden_layers=1,
-                                                      num_attention_heads=4, image_res=16,
-                                                      patch_size=8),
-                                "act_partition": ["data", "seq"]})
-            vit.vit_apply({}, torch.zeros(1, 16, 16, 3), cfg)
-        else:
-            cfg = TextConfig({**TextConfig.create(hidden_size=32, num_hidden_layers=1,
-                                                  num_attention_heads=4),
-                              "act_partition": ["data", "seq"]})
-            bert.bert_apply({}, torch.zeros(1, 4, dtype=torch.long), cfg)
+    g = torch.Generator().manual_seed(0)
+    if case == "zero1":
+        step = type("Step", (), {"data_parallel": None})()
+        assert common.build_train_step(step, Config({"zero1": True})) is step
+        assert step.data_parallel is None
+    elif case == "orbax":
+        config = Config({"checkpoint_backend": "orbax"})
+        common.setup(Config({}), config)
+        assert common.checkpoint_backend(config) == "orbax"
+        with pytest.raises(ValueError, match="checkpoint_backend"):
+            common.setup(Config({}), Config({"checkpoint_backend": "zarr"}))
+    elif case == "vision_seq_axis":
+        kw = dict(vision_width=32, num_hidden_layers=1, num_attention_heads=4, image_res=16,
+                  patch_size=8)
+        plain = VisionConfig.create(**kw)
+        cfg = VisionConfig({**plain, "act_partition": ["data", "seq"]})
+        params = vit.init_vit(g, plain, device="cpu")
+        x = torch.rand(2, 16, 16, 3, generator=g)
+        assert torch.equal(vit.vit_apply(params, x, cfg)["last_hidden"],
+                           vit.vit_apply(params, x, plain)["last_hidden"])
+    else:
+        plain = TextConfig.create(hidden_size=32, num_hidden_layers=1, num_attention_heads=4,
+                                  vocab_size=50)
+        cfg = TextConfig({**plain, "act_partition": ["data", "seq"]})
+        params = bert.init_bert(g, plain, device="cpu")
+        ids = torch.randint(1, 50, (2, 4), generator=g)
+        assert torch.equal(bert.bert_apply(params, ids, cfg, mode="text")["last_hidden"],
+                           bert.bert_apply(params, ids, plain, mode="text")["last_hidden"])

@@ -393,3 +393,165 @@ def test_train_step_updates_match_jax(one_step):
     l0p, lam = one_step["l0p"], t.lam
     g1 = float(t.lam_state["mu"][0]) / (1 - B1)
     assert (float(lam["lambda_1"].detach()) - float(l0p["lambda_1"])) * g1 > 0
+
+
+# ---------------------------------------------------------------------------
+# remat: true (a per-layer recompute that replays the dropout draws)
+# ---------------------------------------------------------------------------
+
+
+def _remat_run(remat: bool, rate: float):
+    """One retrieval step's loss and gradients (the port's own init) with
+    the towers' remat flag and the text dropout rates at `rate`, and the
+    generator's state after it."""
+    from efficientvlm_tpu_torch.drivers.retrieval import build_l0, build_models
+
+    text = dict(TEXT_S, hidden_dropout_prob=rate, attention_probs_dropout_prob=rate)
+    conf = _config(tcfg)
+    conf["vision"] = tcfg.VisionConfig.create(**VISION_S, remat=remat)
+    conf["text"] = tcfg.TextConfig.create(**text, remat=remat)
+    conf["teacher_text"] = tcfg.TextConfig.create(**dict(TEXT_T, **{
+        k: rate for k in ("hidden_dropout_prob", "attention_probs_dropout_prob")}))
+    student, teacher = build_models(conf)
+    l0 = build_l0(conf)
+    sparams = student.init(0, device="cpu")
+    opts = TC.build_optimizers(sparams, conf, 100)
+    state = TS.init_train_state(sparams, l0.init(2, device="cpu"), opts)
+    step = TS.make_retrieval_train_step(student, teacher, l0, opts,
+                                        teacher_params=teacher.init(1, device="cpu"),
+                                        impl="fused")
+    rng = np.random.default_rng(5)
+    batch = {"image": _t(rng.standard_normal((4, 16, 16, 3)).astype(np.float32)),
+             "text_ids": _t(rng.integers(1, 60, (4, 8))), "text_atts": torch.ones(4, 8,
+                                                                               dtype=torch.long),
+             "idx": torch.tensor([0, 1, 1, 2])}
+    gen = torch.Generator().manual_seed(3)
+    teacher_out = step.teacher_forward(batch, gen)
+    metrics, grads = step.loss_and_grads(state, batch, teacher_out, gen)
+    return metrics, [g for group in grads for g in group], gen.get_state()
+
+
+def test_remat_replays_dropout_bit_equal(monkeypatch):
+    """remat: true recomputes each layer in the backward (ops/basic.remat,
+    once a ViT layer and once a BERT layer) and, at dropout 0.1 on the text
+    tower, gives the same loss, every gradient and the same generator state
+    bit for bit: the recompute replays the generator's masks."""
+    from efficientvlm_tpu_torch.models import bert as TB
+    from efficientvlm_tpu_torch.models import vit as TV
+    from efficientvlm_tpu_torch.ops import basic
+
+    calls = {"vit": 0, "bert": 0}
+    for mod, name in ((TV, "vit"), (TB, "bert")):
+        def counted(fn, *, generators=(), name=name):
+            calls[name] += 1
+            return basic.remat(fn, generators=generators)
+
+        monkeypatch.setattr(mod, "remat", counted)
+    m0, g0, s0 = _remat_run(False, 0.1)
+    assert calls == {"vit": 0, "bert": 0}
+    m1, g1, s1 = _remat_run(True, 0.1)
+    # the student's 2 ViT and 2 BERT layers (text + fusion) and the fusion
+    # layer again for the ITM negatives; the teacher runs under no_grad
+    assert calls["vit"] == 2 and calls["bert"] >= 3, calls
+    for k in m0:
+        assert torch.equal(m0[k], m1[k]), k
+    assert len(g0) == len(g1)
+    for a, b in zip(g0, g1):
+        assert (a is None) == (b is None)
+        if a is not None:
+            assert torch.equal(a, b)
+    assert torch.equal(s0, s1)
+    # the dropout was live: without it the loss is another one
+    m2, _, _ = _remat_run(True, 0.0)
+    assert not torch.equal(m1["loss"], m2["loss"])
+
+
+@pytest.mark.parametrize("tower", ["vision", "text"])
+def test_remat_matches_jax_remat_forward(tower):
+    """A tower with remat: true against JAX's (jax.checkpoint on its layer
+    scan) at dropout 0: sum(last_hidden * w) for a fixed random w (the sum
+    of squares of a post-LN output is nearly constant, its gradient f32
+    noise) and its gradient of every param, f32."""
+    from efficientvlm_tpu.models import bert as JB
+    from efficientvlm_tpu.models import vit as JV
+    from efficientvlm_tpu_torch.models import bert as TB
+    from efficientvlm_tpu_torch.models import vit as TV
+
+    rng = np.random.default_rng(8)
+    if tower == "vision":
+        jc = jcfg.VisionConfig.create(**VISION_S, remat=True, scan_layers=True)
+        tc = tcfg.VisionConfig.create(**VISION_S, remat=True)
+        params = _bundle(JV.init_vit(jax.random.PRNGKey(0), jc))
+        x = rng.standard_normal((2, 16, 16, 3)).astype(np.float32)
+        w = rng.standard_normal((2, 5, 64)).astype(np.float32)
+
+        def jloss(p):
+            return jnp.sum(JV.vit_apply(p, jnp.asarray(x), jc)["last_hidden"] * w)
+
+        def tloss(p):
+            return (TV.vit_apply(p, _t(x), tc, impl="fused")["last_hidden"] * _t(w)).sum()
+    else:
+        kw = dict(TEXT_S, num_hidden_layers=4, fusion_layer=2)
+        jc = jcfg.TextConfig.create(**kw, remat=True, scan_layers=True)
+        tc = tcfg.TextConfig.create(**kw, remat=True)
+        params = _bundle(JB.init_bert(jax.random.PRNGKey(0), jc))
+        ids = rng.integers(1, 60, (2, 8)).astype(np.int32)
+        atts = np.ones((2, 8), np.int32)
+        atts[1, 5:] = 0
+        enc = (rng.standard_normal((2, 5, 64)) * 0.5).astype(np.float32)
+        w = rng.standard_normal((2, 8, 64)).astype(np.float32)
+
+        def jloss(p):
+            return jnp.sum(JB.bert_apply(p, jnp.asarray(ids), jc, attention_mask=jnp.asarray(atts),
+                                         encoder_hidden=jnp.asarray(enc))["last_hidden"] * w)
+
+        def tloss(p):
+            return (TB.bert_apply(p, _t(ids).long(), tc, attention_mask=_t(atts),
+                                  encoder_hidden=_t(enc), impl="fused")["last_hidden"]
+                    * _t(w)).sum()
+    jl, jg = jax.jit(jax.value_and_grad(jloss))(jax.tree.map(jnp.asarray, params))
+    tp = params_from_numpy(params, "cpu")
+    leaves = [t.requires_grad_(True) for _, t in TO.tree_leaves_with_path(tp)]
+    tl = tloss(tp)
+    tg = torch.autograd.grad(tl, leaves, allow_unused=True)
+    np.testing.assert_allclose(float(tl.detach()), _f(jl), rtol=1e-5, atol=1e-5)
+    want = dict(jax.tree_util.tree_leaves_with_path(jg))
+    # the floor is relative to the tower's largest gradient: the key
+    # projection's bias has a zero gradient up to f32 noise (softmax ignores
+    # a row's constant shift)
+    scale = max(float(np.abs(np.asarray(v)).max()) for v in want.values())
+    for (path, _), g in zip(TO.tree_leaves_with_path(tp), tg):
+        key = tuple(jax.tree_util.DictKey(p) if isinstance(p, str)
+                    else jax.tree_util.SequenceKey(p) for p in path)
+        w = np.asarray(want[key])
+        got = np.zeros_like(w) if g is None else g.numpy()
+        np.testing.assert_allclose(got, w, rtol=1e-4, atol=1e-6 * scale, err_msg=str(path))
+
+
+def test_jax_ignores_remat_off_its_layer_scan(monkeypatch):
+    """JAX honours remat: true only on its layer scan: a stack that runs
+    unrolled (scan_layers false, local attention, region batches, a pruned
+    stack) traces no checkpoint and keeps every activation, silently. The
+    port recomputes each layer whatever the path (ROADMAP C)."""
+    from efficientvlm_tpu.models import vit as JV
+    from efficientvlm_tpu_torch.models import vit as TV
+    from efficientvlm_tpu_torch.ops import basic
+
+    x = np.zeros((1, 16, 16, 3), np.float32)
+    kw = dict(VISION_S, local_attn_depth=1)
+    jaxprs = {}
+    for scan in (True, False):
+        jc = jcfg.VisionConfig.create(**dict(VISION_S, scan_layers=scan, remat=True))
+        params = JV.init_vit(jax.random.PRNGKey(0), jc)
+        jaxprs[scan] = str(jax.make_jaxpr(jax.grad(
+            lambda p: jnp.sum(JV.vit_apply(p, jnp.asarray(x), jc)["last_hidden"])))(params))
+    assert "remat" in jaxprs[True] and "remat" not in jaxprs[False]
+    calls = []
+    monkeypatch.setattr(TV, "remat", lambda fn, generators=(): calls.append(1) or
+                        basic.remat(fn, generators=generators))
+    tc = tcfg.VisionConfig.create(**kw, remat=True)
+    tp = TV.init_vit(torch.Generator().manual_seed(0), tc, device="cpu")
+    leaves = [t.requires_grad_(True) for _, t in TO.tree_leaves_with_path(tp)]
+    out = TV.vit_apply(tp, _t(x), tc, impl="fused")["last_hidden"].sum()
+    torch.autograd.grad(out, leaves, allow_unused=True)
+    assert len(calls) == VISION_S["num_hidden_layers"]
