@@ -35,6 +35,7 @@ Where JAX's design does not carry over to eager PyTorch:
 
 from __future__ import annotations
 
+import contextlib
 import json
 import os
 import signal
@@ -49,6 +50,7 @@ from ..config import Config, TextConfig, VisionConfig
 from ..data.device_pipeline import CROP_SCALE, preprocess_train
 from ..device import resolve_device
 from ..train import checkpoint as ckpt_io
+from ..train.profiler import span, trace
 from ..train.optim import (ApplyIfFinite, MultiSteps, create_l0_optimizer,
                            create_lagrangian_optimizer, create_optimizer)
 from ..train.scheduler import create_scheduler
@@ -76,11 +78,12 @@ def setup(args: Config, config: Config) -> Config:
 
 
 class StepProfiler:
-    """A torch.profiler trace over a window of train steps, from the config:
+    """A train/profiler.trace over a window of train steps, from the config:
     `profile_dir` (a path, or true for <output_dir>/trace),
     `profile_start_step` (default 2) and `profile_num_steps` (default 3).
-    The window ends synchronised with the device and writes a Chrome trace
-    (trace.json). Call tick() once per train step."""
+    The window records the program's spans, ends synchronised with the
+    device and writes a Chrome trace (trace.json). Call tick() once per
+    train step."""
 
     def __init__(self, config: Config, output_dir: str = ""):
         d = config.get("profile_dir")
@@ -90,34 +93,27 @@ class StepProfiler:
         self.start = int(config.get("profile_start_step", 2))
         self.num = int(config.get("profile_num_steps", 3))
         self._i = 0
-        self._prof = None
+        self._window = None
         self._done = False
 
     def tick(self) -> None:
         if not self.dir or self._done:
             return
         if self._i == self.start:
-            os.makedirs(self.dir, exist_ok=True)
-            activities = [torch.profiler.ProfilerActivity.CPU]
-            if torch.cuda.is_available():
-                activities.append(torch.profiler.ProfilerActivity.CUDA)
-            self._prof = torch.profiler.profile(activities=activities)
-            self._prof.start()
-        elif self._prof is not None and self._i >= self.start + self.num:
+            self._window = contextlib.ExitStack()
+            self._window.enter_context(trace(self.dir))
+        elif self._window is not None and self._i >= self.start + self.num:
             self._stop()
         self._i += 1
 
     def _stop(self) -> None:
-        if torch.cuda.is_available():
-            torch.cuda.synchronize()
-        self._prof.stop()
-        self._prof.export_chrome_trace(os.path.join(self.dir, "trace.json"))
-        self._prof, self._done = None, True
+        self._window.close()
+        self._window, self._done = None, True
         print(f"### profiler trace written to {self.dir}")
 
     def close(self) -> None:
         """A window cut short by the end of an epoch writes what it caught."""
-        if self._prof is not None:
+        if self._window is not None:
             self._stop()
 
 
@@ -421,6 +417,9 @@ def run_train_epoch(loader, logger, step_fn, state, make_batch, prof, *, epoch: 
     generator), which updates `state` in place and returns its metrics,
     with profiler ticks and the metrics logged one step late
     (LaggedMetrics). Batch i draws from step_generator(seed, epoch, i).
+    Spans: evlm.loop.wait (the loader's next, in log_every), .batch
+    (make_batch), .step (step_fn) and .after (the tick, the metrics, the
+    preemption check).
 
     On preemption the full state is saved with {"epoch": epoch - 1,
     "batches_done": n} and the process exits 0; --resume replays this epoch
@@ -454,13 +453,17 @@ def run_train_epoch(loader, logger, step_fn, state, make_batch, prof, *, epoch: 
         done = i + 1
         if i < resume_batches:
             continue
-        metrics = step_fn(state, make_batch(items), step_generator(seed, epoch, i, device))
-        prof.tick()
-        prev = lagged.push(metrics)
-        if prev:
-            logger.update(**prev)
-        if preempted() if world == 1 else (done % sync_every == 0 and preempted_sync()):
-            _save_and_exit(done)
+        with span("evlm.loop.batch"):
+            batch = make_batch(items)
+        with span("evlm.loop.step"):
+            metrics = step_fn(state, batch, step_generator(seed, epoch, i, device))
+        with span("evlm.loop.after"):
+            prof.tick()
+            prev = lagged.push(metrics)
+            if prev:
+                logger.update(**prev)
+            if preempted() if world == 1 else (done % sync_every == 0 and preempted_sync()):
+                _save_and_exit(done)
     if world > 1 and preempted_sync():  # an epoch shorter than sync_every
         _save_and_exit(done)
     last = lagged.pop()

@@ -10,6 +10,15 @@
   candidate images;
 - rank sharding: each rank scores a contiguous row range, -100 elsewhere;
   the caller sums the matrices across ranks.
+
+Spans (train/profiler.span): evlm.eval.encode_texts and .encode_images,
+each with evlm.encode.upload and .fetch inside; evlm.eval.rerank (the
+whole of retrieval_scores) with evlm.rerank.bank (the banks' uploads and
+casts), .shortlist (the ITC similarities, a chunk's argsort and its index
+uploads), .chunk (the chunk's launches), .fetch (its scores to the host,
+the chunk's sync) and .scatter (the writes into the score matrices);
+evlm.eval.recall (itm_eval). `copied_bytes` counts the bytes of every
+upload ("h2d") and fetch ("d2h") above, always; read it as a difference.
 """
 
 from __future__ import annotations
@@ -20,14 +29,24 @@ import numpy as np
 import torch
 
 from ..models.xvlm import XVLM, mlp_head_apply
+from ..train.profiler import span
+
+copied_bytes = {"h2d": 0, "d2h": 0}
 
 
 def _device(params) -> torch.device:
     return params["itm_head"]["fc1"]["bias"].device
 
 
+def _upload(x: np.ndarray, dev) -> torch.Tensor:
+    copied_bytes["h2d"] += x.nbytes
+    return torch.as_tensor(x, device=dev)
+
+
 def _numpy(t: torch.Tensor) -> np.ndarray:
-    return t.float().cpu().numpy()
+    out = t.float().cpu().numpy()
+    copied_bytes["d2h"] += out.nbytes
+    return out
 
 
 def retrieval_forward(model: XVLM, params, image, text_ids, text_atts, *, zs=None, dtype=None,
@@ -50,15 +69,19 @@ def encode_texts(model: XVLM, params, text_ids: np.ndarray, text_atts: np.ndarra
     """Returns (text_feats [N,T,D] last hidden, text_embeds [N,E]) as numpy."""
     dev = _device(params)
     feats, embeds = [], []
-    with torch.inference_mode():
+    with span("evlm.eval.encode_texts"), torch.inference_mode():
         for i in range(0, text_ids.shape[0], batch_size):
-            ids = torch.as_tensor(text_ids[i:i + batch_size], device=dev)
-            atts = torch.as_tensor(text_atts[i:i + batch_size], device=dev)
+            with span("evlm.encode.upload"):
+                ids = _upload(text_ids[i:i + batch_size], dev)
+                atts = _upload(text_atts[i:i + batch_size], dev)
             h = model.get_text_embeds(params, ids, atts, zs=zs, dtype=dtype,
                                       impl=impl)["last_hidden"]
-            feats.append(_numpy(h))
-            embeds.append(_numpy(model.get_features(params, text_embeds=h, dtype=dtype)))
-    return np.concatenate(feats), np.concatenate(embeds)
+            with span("evlm.encode.fetch"):
+                feats.append(_numpy(h))
+            e = model.get_features(params, text_embeds=h, dtype=dtype)
+            with span("evlm.encode.fetch"):
+                embeds.append(_numpy(e))
+        return np.concatenate(feats), np.concatenate(embeds)
 
 
 def encode_images(model: XVLM, params, image_batches, *, zs=None, dtype=None,
@@ -67,13 +90,17 @@ def encode_images(model: XVLM, params, image_batches, *, zs=None, dtype=None,
     [N,S,D], image_embeds [N,E]) as numpy."""
     dev = _device(params)
     feats, embeds = [], []
-    with torch.inference_mode():
+    with span("evlm.eval.encode_images"), torch.inference_mode():
         for img in image_batches:
-            h, _, _ = model.get_vision_embeds(params, torch.as_tensor(img, device=dev),
-                                              zs=zs, dtype=dtype, impl=impl)
-            feats.append(_numpy(h))
-            embeds.append(_numpy(model.get_features(params, image_embeds=h, dtype=dtype)))
-    return np.concatenate(feats), np.concatenate(embeds)
+            with span("evlm.encode.upload"):
+                x = _upload(img, dev)
+            h, _, _ = model.get_vision_embeds(params, x, zs=zs, dtype=dtype, impl=impl)
+            with span("evlm.encode.fetch"):
+                feats.append(_numpy(h))
+            e = model.get_features(params, image_embeds=h, dtype=dtype)
+            with span("evlm.encode.fetch"):
+                embeds.append(_numpy(e))
+        return np.concatenate(feats), np.concatenate(embeds)
 
 
 def itm_rerank_scores(model: XVLM, params, img_rows, txt_rows, txt_atts, rows: int, k: int,
@@ -114,63 +141,72 @@ def retrieval_scores(model: XVLM, params, image_feats: np.ndarray, image_embeds:
                      rows_per_call: int = 4) -> Tuple[np.ndarray, np.ndarray]:
     """Returns (score_matrix_i2t [Ni,Nt], score_matrix_t2i [Nt,Ni]) with this
     rank's rows filled and -100 elsewhere."""
-    n_img, n_txt = image_embeds.shape[0], text_embeds.shape[0]
-    sims = image_embeds @ text_embeds.T  # [Ni, Nt]
-    dev = _device(params)
-    feat_dt = dtype or torch.float32
-    img_bank = torch.as_tensor(image_feats, device=dev).to(feat_dt)
-    txt_bank = torch.as_tensor(text_feats, device=dev).to(feat_dt)
-    att_bank = torch.as_tensor(text_atts, device=dev).to(torch.int32)
+    with span("evlm.eval.rerank"):
+        n_img, n_txt = image_embeds.shape[0], text_embeds.shape[0]
+        with span("evlm.rerank.shortlist"):
+            sims = image_embeds @ text_embeds.T  # [Ni, Nt]
+        dev = _device(params)
+        feat_dt = dtype or torch.float32
+        with span("evlm.rerank.bank"):
+            img_bank = _upload(image_feats, dev).to(feat_dt)
+            txt_bank = _upload(text_feats, dev).to(feat_dt)
+            att_bank = _upload(text_atts, dev).to(torch.int32)
 
-    def shard_range(n):
-        step = n // world_size + 1
-        start = rank * step
-        return start, min(n, start + step)
+        def shard_range(n):
+            step = n // world_size + 1
+            start = rank * step
+            return start, min(n, start + step)
 
-    def run(chunk_fn, sims_dir, n_rows, k):
-        score = np.full((n_rows, sims_dir.shape[1]), -100.0, np.float32)
-        s, e = shard_range(n_rows)
-        rows = np.arange(s, e)
-        for c0 in range(0, len(rows), rows_per_call):
-            chunk = rows[c0:c0 + rows_per_call]
-            if len(chunk) < rows_per_call:  # pad to the fixed chunk shape
-                chunk = np.concatenate([chunk, np.repeat(chunk[-1:], rows_per_call - len(chunk))])
-            cand = np.argsort(-sims_dir[chunk], axis=1)[:, :k]
-            out = _numpy(chunk_fn(model, params, img_bank, txt_bank, att_bank,
-                                  torch.as_tensor(chunk, device=dev),
-                                  torch.as_tensor(cand, device=dev),
-                                  zs=zs, dtype=dtype, impl=impl))
-            for j, i in enumerate(rows[c0:c0 + rows_per_call]):
-                score[i, cand[j]] = out[j]
-        return score
+        def run(chunk_fn, sims_dir, n_rows, k):
+            score = np.full((n_rows, sims_dir.shape[1]), -100.0, np.float32)
+            s, e = shard_range(n_rows)
+            rows = np.arange(s, e)
+            for c0 in range(0, len(rows), rows_per_call):
+                chunk = rows[c0:c0 + rows_per_call]
+                if len(chunk) < rows_per_call:  # pad to the fixed chunk shape
+                    chunk = np.concatenate([chunk,
+                                            np.repeat(chunk[-1:], rows_per_call - len(chunk))])
+                with span("evlm.rerank.shortlist"):
+                    cand = np.argsort(-sims_dir[chunk], axis=1)[:, :k]
+                    row_idx, cand_idx = _upload(chunk, dev), _upload(cand, dev)
+                with span("evlm.rerank.chunk"):
+                    scores = chunk_fn(model, params, img_bank, txt_bank, att_bank, row_idx,
+                                      cand_idx, zs=zs, dtype=dtype, impl=impl)
+                with span("evlm.rerank.fetch"):
+                    out = _numpy(scores)
+                with span("evlm.rerank.scatter"):
+                    for j, i in enumerate(rows[c0:c0 + rows_per_call]):
+                        score[i, cand[j]] = out[j]
+            return score
 
-    with torch.inference_mode():
-        score_i2t = run(i2t_chunk, sims, n_img, min(k_test, n_txt))
-        score_t2i = run(t2i_chunk, sims.T, n_txt, min(k_test, n_img))
-    return score_i2t, score_t2i
+        with torch.inference_mode():
+            score_i2t = run(i2t_chunk, sims, n_img, min(k_test, n_txt))
+            score_t2i = run(t2i_chunk, sims.T, n_txt, min(k_test, n_img))
+        return score_i2t, score_t2i
 
 
 def itm_eval(scores_i2t: np.ndarray, scores_t2i: np.ndarray, txt2img, img2txt) -> dict:
     """R@1/5/10 both directions."""
-    ranks = np.zeros(scores_i2t.shape[0])
-    for index, score in enumerate(scores_i2t):
-        inds = np.argsort(score)[::-1]
-        rank = 1e20
-        for i in img2txt[index]:
-            rank = min(rank, np.where(inds == i)[0][0])
-        ranks[index] = rank
-    tr1, tr5, tr10 = [100.0 * (ranks < k).mean() for k in (1, 5, 10)]
+    with span("evlm.eval.recall"):
+        ranks = np.zeros(scores_i2t.shape[0])
+        for index, score in enumerate(scores_i2t):
+            inds = np.argsort(score)[::-1]
+            rank = 1e20
+            for i in img2txt[index]:
+                rank = min(rank, np.where(inds == i)[0][0])
+            ranks[index] = rank
+        tr1, tr5, tr10 = [100.0 * (ranks < k).mean() for k in (1, 5, 10)]
 
-    ranks = np.zeros(scores_t2i.shape[0])
-    for index, score in enumerate(scores_t2i):
-        inds = np.argsort(score)[::-1]
-        ranks[index] = np.where(inds == txt2img[index])[0][0]
-    ir1, ir5, ir10 = [100.0 * (ranks < k).mean() for k in (1, 5, 10)]
+        ranks = np.zeros(scores_t2i.shape[0])
+        for index, score in enumerate(scores_t2i):
+            inds = np.argsort(score)[::-1]
+            ranks[index] = np.where(inds == txt2img[index])[0][0]
+        ir1, ir5, ir10 = [100.0 * (ranks < k).mean() for k in (1, 5, 10)]
 
-    tr_mean = (tr1 + tr5 + tr10) / 3
-    ir_mean = (ir1 + ir5 + ir10) / 3
-    return {
-        "txt_r1": tr1, "txt_r5": tr5, "txt_r10": tr10, "txt_r_mean": tr_mean,
-        "img_r1": ir1, "img_r5": ir5, "img_r10": ir10, "img_r_mean": ir_mean,
-        "r_mean": (tr_mean + ir_mean) / 2,
-    }
+        tr_mean = (tr1 + tr5 + tr10) / 3
+        ir_mean = (ir1 + ir5 + ir10) / 3
+        return {
+            "txt_r1": tr1, "txt_r5": tr5, "txt_r10": tr10, "txt_r_mean": tr_mean,
+            "img_r1": ir1, "img_r5": ir5, "img_r10": ir10, "img_r_mean": ir_mean,
+            "r_mean": (tr_mean + ir_mean) / 2,
+        }

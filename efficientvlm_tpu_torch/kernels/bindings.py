@@ -20,6 +20,7 @@ from typing import Optional
 
 import torch
 
+from ..train.profiler import span
 from .build import library
 
 BF16, F32 = torch.bfloat16, torch.float32
@@ -261,47 +262,49 @@ def fused_attention(x: torch.Tensor, enc: torch.Tensor, w: dict, key_bias: torch
     bf16; with probs, (that, the pre-gate f32 softmax maps [batch, H, tq,
     s]) where the maps are a view of rows padded to a multiple of 4 floats
     (16-byte row strides for attn_probs' TMA stores), as JAX returns its
-    padded maps trimmed. The probs form's core follows probs_tile."""
-    d, de = x.shape[1], enc.shape[1]
-    a = w["wq"].shape[1]
-    dh = a // heads
-    if dh * heads != a or dh not in (32, 64, 128):
-        raise ValueError(f"fused_attention: width {a} over {heads} heads "
-                         f"(head dim must be 32, 64 or 128)")
-    if d % 8 or de % 8:
-        raise ValueError(f"fused_attention: widths {d}, {de} must be multiples of 8")
-    if probs and grouped:
-        raise ValueError("fused_attention: the grouped sublayer has no probs form")
-    rows, warps = probs_tile(dh, tq, s) if probs else (0, 0)
-    core = 2 if rows else 1 if wgmma_core_fits(dh, grouped) else 0
-    ln_route = 0 if ln is None else (1 if gemm_ln_fits(d) else 2)
-    rq, rkv = batch * tq, batch * s
-    mats = [_ptr(x, BF16, "x", (rq, d)), _ptr(enc, BF16, "enc", (rkv, de)),
-            _ptr(w["wq"], BF16, "wq", (d, a)), _ptr(w["wk"], BF16, "wk", (de, a)),
-            _ptr(w["wv"], BF16, "wv", (de, a)), _ptr(w["wo"], BF16, "wo", (a, d))]
-    _aligned(dict(zip(("x", "enc", "wq", "wk", "wv", "wo"), mats)), "fused_attention")
-    vecs, vec16 = _vecs([("bq", w["bq"], (a,)), ("bk", w["bk"], (a,)), ("bv", w["bv"], (a,)),
-                         ("bo", w["bo"], (d,)), ("ln_gamma", ln[0] if ln else None, (d,)),
-                         ("ln_beta", ln[1] if ln else None, (d,))])
-    (g,), gates16 = _vecs([("gates", gates, (heads,))])
-    bq, bk, bv, bo, lg, lb = map(_addr, vecs)
-    kb = _ptr(key_bias, F32, "key_bias", (batch, s))
-    dev = x.device
-    ws = [torch.empty(rq, a, dtype=BF16, device=dev), torch.empty(rkv, a, dtype=BF16, device=dev),
-          torch.empty(rkv, a, dtype=BF16, device=dev), torch.empty(rq, a, dtype=BF16, device=dev),
-          torch.empty(rq, d, dtype=F32, device=dev) if ln_route == 2 else None]
-    out = torch.empty(rq, d, dtype=BF16, device=dev)
-    pitch = -(-s // 4) * 4
-    maps = torch.empty(batch, heads, tq, pitch, dtype=F32, device=dev) if probs else None
-    _check(library().evlm_fused_attention(
-        mats[0], mats[1], mats[2], bq, mats[3], bk, mats[4], bv, mats[5], bo, kb, _addr(g), lg,
-        lb, *map(_addr, ws), out.data_ptr(), _addr(maps), pitch, batch, tq, s, d, de, heads, dh,
-        core, rows, warps, ln_route, vec16, gates16, float(ln_eps), _stream(x)),
-        "fused_attention")
-    if not probs:
-        return out
-    probs_routes["attn_probs" if rows else "attn_core"] += 1
-    return out, maps[..., :s]
+    padded maps trimmed. The probs form's core follows probs_tile. The call
+    runs under the span evlm.fused_attention (train/profiler.span)."""
+    with span("evlm.fused_attention"):
+        d, de = x.shape[1], enc.shape[1]
+        a = w["wq"].shape[1]
+        dh = a // heads
+        if dh * heads != a or dh not in (32, 64, 128):
+            raise ValueError(f"fused_attention: width {a} over {heads} heads "
+                             f"(head dim must be 32, 64 or 128)")
+        if d % 8 or de % 8:
+            raise ValueError(f"fused_attention: widths {d}, {de} must be multiples of 8")
+        if probs and grouped:
+            raise ValueError("fused_attention: the grouped sublayer has no probs form")
+        rows, warps = probs_tile(dh, tq, s) if probs else (0, 0)
+        core = 2 if rows else 1 if wgmma_core_fits(dh, grouped) else 0
+        ln_route = 0 if ln is None else (1 if gemm_ln_fits(d) else 2)
+        rq, rkv = batch * tq, batch * s
+        mats = [_ptr(x, BF16, "x", (rq, d)), _ptr(enc, BF16, "enc", (rkv, de)),
+                _ptr(w["wq"], BF16, "wq", (d, a)), _ptr(w["wk"], BF16, "wk", (de, a)),
+                _ptr(w["wv"], BF16, "wv", (de, a)), _ptr(w["wo"], BF16, "wo", (a, d))]
+        _aligned(dict(zip(("x", "enc", "wq", "wk", "wv", "wo"), mats)), "fused_attention")
+        vecs, vec16 = _vecs([("bq", w["bq"], (a,)), ("bk", w["bk"], (a,)), ("bv", w["bv"], (a,)),
+                             ("bo", w["bo"], (d,)), ("ln_gamma", ln[0] if ln else None, (d,)),
+                             ("ln_beta", ln[1] if ln else None, (d,))])
+        (g,), gates16 = _vecs([("gates", gates, (heads,))])
+        bq, bk, bv, bo, lg, lb = map(_addr, vecs)
+        kb = _ptr(key_bias, F32, "key_bias", (batch, s))
+        dev = x.device
+        ws = [torch.empty(rq, a, dtype=BF16, device=dev), torch.empty(rkv, a, dtype=BF16, device=dev),
+              torch.empty(rkv, a, dtype=BF16, device=dev), torch.empty(rq, a, dtype=BF16, device=dev),
+              torch.empty(rq, d, dtype=F32, device=dev) if ln_route == 2 else None]
+        out = torch.empty(rq, d, dtype=BF16, device=dev)
+        pitch = -(-s // 4) * 4
+        maps = torch.empty(batch, heads, tq, pitch, dtype=F32, device=dev) if probs else None
+        _check(library().evlm_fused_attention(
+            mats[0], mats[1], mats[2], bq, mats[3], bk, mats[4], bv, mats[5], bo, kb, _addr(g), lg,
+            lb, *map(_addr, ws), out.data_ptr(), _addr(maps), pitch, batch, tq, s, d, de, heads, dh,
+            core, rows, warps, ln_route, vec16, gates16, float(ln_eps), _stream(x)),
+            "fused_attention")
+        if not probs:
+            return out
+        probs_routes["attn_probs" if rows else "attn_core"] += 1
+        return out, maps[..., :s]
 
 
 def gemm_bias(a: torch.Tensor, b: torch.Tensor, bias: Optional[torch.Tensor] = None,

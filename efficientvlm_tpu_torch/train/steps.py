@@ -19,6 +19,10 @@ teacher runs under torch.no_grad and its taps are cut to the ones the
 student is matched with (subset_teacher_taps) right after its forward, as
 JAX's split step does. The step's parts are methods, so a caller can time
 them: teacher_forward, loss_and_grads (student forward + backward), apply.
+A step marks them with spans (train/profiler.span): evlm.step.teacher,
+evlm.step.student with evlm.step.gates (the L0 gates' draw and the
+Lagrangian) and evlm.step.backward inside, evlm.step.sync (the ranks'
+average) and evlm.step.apply (the optimizers).
 
 Above one process each step carries a utils/dist.GradientSync as
 `data_parallel` (drivers/common.build_train_step sets it): __call__ first
@@ -40,6 +44,7 @@ from ..pruning.hard_concrete import constrain_loga
 from ..pruning.l0_module import L0Module
 from . import distill as D
 from .optim import tree_leaves
+from .profiler import span
 
 
 @dataclass
@@ -84,7 +89,8 @@ def apply_updates_3way(state: TrainState, grads, optimizers) -> TrainState:
 def _grads_by_group(loss: torch.Tensor, groups: list) -> tuple:
     """loss's gradients over each list of leaves, one list per group (None
     where a leaf gets none)."""
-    grads = torch.autograd.grad(loss, [t for g in groups for t in g], allow_unused=True)
+    with span("evlm.step.backward"):
+        grads = torch.autograd.grad(loss, [t for g in groups for t in g], allow_unused=True)
     out, at = [], 0
     for g in groups:
         out.append(list(grads[at:at + len(g)]))
@@ -107,7 +113,8 @@ def _dp_sync(step, metrics: dict, grads):
     as they are."""
     if step.data_parallel is None:
         return metrics, grads
-    return step.data_parallel(metrics, grads)
+    with span("evlm.step.sync"):
+        return step.data_parallel(metrics, grads)
 
 
 def retrieval_kd_losses(student_outputs: dict, teacher_outputs: dict, *,
@@ -211,7 +218,8 @@ class RetrievalTrainStep:
         for leaf in (t for g in groups for t in g):
             leaf.requires_grad_(True)
         with torch.enable_grad():
-            zs = self.l0.forward_train({"loga": state.loga}, generator, noise=noise)
+            with span("evlm.step.gates"):
+                zs = self.l0.forward_train({"loga": state.loga}, generator, noise=noise)
             student_outputs = self.student.forward(
                 state.params, batch["image"], batch["text_ids"], batch["text_atts"],
                 idx=batch.get("idx"), zs=zs, generator=generator, output_attentions=True,
@@ -221,9 +229,10 @@ class RetrievalTrainStep:
                                      temperature=self.temperature)
             loss_itc = student_outputs["loss"]["loss_itc"]
             loss_itm = student_outputs["loss"]["loss_itm"]
-            lagrangian_loss, expected_sparsity, target_sparsity = (
-                self.l0.lagrangian_regularization({"loga": state.loga, **state.lam},
-                                                  state.step))
+            with span("evlm.step.gates"):
+                lagrangian_loss, expected_sparsity, target_sparsity = (
+                    self.l0.lagrangian_regularization({"loga": state.loga, **state.lam},
+                                                      state.step))
             loss = (kd["loss_kd"] + loss_itc + loss_itm) * 0.5 + lagrangian_loss
             grads = _grads_by_group(loss, groups)
         del student_outputs
@@ -239,11 +248,15 @@ class RetrievalTrainStep:
                  generator: Optional[torch.Generator] = None, *,
                  noise: Optional[dict] = None) -> dict:
         _dp_begin(self, state)
-        teacher_outputs = self.teacher_forward(batch, generator)
-        metrics, grads = _dp_sync(self, *self.loss_and_grads(state, batch, teacher_outputs,
-                                                             generator, noise=noise))
+        with span("evlm.step.teacher"):
+            teacher_outputs = self.teacher_forward(batch, generator)
+        with span("evlm.step.student"):
+            metrics, grads = self.loss_and_grads(state, batch, teacher_outputs, generator,
+                                                 noise=noise)
+        metrics, grads = _dp_sync(self, metrics, grads)
         del teacher_outputs
-        self.apply(state, grads)
+        with span("evlm.step.apply"):
+            self.apply(state, grads)
         return metrics
 
 
@@ -416,10 +429,11 @@ class TaskTrainStep:
                 zero = torch.zeros((), device=groups[0][0].device)
                 lagrangian_loss, expected_sparsity, target_sparsity = zero, zero, zero
             else:
-                zs = self.l0.forward_train({"loga": state.loga}, generator, noise=noise)
-                lagrangian_loss, expected_sparsity, target_sparsity = (
-                    self.l0.lagrangian_regularization({"loga": state.loga, **state.lam},
-                                                      state.step))
+                with span("evlm.step.gates"):
+                    zs = self.l0.forward_train({"loga": state.loga}, generator, noise=noise)
+                    lagrangian_loss, expected_sparsity, target_sparsity = (
+                        self.l0.lagrangian_regularization({"loga": state.loga, **state.lam},
+                                                          state.step))
             student_outputs = self.student_forward(state.params, zs, batch, generator)
             kd = self.kd_fn(student_outputs, teacher_outputs)
             loss_task = student_outputs["loss"]
@@ -445,11 +459,15 @@ class TaskTrainStep:
                  generator: Optional[torch.Generator] = None, *,
                  noise: Optional[dict] = None) -> dict:
         _dp_begin(self, state)
-        teacher_outputs = self.teacher_forward(batch)
-        metrics, grads = _dp_sync(self, *self.loss_and_grads(state, batch, teacher_outputs,
-                                                             generator, noise=noise))
+        with span("evlm.step.teacher"):
+            teacher_outputs = self.teacher_forward(batch)
+        with span("evlm.step.student"):
+            metrics, grads = self.loss_and_grads(state, batch, teacher_outputs, generator,
+                                                 noise=noise)
+        metrics, grads = _dp_sync(self, metrics, grads)
         del teacher_outputs
-        self.apply(state, grads)
+        with span("evlm.step.apply"):
+            self.apply(state, grads)
         return metrics
 
 
@@ -578,7 +596,8 @@ class PretrainTrainStep:
             leaf.requires_grad_(True)
         with torch.enable_grad():
             loss, metrics = loss_fn()
-            grads = torch.autograd.grad(loss, leaves, allow_unused=True)
+            with span("evlm.step.backward"):
+                grads = torch.autograd.grad(loss, leaves, allow_unused=True)
         return {k: v.detach() for k, v in metrics.items()}, list(grads)
 
     def loss_and_grads(self, state: PretrainState, batch: dict,
@@ -599,8 +618,11 @@ class PretrainTrainStep:
     def __call__(self, state: PretrainState, batch: dict,
                  generator: Optional[torch.Generator] = None) -> dict:
         _dp_begin(self, state)
-        metrics, grads = _dp_sync(self, *self.loss_and_grads(state, batch, generator))
-        self.apply(state, grads)
+        with span("evlm.step.student"):
+            metrics, grads = self.loss_and_grads(state, batch, generator)
+        metrics, grads = _dp_sync(self, metrics, grads)
+        with span("evlm.step.apply"):
+            self.apply(state, grads)
         return metrics
 
 
@@ -655,11 +677,14 @@ class GDTrainStep(PretrainTrainStep):
     def __call__(self, state: PretrainState, batch: dict,
                  generator: Optional[torch.Generator] = None) -> dict:
         _dp_begin(self, state)
-        teacher_outputs = self.teacher_forward(batch, generator)
-        metrics, grads = _dp_sync(self, *self.loss_and_grads(state, batch, teacher_outputs,
-                                                             generator))
+        with span("evlm.step.teacher"):
+            teacher_outputs = self.teacher_forward(batch, generator)
+        with span("evlm.step.student"):
+            metrics, grads = self.loss_and_grads(state, batch, teacher_outputs, generator)
+        metrics, grads = _dp_sync(self, metrics, grads)
         del teacher_outputs
-        self.apply(state, grads)
+        with span("evlm.step.apply"):
+            self.apply(state, grads)
         return metrics
 
 

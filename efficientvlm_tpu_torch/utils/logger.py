@@ -13,6 +13,10 @@ import time
 from collections import defaultdict, deque
 from typing import Iterable, Optional
 
+from ..train.profiler import span
+
+_END = object()  # log_every's iterable is exhausted
+
 
 class SmoothedValue:
     def __init__(self, window_size: int = 20, fmt: str = "{median:.4f} ({global_avg:.4f})"):
@@ -108,7 +112,12 @@ class MetricLogger:
                 total = len(iterable)  # type: ignore[arg-type]
             except TypeError:
                 total = None
-        for obj in iterable:
+        items = iter(iterable)
+        while True:
+            with span("evlm.loop.wait"):
+                obj = next(items, _END)
+            if obj is _END:
+                break
             data_time.update(time.time() - end)
             yield obj
             iter_time.update(time.time() - end)

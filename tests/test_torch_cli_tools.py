@@ -13,7 +13,7 @@ train/profiler.py), against JAX's scripts run in this process:
   model (ROADMAP C);
 - infer on one reference-keyed .th (f32): the captions of a folder and the
   VQA answers equal JAX's scripts/infer.py's;
-- profiler.time_fn (pipelined and latency) and trace on the CPU.
+- profiler.trace on the CPU.
 """
 
 import contextlib
@@ -261,19 +261,6 @@ def test_infer_runs_on_the_card_by_default(infer_files):
 # ---------------------------------------------------------------------------
 # profiler
 # ---------------------------------------------------------------------------
-
-
-@pytest.mark.parametrize("pipelined", [True, False])
-def test_time_fn_on_the_cpu(pipelined):
-    from efficientvlm_tpu_torch.train import profiler as P
-
-    calls = []
-    x = torch.randn(64, 64)
-    out = P.time_fn(lambda a: calls.append(1) or a @ a, x, iters=5, warmup=2, pipelined=pipelined)
-    assert len(calls) == 7
-    assert set(out) == {"mean_s", "median_s", "min_s", "iters", "pipelined"}
-    assert out["iters"] == 5 and out["pipelined"] is pipelined
-    assert 0 < out["min_s"] <= out["median_s"] and out["mean_s"] > 0
 
 
 def test_trace_on_the_cpu(tmp_path):

@@ -54,6 +54,7 @@ from efficientvlm_tpu_torch.evaluation import retrieval as TR
 from efficientvlm_tpu_torch.pruning.export import prune_xvlm_params
 from efficientvlm_tpu_torch.train import checkpoint as TC
 from efficientvlm_tpu_torch.train import optim as TO
+from efficientvlm_tpu_torch.train import profiler as TPROF
 from efficientvlm_tpu_torch.train import steps as TS
 from efficientvlm_tpu_torch.train.steps import init_train_state, make_retrieval_train_step
 from efficientvlm_tpu_torch.utils import dist as TD
@@ -432,6 +433,37 @@ def test_step_profiler_writes_a_trace(corpus, tmp_path):
     with open(trace / "trace.json") as f:
         names = {e.get("name") for e in json.load(f)["traceEvents"]}
     assert "aten::mm" in names or "aten::addmm" in names
+    assert {"evlm.loop.step", "evlm.step.student", "evlm.step.backward"} <= names
+
+
+def test_main_records_the_loop_and_step_spans(corpus, tmp_path):
+    """main under profiler.recording (16 images, 4 steps): each of
+    evlm.loop.batch, .step and .after once a step, evlm.loop.wait once a
+    step and once more for the loader's end; inside each evlm.loop.step the
+    teacher, the student and the apply in turn, and inside the student the
+    gates' two ranges and the backward."""
+    with TPROF.recording() as log:
+        out = TDR.main(_args(tmp_path / "out"), _config(corpus))
+    steps = out["epochs"][0]["steps"]
+    assert steps == 4
+    loop = [(i, n) for i, (n, _, _, _) in enumerate(log) if n.startswith("evlm.loop.")]
+    assert [n for _, n in loop] == (["evlm.loop.wait", "evlm.loop.batch", "evlm.loop.step",
+                                     "evlm.loop.after"] * steps + ["evlm.loop.wait"])
+    assert len({log[i][1] for i, _ in loop}) == 1  # all under one parent
+
+    def children(i):
+        return [(j, log[j][0]) for j in range(len(log)) if log[j][1] == i]
+
+    for i, name in loop:
+        if name != "evlm.loop.step":
+            continue
+        parts = children(i)
+        assert [n for _, n in parts] == ["evlm.step.teacher", "evlm.step.student",
+                                         "evlm.step.apply"]
+        student = parts[1][0]
+        assert [n for _, n in children(student)] == ["evlm.step.gates", "evlm.step.gates",
+                                                     "evlm.step.backward"]
+    assert "evlm.eval.rerank" in {n for n, _, _, _ in log}  # the epoch's validation
 
 
 def test_a_forked_child_still_dies_of_sigterm():
