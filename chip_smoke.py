@@ -450,6 +450,33 @@ def kernel_cases(rnd):
     # 30 target tokens over 30 source states, drawn apart from the others
     cases.append(cross_case("crossgen_decoder_b16_t30_s30", 16, 30, 30, 768, 12, r=Rand(11)))
 
+    def bank_case(case, a, heads, r):
+        # #3's bank form at a t2i rerank chunk's cross layer: 4 texts x 256
+        # candidates over a cross-K/V bank of 256 images, each image read by
+        # 4 rows (every text's candidates are all the images)
+        n, bsz, t, s = 256, 1024, 40, 577
+        prm, x, enc = r.attn(d, a), r(bsz, t, d), r(n, s, d)
+        bank = F.project_kv_rows(prm, enc)
+        rows = torch.cat([torch.randperm(n, generator=r.g, device="cuda")
+                          for _ in range(bsz // n)]).to(torch.int32)
+        mask, hz = r.mask(bsz, s, s // 4), r.gates(heads)
+        kb = F._key_bias(bsz, s, mask, None, x.device)
+        flops = 2 * bsz * t * d * a * 2 + 4 * bsz * t * s * a
+        # the K/V of each pair read from the bank, as the kernel reads them
+        nbytes = 2 * (2 * x.numel() + 2 * d * a + 2 * bsz * s * a) + 4 * bsz * (s + 1)
+        return ("fused_cross_attention_bank", case,
+                lambda: F.fused_cross_attention_bank(prm, x, bank["k"], bank["v"], rows,
+                                                     num_heads=heads, mask=mask, head_z=hz),
+                lambda: F.cross_attention_bank_plain(prm, x, bank["k"], bank["v"], rows, kb, hz,
+                                                     heads), flops, nbytes,
+                (prm, x, bank, rows, mask, hz, heads))
+
+    # drawn from their own generator, so the draws above and below stay as
+    # they were; A 576 is 9 heads, about what the export keeps a cross layer
+    r_bank = Rand(12)
+    cases.append(bank_case("t2i_bank_b1024_n256_a768", 768, 12, r_bank))
+    cases.append(bank_case("t2i_bank_b1024_n256_a576", 576, 9, r_bank))
+
     def grouped_case(case, a, heads, with_ln):
         bk, g, t, s = 4, 256, 40, 577
         prm, x, enc = rnd.attn(d, a), rnd(bk * g, t, d), rnd(bk, s, d)
@@ -785,7 +812,8 @@ def build_model(layers: int):
 
 def wrappers():
     """name -> (wrapper, its count attribute); the probs forms of #2 / #3
-    are counted apart from their plain forms."""
+    are counted apart from their plain forms, #3's bank form (the t2i
+    rerank over a cross-K/V bank) last."""
     from efficientvlm_tpu_torch.ops import flash_attention as FA
     from efficientvlm_tpu_torch.ops import fused_mha as F
     from efficientvlm_tpu_torch.ops.patch_embed import fused_patch_embed
@@ -797,7 +825,8 @@ def wrappers():
             "flash_attention": (FA.flash_attention, "launches"),
             "flash_attention_grouped": (FA.flash_attention_grouped, "launches"),
             "fused_self_attention_probs": (F.fused_self_attention, "probs_launches"),
-            "fused_cross_attention_probs": (F.fused_cross_attention, "probs_launches")}
+            "fused_cross_attention_probs": (F.fused_cross_attention, "probs_launches"),
+            "fused_cross_attention_bank": (F.fused_cross_attention_bank, "launches")}
 
 
 ROUTES = ("attn_probs", "attn_core")  # bindings.probs_routes: the core of each probs call
@@ -898,14 +927,16 @@ def phase_slice(rnd):
     txt_emb = img_emb[np.arange(n_txt) // per] + 0.5 * gen.standard_normal((n_txt, 256))
     img_emb /= np.linalg.norm(img_emb, axis=1, keepdims=True)
     txt_emb = (txt_emb / np.linalg.norm(txt_emb, axis=1, keepdims=True)).astype(np.float32)
+    banked = R.t2i_chunks["bank"]
     t0 = time.perf_counter()
     s_i2t, s_t2i = R.retrieval_scores(teacher, t_bf16, img_feats, img_emb, txt_feats,
                                       txt_bank_atts, txt_emb, k_test=k_test, dtype=bf16)
     torch.cuda.synchronize()
     scores_s = time.perf_counter() - t0
-    chunks_i2t, chunks_t2i = n_img // 4, n_txt // 4
-    c = expect_launches(c, (0, 6 * (chunks_i2t + chunks_t2i), 6 * chunks_t2i, 6 * chunks_i2t,
-                            0, 0), "retrieval_scores")
+    chunks_i2t, chunks_t2i = n_img // 4, n_txt // 4  # t2i over the cross-K/V bank
+    check(R.t2i_chunks["bank"] - banked == chunks_t2i, "a t2i chunk did not read the bank")
+    c = expect_launches(c, (0, 6 * (chunks_i2t + chunks_t2i), 0, 6 * chunks_i2t, 0, 0, 0, 0,
+                            6 * chunks_t2i), "retrieval_scores")
     check(bool(((s_i2t > -100).sum(1) == k_test).all()) and
           bool(((s_t2i > -100).sum(1) == k_test).all()), "rerank filled the wrong entries")
     check(bool(np.isfinite(s_i2t).all() and np.isfinite(s_t2i).all()), "scores not finite")
@@ -915,6 +946,24 @@ def phase_slice(rnd):
     print(f"retrieval_scores {n_img} images x {n_txt} texts, k_test {k_test}: "
           f"{scores_s:.2f} s host clock; itm_eval {json.dumps(metrics)}")
     main_launches = counts()
+
+    # the same matrices with the bank refused (the fit rule sees no free
+    # memory): the t2i chunks expand their images and project each pair's
+    # K/V through #3, and score bit for bit as the bank does
+    free_bytes, R._free_bytes = R._free_bytes, lambda dev: 0
+    projected = R.t2i_chunks["projected"]
+    try:
+        p_i2t, p_t2i = R.retrieval_scores(teacher, t_bf16, img_feats, img_emb, txt_feats,
+                                          txt_bank_atts, txt_emb, k_test=k_test, dtype=bf16)
+    finally:
+        R._free_bytes = free_bytes
+    expect_launches(main_launches, (0, 6 * (chunks_i2t + chunks_t2i), 6 * chunks_t2i,
+                                    6 * chunks_i2t), "retrieval_scores without the bank")
+    check(R.t2i_chunks["projected"] - projected == chunks_t2i, "the bank was not refused")
+    same = np.array_equal(p_i2t, s_i2t) and np.array_equal(p_t2i, s_t2i)
+    print(f"retrieval_scores with and without the cross-K/V bank: matrices equal bit for bit "
+          f"{same}; t2i max_abs_diff {np.abs(p_t2i - s_t2i).max():.4e}")
+    check(same, "the bank's t2i scores differ from the expanded chunks'")
 
     # kernel path against the plain path, the same f32 params, bf16 compute
     with torch.inference_mode():
@@ -3367,8 +3416,9 @@ def data_retrieval_eval(files, tokenizer, run: dict, c: dict):
             chunks_i2t, chunks_t2i = n_img // 4, n_txt // 4
             text_batches = -(-n_txt // 256)
             c = expect_launches(c, (len(images), 6 * len(images) + 3 * text_batches
-                                    + 3 * (chunks_i2t + chunks_t2i), 3 * chunks_t2i,
-                                    3 * chunks_i2t), "retrieval evaluation from files")
+                                    + 3 * (chunks_i2t + chunks_t2i), 0, 3 * chunks_i2t,
+                                    0, 0, 0, 0, 3 * chunks_t2i),
+                                "retrieval evaluation from files")
         else:
             c = expect_launches(c, (), "retrieval evaluation from files, plain path")
         check(bool(np.isfinite(s_i2t).all() and np.isfinite(s_t2i).all()),
@@ -3829,14 +3879,16 @@ def eval_recorder():
 
 
 def eval_launches(config, n_img: int, n_txt: int, counts_=(6, 3, 3, 3)) -> tuple:
-    """The evaluation's launches (#1, #2, #3, #4) over n_img images and
-    n_txt captions at the config's batches and k_test, for a student with
+    """The evaluation's launches (wrappers() order: #1, #2, #4, and the t2i
+    chunks' #3 over the cross-K/V bank) over n_img images and n_txt
+    captions at the config's batches and k_test, for a student with
     counts_ = (ViT, text, fusion self, fusion cross) attention sublayers."""
     vit, text, fself, fcross = counts_
     img_b = -(-n_img // config["batch_size_test"])
     txt_b = -(-n_txt // config["batch_size_test_text"])
     i2t, t2i = -(-n_img // 4), -(-n_txt // 4)  # rows_per_call 4
-    return (img_b, vit * img_b + text * txt_b + fself * (i2t + t2i), fcross * t2i, fcross * i2t)
+    return (img_b, vit * img_b + text * txt_b + fself * (i2t + t2i), 0, fcross * i2t,
+            0, 0, 0, 0, fcross * t2i)
 
 
 def loop_trace(path: str, steps: int) -> dict:
@@ -3865,10 +3917,11 @@ def run_launches(rec: dict, c: dict, steps: int, val: tuple, what: str) -> dict:
     DRIVER_STEP, and the run's total those steps plus `val` (#1-#4 of its
     validation, () for none)."""
     got = rec["launches"]
-    check(len(got) == steps and all(x == DRIVER_STEP for x in got),
-          f"{what}: {len(got)} steps, launches {sorted(set(got))} (each {DRIVER_STEP})")
-    val = tuple(val) + (0,) * (len(DRIVER_STEP) - len(val))
-    return expect_launches(c, tuple(steps * a + b for a, b in zip(DRIVER_STEP, val)), what)
+    step = DRIVER_STEP + (0,) * (len(wrappers()) - len(DRIVER_STEP))
+    check(len(got) == steps and all(x == step for x in got),
+          f"{what}: {len(got)} steps, launches {sorted(set(got))} (each {step})")
+    val = tuple(val) + (0,) * (len(step) - len(val))
+    return expect_launches(c, tuple(steps * a + b for a, b in zip(step, val)), what)
 
 
 def timed_call(report: dict, key: str):
@@ -5811,7 +5864,7 @@ DDP_UNIT = dict(steps=3, world_batch=24, timeout=480, nccl_timeout=120)
 # a multihost_check step: DRIVER_STEP's and, at dropout 0, the student's BERT
 # sublayers on the probs forms too (text 3 + ITM pos / neg fusion 3 + 3 self,
 # 2 x 3 cross): #1 x2, #2p x45, #3p x18
-DDP_STEP = (2, 0, 0, 0, 0, 0, 45, 18)
+DDP_STEP = (2, 0, 0, 0, 0, 0, 45, 18, 0)
 DDP_GROUPS = (("params", "params"), ("loga", "loga"), ("lam", "lambda"))
 
 
@@ -6518,7 +6571,10 @@ def library_yardstick(name, args):
         return x.reshape(b, t, h, a // h).transpose(1, 2)
 
     def attend(prm, x, enc, mask, hz, h, fold=1):
-        q, k, v = proj(x, prm["q"]), proj(enc, prm["k"]), proj(enc, prm["v"])
+        return attend_kv(prm, x, proj(enc, prm["k"]), proj(enc, prm["v"]), mask, hz, h, fold)
+
+    def attend_kv(prm, x, k, v, mask, hz, h, fold=1):
+        q = proj(x, prm["q"])
         b, t, a = q.shape
         q = heads(q.reshape(b // fold, fold * t, a), h)
         bias = ((1.0 - mask.to(q.dtype)) * -1e9)[:, None, None, :]
@@ -6539,6 +6595,10 @@ def library_yardstick(name, args):
             return lambda: attend(prm, x, enc, mask, hz, h, fold)
         return lambda: Fn.layer_norm(x + attend(prm, x, enc, mask, hz, h, fold), (x.shape[-1],),
                                      ln["scale"].to(x.dtype), ln["bias"].to(x.dtype), 1e-12)
+    if name == "fused_cross_attention_bank":  # the bank's rows gathered, then as #3
+        prm, x, bank, rows, mask, hz, h = args
+        idx = rows.long()
+        return lambda: attend_kv(prm, x, bank["k"][idx], bank["v"][idx], mask, hz, h)
     if name == "flash_attention":  # on the same views, scaled by SDPA
         q, k, v, bias, scale = args
         mask = None if bias is None else bias.to(q.dtype)
@@ -6579,6 +6639,9 @@ KERNEL_META = {
                               "efficientvlm_tpu/ops/pallas_fused_mha.py:270"),
     "fused_cross_attention_grouped": ("efficientvlm_tpu_torch/csrc/fused_mha.cu",
                                       "efficientvlm_tpu/ops/pallas_fused_mha.py:624"),
+    # #3 after its K/V projection, reading a cross-K/V bank by row
+    "fused_cross_attention_bank": ("efficientvlm_tpu_torch/csrc/fused_mha.cu",
+                                   "efficientvlm_tpu/ops/pallas_fused_mha.py:270"),
     "flash_attention": ("efficientvlm_tpu_torch/csrc/flash_attention.cu",
                         "efficientvlm_tpu/ops/pallas_attention.py:81"),
     "flash_attention_grouped": ("efficientvlm_tpu_torch/csrc/flash_attention.cu",

@@ -1,6 +1,12 @@
 // attn_core: per head, ctx = softmax(q k^T * scale + key_bias) v * gate[h],
 // over projected q [B*Tq, A], k/v [B*S, A] (A = H*DH, heads side by side),
-// written as ctx [B*Tq, A] bf16.
+// written as ctx [B*Tq, A] bf16. The indexed form (kv_rows, int32 [B]) reads
+// batch row b's K/V at row kv_rows[b] of a bank k/v [N*S, A] instead of at
+// row b: the t2i rerank's candidates read each image's K/V, projected once a
+// pass, in place (ops/fused_mha.fused_cross_attention_bank). Without
+// kv_rows the addressing is b * S * A, as it always was; the key bias stays
+// per batch row either way. A row outside [0, N) reads nothing: its context
+// is NaN (checking the rows on the host would wait for the device).
 //
 // Replaces the attention part of the bodies of
 // efficientvlm_tpu/ops/pallas_fused_mha.py: _fused_kernel (self),
@@ -92,12 +98,13 @@ __device__ __forceinline__ void load_rows(__nv_bfloat16* dst, const __nv_bfloat1
   }
 }
 
-template <int DH, bool PROBS>
+template <int DH, bool PROBS, bool ROWS>
 __global__ void __launch_bounds__(MAX_WARPS * 32, DH == 128 ? 1 : 2)
 attn_core_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
                  const __nv_bfloat16* __restrict__ v, const float* __restrict__ key_bias,
                  const void* __restrict__ gates, bool gates16, __nv_bfloat16* __restrict__ out,
-                 float* __restrict__ probs, int pitch, int Tq, int S, int ld, float scale) {
+                 float* __restrict__ probs, int pitch, const int* __restrict__ kv_rows,
+                 int n_kv, int Tq, int S, int ld, float scale) {
   using L = Layout<DH>;
   extern __shared__ __align__(128) unsigned char smem[];
   const int warps = blockDim.x / 32, warp = threadIdx.x / 32, lane = threadIdx.x % 32;
@@ -108,8 +115,17 @@ attn_core_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __res
 
   const int t0 = blockIdx.x * warps * 16, h = blockIdx.y, b = blockIdx.z;
   const size_t col = (size_t)h * DH;
-  const __nv_bfloat16* kg = k + (size_t)b * S * ld + col;
-  const __nv_bfloat16* vg = v + (size_t)b * S * ld + col;
+  // the indexed form: this batch row's K/V are bank row kv_rows[b]; a row
+  // outside the bank writes NaN and reads nothing (the block leaves whole)
+  if (ROWS && static_cast<unsigned>(kv_rows[b]) >= static_cast<unsigned>(n_kv)) {
+    const int rows = min(warps * 16, Tq - t0);
+    for (int c = threadIdx.x; c < rows * DH; c += blockDim.x)
+      out[((size_t)b * Tq + t0 + c / DH) * ld + col + c % DH] = __float2bfloat16(nanf(""));
+    return;
+  }
+  const size_t kv_b = ROWS ? (size_t)kv_rows[b] : (size_t)b;
+  const __nv_bfloat16* kg = k + kv_b * S * ld + col;
+  const __nv_bfloat16* vg = v + kv_b * S * ld + col;
   const float* kb = key_bias + (size_t)b * S;
   const int ntiles = (S + TK - 1) / TK;
   // the probs form walks the key tiles twice (see the note at the top)
@@ -341,35 +357,40 @@ attn_core_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __res
   }
 }
 
-template <int DH, bool PROBS>
+template <int DH, bool PROBS, bool ROWS>
 cudaError_t launch(const void* q, const void* k, const void* v, const float* key_bias,
                    const void* gates, bool gates16, void* out, float* probs, int pitch,
-                   int batch, int Tq, int S, int heads, int ld, float scale,
-                   cudaStream_t stream) {
+                   const int* kv_rows, int n_kv, int batch, int Tq, int S, int heads, int ld,
+                   float scale, cudaStream_t stream) {
   // a 128-row query tile for long query runs, else just enough 16-row warps
   const int warps = Tq > 64 ? MAX_WARPS : (Tq + 15) / 16;
   static DeviceCache cache;
   int sms = 0;
-  cudaError_t e = once_per_device(cache, reinterpret_cast<const void*>(attn_core_kernel<DH, PROBS>),
-                                  static_cast<int>(Layout<DH>::bytes(MAX_WARPS)), &sms);
+  cudaError_t e = once_per_device(
+      cache, reinterpret_cast<const void*>(attn_core_kernel<DH, PROBS, ROWS>),
+      static_cast<int>(Layout<DH>::bytes(MAX_WARPS)), &sms);
   if (e != cudaSuccess) return e;
   dim3 grid((Tq + warps * 16 - 1) / (warps * 16), heads, batch);
-  attn_core_kernel<DH, PROBS><<<grid, warps * 32, Layout<DH>::bytes(warps), stream>>>(
+  attn_core_kernel<DH, PROBS, ROWS><<<grid, warps * 32, Layout<DH>::bytes(warps), stream>>>(
       static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
       static_cast<const __nv_bfloat16*>(v), key_bias, gates, gates16,
-      static_cast<__nv_bfloat16*>(out), probs, pitch, Tq, S, ld, scale);
+      static_cast<__nv_bfloat16*>(out), probs, pitch, kv_rows, n_kv, Tq, S, ld, scale);
   return cudaGetLastError();
 }
 
 template <int DH>
 cudaError_t launch_dh(const void* q, const void* k, const void* v, const float* key_bias,
                       const void* gates, bool gates16, void* out, float* probs, int pitch,
-                      int batch, int Tq, int S, int heads, int ld, float scale,
-                      cudaStream_t stream) {
-  return probs ? launch<DH, true>(q, k, v, key_bias, gates, gates16, out, probs, pitch, batch,
-                                  Tq, S, heads, ld, scale, stream)
-               : launch<DH, false>(q, k, v, key_bias, gates, gates16, out, nullptr, 0, batch,
-                                   Tq, S, heads, ld, scale, stream);
+                      const int* kv_rows, int n_kv, int batch, int Tq, int S, int heads,
+                      int ld, float scale, cudaStream_t stream) {
+  if (probs)
+    return launch<DH, true, false>(q, k, v, key_bias, gates, gates16, out, probs, pitch,
+                                   nullptr, 0, batch, Tq, S, heads, ld, scale, stream);
+  if (kv_rows)
+    return launch<DH, false, true>(q, k, v, key_bias, gates, gates16, out, nullptr, 0, kv_rows,
+                                   n_kv, batch, Tq, S, heads, ld, scale, stream);
+  return launch<DH, false, false>(q, k, v, key_bias, gates, gates16, out, nullptr, 0, nullptr,
+                                  0, batch, Tq, S, heads, ld, scale, stream);
 }
 
 }  // namespace
@@ -383,26 +404,30 @@ namespace evlm {
 // or f32, or null for all ones. head_dim is 32, 64 or 128. probs (or null):
 // the probs form also writes the pre-gate f32 probabilities [batch, heads,
 // Tq, S] with rows `pitch` floats apart (pitch >= S, even; 8-byte aligned).
+// kv_rows (or null): the indexed form, k/v [n_kv*S, ld] and batch row b's
+// K/V at row kv_rows[b] (a row outside [0, n_kv) gets a NaN context); no
+// probs form.
 static inline cudaError_t attn_core(const void* q, const void* k, const void* v,
                                     const float* key_bias, const void* gates, bool gates16,
                                     void* out, int batch, int Tq, int S, int heads, int head_dim,
                                     float scale, cudaStream_t s, float* probs = nullptr,
-                                    int pitch = 0) {
+                                    int pitch = 0, const int* kv_rows = nullptr,
+                                    int n_kv = 0) {
   using attn_impl::launch_dh;
-  if (batch <= 0 || Tq <= 0 || S <= 0 || heads <= 0 ||
+  if (batch <= 0 || Tq <= 0 || S <= 0 || heads <= 0 || (probs && kv_rows) ||
       (probs && (pitch < S || pitch % 2 || reinterpret_cast<uintptr_t>(probs) % 8)))
     return cudaErrorInvalidValue;
   const int ld = heads * head_dim;
   switch (head_dim) {
     case 32:
-      return launch_dh<32>(q, k, v, key_bias, gates, gates16, out, probs, pitch, batch, Tq, S,
-                           heads, ld, scale, s);
+      return launch_dh<32>(q, k, v, key_bias, gates, gates16, out, probs, pitch, kv_rows, n_kv,
+                           batch, Tq, S, heads, ld, scale, s);
     case 64:
-      return launch_dh<64>(q, k, v, key_bias, gates, gates16, out, probs, pitch, batch, Tq, S,
-                           heads, ld, scale, s);
+      return launch_dh<64>(q, k, v, key_bias, gates, gates16, out, probs, pitch, kv_rows, n_kv,
+                           batch, Tq, S, heads, ld, scale, s);
     case 128:
-      return launch_dh<128>(q, k, v, key_bias, gates, gates16, out, probs, pitch, batch, Tq, S,
-                            heads, ld, scale, s);
+      return launch_dh<128>(q, k, v, key_bias, gates, gates16, out, probs, pitch, kv_rows, n_kv,
+                            batch, Tq, S, heads, ld, scale, s);
     default: return cudaErrorInvalidValue;
   }
 }

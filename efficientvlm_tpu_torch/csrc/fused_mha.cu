@@ -42,6 +42,13 @@
 // form (CORE_MMA); the grouped sublayer (eval-only) never asks for maps.
 // Biases and the LN parameters are read as stored, all bf16 (vec16) or all
 // f32; the gates likewise (gates16).
+//
+// A second entry, evlm_fused_attention_bank, is the cross-attention sublayer
+// over a bank of K/V projected once per image (the t2i rerank: each image
+// is a candidate of many texts a pass, so projecting its K/V for every pair
+// did the same GEMM again for each of them): the Q projection, attn_core's
+// indexed form reading query row b's K/V at bank row kv_rows[b], and the
+// output projection: three launches, and no K/V workspace.
 #include "attn_core.cuh"
 #include "attn_probs.cuh"
 #include "attn_wgmma.cuh"
@@ -120,6 +127,32 @@ extern "C" int evlm_fused_attention(
     return e;
   return static_cast<int>(evlm::residual_layernorm(ws_out, x, ln_gamma, ln_beta, v16, out, rows_q,
                                                    d, ln_eps, rows_q, 0, 0, st));
+}
+
+// x [batch*tq, d] bf16; wq [d, A], wo [A, d] bf16; bq [A], bo [d] bf16
+// (vec16) or f32; k_bank/v_bank [n*s, A] bf16, the K/V of n encoder rows
+// projected as evlm_fused_attention projects them; kv_rows [batch] int32,
+// each in [0, n) (a row outside gets NaN: attn_core.cuh); key_bias [batch,
+// s] f32, per query row; gates as above; workspaces ws_q/ws_ctx [batch*tq,
+// A] bf16; out [batch*tq, d] bf16. Every bf16 pointer is 16-byte aligned
+// (TMA).
+extern "C" int evlm_fused_attention_bank(
+    const void* x, const void* wq, const void* bq, const void* wo, const void* bo,
+    const void* k_bank, const void* v_bank, const int* kv_rows, const float* key_bias,
+    const void* gates, void* ws_q, void* ws_ctx, void* out, int n, int batch, int tq, int s,
+    int d, int heads, int head_dim, int vec16, int gates16, void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const int a = heads * head_dim, rows_q = batch * tq;
+  const bool v16 = vec16 != 0;
+  if (!kv_rows || !key_bias) return cudaErrorInvalidValue;
+  cudaError_t e = evlm::gemm_bias(x, wq, bq, nullptr, 1, v16, ws_q, false, rows_q, a, d, st);
+  if (e != cudaSuccess) return e;
+  e = evlm::attn_core(ws_q, k_bank, v_bank, key_bias, gates, gates16 != 0, ws_ctx, batch, tq, s,
+                      heads, head_dim, 1.0f / sqrtf(static_cast<float>(head_dim)), st, nullptr,
+                      0, kv_rows, n);
+  if (e != cudaSuccess) return e;
+  return static_cast<int>(evlm::gemm_bias(ws_ctx, wo, bo, nullptr, 1, v16, out, false, rows_q,
+                                          d, a, st));
 }
 
 // The device kernels on their own, for the card tests and chip_smoke.py.

@@ -6,32 +6,45 @@
   the compute dtype) and scores `rows_per_call` query rows per call, moving
   only indices from the host;
 - i2t chunks keep the image rows unexpanded: each image's cross K/V is
-  shared by its k candidate texts (grouped K/V); t2i chunks expand the
-  candidate images;
+  shared by its k candidate texts (grouped K/V);
+- t2i chunks read a cross-K/V bank: each image's cross K/V of every cross
+  layer, projected once a pass before the t2i chunks (cross_kv_bank), read
+  by candidate index inside the fused cross kernel,
+  so no image row is copied and no pair projects K/V. Where the bank does
+  not fit (kv_bank_fits: half the device memory free) or the fused
+  sublayers do not run, the chunks expand the candidate images and project
+  each pair's K/V in the call, as t2i_chunk does without a bank;
 - rank sharding: each rank scores a contiguous row range, -100 elsewhere;
-  the caller sums the matrices across ranks.
+  the caller sums the matrices across ranks. Each rank builds the whole
+  bank: its rows may pick any image.
 
 Spans (train/profiler.span): evlm.eval.encode_texts and .encode_images,
 each with evlm.encode.upload and .fetch inside; evlm.eval.rerank (the
 whole of retrieval_scores) with evlm.rerank.bank (the banks' uploads and
-casts), .shortlist (the ITC similarities, a chunk's argsort and its index
-uploads), .chunk (the chunk's launches), .fetch (its scores to the host,
-the chunk's sync) and .scatter (the writes into the score matrices);
-evlm.eval.recall (itm_eval). `copied_bytes` counts the bytes of every
-upload ("h2d") and fetch ("d2h") above, always; read it as a difference.
+casts), .kv_bank (the cross-K/V bank's projections), .shortlist (the ITC
+similarities, a chunk's argsort and its index uploads), .chunk (the
+chunk's launches), .fetch (its scores to the host, the chunk's sync) and
+.scatter (the writes into the score matrices); evlm.eval.recall
+(itm_eval). `copied_bytes` counts the bytes of every upload ("h2d") and
+fetch ("d2h") above, always, and `t2i_chunks` the t2i chunks that read a
+bank ("bank") or projected their pairs' K/V ("projected"); read both as
+differences.
 """
 
 from __future__ import annotations
 
-from typing import Tuple
+import os
+from typing import Optional, Tuple
 
 import numpy as np
 import torch
 
+from ..models import bert as B
 from ..models.xvlm import XVLM, mlp_head_apply
 from ..train.profiler import span
 
 copied_bytes = {"h2d": 0, "d2h": 0}
+t2i_chunks = {"bank": 0, "projected": 0}
 
 
 def _device(params) -> torch.device:
@@ -104,16 +117,23 @@ def encode_images(model: XVLM, params, image_batches, *, zs=None, dtype=None,
 
 
 def itm_rerank_scores(model: XVLM, params, img_rows, txt_rows, txt_atts, rows: int, k: int,
-                      *, zs=None, dtype=None, impl: str = "fused") -> torch.Tensor:
+                      *, kv_bank: Optional[list] = None, kv_rows: Optional[torch.Tensor] = None,
+                      zs=None, dtype=None, impl: str = "fused") -> torch.Tensor:
     """The rerank chunk: ITM logits [rows, k] over candidate pairs.
     txt_rows/txt_atts are [rows*k], k candidates per row, contiguous by
     row. img_rows may be unexpanded [rows] (grouped K/V: each image's cross
-    K/V serves its k texts) or expanded [rows*k]."""
-    groups = txt_rows.shape[0] // img_rows.shape[0]
-    img_atts = torch.ones(img_rows.shape[:2], dtype=torch.int32, device=img_rows.device)
-    out = model.get_cross_embeds(params, img_rows, img_atts, text_embeds=txt_rows,
+    K/V serves its k texts) or expanded [rows*k]; or the bank's images
+    [N, S, D] with kv_bank (their cross K/V, cross_kv_bank) and kv_rows
+    (int32 [rows*k]): pair j reads image kv_rows[j]'s K/V from the bank,
+    and of img_rows only S is read."""
+    if kv_bank is None:
+        groups, enc, n = txt_rows.shape[0] // img_rows.shape[0], img_rows, img_rows.shape[0]
+    else:
+        groups, enc, n = 1, None, txt_rows.shape[0]
+    img_atts = torch.ones((n, img_rows.shape[1]), dtype=torch.int32, device=img_rows.device)
+    out = model.get_cross_embeds(params, enc, img_atts, text_embeds=txt_rows,
                                  text_atts=txt_atts, zs=zs, encoder_groups=groups,
-                                 dtype=dtype, impl=impl)
+                                 cross_kv=kv_bank, kv_rows=kv_rows, dtype=dtype, impl=impl)
     logits = mlp_head_apply(params["itm_head"], out["last_hidden"][:, 0], dtype=dtype)
     return logits[:, 1].reshape(rows, k)
 
@@ -126,12 +146,53 @@ def i2t_chunk(model, params, img_bank, txt_bank, att_bank, row_idx, cand_idx, **
                              att_bank[flat], r, k, **kw)
 
 
-def t2i_chunk(model, params, img_bank, txt_bank, att_bank, row_idx, cand_idx, **kw):
-    """Candidate images expanded [R*k]; each text repeated k times."""
+def t2i_chunk(model, params, img_bank, txt_bank, att_bank, row_idx, cand_idx, *,
+              kv_bank: Optional[list] = None, **kw):
+    """Each text repeated k times; its candidate images read from kv_bank
+    (cross_kv_bank of img_bank) by index, or without a bank expanded [R*k]
+    and their K/V projected in the call."""
     r, k = cand_idx.shape
-    return itm_rerank_scores(model, params, img_bank[cand_idx.reshape(-1)],
-                             txt_bank[row_idx].repeat_interleave(k, 0),
-                             att_bank[row_idx].repeat_interleave(k, 0), r, k, **kw)
+    txt = txt_bank[row_idx].repeat_interleave(k, 0)
+    atts = att_bank[row_idx].repeat_interleave(k, 0)
+    if kv_bank is None:
+        t2i_chunks["projected"] += 1
+        return itm_rerank_scores(model, params, img_bank[cand_idx.reshape(-1)], txt, atts, r, k,
+                                 **kw)
+    t2i_chunks["bank"] += 1
+    return itm_rerank_scores(model, params, img_bank, txt, atts, r, k, kv_bank=kv_bank,
+                             kv_rows=cand_idx.reshape(-1).to(torch.int32), **kw)
+
+
+def kv_bank_fits(bank_bytes: int, free_bytes: int) -> bool:
+    """The cross-K/V bank is built when it takes at most half the memory
+    free on its device; otherwise each t2i chunk projects its pairs' K/V."""
+    return 2 * bank_bytes <= free_bytes
+
+
+def _free_bytes(dev: torch.device) -> int:
+    """The device's free memory as CUDA reports it, or the host's
+    available memory for a CPU bank."""
+    if dev.type == "cuda":
+        return torch.cuda.mem_get_info(dev)[0]
+    return os.sysconf("SC_AVPHYS_PAGES") * os.sysconf("SC_PAGE_SIZE")
+
+
+def cross_kv_bank(model: XVLM, params, img_bank: torch.Tensor, *,
+                  impl: str = "fused") -> Optional[list]:
+    """The t2i rerank's cross-K/V bank: every image's K/V of every cross
+    layer, projected once (bert.precompute_cross_kv(rows=True)) over
+    img_bank [N, S, D] in its dtype. None where the chunks cannot read one
+    (bert.cross_kv_bank_width) or where it does not fit (kv_bank_fits; its
+    bytes from the shapes)."""
+    width = B.cross_kv_bank_width(params["text"], model.text_cfg, impl)
+    if width is None:
+        return None
+    n, s = img_bank.shape[:2]
+    if not kv_bank_fits(2 * n * s * width * img_bank.element_size(),
+                        _free_bytes(img_bank.device)):
+        return None
+    with span("evlm.rerank.kv_bank"):
+        return B.precompute_cross_kv(params["text"], model.text_cfg, img_bank, rows=True)
 
 
 def retrieval_scores(model: XVLM, params, image_feats: np.ndarray, image_embeds: np.ndarray,
@@ -143,6 +204,11 @@ def retrieval_scores(model: XVLM, params, image_feats: np.ndarray, image_embeds:
     rank's rows filled and -100 elsewhere."""
     with span("evlm.eval.rerank"):
         n_img, n_txt = image_embeds.shape[0], text_embeds.shape[0]
+        # every candidate index is a column of the similarities, so a row of
+        # the banks: the chunks read them on the device unchecked
+        if image_feats.shape[0] != n_img or text_feats.shape[0] != n_txt:
+            raise ValueError(f"retrieval_scores: {image_feats.shape[0]} image and "
+                             f"{text_feats.shape[0]} text rows for {n_img} and {n_txt} embeddings")
         with span("evlm.rerank.shortlist"):
             sims = image_embeds @ text_embeds.T  # [Ni, Nt]
         dev = _device(params)
@@ -157,7 +223,7 @@ def retrieval_scores(model: XVLM, params, image_feats: np.ndarray, image_embeds:
             start = rank * step
             return start, min(n, start + step)
 
-        def run(chunk_fn, sims_dir, n_rows, k):
+        def run(chunk_fn, sims_dir, n_rows, k, kv_bank=None):
             score = np.full((n_rows, sims_dir.shape[1]), -100.0, np.float32)
             s, e = shard_range(n_rows)
             rows = np.arange(s, e)
@@ -168,10 +234,12 @@ def retrieval_scores(model: XVLM, params, image_feats: np.ndarray, image_embeds:
                                             np.repeat(chunk[-1:], rows_per_call - len(chunk))])
                 with span("evlm.rerank.shortlist"):
                     cand = np.argsort(-sims_dir[chunk], axis=1)[:, :k]
-                    row_idx, cand_idx = _upload(chunk, dev), _upload(cand, dev)
+                    row_idx = _upload(chunk, dev)
+                    # the bank form reads its rows as int32
+                    cand_idx = _upload(cand if kv_bank is None else cand.astype(np.int32), dev)
                 with span("evlm.rerank.chunk"):
                     scores = chunk_fn(model, params, img_bank, txt_bank, att_bank, row_idx,
-                                      cand_idx, zs=zs, dtype=dtype, impl=impl)
+                                      cand_idx, zs=zs, dtype=dtype, impl=impl, kv_bank=kv_bank)
                 with span("evlm.rerank.fetch"):
                     out = _numpy(scores)
                 with span("evlm.rerank.scatter"):
@@ -181,7 +249,8 @@ def retrieval_scores(model: XVLM, params, image_feats: np.ndarray, image_embeds:
 
         with torch.inference_mode():
             score_i2t = run(i2t_chunk, sims, n_img, min(k_test, n_txt))
-            score_t2i = run(t2i_chunk, sims.T, n_txt, min(k_test, n_img))
+            kv_bank = cross_kv_bank(model, params, img_bank, impl=impl)
+            score_t2i = run(t2i_chunk, sims.T, n_txt, min(k_test, n_img), kv_bank=kv_bank)
         return score_i2t, score_t2i
 
 

@@ -307,6 +307,61 @@ def fused_attention(x: torch.Tensor, enc: torch.Tensor, w: dict, key_bias: torch
         return out, maps[..., :s]
 
 
+def check_kv_rows(kv_rows: torch.Tensor, batch: int) -> None:
+    """Refuse bank rows the indexed core cannot take: kv_rows must be a
+    contiguous int32 CUDA vector of `batch` entries. Their values are not
+    read here (that would wait for the device at every call): the core
+    reads nothing outside the bank and gives a row outside it NaN."""
+    _operand(kv_rows, torch.int32, "kv_rows")
+    if tuple(kv_rows.shape) != (batch,) or not kv_rows.is_contiguous():
+        raise ValueError(f"kv_rows must be a contiguous vector of {batch} rows, "
+                         f"got {tuple(kv_rows.shape)}")
+
+
+def fused_attention_bank(x: torch.Tensor, k_bank: torch.Tensor, v_bank: torch.Tensor,
+                         kv_rows: torch.Tensor, w: dict, key_bias: torch.Tensor,
+                         gates: Optional[torch.Tensor], *, heads: int, batch: int, tq: int,
+                         s: int) -> torch.Tensor:
+    """The cross-attention sublayer over a K/V bank. x [batch*tq, D] bf16
+    queries; k_bank / v_bank [n*s, A] bf16, the K/V of n encoder rows
+    projected once (ops/fused_mha.project_kv_rows); kv_rows [batch] int32:
+    query row b attends to bank row kv_rows[b] (check_kv_rows; a row
+    outside [0, n) comes out NaN); w holds wq, wo (bf16, [in, out]) and
+    bq, bo as stored; key_bias [batch, s] f32, per query row; gates [H] or
+    None (all ones). Returns [batch*tq, D] bf16: the Q projection,
+    attn_core's indexed form and the output projection. It projects no
+    K/V, so it runs under a span of its own, evlm.fused_attention_bank,
+    apart from fused_attention's."""
+    with span("evlm.fused_attention_bank"):
+        d, a = x.shape[1], w["wq"].shape[1]
+        dh = a // heads
+        if dh * heads != a or dh not in (32, 64, 128):
+            raise ValueError(f"fused_attention_bank: width {a} over {heads} heads "
+                             f"(head dim must be 32, 64 or 128)")
+        if d % 8:
+            raise ValueError(f"fused_attention_bank: width {d} must be a multiple of 8")
+        n_kv = k_bank.shape[0] // s
+        if n_kv * s != k_bank.shape[0]:
+            raise ValueError(f"fused_attention_bank: a bank of {k_bank.shape[0]} rows is not "
+                             f"whole rows of {s}")
+        check_kv_rows(kv_rows, batch)
+        rq = batch * tq
+        mats = [_ptr(x, BF16, "x", (rq, d)), _ptr(w["wq"], BF16, "wq", (d, a)),
+                _ptr(w["wo"], BF16, "wo", (a, d)), _ptr(k_bank, BF16, "k_bank", (n_kv * s, a)),
+                _ptr(v_bank, BF16, "v_bank", (n_kv * s, a))]
+        _aligned(dict(zip(("x", "wq", "wo", "k_bank", "v_bank"), mats)), "fused_attention_bank")
+        (bq, bo), vec16 = _vecs([("bq", w["bq"], (a,)), ("bo", w["bo"], (d,))])
+        (g,), gates16 = _vecs([("gates", gates, (heads,))])
+        kb = _ptr(key_bias, F32, "key_bias", (batch, s))
+        ws_q, ws_ctx = (torch.empty(rq, a, dtype=BF16, device=x.device) for _ in range(2))
+        out = torch.empty(rq, d, dtype=BF16, device=x.device)
+        _check(library().evlm_fused_attention_bank(
+            mats[0], mats[1], _addr(bq), mats[2], _addr(bo), mats[3], mats[4], kv_rows.data_ptr(),
+            kb, _addr(g), ws_q.data_ptr(), ws_ctx.data_ptr(), out.data_ptr(), n_kv, batch, tq, s,
+            d, heads, dh, vec16, gates16, _stream(x)), "fused_attention_bank")
+        return out
+
+
 def gemm_bias(a: torch.Tensor, b: torch.Tensor, bias: Optional[torch.Tensor] = None,
               row_add: Optional[torch.Tensor] = None, *, out_f32: bool = False) -> torch.Tensor:
     """The projection kernel on its own: a [M, K] bf16 @ b [K, N] bf16

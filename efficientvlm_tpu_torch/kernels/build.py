@@ -41,6 +41,9 @@ SIGNATURES = {
     # ws_q, ws_k, ws_v, ws_ctx, ws_out, out, probs, pitch, batch, tq, s, d, de, heads,
     # head_dim, core, probs_rows, probs_ks, ln_route, vec16, gates16, ln_eps, stream
     "evlm_fused_attention": [_P] * 21 + [_I] * 14 + [_F, _P],
+    # x, wq, bq, wo, bo, k_bank, v_bank, kv_rows, key_bias, gates, ws_q, ws_ctx, out,
+    # n, batch, tq, s, d, heads, head_dim, vec16, gates16, stream
+    "evlm_fused_attention_bank": [_P] * 13 + [_I] * 9 + [_P],
     # a, b, bias, row_add, c, period, out_f32, vec16, m, n, k, stream
     "evlm_gemm_bias": [_P] * 5 + [_I] * 6 + [_P],
     # a, b, bias, row_add, residual, gamma, beta, out, period, group,

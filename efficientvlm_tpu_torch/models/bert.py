@@ -12,6 +12,8 @@
   activation;
 - decoding: a fixed-size per-layer self-attention cache (init_bert_cache,
   written in place) and cross K/V projected once (precompute_cross_kv);
+- a cross-K/V bank: precompute_cross_kv(rows=True) over a bank of encoder
+  rows, read by a per-row index (`kv_rows`; the t2i rerank's candidates);
 - heads: the MLM / LM head (over the masked positions,
   gather_seq_out_by_pos) and the shift-by-one LM loss, with optional label
   smoothing (LabelSmoothSoftmaxCEV1).
@@ -21,6 +23,11 @@ impl="fused" dispatch, per attention sublayer:
   self-attention kernel (the 40-token text tower included);
 - decoder self-attention (causal or decode bias, with or without a cache)
   and any matrix bias: multi_head_attention -> flash_attention;
+- cross-attention over a cross-K/V bank read by `kv_rows` (eval, a
+  key-vector bias, no probs): the fused bank kernel (Q projection, the
+  attention core reading each row's bank K/V in place, the output
+  projection); the layer applies the residual + post-LN. Other forms
+  have no bank route and raise;
 - cross-attention over precomputed cross K/V: flash_attention_grouped when
   `encoder_groups` > 1, flash_attention otherwise;
 - other cross-attention: the fused cross kernel, or the grouped one when
@@ -71,7 +78,8 @@ from ..ops.basic import (
     layer_norm, remat,
 )
 from ..ops.fused_mha import (
-    fused_cross_attention, fused_cross_attention_grouped, fused_self_attention,
+    fused_cross_attention, fused_cross_attention_bank, fused_cross_attention_grouped,
+    fused_self_attention, project_kv_rows,
 )
 from ..ops.quant import is_fusable, out_width
 from ..parallel.sharding import (
@@ -169,11 +177,14 @@ def bert_layer_apply(lp: dict, h: torch.Tensor, cfg: TextConfig, *,
                      encoder_bias: Optional[torch.Tensor] = None,
                      self_head_z=None, cross_head_z=None, mlp_z=None,
                      cache: Optional[dict] = None, cross_kv: Optional[dict] = None,
+                     kv_rows: Optional[torch.Tensor] = None,
                      encoder_groups: int = 1, is_decoder: bool = False,
                      output_probs: bool = False, train: bool = False, generator=None,
                      dtype=None, impl: str = "fused", seq=None):
     """Post-LN BERT layer; returns (h, self_probs, cross_probs, new_cache).
-    `cross_kv` supplies pre-projected cross K/V (precompute_cross_kv).
+    `cross_kv` supplies pre-projected cross K/V (precompute_cross_kv); with
+    `kv_rows` (int32 [B]) it is a bank (precompute_cross_kv(rows=True)) and
+    query row b reads bank row kv_rows[b].
     `encoder_groups` > 1 declares that encoder_hidden / cross_kv rows are
     shared by groups of contiguous query rows (grouped K/V); a batch mismatch
     without it is a loud error. `seq` (a sharding.SeqShard) makes h a token
@@ -221,7 +232,16 @@ def bert_layer_apply(lp: dict, h: torch.Tensor, cfg: TextConfig, *,
         hin, enc = tp_enter(h), tp_enter(encoder_hidden)
         hq = hin.to(dtype) if dtype is not None else hin
         fused_x = fused and cross_kv is None and is_fusable(xattn)
-        if fused_x and encoder_groups > 1 and not train and not output_probs:
+        if kv_rows is not None:
+            if train or output_probs or not bank_fusable(xattn, impl):
+                raise NotImplementedError(
+                    "cross-attention over a K/V bank (kv_rows) runs only the fused bank form: "
+                    "eval, impl='fused', float projections, no probs, no tensor parallelism")
+            x_out = fused_cross_attention_bank(
+                xattn, hq, cross_kv["k"], cross_kv["v"], kv_rows, num_heads=nh,
+                key_bias=_key_vector(encoder_bias, "bank cross-attention"), head_z=cross_head_z)
+            h = layer_norm(lp["crossattention_ln"], h + x_out, eps=eps)
+        elif fused_x and encoder_groups > 1 and not train and not output_probs:
             kb = _key_vector(encoder_bias, "grouped cross-attention")
             kw = dict(num_heads=nh, kv_groups=encoder_groups,
                       key_bias=None if kb is None else kb.expand(enc.shape[0], enc.shape[1]),
@@ -265,14 +285,16 @@ def bert_encoder_apply(params: dict, h: torch.Tensor, cfg: TextConfig, *,
                        bias=None, mode: str = "multi_modal", encoder_hidden=None,
                        encoder_bias=None, text_head_z=None, cross_head_z=None,
                        text_mlp_z=None, cross_mlp_z=None, cache: Optional[list] = None,
-                       cross_kv: Optional[list] = None, encoder_groups: int = 1,
-                       is_decoder: bool = False, output_attentions: bool = False,
-                       output_hidden_states: bool = False, train: bool = False,
-                       generator=None, dtype=None, impl: str = "fused", seq=None) -> dict:
+                       cross_kv: Optional[list] = None, kv_rows=None,
+                       encoder_groups: int = 1, is_decoder: bool = False,
+                       output_attentions: bool = False, output_hidden_states: bool = False,
+                       train: bool = False, generator=None, dtype=None, impl: str = "fused",
+                       seq=None) -> dict:
     """Run the layers of `mode`; returns {"last_hidden": h, "hidden_states",
     "attentions", "cross_attentions" (lists, or None when not asked for),
     "cache": new cache list or None}. `cache` has one entry per layer run,
-    `cross_kv` one per cross layer (precompute_cross_kv)."""
+    `cross_kv` one per cross layer (precompute_cross_kv), a bank read by
+    `kv_rows` when they are given."""
     fusion = cfg["fusion_layer"]
     n = cfg["num_hidden_layers"]
     lo, hi = {"text": (0, fusion), "fusion": (fusion, n), "multi_modal": (0, n)}.get(
@@ -302,6 +324,7 @@ def bert_encoder_apply(params: dict, h: torch.Tensor, cfg: TextConfig, *,
             self_head_z=self_z, cross_head_z=cross_z, mlp_z=mlp_zi,
             cache=None if cache is None else cache[i - lo],
             cross_kv=cross_kv[i - fusion] if (is_cross and cross_kv is not None) else None,
+            kv_rows=kv_rows if is_cross else None,
             encoder_groups=encoder_groups if is_cross else 1, is_decoder=is_decoder,
             output_probs=output_attentions, train=train, generator=generator, dtype=dtype,
             impl=impl, seq=seq)
@@ -325,14 +348,16 @@ def bert_apply(params: dict, input_ids: Optional[torch.Tensor], cfg: TextConfig,
                attention_mask=None, inputs_embeds=None, encoder_hidden=None,
                encoder_attention_mask=None, mode: str = "multi_modal",
                is_decoder: bool = False, cache: Optional[list] = None,
-               cross_kv: Optional[list] = None, encoder_groups: int = 1,
+               cross_kv: Optional[list] = None, kv_rows=None, encoder_groups: int = 1,
                position_offset: int = 0, text_head_z=None, cross_head_z=None,
                text_mlp_z=None, cross_mlp_z=None, output_attentions: bool = False,
                output_hidden_states: bool = False, train: bool = False, generator=None,
                dtype=None, impl: str = "fused") -> dict:
     """BertModel.forward. In 'fusion' mode pass inputs_embeds (the text
     tower's output). For cached decode pass `cache` (init_bert_cache) and
-    position_offset = the number of tokens already decoded."""
+    position_offset = the number of tokens already decoded. Over a cross-K/V
+    bank pass `cross_kv` (precompute_cross_kv(rows=True)), `kv_rows` and the
+    encoder mask [B, S] of the query rows, without encoder_hidden."""
     if inputs_embeds is None:
         h = bert_embeddings(params["embeddings"], input_ids, cfg,
                             position_offset=position_offset, train=train, generator=generator,
@@ -352,7 +377,7 @@ def bert_apply(params: dict, input_ids: Optional[torch.Tensor], cfg: TextConfig,
     else:
         bias = make_attention_bias(attention_mask) if attention_mask is not None else None
     encoder_bias = None
-    if encoder_hidden is not None and encoder_attention_mask is not None:
+    if encoder_attention_mask is not None and (encoder_hidden is not None or kv_rows is not None):
         encoder_bias = make_attention_bias(encoder_attention_mask)
     seq = seq_shard(cfg, t)
     if seq is not None:
@@ -366,7 +391,7 @@ def bert_apply(params: dict, input_ids: Optional[torch.Tensor], cfg: TextConfig,
         params, h, cfg, bias=bias, mode=mode, encoder_hidden=encoder_hidden,
         encoder_bias=encoder_bias, text_head_z=text_head_z, cross_head_z=cross_head_z,
         text_mlp_z=text_mlp_z, cross_mlp_z=cross_mlp_z, cache=cache, cross_kv=cross_kv,
-        encoder_groups=encoder_groups, is_decoder=is_decoder,
+        kv_rows=kv_rows, encoder_groups=encoder_groups, is_decoder=is_decoder,
         output_attentions=output_attentions, output_hidden_states=output_hidden_states,
         train=train, generator=generator, dtype=dtype, impl=impl, seq=seq)
     if seq is not None:
@@ -378,11 +403,32 @@ def bert_apply(params: dict, input_ids: Optional[torch.Tensor], cfg: TextConfig,
     return out
 
 
+def bank_fusable(xattn: dict, impl: str) -> bool:
+    """Whether a cross layer can read a cross-K/V bank: only the fused bank
+    form does (impl "fused", float projections, no tensor parallelism)."""
+    return impl == "fused" and is_fusable(xattn) and tp_group() is None
+
+
+def cross_kv_bank_width(params: dict, cfg: TextConfig, impl: str = "fused") -> Optional[int]:
+    """The width of a cross-K/V bank row's K (and of its V) summed over the
+    cross layers (precompute_cross_kv(rows=True) holds N * S of them); None
+    where the bank cannot be read: no cross layer, or one that is not
+    bank_fusable."""
+    xattn = [lp["crossattention"] for lp in params["layers"][cfg["fusion_layer"]:]
+             if lp.get("crossattention") is not None]
+    if not xattn or not all(bank_fusable(x, impl) for x in xattn):
+        return None
+    return sum(out_width(x["k"]) for x in xattn)
+
+
 def precompute_cross_kv(params: dict, cfg: TextConfig, encoder_hidden: torch.Tensor, *,
-                        dtype=None) -> list:
+                        dtype=None, rows: bool = False) -> list:
     """The cross-attention K/V of every cross layer, projected once (list
     indexed by cross layer i - fusion; None for fully-pruned modules): the
-    encoder states are constant across decode steps."""
+    encoder states are constant across decode steps. rows=True gives a
+    cross-K/V bank for `kv_rows`: each {"k", "v"} [N, S, A] as the fused
+    cross kernel projects them (fused_mha.project_kv_rows; float
+    projections only)."""
     fusion = cfg["fusion_layer"]
     head_dim = cfg["hidden_size"] // cfg["num_attention_heads"]
     out = []
@@ -390,9 +436,12 @@ def precompute_cross_kv(params: dict, cfg: TextConfig, encoder_hidden: torch.Ten
         lp = params["layers"][i]
         if lp.get("crossattention") is None:
             out.append(None)
-            continue
-        out.append(project_kv(lp["crossattention"], encoder_hidden,
-                              num_heads=_num_heads(lp["crossattention"], head_dim), dtype=dtype))
+        elif rows:
+            out.append(project_kv_rows(lp["crossattention"], encoder_hidden, dtype=dtype))
+        else:
+            out.append(project_kv(lp["crossattention"], encoder_hidden,
+                                  num_heads=_num_heads(lp["crossattention"], head_dim),
+                                  dtype=dtype))
     return out
 
 

@@ -157,16 +157,21 @@ class XVLM:
             text_head_z=tz.get("text_head_z"), text_mlp_z=tz.get("text_mlp_z"))
 
     def get_cross_embeds(self, params, image_embeds, image_atts, *, text_embeds, text_atts,
-                         zs=None, encoder_groups=1, output_attentions=False,
-                         output_hidden_states=False, train=False, generator=None, dtype=None,
-                         impl="fused"):
+                         zs=None, encoder_groups=1, cross_kv=None, kv_rows=None,
+                         output_attentions=False, output_hidden_states=False, train=False,
+                         generator=None, dtype=None, impl="fused"):
         """mode='fusion'. encoder_groups > 1 declares image rows shared by
-        groups of contiguous text rows (grouped K/V, the i2t rerank)."""
+        groups of contiguous text rows (grouped K/V, the i2t rerank). With
+        cross_kv, a bank of images' cross K/V (bert.precompute_cross_kv(
+        rows=True)), and kv_rows (int32 [B]), text row b attends to bank
+        image kv_rows[b] (the t2i rerank); image_embeds is then None and
+        image_atts [B, S] the text rows' image mask."""
         _, tz = split_zs(zs)
         return B.bert_apply(
             params["text"], None, self.text_cfg, inputs_embeds=text_embeds,
             attention_mask=text_atts, encoder_hidden=image_embeds,
             encoder_attention_mask=image_atts, mode="fusion", encoder_groups=encoder_groups,
+            cross_kv=cross_kv, kv_rows=kv_rows,
             output_attentions=output_attentions, output_hidden_states=output_hidden_states,
             train=train, generator=generator, dtype=dtype, impl=impl,
             cross_head_z=tz.get("cross_head_z"), cross_mlp_z=tz.get("cross_mlp_z"))

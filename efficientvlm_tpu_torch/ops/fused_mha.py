@@ -6,12 +6,17 @@ Ports of efficientvlm_tpu/ops/pallas_fused_mha.py:
 - `fused_cross_attention`  <- `_fused_cross_padded` / `_fused_cross_kernel`;
 - `fused_cross_attention_grouped` <- `_fused_cross_grouped_padded` /
   `_fused_cross_grouped_kernel` (G contiguous query rows share one image's
-  K/V; K/V are projected once per image; optional residual + post-LN).
+  K/V; K/V are projected once per image; optional residual + post-LN);
+- `fused_cross_attention_bank` <- `_fused_cross_kernel` after its K/V
+  projection: the K/V of a bank of images, projected once
+  (`project_kv_rows`), read by a per-row image index (the t2i rerank,
+  whose candidate images are shared by many texts in no contiguous order).
 
 On a CUDA tensor each wrapper runs csrc/fused_mha.cu, whose hand-written
 kernels are gemm_bias for the projections, an attention core for all heads
-(attn_core; for the grouped sublayer at head dim 64 attn_wgmma) and, for
-the grouped sublayer with ln_params, gemm_ln: the output projection with the
+(attn_core, its indexed form for the bank; for the grouped sublayer at
+head dim 64 attn_wgmma) and, for the grouped sublayer with ln_params,
+gemm_ln: the output projection with the
 residual + post-LN in its epilogue (widths outside bindings.gemm_ln_fits:
 gemm_bias into f32 + residual_layernorm). Four device launches per grouped
 call with the f32 key bias the models pass: biases, gates and LN params are
@@ -175,6 +180,17 @@ def cross_attention_plain(params, hidden, enc, kb2, gates1, num_heads: int,
     return (out, probs) if return_probs else out
 
 
+def cross_attention_bank_plain(params, hidden, k_bank, v_bank, kv_rows, kb2, gates1,
+                               num_heads: int):
+    """Plain version of the bank form: the bank's K/V rows gathered by
+    kv_rows, then #3's arithmetic after its K/V projection."""
+    dt = hidden.dtype
+    idx = kv_rows.long()
+    q = _linear_plain(hidden, params["q"], dt)
+    ctx = _attention_plain(q, k_bank[idx].to(dt), v_bank[idx].to(dt), kb2, gates1, num_heads)
+    return _linear_plain(ctx, params["out"], dt)
+
+
 def cross_attention_grouped_plain(params, hidden, enc, kb2, gates1, num_heads: int,
                                   groups: int, ln_params=None, ln_eps: float = 1e-12):
     dt = hidden.dtype
@@ -198,13 +214,13 @@ def cross_attention_grouped_plain(params, hidden, enc, kb2, gates1, num_heads: i
 # --------------------------------------------------------------------------
 
 
-def _weights(params: dict) -> dict:
+def _weights(params: dict, names=("q", "k", "v", "out")) -> dict:
     """bf16 [in, out] kernels and the biases as stored, as csrc/fused_mha.cu
-    takes them (no copy for bf16 params)."""
+    takes them (no copy for bf16 params): w/b + q, k, v, o."""
     w = {}
-    for name, key in (("q", "q"), ("k", "k"), ("v", "v"), ("out", "o")):
-        w["w" + key] = params[name]["kernel"].to(torch.bfloat16).contiguous()
-        w["b" + key] = bindings.as_stored(params[name]["bias"])
+    for name in names:
+        w["w" + name[0]] = params[name]["kernel"].to(torch.bfloat16).contiguous()
+        w["b" + name[0]] = bindings.as_stored(params[name]["bias"])
     return w
 
 
@@ -363,8 +379,56 @@ def fused_cross_attention_grouped(params: dict, hidden: torch.Tensor,
     return out.reshape(b, t, d)
 
 
+def project_kv_rows(params: dict, enc: torch.Tensor, *, dtype=None) -> dict:
+    """The K/V of encoder rows enc [N, S, De], projected as the fused cross
+    sublayer projects them inside its call, for fused_cross_attention_bank:
+    {"k", "v"} [N, S, A] in the compute dtype (dtype, else enc's), heads
+    side by side. On CUDA gemm_bias (bf16), the kernel and arithmetic of
+    #3's own K/V projection, so that a bank row equals what #3 computes for
+    that row; on the CPU the plain version's."""
+    dt = dtype or enc.dtype
+    enc = enc.to(dt)
+    if not enc.is_cuda:
+        return {name: _linear_plain(enc, params[name], dt) for name in ("k", "v")}
+    n, s = enc.shape[:2]
+    x, w = _rows(enc), _weights(params, ("k", "v"))
+    return {name: bindings.gemm_bias(x, w["w" + name], w["b" + name]).reshape(n, s, -1)
+            for name in ("k", "v")}
+
+
+def fused_cross_attention_bank(params: dict, hidden: torch.Tensor, k_bank: torch.Tensor,
+                               v_bank: torch.Tensor, kv_rows: torch.Tensor, *, num_heads: int,
+                               mask: Optional[torch.Tensor] = None,
+                               key_bias: Optional[torch.Tensor] = None,
+                               head_z: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Cross-attention sublayer over a K/V bank: queries hidden [B,T,D];
+    k_bank / v_bank [N,S,A], each encoder row's K/V projected once
+    (project_kv_rows); query row b attends to bank row kv_rows[b] (int32
+    [B], each in [0, N): on the card a row outside comes out NaN, unread,
+    on the CPU it raises); mask / key_bias [B,S], per query row; head_z
+    [H]. Returns [B,T,D], what fused_cross_attention returns over the
+    encoder rows enc[kv_rows]. Eval only: no probs, no differentiable
+    form."""
+    b, t, d = hidden.shape
+    n, s, a = k_bank.shape
+    kb2 = _key_bias(b, s, mask, key_bias, hidden.device)
+    if not hidden.is_cuda:
+        if kv_rows.numel() and not 0 <= int(kv_rows.min()) <= int(kv_rows.max()) < n:
+            raise ValueError(f"fused bank cross: kv_rows outside a bank of {n} rows")
+        return cross_attention_bank_plain(params, hidden, k_bank, v_bank, kv_rows, kb2,
+                                          _gates(num_heads, head_z, "cpu"), num_heads)
+    out = bindings.fused_attention_bank(_rows(hidden), k_bank.reshape(n * s, a),
+                                        v_bank.reshape(n * s, a), kv_rows,
+                                        _weights(params, ("q", "out")), kb2,
+                                        _kernel_gates(num_heads, head_z), heads=num_heads,
+                                        batch=b, tq=t, s=s)
+    fused_cross_attention_bank.launches += 1
+    return out.reshape(b, t, d)
+
+
 fused_self_attention.launches = 0
 fused_self_attention.probs_launches = 0
 fused_cross_attention.launches = 0
 fused_cross_attention.probs_launches = 0
 fused_cross_attention_grouped.launches = 0
+fused_cross_attention_bank.launches = 0

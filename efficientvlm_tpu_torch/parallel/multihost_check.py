@@ -122,6 +122,7 @@ def launch_counts() -> dict:
             "flash_attention_grouped": FA.flash_attention_grouped.launches,
             "fused_self_attention_probs": F.fused_self_attention.probs_launches,
             "fused_cross_attention_probs": F.fused_cross_attention.probs_launches,
+            "fused_cross_attention_bank": F.fused_cross_attention_bank.launches,
             **{f"route_{r}": n for r, n in probs_routes.items()}}
 
 

@@ -315,6 +315,98 @@ def test_grouped_core_follows_the_head_dim_rule(rnd, dh):
     _close(run(), F.cross_attention_grouped_plain(prm, x, enc, kb, hz, h, 3))
 
 
+def _bank_case(rnd, b, tq, n, s, d, a, heads):
+    """A cross sublayer's params, queries [b, tq, d], n images [n, s, d],
+    their K/V bank and per-row image indices with repeats (int32 [b])."""
+    prm, x, enc = _attn(rnd, d, a), rnd(b, tq, d), rnd(n, s, d)
+    bank = F.project_kv_rows(prm, enc)
+    g = torch.Generator(device="cuda")
+    g.manual_seed(1)
+    rows = torch.randint(0, n, (b,), generator=g, device="cuda", dtype=torch.int32)
+    rows[-1] = rows[0]
+    hz = torch.rand(heads, device="cuda") + 0.2
+    return prm, x, enc, bank, rows, hz
+
+
+def test_cross_attention_bank(rnd):
+    prm, x, enc, bank, rows, hz = _bank_case(rnd, 6, 9, 3, 70, 128, 128, 2)
+    mask = _mask(6, 70)
+    kb = F._key_bias(6, 70, mask, None, x.device)
+    _agree(F.fused_cross_attention_bank,
+           lambda: F.fused_cross_attention_bank(prm, x, bank["k"], bank["v"], rows, num_heads=2,
+                                                mask=mask, head_z=hz),
+           lambda: F.cross_attention_bank_plain(prm, x, bank["k"], bank["v"], rows, kb, hz, 2))
+
+
+@pytest.mark.parametrize("a,heads", [(768, 12), (320, 5)], ids=["a768_h12", "a320_h5"])
+def test_cross_attention_bank_equals_gathered_rows(rnd, a, heads):
+    """At the t2i rerank's shapes (40 text tokens, 577 image tokens, width
+    768; a pruned width of 5 heads) the bank form is bit-equal to #3 over
+    the gathered image rows: the same projections, the same core."""
+    prm, x, enc, bank, rows, hz = _bank_case(rnd, 48, 40, 8, 577, 768, a, heads)
+    kb = torch.zeros(48, 577, device="cuda")
+    out = F.fused_cross_attention_bank(prm, x, bank["k"], bank["v"], rows, num_heads=heads,
+                                       key_bias=kb, head_z=hz)
+    ref = F.fused_cross_attention(prm, x, enc[rows.long()], num_heads=heads, key_bias=kb,
+                                  head_z=hz)
+    torch.cuda.synchronize()
+    assert torch.equal(out, ref)
+    assert torch.equal(bank["k"][rows.long()].reshape(-1, a),
+                       K.gemm_bias(enc[rows.long()].reshape(-1, 768),
+                                   prm["k"]["kernel"], prm["k"]["bias"]))
+
+
+def test_attention_bank_refuses_bad_rows(rnd):
+    """The binding refuses kv_rows of another dtype, shape or device without
+    reading them; a row outside the bank reads nothing: its output row is
+    NaN and every other row is what in-range rows give."""
+    prm, x, enc, bank, rows, hz = _bank_case(rnd, 4, 9, 3, 70, 128, 128, 2)
+    kb = torch.zeros(4, 70, device="cuda")
+    run = lambda r: K.fused_attention_bank(  # noqa: E731
+        x.reshape(-1, 128), bank["k"].reshape(-1, 128), bank["v"].reshape(-1, 128), r,
+        F._weights(prm, ("q", "out")), kb, hz, heads=2, batch=4, tq=9, s=70)
+    with pytest.raises(TypeError, match="int32"):
+        run(rows.long())
+    with pytest.raises(ValueError, match="4 rows"):
+        run(rows[:3].clone())
+    with pytest.raises(ValueError, match="must be a CUDA tensor"):
+        run(rows.cpu())
+    good = run(torch.tensor([0, 1, 2, 2], dtype=torch.int32, device="cuda")).reshape(4, 9, 128)
+    bad = run(torch.tensor([0, 3, 2, -1], dtype=torch.int32, device="cuda")).reshape(4, 9, 128)
+    torch.cuda.synchronize()
+    assert bad[[1, 3]].isnan().all()
+    assert torch.equal(bad[[0, 2]], good[[0, 2]])
+
+
+# The first 16 hex digits of sha256 over attn_core's output bits on
+# _attn_core_inputs, as the unindexed core computed them before it had an
+# indexed form (H100 80GB HBM3)
+ATTN_CORE_DIGESTS = {"vit_b2_t577": "e6de0c060209a36b", "fusion_b4_tq40_s577": "ecdbad0b0a3e0a8e"}
+
+
+def _attn_core_digest(b, tq, s, h):
+    """attn_core's output digest on inputs drawn on the CPU from a seeded
+    generator (the same bits on any card), at heads of 64."""
+    import hashlib
+
+    g = torch.Generator().manual_seed(1000 * b + tq)
+    r = lambda *shape: torch.randn(shape, generator=g).to(torch.bfloat16).cuda()  # noqa: E731
+    q, k, v = r(b * tq, h * 64), r(b * s, h * 64), r(b * s, h * 64)
+    kb = F._key_bias(b, s, _mask(b, s), None, q.device)
+    hz = (torch.rand(h, generator=g) + 0.2).cuda()
+    out = K.attn_core(q, k, v, kb, hz, batch=b, tq=tq, s=s)
+    return hashlib.sha256(out.view(torch.int16).cpu().numpy().tobytes()).hexdigest()[:16]
+
+
+@pytest.mark.parametrize("b,tq,s,h", [(2, 577, 577, 12), (4, 40, 577, 12)],
+                         ids=["vit_b2_t577", "fusion_b4_tq40_s577"])
+def test_attn_core_unindexed_form_is_unchanged(rnd, request, b, tq, s, h):
+    """attn_core without kv_rows gives the bits it gave before the indexed
+    form was added, at the ViT's and the fusion layers' shapes."""
+    case = request.node.callspec.id
+    assert _attn_core_digest(b, tq, s, h) == ATTN_CORE_DIGESTS[case]
+
+
 def test_misaligned_operands_raise(rnd):
     """TMA needs 16-byte aligned operands: the bindings refuse others."""
     buf = rnd(64 * 128 + 1)

@@ -1,7 +1,9 @@
 """Port parity for the whole retrieval-evaluation slice against the JAX
 package, on the CPU, at atol 1e-4 in f32: the same params (JAX init ->
 params_from_numpy) and the same inputs through retrieval_forward, the i2t
-(grouped) and t2i (expanded) rerank chunks, and retrieval_scores + itm_eval.
+(grouped), t2i (expanded) and t2i (cross-K/V bank, against JAX's expanded
+rows) rerank chunks, and retrieval_scores + itm_eval; the bank's t2i
+matrices against the expanded chunks' and its fit rule.
 
 Width 128 and 122 image tokens (44 px / patch 4) put the JAX side on its
 fused kernels (interpret mode); 22 candidates x 12 text tokens >= 256 rows
@@ -75,16 +77,26 @@ def test_retrieval_forward_matches_jax(models):
         _close(port, ref)
 
 
-@pytest.mark.parametrize("grouped", [True, False], ids=["i2t_grouped", "t2i_expanded"])
-def test_itm_rerank_scores_match_jax(models, grouped):
+@pytest.mark.parametrize("form", ["i2t_grouped", "t2i_expanded", "t2i_bank"])
+def test_itm_rerank_scores_match_jax(models, form):
+    """t2i_bank: 5 images' cross-K/V bank read by per-pair image indices
+    with repeats, against JAX's rerank of the same images expanded."""
     jm, jp, tm, tp = models
     rng = np.random.default_rng(1)
     rows, k = 2, 22
-    img = rng.standard_normal((rows if grouped else rows * k, S_LEN, 128)).astype(np.float32)
+    n_img = {"i2t_grouped": rows, "t2i_expanded": rows * k, "t2i_bank": 5}[form]
+    img = rng.standard_normal((n_img, S_LEN, 128)).astype(np.float32)
     txt = rng.standard_normal((rows * k, T_LEN, 128)).astype(np.float32)
     _, atts = _text(rng, rows * k)
-    ref = JR.itm_rerank_scores(jm, jp, img, txt, atts, rows, k, impl="fused")
-    out = TR.itm_rerank_scores(tm, tp, _t(img), _t(txt), _t(atts), rows, k)
+    if form == "t2i_bank":
+        kv_rows = rng.integers(0, n_img, rows * k).astype(np.int32)
+        ref = JR.itm_rerank_scores(jm, jp, img[kv_rows], txt, atts, rows, k, impl="fused")
+        out = TR.itm_rerank_scores(tm, tp, _t(img), _t(txt), _t(atts), rows, k,
+                                   kv_bank=TR.cross_kv_bank(tm, tp, _t(img)),
+                                   kv_rows=_t(kv_rows))
+    else:
+        ref = JR.itm_rerank_scores(jm, jp, img, txt, atts, rows, k, impl="fused")
+        out = TR.itm_rerank_scores(tm, tp, _t(img), _t(txt), _t(atts), rows, k)
     assert out.shape == (rows, k)
     _close(out, ref)
 
@@ -110,6 +122,59 @@ def test_retrieval_scores_and_itm_eval_match_jax(models):
     img2txt = [list(range(i * per, (i + 1) * per)) for i in range(n_img)]
     assert TR.itm_eval(i2t, t2i, txt2img, img2txt) == JR.itm_eval(ref_i2t, ref_t2i,
                                                                    txt2img, img2txt)
+
+
+def test_retrieval_scores_bank_equals_expanded_chunks(models, monkeypatch):
+    """The t2i matrix read through the cross-K/V bank equals the one whose
+    chunks expand the candidate images and project their K/V (the fit rule
+    refusing the bank), entry for entry; t2i_chunks counts each t2i chunk
+    as one or the other."""
+    _, _, tm, tp = models
+    rng = np.random.default_rng(5)
+    n_img, per = 5, 3
+    n_txt = n_img * per
+    _, text_atts = _text(rng, n_txt)
+    args = (rng.standard_normal((n_img, S_LEN, 128)).astype(np.float32),
+            rng.standard_normal((n_img, 32)).astype(np.float32),
+            rng.standard_normal((n_txt, T_LEN, 128)).astype(np.float32), text_atts,
+            rng.standard_normal((n_txt, 32)).astype(np.float32))
+    kw = dict(k_test=4, rows_per_call=2)
+    chunks = -(-n_txt // 2)
+    got = {}
+    for form in ("bank", "projected"):
+        if form == "projected":
+            monkeypatch.setattr(TR, "_free_bytes", lambda dev: 0)
+        before = dict(TR.t2i_chunks)
+        got[form] = TR.retrieval_scores(tm, tp, *args, **kw)
+        assert {f: TR.t2i_chunks[f] - before[f] for f in before} == {
+            f: chunks if f == form else 0 for f in before}
+    for bank, projected in zip(got["bank"], got["projected"]):
+        np.testing.assert_array_equal(bank, projected)
+
+
+@pytest.mark.parametrize("bank_bytes,free_bytes,fits", [
+    (983_171_072, 79_000_000_000, True),       # the eval cell: 256 x 577 rows, 26 cross heads
+    (53_176_320_000, 79_000_000_000, False),   # COCO 5k, a dense 12L teacher's cross K/V
+    (20_000_000_000, 40_000_000_000, True),    # exactly half the free memory
+    (20_000_000_001, 40_000_000_000, False),
+    (1, 0, False)], ids=["cell", "dense_5k", "half", "above_half", "nothing_free"])
+def test_kv_bank_fit_rule(bank_bytes, free_bytes, fits):
+    assert TR.kv_bank_fits(bank_bytes, free_bytes) is fits
+
+
+def test_kv_bank_follows_the_fit_rule_and_the_impl(models, monkeypatch):
+    """cross_kv_bank builds a bank of [N, S, A] K/V per cross layer where
+    the fused sublayers run and its bytes fit, and none otherwise."""
+    _, _, tm, tp = models
+    img = torch.zeros(3, S_LEN, 128)
+    bank = TR.cross_kv_bank(tm, tp, img)
+    assert [tuple(kv["k"].shape) for kv in bank] == [(3, S_LEN, 128)] * 2
+    assert TR.cross_kv_bank(tm, tp, img, impl="plain") is None
+    need = 2 * 3 * S_LEN * 2 * 128 * 4
+    monkeypatch.setattr(TR, "_free_bytes", lambda dev: 2 * need - 1)
+    assert TR.cross_kv_bank(tm, tp, img) is None
+    monkeypatch.setattr(TR, "_free_bytes", lambda dev: 2 * need)
+    assert TR.cross_kv_bank(tm, tp, img) is not None
 
 
 def test_encoders_match_jax(models):

@@ -9,8 +9,8 @@ evaluation/retrieval.py and its copied_bytes):
 - the clock: under a profiler that records host activity, a logged span
   starts within 20 us (median) of its record_function event;
 - drivers/retrieval.evaluate on tiny towers emits the evaluation's span
-  tree, and copied_bytes moves by the bytes of every array it uploads and
-  fetches.
+  tree (the cross-K/V bank's projections once), and copied_bytes moves by
+  the bytes of every array it uploads and fetches.
 
 The train loop's and the step's spans: tests/test_torch_driver.py."""
 
@@ -199,7 +199,8 @@ def test_evaluate_records_its_spans_and_copies(monkeypatch):
     assert under["evlm.eval.encode_images"] == {"evlm.encode.upload": image_batches,
                                                 "evlm.encode.fetch": 2 * image_batches}
     assert under["evlm.eval.rerank"] == {"evlm.rerank.shortlist": 1 + chunks,
-                                         "evlm.rerank.bank": 1, "evlm.rerank.chunk": chunks,
+                                         "evlm.rerank.bank": 1, "evlm.rerank.kv_bank": 1,
+                                         "evlm.rerank.chunk": chunks,
                                          "evlm.rerank.fetch": chunks,
                                          "evlm.rerank.scatter": chunks}
     assert under["evlm.eval.recall"] == {}
@@ -207,7 +208,10 @@ def test_evaluate_records_its_spans_and_copies(monkeypatch):
 
     (image_feats, image_embeds, text_feats, text_atts, text_embeds), = banks
     k_i2t, k_t2i = min(K, n_txt), min(K, N_IMG)
-    index_bytes = 8 * RPC * (-(-N_IMG // RPC) * (1 + k_i2t) + -(-n_txt // RPC) * (1 + k_t2i))
+    # int64 row and candidate indices, the t2i chunks' candidates int32 (the
+    # cross-K/V bank's rows)
+    index_bytes = 8 * RPC * (-(-N_IMG // RPC) * (1 + k_i2t) + -(-n_txt // RPC)) \
+        + 4 * RPC * -(-n_txt // RPC) * k_t2i
     score_bytes = 4 * RPC * (-(-N_IMG // RPC) * k_i2t + -(-n_txt // RPC) * k_t2i)
     h2d = (ids.nbytes + atts.nbytes + images.nbytes  # the encoders' inputs
            + image_feats.nbytes + text_feats.nbytes + text_atts.nbytes  # the rerank's banks
