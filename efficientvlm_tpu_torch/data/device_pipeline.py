@@ -158,7 +158,10 @@ def affine_sample(imgs: torch.Tensor, a, b, c, d, e, f) -> torch.Tensor:
     dev = imgs.device
 
     def coef(v):
-        return torch.as_tensor(v, dtype=torch.float32, device=dev).reshape(-1, 1, 1)
+        # a float is filled on the device: as_tensor would copy it over and wait
+        if not isinstance(v, torch.Tensor):
+            return torch.full((1, 1, 1), v, dtype=torch.float32, device=dev)
+        return v.to(dtype=torch.float32, device=dev).reshape(-1, 1, 1)
 
     ys, xs = torch.meshgrid(torch.arange(h, dtype=torch.float32, device=dev),
                             torch.arange(w, dtype=torch.float32, device=dev), indexing="ij")

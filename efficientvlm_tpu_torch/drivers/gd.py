@@ -12,7 +12,11 @@ interleaves them (step i is a region step when default_rng((seed,
 i)).random() < iter_perc), with the lag-1 metric fetch, preemption at step
 granularity, a snapshot and a background full-state save every
 ckpt_frequent_step steps and at the end. Step i draws on the device from
-common.step_generator(seed, 0, i). Where it differs from JAX:
+common.step_generator(seed, 0, i). The loop body is `train_steps`, over any
+iterators of device batches, so a caller with its streams in memory runs
+main's loop itself. Either vision tower of the pretraining configs serves
+both streams: CLIP-ViT, or X-VLM-base's Swin-B with `use_swin` (region rows
+pooled by the region masks, models/swin.py). Where it differs from JAX:
 
 - each process feeds one device (no n_dev multiple of the batch); above
   one process the ranks agree on a preemption every 50 steps, as JAX's do;
@@ -41,6 +45,7 @@ from ..data.tokenizer import build_tokenizer
 from ..device import resolve_device
 from ..models.model_pretrain import XVLMForPretrain
 from ..train import checkpoint as ckpt_io
+from ..train.profiler import span
 from ..train.steps import init_pretrain_state, make_gd_train_step, make_pretrain_train_step
 from ..utils.dist import get_rank
 from ..utils.logger import MetricLogger
@@ -117,6 +122,57 @@ def to_device(batch: dict, device) -> dict:
             for k, v in batch.items()}
 
 
+def train_steps(steps, state, general, region, general_step, region_step, *, seed: int,
+                iter_perc: float, device, logger: MetricLogger, prof, world_size: int = 1,
+                save=None, ckpt_freq: int = 0, log_freq: int = 50, total=None) -> dict:
+    """main's loop body over given streams: for each step index of `steps`
+    (an iterable of ints), the region step on the next batch of `region`
+    when is_region_step(seed, step, iter_perc) (and `region` is given),
+    else the general step on the next of `general` (iterators of batches on
+    the device), each with common.step_generator(seed, 0, step, device);
+    the metrics read one step late; preemption at step granularity (above
+    one process agreed every 50 steps) calls save(done, preempted=True) and
+    exits 0; every ckpt_freq steps save(done, preempted=False). Spans:
+    evlm.loop.wait (the next step index, in log_every), .batch (the next
+    batch), .step and .after, as drivers/common.run_train_epoch's. Returns
+    {"region_steps" (the region steps' indices), "wait_s" (seconds spent
+    drawing batches)}."""
+    lagged = common.LaggedMetrics()
+    region_steps, wait_s = [], 0.0
+    for step in logger.log_every(steps, log_freq, "GD Train:", total=total):
+        with span("evlm.loop.batch"):
+            t0 = time.perf_counter()
+            use_region = region is not None and is_region_step(seed, step, iter_perc)
+            if use_region:
+                region_steps.append(step)
+            batch = next(region if use_region else general)
+            wait_s += time.perf_counter() - t0
+        with span("evlm.loop.step"):
+            metrics = (region_step if use_region else general_step)(
+                state, batch, common.step_generator(seed, 0, step, device))
+        del batch
+        with span("evlm.loop.after"):
+            prof.tick()
+            prev = lagged.push(metrics)
+            if prev:
+                logger.update(**prev)
+            if common.preempted() if world_size == 1 else (
+                    (step + 1) % 50 == 0 and common.preempted_sync()):
+                last = lagged.pop()
+                if last:
+                    logger.update(**last)
+                if save is not None:
+                    save(step + 1, preempted=True)
+                print(f"### preempted at step {step + 1}: full state saved, exiting")
+                raise SystemExit(0)
+            if save is not None and ckpt_freq and (step + 1) % ckpt_freq == 0:
+                save(step + 1, preempted=False)
+    last = lagged.pop()
+    if last:
+        logger.update(**last)
+    return {"region_steps": region_steps, "wait_s": wait_s}
+
+
 def main(args: Config, config: Config) -> dict:
     """General distillation, or plain pretraining for a "pretrain*" task:
     --student_chkpt (ahead of --checkpoint) and --teacher_chkpt through
@@ -183,56 +239,34 @@ def main(args: Config, config: Config) -> dict:
             extra["region_stream"] = common.stream_state(region_ds)
         return extra
 
+    def save(done: int, preempted: bool) -> None:
+        if not out_dir:
+            return
+        if preempted:
+            common.save_full_state(out_dir, state, {"step": done, **stream_extra()},
+                                   backend=backend)
+            common.wait_for_saves()
+            common.log_stats({"preempted": True, "step": done}, out_dir)
+            return
+        if get_rank() == 0:
+            ckpt_io.Checkpointer(out_dir, keep_last=config.get("ckpt_keep_last")
+                                 ).save_checkpoint(done, {"model": state.params, "step": done})
+        # the full state is copied here; its write overlaps the next steps
+        common.save_full_state(out_dir, state, {"step": done, **stream_extra()},
+                               backend=backend, background=True)
+        common.log_stats({"step": done, **common.train_stats(logger)}, out_dir)
+
     logger = MetricLogger()
-    lagged = common.LaggedMetrics()
     prof = common.StepProfiler(config, out_dir)
-    general_iter = iter(general_ds.batches())
-    region_iter = (iter(region_ds.batches(config.get("regions", {}).get("max_images", 48)))
-                   if region_ds is not None else None)
+    general_iter = (to_device(b, device) for b in general_ds.batches())
+    region_iter = (None if region_ds is None else (to_device(b, device) for b in region_ds.batches(
+        config.get("regions", {}).get("max_images", 48))))
     ckpt_io.clear_load_memo()  # the params live on the device now
-    region_steps, wait_s = [], 0.0
     t_loop = time.perf_counter()
-    for step in logger.log_every(range(start_step, max_steps), 50, "GD Train:",
-                                 total=max_steps - start_step):
-        t0 = time.perf_counter()
-        use_region = region_iter is not None and is_region_step(seed, step, iter_perc)
-        if use_region:
-            region_steps.append(step)
-            batch = to_device(next(region_iter), device)
-        else:
-            batch = to_device(next(general_iter), device)
-        wait_s += time.perf_counter() - t0
-        metrics = (region_step if use_region else general_step)(
-            state, batch, common.step_generator(seed, 0, step, device))
-        del batch
-        prof.tick()
-        prev = lagged.push(metrics)
-        if prev:
-            logger.update(**prev)
-        if common.preempted() if info["world_size"] == 1 else (
-                (step + 1) % 50 == 0 and common.preempted_sync()):
-            last = lagged.pop()
-            if last:
-                logger.update(**last)
-            if out_dir:
-                common.save_full_state(out_dir, state, {"step": step + 1, **stream_extra()},
-                                       backend=backend)
-                common.wait_for_saves()
-                common.log_stats({"preempted": True, "step": step + 1}, out_dir)
-            print(f"### preempted at step {step + 1}: full state saved, exiting")
-            raise SystemExit(0)
-        if (step + 1) % ckpt_freq == 0 and out_dir:
-            if get_rank() == 0:
-                ckpt_io.Checkpointer(out_dir, keep_last=config.get("ckpt_keep_last")
-                                     ).save_checkpoint(step + 1, {"model": state.params,
-                                                                  "step": step + 1})
-            # the full state is copied here; its write overlaps the next steps
-            common.save_full_state(out_dir, state, {"step": step + 1, **stream_extra()},
-                                   backend=backend, background=True)
-            common.log_stats({"step": step + 1, **common.train_stats(logger)}, out_dir)
-    last = lagged.pop()
-    if last:
-        logger.update(**last)
+    loop = train_steps(range(start_step, max_steps), state, general_iter, region_iter,
+                       general_step, region_step, seed=seed, iter_perc=iter_perc,
+                       device=device, logger=logger, prof=prof, world_size=info["world_size"],
+                       save=save, ckpt_freq=ckpt_freq, total=max_steps - start_step)
     prof.close()
     train_s = time.perf_counter() - t_loop
     if out_dir:
@@ -241,5 +275,5 @@ def main(args: Config, config: Config) -> dict:
                 "final", {"model": state.params, "step": max_steps})
         common.save_full_state(out_dir, state, {"step": max_steps, **stream_extra()},
                                backend=backend)
-    return {"state": state, "region_steps": region_steps, "steps": max_steps - start_step,
-            "train_s": train_s, "wait_s": wait_s}
+    return {"state": state, "region_steps": loop["region_steps"],
+            "steps": max_steps - start_step, "train_s": train_s, "wait_s": loop["wait_s"]}

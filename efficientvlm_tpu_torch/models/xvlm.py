@@ -127,15 +127,18 @@ class XVLM:
         text, gathered by idx_to_group_img as the reference's
         get_vision_embeds does (models/xvlm.py:340-364), so the bbox head
         sees one image row per text; the JAX package returns the B image rows
-        ungathered, which breaks predict_bbox when n_txt != B."""
+        ungathered, which breaks predict_bbox when n_txt != B. The CLIP-ViT
+        tower takes the region masks in its local layers; the Swin tower
+        pools its region rows by them, and they reach the fusion's
+        cross-attention as image_atts with either tower."""
         vz, _ = split_zs(zs)
         kw = dict(output_attentions=output_attentions,
                   output_hidden_states=output_hidden_states, train=train, generator=generator,
                   dtype=dtype, impl=impl, **vz)
-        if self.vision_apply is V.vit_apply:
+        if self.vision_apply is V.vit_apply or self.config.get("use_swin"):
             kw.update(idx_to_group_img=idx_to_group_img, image_atts=image_atts)
         elif idx_to_group_img is not None:
-            raise ValueError("region batches (idx_to_group_img) need the CLIP-ViT tower")
+            raise ValueError("region batches (idx_to_group_img) need the CLIP-ViT or Swin tower")
         out = self.vision_apply(params["vision"], image, self.vision_cfg, **kw)
         embeds = out["last_hidden"]
         if idx_to_group_img is None:

@@ -115,7 +115,7 @@ def dropout(x: torch.Tensor, rate: float, *, generator=None, train: bool = False
         return x
     keep = 1.0 - rate
     mask = torch.rand(x.shape, generator=generator, device=x.device) < keep
-    return torch.where(mask, x / keep, torch.zeros((), dtype=x.dtype, device=x.device))
+    return torch.where(mask, x / keep, 0.0)
 
 
 def remat(fn, *, generators=()):

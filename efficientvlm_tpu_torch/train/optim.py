@@ -121,10 +121,11 @@ class AdamW:
         grads = [torch.zeros_like(p, dtype=torch.float32) if g is None else g.float()
                  for p, g in zip(leaves, grads)]
         if self.grad_clip:
+            # g / norm * clip above the clip, g itself (divided and multiplied by 1) below
             norm = self.global_norm(grads)
             keep = norm < self.grad_clip
-            scaled = torch._foreach_mul(torch._foreach_div(grads, norm), self.grad_clip)
-            grads = [torch.where(keep, g, s) for g, s in zip(grads, scaled)]
+            grads = torch._foreach_div(grads, torch.where(keep, 1.0, norm))
+            torch._foreach_mul_(grads, torch.where(keep, 1.0, self.grad_clip).to(norm.dtype))
         lr = self.learning_rate(state["count"])
         state["count"] += 1
         mu, nu, t = state["mu"], state["nu"], state["count"]
@@ -144,8 +145,7 @@ class AdamW:
         torch._foreach_mul_(upd, -lr)
         if self.lr_mult != 1.0 and self.mult is not None:
             torch._foreach_mul_([u for u, m in zip(upd, self.mult) if m], self.lr_mult)
-        for p, u in zip(leaves, upd):
-            p.add_(u.to(p.dtype))
+        torch._foreach_add_(leaves, [u.to(p.dtype) for p, u in zip(leaves, upd)])
 
 
 class MultiSteps:

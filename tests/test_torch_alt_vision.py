@@ -14,8 +14,8 @@ CPU, in f32:
   (models/vit.interpolate_pos_embed), as for the CLIP tower, not JAX's;
 - xvlm.vision_encoder_dispatch: XVLM and XVLMForRetrieval take the tower
   the config selects (init structure, get_vision_embeds against JAX's XVLM
-  within 1e-5, the retrieval forward), a region batch refuses a non-CLIP
-  tower, and the driver's maybe_load_params fills the vision subtree from
+  within 1e-5, the retrieval forward), a region batch refuses the DeiT
+  tower and takes the Swin tower's region rows, and the driver's maybe_load_params fills the vision subtree from
   config["vision"]["ckpt"] as JAX's alt_vision_params_from_file does."""
 
 import jax
@@ -200,11 +200,20 @@ def test_dispatch_matches_jax(tower):
     want = jax.jit(lambda p, x: jmodel.get_vision_embeds(p, x)[0])(_numpy(tp), img)
     got = model.get_vision_embeds(tp, torch.from_numpy(img))[0]
     _close(got, want, 1e-5)
-    if tower != "clip":
+    if tower == "deit":
         with pytest.raises(ValueError, match="region"):
             model.get_vision_embeds(tp, torch.from_numpy(img),
                                     idx_to_group_img=torch.tensor([0, 1]),
                                     image_atts=torch.ones(2, got.shape[1]))
+    elif tower == "swin":  # region rows over whole-image masks are the full rows
+        idx = torch.tensor([1, 0, 1])
+        region, atts, full, full_atts, _ = model.get_vision_embeds(
+            tp, torch.from_numpy(img), idx_to_group_img=idx,
+            image_atts=torch.ones(3, got.shape[1]))
+        assert region.shape == full.shape == (3,) + got.shape[1:]
+        assert atts.dtype == full_atts.dtype == torch.int32
+        torch.testing.assert_close(full, got[idx], rtol=0, atol=0)
+        torch.testing.assert_close(region, got[idx], rtol=0, atol=1e-6)
 
 
 def test_retrieval_model_runs_the_selected_tower():

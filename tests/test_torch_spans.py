@@ -10,7 +10,10 @@ evaluation/retrieval.py and its copied_bytes):
   starts within 20 us (median) of its record_function event;
 - drivers/retrieval.evaluate on tiny towers emits the evaluation's span
   tree (the cross-K/V bank's projections once), and copied_bytes moves by
-  the bytes of every array it uploads and fetches.
+  the bytes of every array it uploads and fetches;
+- the Swin tower's spans (models/swin.py) nest under evlm.step.student,
+  swin_windows counts the windows of a known grid, and with recording off
+  the tower makes no span object and leaves no range.
 
 The train loop's and the step's spans: tests/test_torch_driver.py."""
 
@@ -238,3 +241,90 @@ def test_trace_records_spans_as_ranges(tmp_path, annotate):
         names = {e.get("name") for e in json.load(f)["traceEvents"]}
     assert {"evlm.test.outer", "evlm.test.inner"} <= names
     assert [s[0] for s in outer] == ["after"]
+
+
+# the Swin tower: an 8 x 8 grid in windows of 4 (block 1 shifted), merged to
+# a 4 x 4 grid in one window
+SWIN = dict(image_res=32, patch_size=4, embed_dim=16, depths=[2, 2], num_heads=[2, 4],
+            window_size=4, mlp_ratio=4.0, vision_width=32)
+
+
+def _swin_step(with_bbox: bool):
+    """(a plain pretrain step over a tiny Swin X-VLM in f32, its state, a
+    batch of 2 images and 3 texts)."""
+    from efficientvlm_tpu_torch.models.model_pretrain import XVLMForPretrain
+    from efficientvlm_tpu_torch.train.optim import create_optimizer
+    from efficientvlm_tpu_torch.train.steps import init_pretrain_state, make_pretrain_train_step
+
+    model = XVLMForPretrain(tcfg.Config(SWIN), tcfg.TextConfig.create(**TEXT),
+                            tcfg.Config({"use_swin": True, "embed_dim": 16}))
+    params = model.init(0, device="cpu", with_bbox_head=True)
+    opt = create_optimizer(params, lr=1e-3)
+    g = torch.Generator().manual_seed(0)
+    n = 3 if with_bbox else 2
+    batch = {"image": torch.randn(2, 32, 32, 3, generator=g),
+             "text_ids": torch.randint(1, 60, (n, 6), generator=g),
+             "text_atts": torch.ones(n, 6, dtype=torch.int64),
+             "text_ids_masked": torch.randint(1, 60, (n, 6), generator=g),
+             "masked_pos": torch.tensor([[1, 2]] * n), "masked_ids": torch.tensor([[5, 7]] * n)}
+    if with_bbox:
+        atts = torch.ones(n, 17, dtype=torch.int32)
+        atts[0, 5:] = 0
+        batch.update(idx_to_group_img=torch.tensor([0, 1, 1]), image_atts=atts,
+                     target_bbox=torch.tensor([[0.5, 0.5, 1.0, 1.0], [0.3, 0.4, 0.2, 0.2],
+                                               [0.6, 0.5, 0.4, 0.3]]),
+                     is_image=torch.tensor([1, 0, 0], dtype=torch.int32))
+    return make_pretrain_train_step(model, opt, with_bbox=with_bbox), \
+        init_pretrain_state(params, opt), batch
+
+
+@pytest.mark.parametrize("with_bbox", [False, True], ids=["general", "region"])
+def test_swin_spans_nest_under_the_student_step(with_bbox):
+    """evlm.swin.stage0 / .stage1 under evlm.step.student, each block's
+    attention core under its stage, the merge under stage 0 (the last stage
+    has none), and on region steps evlm.swin.region after the stages."""
+    step, state, batch = _swin_step(with_bbox)
+    with P.recording() as log:
+        step(state, batch, torch.Generator().manual_seed(1))
+    names = [n for n, _, _, _ in log]
+    swin = [i for i, n in enumerate(names) if n.startswith("evlm.swin.")]
+    student = names.index("evlm.step.student")
+    parent = {i: log[i][1] for i in range(len(log))}
+    stages = [i for i in swin if names[i].startswith("evlm.swin.stage")]
+    assert [names[i] for i in stages] == ["evlm.swin.stage0", "evlm.swin.stage1"]
+    assert all(parent[i] == student for i in stages)
+    under = {names[s]: Counter(names[i] for i in swin if parent[i] == s) for s in stages}
+    assert under == {"evlm.swin.stage0": {"evlm.swin.attention": 2, "evlm.swin.merge": 1},
+                     "evlm.swin.stage1": {"evlm.swin.attention": 2}}
+    region = [i for i in swin if names[i] == "evlm.swin.region"]
+    assert len(region) == int(with_bbox) and all(parent[i] == student for i in region)
+    assert all(log[i][3] is not None and log[i][3] >= log[i][2] for i in swin)
+
+
+def test_swin_windows_counts_a_known_grid():
+    """2 images: stage 0 has 4 windows an image, plain in block 0 and
+    shifted in block 1; stage 1 one window an image in both blocks."""
+    from efficientvlm_tpu_torch.models import swin
+
+    params = swin.init_swin(torch.Generator().manual_seed(0), swin.swin_config(**{
+        k: v for k, v in SWIN.items() if k != "vision_width"}), "cpu")
+    before = dict(swin.swin_windows)
+    swin.swin_apply(params, torch.randn(2, 32, 32, 3), tcfg.Config(SWIN))
+    assert {k: swin.swin_windows[k] - before[k] for k in before} == {"plain": 8 + 2 * 2,
+                                                                     "shifted": 8}
+
+
+def test_swin_spans_cost_nothing_when_off(monkeypatch):
+    """Outside a recording the tower's spans are the shared no-op: no span
+    object is made and no profiler range appears."""
+    from efficientvlm_tpu_torch.models import swin
+
+    def made(*a):
+        raise AssertionError("a span object was made with recording off")
+
+    monkeypatch.setattr(P, "_Span", made)
+    params = swin.init_swin(torch.Generator().manual_seed(0), swin.swin_config(**{
+        k: v for k, v in SWIN.items() if k != "vision_width"}), "cpu")
+    names = _profiled_names(lambda: swin.swin_apply(params, torch.randn(1, 32, 32, 3),
+                                                    tcfg.Config(SWIN)))
+    assert not [n for n in names if n.startswith("evlm.")]

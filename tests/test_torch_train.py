@@ -230,6 +230,30 @@ def test_optimizers_match_optax():
     assert float(cases[2][2].lr) < 0
 
 
+@pytest.mark.parametrize("gscale", [0.0, 1e-3, 3.0], ids=["zero", "under", "over"])
+def test_adamw_clip_equals_the_per_leaf_where(gscale):
+    """The clip's two list ops give each leaf what optax's per-leaf
+    where(norm < clip, g, g / norm * clip) gives, bit for bit: zero
+    gradients (norm 0) included, under the limit and over it."""
+    rng = np.random.default_rng(5)
+    shapes = [(4, 6), (6,), (3, 2, 2), ()]
+    leaves = [torch.from_numpy(np.asarray(rng.standard_normal(s), np.float32)) for s in shapes]
+    grads = [torch.from_numpy(np.asarray(gscale * rng.standard_normal(s), np.float32))
+             for s in shapes]
+    opt = TO.AdamW(1e-2, weight_decay=0.01, decay=[True, False, True, False], grad_clip=1.0)
+    got = [x.clone() for x in leaves]
+    opt.step(got, grads, opt.init(got))
+
+    norm = torch.linalg.vector_norm(torch.stack(torch._foreach_norm(grads)))
+    keep = norm < 1.0
+    clipped = [torch.where(keep, g, g / norm * 1.0) for g in grads]
+    want = [x.clone() for x in leaves]
+    TO.AdamW(1e-2, weight_decay=0.01, decay=[True, False, True, False]).step(
+        want, clipped, opt.init(want))
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
+
+
 def test_dropout_keeps_and_scales():
     g = torch.Generator().manual_seed(0)
     x = torch.ones(200_000)
