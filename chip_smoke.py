@@ -25,7 +25,11 @@ It builds the port's CUDA kernels from csrc/ (into build/kernels/), then:
    the device kernels under #1-#4 on their own: gemm_bias at the ViT's
    fused Q/K/V shape, gemm_ln (the LayerNorm epilogue over a cluster) at
    #4's output projection, attn_core and attn_wgmma (the wgmma core of #4)
-   at the i2t rerank, ViT and fusion shapes; the training forms: the probs
+   at the i2t rerank, ViT and fusion shapes; the fused FFN sublayer
+   (phase_ffn: gemm_bias with its GELU, then gemm_ln) at the rerank's rows
+   and the export's widths, timed beside the layer's plain path and the
+   library yardstick, and at a beam step's 48 rows; the training forms:
+   the probs
    forms of #2 and #3 (the pre-gate f32 softmax maps beside the output) at
    the training batch's ViT, text and fusion shapes and at the pruned widths
    (2-12 heads), and their core attn_probs on its own at the long-key
@@ -812,8 +816,9 @@ def build_model(layers: int):
 
 def wrappers():
     """name -> (wrapper, its count attribute); the probs forms of #2 / #3
-    are counted apart from their plain forms, #3's bank form (the t2i
-    rerank over a cross-K/V bank) last."""
+    are counted apart from their plain forms, then #3's bank form (the t2i
+    rerank over a cross-K/V bank), the fused FFN sublayer last."""
+    from efficientvlm_tpu_torch.kernels import bindings
     from efficientvlm_tpu_torch.ops import flash_attention as FA
     from efficientvlm_tpu_torch.ops import fused_mha as F
     from efficientvlm_tpu_torch.ops.patch_embed import fused_patch_embed
@@ -826,7 +831,17 @@ def wrappers():
             "flash_attention_grouped": (FA.flash_attention_grouped, "launches"),
             "fused_self_attention_probs": (F.fused_self_attention, "probs_launches"),
             "fused_cross_attention_probs": (F.fused_cross_attention, "probs_launches"),
-            "fused_cross_attention_bank": (F.fused_cross_attention_bank, "launches")}
+            "fused_cross_attention_bank": (F.fused_cross_attention_bank, "launches"),
+            "fused_ffn": (bindings.fused_ffn, "launches")}
+
+
+FFN_AT = 9  # the fused FFN's place in wrappers() and in a launch tuple
+
+
+def with_ffn(t: tuple, n: int) -> tuple:
+    """Launch tuple t with n fused FFN sublayers (bindings.fused_ffn) in
+    FFN_AT, the names between them not launched."""
+    return tuple(t) + (0,) * (FFN_AT - len(t)) + (n,)
 
 
 ROUTES = ("attn_probs", "attn_core")  # bindings.probs_routes: the core of each probs call
@@ -892,20 +907,20 @@ def phase_slice(rnd):
     c = reset_counts()
     with torch.inference_mode():
         out = R.retrieval_forward(teacher, t_bf16, image, ids, atts, dtype=bf16)
-        c = expect_launches(c, (1, 24, 6, 0, 0, 0), "teacher forward")
+        c = expect_launches(c, with_ffn((1, 24, 6), 12), "teacher forward")
         for x, shape in zip(out, [(32, 256), (32, 256), (32, 2)]):
             check(tuple(x.shape) == shape and bool(torch.isfinite(x.float()).all()),
                   f"teacher forward output {tuple(x.shape)} not finite / not {shape}")
         norms = torch.linalg.vector_norm(out[0].float(), dim=-1)
         check(bool(((norms - 1).abs() < 1e-2).all()), "image features are not unit vectors")
         out = R.retrieval_forward(student, s_bf16, image, ids, atts, dtype=bf16)
-        c = expect_launches(c, (1, 12, 3, 0, 0, 0), "student forward")
+        c = expect_launches(c, with_ffn((1, 12, 3), 6), "student forward")
         check(all(bool(torch.isfinite(x.float()).all()) for x in out), "student not finite")
         i2t = R.itm_rerank_scores(teacher, t_bf16, ib, txt, txt_atts, rows, k, dtype=bf16)
-        c = expect_launches(c, (0, 6, 0, 6, 0, 0), "i2t rerank chunk")
+        c = expect_launches(c, with_ffn((0, 6, 0, 6), 6), "i2t rerank chunk")
         t2i = R.itm_rerank_scores(teacher, t_bf16, ib_expanded, txt, txt_atts, rows, k,
                                   dtype=bf16)
-        c = expect_launches(c, (0, 6, 6, 0, 0, 0), "t2i rerank chunk")
+        c = expect_launches(c, with_ffn((0, 6, 6), 6), "t2i rerank chunk")
         for x in (i2t, t2i):
             check(tuple(x.shape) == (rows, k) and bool(torch.isfinite(x.float()).all()),
                   "rerank chunk output not finite / wrong shape")
@@ -935,8 +950,9 @@ def phase_slice(rnd):
     scores_s = time.perf_counter() - t0
     chunks_i2t, chunks_t2i = n_img // 4, n_txt // 4  # t2i over the cross-K/V bank
     check(R.t2i_chunks["bank"] - banked == chunks_t2i, "a t2i chunk did not read the bank")
-    c = expect_launches(c, (0, 6 * (chunks_i2t + chunks_t2i), 0, 6 * chunks_i2t, 0, 0, 0, 0,
-                            6 * chunks_t2i), "retrieval_scores")
+    c = expect_launches(c, with_ffn((0, 6 * (chunks_i2t + chunks_t2i), 0, 6 * chunks_i2t, 0, 0, 0,
+                                0, 6 * chunks_t2i), 6 * (chunks_i2t + chunks_t2i)),
+                        "retrieval_scores")
     check(bool(((s_i2t > -100).sum(1) == k_test).all()) and
           bool(((s_t2i > -100).sum(1) == k_test).all()), "rerank filled the wrong entries")
     check(bool(np.isfinite(s_i2t).all() and np.isfinite(s_t2i).all()), "scores not finite")
@@ -957,8 +973,9 @@ def phase_slice(rnd):
                                           txt_bank_atts, txt_emb, k_test=k_test, dtype=bf16)
     finally:
         R._free_bytes = free_bytes
-    expect_launches(main_launches, (0, 6 * (chunks_i2t + chunks_t2i), 6 * chunks_t2i,
-                                    6 * chunks_i2t), "retrieval_scores without the bank")
+    expect_launches(main_launches, with_ffn((0, 6 * (chunks_i2t + chunks_t2i), 6 * chunks_t2i,
+                                        6 * chunks_i2t), 6 * (chunks_i2t + chunks_t2i)),
+                    "retrieval_scores without the bank")
     check(R.t2i_chunks["projected"] - projected == chunks_t2i, "the bank was not refused")
     same = np.array_equal(p_i2t, s_i2t) and np.array_equal(p_t2i, s_t2i)
     print(f"retrieval_scores with and without the cross-K/V bank: matrices equal bit for bit "
@@ -1175,9 +1192,10 @@ def phase_generation(rnd):
             check_vqa(ids, probs, f"vqa {which}")
             # ViT + question self (#2), question fusion (#3); the decoder's self and
             # cross in the first call plus self in the scoring call (#6), its
-            # grouped cross in the scoring call (#5)
-            c = expect_launches(c, (1, 2 * lv, lv // 2, 0, 3 * dec_layers, dec_layers),
-                                f"vqa forward_eval {which}")
+            # grouped cross in the scoring call (#5); an FFN in each question
+            # layer and in the decoder's layers at each of its two calls
+            c = expect_launches(c, with_ffn((1, 2 * lv, lv // 2, 0, 3 * dec_layers, dec_layers),
+                                       lv + 2 * dec_layers), f"vqa forward_eval {which}")
             outs[("vqa", which)] = ids
             model, params = models[("caption", which)]
             for beams in (c_u["beams"], 1):
@@ -1189,9 +1207,10 @@ def phase_generation(rnd):
                 check(2 <= n <= c_u["max_length"] - len(c_u["prompt"]) + 1,
                       f"caption: {n} decoder calls")
                 # per decoder call: cached self in every layer (#6), cross over the
-                # shared image K/V (#5 with beams, #6 greedy)
+                # shared image K/V (#5 with beams, #6 greedy); an FFN in every layer
                 per_call = ((lv, lv // 2) if beams > 1 else (lv + lv // 2, 0))
-                c = expect_launches(c, (1, lv, 0, 0, per_call[0] * n, per_call[1] * n),
+                c = expect_launches(c, with_ffn((1, lv, 0, 0, per_call[0] * n, per_call[1] * n),
+                                           lv * n),
                                     f"caption generate {which} beams={beams} ({n} decoder calls)")
                 outs[("caption", which, beams)] = tokens
     launches = counts()
@@ -1705,8 +1724,10 @@ def phase_train(rnd):
             metrics.append({k: float(v) for k, v in m.items()})
             if name == "kernel":
                 # teacher 12 ViT + 6 text + 2x6 fusion self, student 6 ViT (#2 probs);
-                # teacher 2x6 fusion cross (#3 probs); #1 for teacher and student
-                c = expect_launches(c, (2, 0, 0, 0, 0, 0, 36, 12), f"train step {i + 1}")
+                # teacher 2x6 fusion cross (#3 probs); #1 for teacher and student;
+                # the teacher's 6 + 2x6 BERT FFNs (the student's train on the plain path)
+                c = expect_launches(c, with_ffn((2, 0, 0, 0, 0, 0, 36, 12), 18),
+                                    f"train step {i + 1}")
         if name == "kernel":
             launches = counts()
         torch.cuda.synchronize()
@@ -1771,6 +1792,154 @@ def ffn_width_sweep():
     return out
 
 
+# the BERT FFN sublayer at the retrieval evaluation's rerank (ops/fused_ffn.py):
+# a chunk's 1,024 pairs of 40 tokens, at the FFN widths the export gives
+# the benchmark's student (align_intermediate=1) and at the aligned 3,072
+FFN_ROWS = 4 * 256 * 40
+FFN_WIDTHS = (2244, 2332, 3072)
+FFN_DECODE_ROWS = 48  # a caption beam step: 16 images x 3 beams, one token each
+
+
+def ffn_params(rnd, d: int, i: int) -> dict:
+    """One BERT FFN sublayer's params as the export stores them (f32)."""
+    import torch
+
+    f32 = torch.float32
+    return {"intermediate": {"kernel": rnd(d, i, std=d ** -0.5, dtype=f32),
+                             "bias": rnd(i, std=0.5, dtype=f32)},
+            "output": {"kernel": rnd(i, d, std=i ** -0.5, dtype=f32),
+                       "bias": rnd(d, std=0.5, dtype=f32)},
+            "output_ln": {"scale": rnd(d, mean=1.0, std=0.1, dtype=f32),
+                          "bias": rnd(d, std=0.1, dtype=f32)}}
+
+
+def phase_ffn(smi: str) -> dict:
+    """The fused FFN sublayer (bindings.fused_ffn through
+    ops/fused_ffn.ffn_sublayer) held to its plain twin at the rerank's rows,
+    then timed (CUDA events): against the layer's plain path (the f32
+    kernels cast at each call, cuBLAS, F.gelu, the add, layer_norm), the
+    library yardstick (F.linear on bf16 weights cast once -> F.gelu ->
+    F.linear -> add -> F.layer_norm; never called by the port), the plain
+    twin, its bound (FLOP at 989 TFLOP/s or bytes at 3.35 TB/s), its two
+    GEMMs alone, and the intermediate padded to 8 in place of
+    ops/fused_ffn.PAD, in turns; then the caption beam step's 48 rows
+    against the plain path (call rate, host and device time)."""
+    import torch
+    import torch.nn.functional as Fn
+
+    from efficientvlm_tpu_torch.kernels import bindings as K
+    from efficientvlm_tpu_torch.ops import fused_ffn as FF
+
+    rnd, bf16, d, eps = Rand(11), torch.bfloat16, 768, 1e-12
+    report = {}
+    for i in FFN_WIDTHS:
+        m, case = FFN_ROWS, f"rerank_m{FFN_ROWS}_i{i}"
+        lp, h = ffn_params(rnd, d, i), rnd(1, FFN_ROWS, d)
+        x, b2, ln = h.reshape(m, d), lp["output"]["bias"], lp["output_ln"]
+        w1, b1, w2 = FF.prepared(lp["intermediate"], lp["output"])
+        kw = dict(act="gelu", eps=eps, dtype=bf16)
+        fused = lambda: FF.ffn_sublayer(lp, h, **kw)  # noqa: E731
+        torch_path = lambda: FF.ffn_sublayer(lp, h, impl="plain", **kw)  # noqa: E731
+        twin = lambda: FF.fused_ffn_plain(x, w1, b1, w2, b2, ln["scale"], ln["bias"],  # noqa: E731
+                                          eps, act="gelu")
+        lw1, lw2 = (lp[k]["kernel"].t().to(bf16).contiguous() for k in ("intermediate", "output"))
+        lb1, lb2, lg, lb = (t.to(bf16) for t in (lp["intermediate"]["bias"], b2, ln["scale"],
+                                                 ln["bias"]))
+        lib = lambda: Fn.layer_norm(  # noqa: E731
+            x + Fn.linear(Fn.gelu(Fn.linear(x, lw1, lb1)), lw2, lb2), (d,), lg, lb, eps)
+
+        def op(w1=w1, b1=b1, w2=w2):
+            return lambda: K.fused_ffn(x, w1, b1, w2, b2, ln["scale"], ln["bias"], eps,
+                                       act="gelu")
+
+        inter = K.gemm_bias(x, w1, b1, act="gelu")
+        gemm1 = lambda: K.gemm_bias(x, w1, b1, act="gelu")  # noqa: E731
+        gemm2 = lambda: K.gemm_ln(inter, w2, ln["scale"], ln["bias"], eps, bias=b2,  # noqa: E731
+                                  residual=x)
+        with torch.inference_mode():
+            before = FF.ffn_calls["fused"]
+            got = fused().reshape(m, d).float()
+            check(FF.ffn_calls["fused"] == before + 1, f"fused_ffn [{case}]: not fused")
+            ref, today = twin().float(), torch_path().reshape(m, d).float()
+            torch.cuda.synchronize()
+            err, tol = (got - ref).abs().max().item(), 4 * BF16_ULP * ref.abs().max().item()
+            err_today = (got - today).abs().max().item()
+            print(f"kernel fused_ffn [{case}]: max_abs_err {err:.4e} tol {tol:.4e}; against "
+                  f"the plain path (its product rounded before the residual) {err_today:.4e}")
+            check(err <= tol, f"fused_ffn/{case} disagrees with its plain twin")
+            del got, ref, today
+            ms, plain_path_ms = timed_pair_ms(fused, torch_path, iters=5, runs=5)
+            g1_ms, g2_ms = timed_ms(gemm1), timed_ms(gemm2)
+            lib_ms, twin_ms = timed_ms(lib), timed_ms(twin, iters=2, runs=3)
+            pad8_ms = None
+            if i % 8 or i % FF.PAD:  # the intermediate padded to 8 in place of PAD
+                ip = -(-i // 8) * 8
+                w1p = FF._padded(lp["intermediate"]["kernel"], 1, ip, bf16)
+                b1p = FF._padded(lp["intermediate"]["bias"], 0, ip, torch.float32)
+                w2p = FF._padded(lp["output"]["kernel"], 0, ip, bf16)
+                pad8_ms = timed_pair_ms(op(), op(w1p, b1p, w2p), iters=5, runs=5)
+        flops = 4 * m * d * i
+        nbytes = 2 * (2 * m * d + 2 * d * i) + 4 * (i + 3 * d)
+        bound_ms, bound_by = bound(flops, nbytes)
+        print(f"time fused_ffn [{case}]: {ms:.4f} ms ({flops / ms / 1e9:.1f} TFLOP/s), bound "
+              f"{bound_ms:.4f} ms ({bound_by}), the layer's plain path {plain_path_ms:.4f} ms, "
+              f"library {lib_ms:.4f} ms, plain twin {twin_ms:.4f} ms; GEMM 1 (gemm_bias + GELU) "
+              f"{g1_ms:.4f} ms, GEMM 2 (gemm_ln) {g2_ms:.4f} ms; in turns, I padded to "
+              f"{FF.PAD} / to 8: "
+              f"{'-' if pad8_ms is None else '{:.4f} / {:.4f} ms'.format(*pad8_ms)}; {smi}")
+        profile(f"fused_ffn [{case}]", fused)
+        profile(f"the plain path [{case}]", torch_path)
+        report[case] = {"ms": ms, "bound_ms": bound_ms, "bound_by": bound_by,
+                        "plain_path_ms": plain_path_ms, "library_ms": lib_ms, "plain_ms": twin_ms,
+                        "gemm1_ms": g1_ms, "gemm2_ms": g2_ms,
+                        "pad8_ms": None if pad8_ms is None else pad8_ms[1], "max_abs_err": err}
+        del lp, h, x, w1, b1, w2, inter
+        torch.cuda.empty_cache()
+    # the decode shape: 48 rows a call, where the host may set the pace
+    case = f"decode_m{FFN_DECODE_ROWS}_i2244"
+    lp, h = ffn_params(rnd, d, 2244), rnd(FFN_DECODE_ROWS, 1, d)
+    fused = lambda: FF.ffn_sublayer(lp, h, act="gelu", eps=eps, dtype=bf16)  # noqa: E731
+    torch_path = lambda: FF.ffn_sublayer(lp, h, act="gelu", eps=eps, dtype=bf16,  # noqa: E731
+                                         impl="plain")
+    with torch.inference_mode():
+        w1, b1, w2 = FF.prepared(lp["intermediate"], lp["output"])
+        ln = lp["output_ln"]
+        ref = FF.fused_ffn_plain(h.reshape(-1, d), w1, b1, w2, lp["output"]["bias"],
+                                 ln["scale"], ln["bias"], eps, act="gelu").float()
+        err = (fused().reshape(-1, d).float() - ref).abs().max().item()
+        check(err <= 4 * BF16_ULP * ref.abs().max().item(), f"fused_ffn/{case} disagrees")
+        ms, plain_path_ms = timed_pair_ms(fused, torch_path)
+        host = (host_us(fused), host_us(torch_path))
+        dev = (device_us(fused), device_us(torch_path))
+    print(f"time fused_ffn [{case}]: {ms:.4f} ms a call back to back, the layer's plain path "
+          f"{plain_path_ms:.4f} ms; host {host[0]:.1f} / {host[1]:.1f} us a call; device "
+          f"{fmt_us(dev[0][0])} / {fmt_us(dev[1][0])} us in {dev[0][1]} / {dev[1][1]} launches "
+          f"a call; {smi}")
+    report[case] = {"ms": ms, "plain_path_ms": plain_path_ms, "host_us": host[0],
+                    "plain_path_host_us": host[1], "device_us": dev[0][0],
+                    "plain_path_device_us": dev[1][0], "launches": dev[0][1],
+                    "plain_path_launches": dev[1][1], "max_abs_err": err}
+    print(json.dumps({"ffn": report}))
+    return report
+
+
+def ffn_row(report: dict, paths) -> dict:
+    """The kernels line's row of the fused FFN sublayer: phase_ffn's rerank
+    case at the first of FFN_WIDTHS, its launches summed over every main
+    path (`paths`: launch counts keyed as wrappers())."""
+    r = report[f"rerank_m{FFN_ROWS}_i{FFN_WIDTHS[0]}"]
+    launches = [p["fused_ffn"] for p in paths]
+    print(f"fused_ffn on the main paths: {sum(launches)} launches "
+          f"({'; '.join(map(str, launches))})")
+    check(sum(launches) > 0, "no main path ran the fused FFN sublayer")
+    return {"name": "fused_ffn", "route": "cuda",
+            "source": "efficientvlm_tpu_torch/csrc/fused_ffn.cu", "replaces": None,
+            "launches": sum(launches),
+            "max_abs_err": max(v["max_abs_err"] for v in report.values()), "ms": r["ms"],
+            "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
+            "library_ms": r["library_ms"]}
+
+
 def drawn_loga(state, rnd) -> dict:
     """Log-alphas drawn from a seed for the export checks: head groups in
     [-4, 4), FFN units in [-3, 3), so the deterministic gates drop some."""
@@ -1780,6 +1949,12 @@ def drawn_loga(state, rnd) -> dict:
                   if key.endswith("head") else torch.rand(v.shape, generator=rnd.g,
                                                           device="cuda") * 6 - 3)
             for key, v in state.loga.items()}
+
+
+def ffn_layers(layers) -> int:
+    """BERT layers of a (pruned) tree that keep an FFN: each runs one fused
+    FFN sublayer at inference without gates."""
+    return sum(lp.get("intermediate") is not None for lp in layers)
 
 
 def pruned_counts(params, fusion: int) -> tuple:
@@ -1824,6 +1999,8 @@ def phase_export(train_state, slice_state, rnd) -> dict:
                                                      head_dim=64,
                                                      align_intermediate=EXPORT_ALIGN), bf16)
         vit, text, fself, fcross = pruned_counts(pruned, fusion)
+        ffn_text = ffn_layers(pruned["text"]["layers"][:fusion])
+        ffn_fusion = ffn_layers(pruned["text"]["layers"][fusion:])
         n_heads = lambda attn: 0 if attn is None else attn["q"]["kernel"].shape[1] // 64  # noqa
         text_layers = pruned["text"]["layers"]
         heads = {"vision": [n_heads(lp.get("attn")) for lp in pruned["vision"]["layers"]],
@@ -1839,12 +2016,14 @@ def phase_export(train_state, slice_state, rnd) -> dict:
         c = reset_counts()
         with torch.inference_mode():
             got = R.retrieval_forward(student, pruned, image, ids, atts, dtype=bf16)
-            c = expect_launches(c, (1, vit + text + fself, fcross), f"pruned forward "
-                                                                     f"[{gates_name}]")
+            c = expect_launches(c, with_ffn((1, vit + text + fself, fcross), ffn_text + ffn_fusion),
+                                f"pruned forward [{gates_name}]")
             i2t = R.itm_rerank_scores(student, pruned, ib, txt, txt_atts, rows, k, dtype=bf16)
-            c = expect_launches(c, (0, fself, 0, fcross), f"pruned i2t chunk [{gates_name}]")
+            c = expect_launches(c, with_ffn((0, fself, 0, fcross), ffn_fusion),
+                                f"pruned i2t chunk [{gates_name}]")
             t2i = R.itm_rerank_scores(student, pruned, ib_x, txt, txt_atts, rows, k, dtype=bf16)
-            c = expect_launches(c, (0, fself, fcross), f"pruned t2i chunk [{gates_name}]")
+            c = expect_launches(c, with_ffn((0, fself, fcross), ffn_fusion),
+                                f"pruned t2i chunk [{gates_name}]")
             gated = R.retrieval_forward(student, dense, image, ids, atts, zs=zs, dtype=bf16)
             plain = R.retrieval_forward(student, pruned, image, ids, atts, dtype=bf16,
                                         impl="plain")
@@ -1903,8 +2082,10 @@ GD_UNIT = dict(batch=128, raw=257, res=224, tokens=40, max_masks=8, region_image
 # probs form: teacher ViT 12, text 6, ITM pos / neg 6 + 6, MLM 12, student
 # ViT 6; #3's: teacher ITM pos / neg 6 + 6, MLM 6. The teacher runs no bbox
 # head (no KD loss reads it); the student's BERT layers (dropout 0.1),
-# its bbox head included, take the plain core
-GD_LAUNCHES = {False: (2, 0, 0, 0, 0, 0, 48, 18), True: (2, 0, 0, 0, 0, 0, 48, 18)}
+# its bbox head included, take the plain core. The fused FFN: the teacher's
+# BERT layers, text 6, ITM pos / neg 6 + 6, MLM 12
+GD_LAUNCHES = {False: with_ffn((2, 0, 0, 0, 0, 0, 48, 18), 30),
+               True: with_ffn((2, 0, 0, 0, 0, 0, 48, 18), 30)}
 GD_PATHS = (("kernel", "fused", "bfloat16"), ("plain", "plain", "bfloat16"),
             ("f32", "plain", None))
 
@@ -2333,9 +2514,12 @@ TASK_UNIT = {"vqa": dict(batch=8, raw=512, res=480, q_len=40, a_len=20, max_answ
 # (+ VQA question fusion 6; NLVR: the 12 replicated cross layers). The
 # student's BERT layers and decoder (dropout 0.1) and every decoder
 # self-attention (a causal matrix bias) take the plain core. Grounding has no
-# teacher: #1 and the student ViT's 6 differentiable #2 without maps
-TASK_LAUNCHES = {"vqa": (2, 0, 0, 0, 0, 0, 30, 12), "captioning": (2, 0, 0, 0, 0, 0, 18, 6),
-                 "nlvr": (2, 0, 0, 0, 0, 0, 36, 12), "grounding": (1, 6)}
+# teacher: #1 and the student ViT's 6 differentiable #2 without maps. The
+# fused FFN: the teacher's BERT layers (VQA: question 6 + 6, decoder 6;
+# captioning: its 12-layer decoder; NLVR: text 6 + 12 replicated)
+TASK_LAUNCHES = {"vqa": with_ffn((2, 0, 0, 0, 0, 0, 30, 12), 18),
+                 "captioning": with_ffn((2, 0, 0, 0, 0, 0, 18, 6), 12),
+                 "nlvr": with_ffn((2, 0, 0, 0, 0, 0, 36, 12), 18), "grounding": (1, 6)}
 
 
 def task_config(task: str):
@@ -2628,16 +2812,16 @@ def task_steps(task: str, rnd) -> dict:
 
 def pruned_task_counts(params, fusion: int) -> dict:
     """Sublayers left in a pruned generation student: ViT attention, the
-    decoder's self and cross, and with a question stack (VQA) its text /
-    fusion self and fusion cross."""
+    decoder's self, cross and FFN, and with a question stack (VQA) its text
+    / fusion self, fusion cross and FFN."""
     n = lambda layers, key: sum(lp.get(key) is not None for lp in layers)  # noqa: E731
     dec = params["text_decoder"]["layers"]
     out = {"vit": n(params["vision"]["layers"], "attn"), "dec_self": n(dec, "attention"),
-           "dec_cross": n(dec, "crossattention")}
+           "dec_cross": n(dec, "crossattention"), "dec_ffn": ffn_layers(dec)}
     if "text" in params:
         layers = params["text"]["layers"]
         out.update(text=n(layers[:fusion], "attention"), fself=n(layers[fusion:], "attention"),
-                   fcross=n(layers[fusion:], "crossattention"))
+                   fcross=n(layers[fusion:], "crossattention"), ffn=ffn_layers(layers))
     return out
 
 
@@ -2702,8 +2886,9 @@ def task_export(run: dict, rnd):
             if task == "vqa":
                 ids, probs = student.forward_eval(pruned, *args, k=TASK_UNIT["vqa"]["k"],
                                                   dtype=bf16)
-                expect_launches(c, (1, n["vit"] + n["text"] + n["fself"], n["fcross"], 0,
-                                    2 * n["dec_self"] + n["dec_cross"], n["dec_cross"]),
+                expect_launches(c, with_ffn((1, n["vit"] + n["text"] + n["fself"], n["fcross"], 0,
+                                        2 * n["dec_self"] + n["dec_cross"], n["dec_cross"]),
+                                       n["ffn"] + 2 * n["dec_ffn"]),
                                 f"pruned vqa forward_eval [{gates_name}]")
                 launches = counts() if launches is None else launches
                 k = TASK_UNIT["vqa"]["k"]
@@ -2736,8 +2921,8 @@ def task_export(run: dict, rnd):
                 tokens = student.generate(pruned, batch["image"], prompt, num_beams=3,
                                           stats=stats, **gen_kw)
                 calls = stats["decoder_calls"]
-                expect_launches(c, (1, n["vit"], 0, 0, n["dec_self"] * calls,
-                                    n["dec_cross"] * calls),
+                expect_launches(c, with_ffn((1, n["vit"], 0, 0, n["dec_self"] * calls,
+                                        n["dec_cross"] * calls), n["dec_ffn"] * calls),
                                 f"pruned caption generate [{gates_name}] ({calls} calls)")
                 launches = counts() if launches is None else launches
                 check(tuple(tokens.shape) == (TASK_UNIT["captioning"]["batch"],
@@ -3018,7 +3203,7 @@ def nlvr_eval(run: dict, rnd) -> dict:
         model, cast_floating(params, torch.float32), ev32, impl="plain", **kw)
     c = reset_counts()
     logits = {"teacher": predict(teacher, t_bf16)}
-    c = expect_launches(c, (1, 30, 12), "nlvr teacher evaluation")
+    c = expect_launches(c, with_ffn((1, 30, 12), 18), "nlvr teacher evaluation")
     logits["student"] = predict(student, dense, zs=zs)
     c = expect_launches(c, (1, 15, 6), "nlvr gated dense student evaluation")
     hold_outputs("nlvr teacher logits vs its plain path", logits["teacher"],
@@ -3035,6 +3220,7 @@ def nlvr_eval(run: dict, rnd) -> dict:
                 state.params, zs, fusion_layer=fusion, head_dim=64,
                 align_intermediate=EXPORT_ALIGN, nlvr=True), bf16)
         vit, text, fself, fcross = pruned_counts(pruned, fusion)
+        ffn_all = ffn_layers(pruned["text"]["layers"])
         heads = lambda a: 0 if a is None else a["q"]["kernel"].shape[1] // 64  # noqa: E731
         layers = pruned["text"]["layers"][fusion:]
         print(f"nlvr export [{gates_name} gates]: sparsity "
@@ -3047,7 +3233,7 @@ def nlvr_eval(run: dict, rnd) -> dict:
             check(all(pairs_differ), "nlvr drawn gates: a replicated pair gated alike")
         c = reset_counts() if launches is not None else c
         got = predict(student, pruned)
-        c = expect_launches(c, (1, vit + text + fself, fcross),
+        c = expect_launches(c, with_ffn((1, vit + text + fself, fcross), ffn_all),
                             f"nlvr pruned student evaluation [{gates_name}]")
         launches = counts() if launches is None else launches
         gated32 = predict32(student, dense, zs=zs)
@@ -3098,7 +3284,7 @@ def nlvr_pretrain(rnd) -> dict:
     with torch.inference_mode():
         c = reset_counts()
         hidden, pred, _ = model.pair_forward(params, image, ids, atts, noise=noise, dtype=bf16)
-        expect_launches(c, (1, 15, 6), "nlvr pretraining pass")
+        expect_launches(c, with_ffn((1, 15, 6), 9), "nlvr pretraining pass")
         launches = counts()
         plain = model.pair_forward(params, image, ids, atts, noise=noise, dtype=bf16,
                                    impl="plain")
@@ -3489,7 +3675,7 @@ def data_vqa_caption(files, tokenizer, c: dict):
     with torch.inference_mode():
         for impl in ("fused", "plain"):
             ids, probs = model.forward_eval(params, *args, k=u["k_test"], dtype=bf16, impl=impl)
-            c = expect_launches(c, (1, 12, 3, 0, 9, 3) if impl == "fused" else (),
+            c = expect_launches(c, with_ffn((1, 12, 3, 0, 9, 3), 12) if impl == "fused" else (),
                                 f"vqa forward_eval from files, {impl}")
             check(bool(torch.isfinite(probs.float()).all()), f"vqa {impl}: probs not finite")
             results[impl] = [{"question_id": int(qid), "answer": dataset.answer_list[int(a)]}
@@ -3523,7 +3709,8 @@ def data_vqa_caption(files, tokenizer, c: dict):
                                     eos_id=tokenizer.sep_token_id, pad_id=tokenizer.pad_token_id,
                                     dtype=bf16, impl=impl, stats=stats)
             n = stats["decoder_calls"]
-            c = expect_launches(c, (1, 6, 0, 0, 6 * n, 3 * n) if impl == "fused" else (),
+            c = expect_launches(c, with_ffn((1, 6, 0, 0, 6 * n, 3 * n), 6 * n)
+                                if impl == "fused" else (),
                                 f"caption generate from files, {impl} ({n} decoder calls)")
             texts = []
             for toks in tokens.cpu().numpy():
@@ -3666,7 +3853,7 @@ def phase_data(smi: str) -> dict:
 # --------------------------------------------------------------------------
 
 DRIVER_UNIT = dict(preempt_after=5, steps=10, init_res=224)
-DRIVER_STEP = (2, 0, 0, 0, 0, 0, 36, 12)  # #1 x2, #2p x36, #3p x12, as phase_train
+DRIVER_STEP = with_ffn((2, 0, 0, 0, 0, 0, 36, 12), 18)  # as phase_train's step
 
 
 def driver_yaml(files, root: str) -> str:
@@ -3878,17 +4065,19 @@ def eval_recorder():
         yield rec
 
 
-def eval_launches(config, n_img: int, n_txt: int, counts_=(6, 3, 3, 3)) -> tuple:
-    """The evaluation's launches (wrappers() order: #1, #2, #4, and the t2i
-    chunks' #3 over the cross-K/V bank) over n_img images and n_txt
-    captions at the config's batches and k_test, for a student with
-    counts_ = (ViT, text, fusion self, fusion cross) attention sublayers."""
+def eval_launches(config, n_img: int, n_txt: int, counts_=(6, 3, 3, 3),
+                  ffn_=(0, 0)) -> tuple:
+    """The evaluation's launches (wrappers() order: #1, #2, #4, the t2i
+    chunks' #3 over the cross-K/V bank, the fused FFN) over n_img images and
+    n_txt captions at the config's batches and k_test, for a student with
+    counts_ = (ViT, text, fusion self, fusion cross) attention sublayers and
+    ffn_ = (text, fusion) fused FFN sublayers (none where gates mask them)."""
     vit, text, fself, fcross = counts_
     img_b = -(-n_img // config["batch_size_test"])
     txt_b = -(-n_txt // config["batch_size_test_text"])
     i2t, t2i = -(-n_img // 4), -(-n_txt // 4)  # rows_per_call 4
-    return (img_b, vit * img_b + text * txt_b + fself * (i2t + t2i), 0, fcross * i2t,
-            0, 0, 0, 0, fcross * t2i)
+    return with_ffn((img_b, vit * img_b + text * txt_b + fself * (i2t + t2i), 0, fcross * i2t,
+                     0, 0, 0, 0, fcross * t2i), ffn_[0] * txt_b + ffn_[1] * (i2t + t2i))
 
 
 def loop_trace(path: str, steps: int) -> dict:
@@ -4199,6 +4388,8 @@ def phase_driver(smi: str, yardstick: float) -> dict:
                                            align_intermediate=EXPORT_ALIGN)
                 ckpt_io.save_pytree(ckpt, pruned)
                 sub = pruned_counts(pruned, 3)
+                sub_ffn = (ffn_layers(pruned["text"]["layers"][:3]),
+                           ffn_layers(pruned["text"]["layers"][3:]))
                 del model, gates, pruned
             with eval_recorder() as rec:
                 cli.main(["--task", "itr_coco", "--config", yaml_path, "--evaluate",
@@ -4212,7 +4403,7 @@ def phase_driver(smi: str, yardstick: float) -> dict:
                 expected = eval_launches(config, n_img, n_txt)
             else:
                 check(rec["zs"] is None, "driver E2: an export evaluated with gates")
-                expected = eval_launches(config, n_img, n_txt, sub)
+                expected = eval_launches(config, n_img, n_txt, sub, sub_ffn)
             report[name], c = hold_driver_eval(config, tokenizer, rec, expected, c,
                                                f"driver {name} --evaluate")
             del rec
@@ -5177,14 +5368,15 @@ def crossgen_launches(model: str, kind: str, n: int = 0) -> tuple:
     a call's cached self #6 x6 and its cross #6 x6, or #5 x6 shared by the
     beams). The cross-generation source runs the ViT (#1, #2 x12) and the
     whole text stack (#2 x12, #3 x6); the translater's the text layers
-    (#2 x6)."""
+    (#2 x6). Every text and decoder layer runs a fused FFN."""
     vit = (1, 12, 0) if model == "crossgen" else (0, 0, 0)
-    src = (vit[0], vit[1] + (12 if model == "crossgen" else 6), 6 if model == "crossgen" else 0)
+    text = 12 if model == "crossgen" else 6
+    src = (vit[0], vit[1] + text, 6 if model == "crossgen" else 0)
     if kind == "forward":
-        return (src[0], src[1], src[2] + 6, 0, 6, 0)
+        return with_ffn((src[0], src[1], src[2] + 6, 0, 6, 0), text + 6)
     if kind == "greedy":
-        return (src[0], src[1], src[2], 0, 12 * n, 0)
-    return (src[0], src[1], src[2], 0, 6 * n, 6 * n)
+        return with_ffn((src[0], src[1], src[2], 0, 12 * n, 0), text + 6 * n)
+    return with_ffn((src[0], src[1], src[2], 0, 6 * n, 6 * n), text + 6 * n)
 
 
 def phase_crossgen(smi: str) -> dict:
@@ -5396,12 +5588,13 @@ def phase_alt_vision(smi: str) -> dict:
             out = R.retrieval_forward(model, p16, image, ids, atts, dtype=bf16)
             # DeiT's 12 attention cores on #6; the text tower's self (#2 x12) and
             # fusion (#3 x6) sublayers
-            c = expect_launches(c, (0, 12, 6, 0, 12 if deit else 0, 0), f"{kind} forward")
+            c = expect_launches(c, with_ffn((0, 12, 6, 0, 12 if deit else 0, 0), 12),
+                                f"{kind} forward")
             emb = model.get_vision_embeds(p16, image[:u["rows"]], dtype=bf16)[0]
             c = expect_launches(c, (0, 0, 0, 0, 12 if deit else 0, 0), f"{kind} image rows")
             scores = R.itm_rerank_scores(model, p16, emb, txt, txt_atts, u["rows"], u["k"],
                                          dtype=bf16)
-            c = expect_launches(c, (0, 6, 0, 6, 0, 0), f"{kind} i2t rerank chunk")
+            c = expect_launches(c, with_ffn((0, 6, 0, 6), 6), f"{kind} i2t rerank chunk")
         check(all(bool(torch.isfinite(x.float()).all()) for x in (*out, scores)),
               f"{kind}: not finite")
         with torch.inference_mode(), uncounted():
@@ -5504,7 +5697,8 @@ SERVE_UNIT = dict(max_batch=16, max_wait_ms=10.0, clients=16, requests=64, dense
                   infer_items=32, infer_batch=16, export_timeout=600)
 SERVE_YAML = {"caption": "x-vlm-small-ft/Captioning.yaml", "vqa": "x-vlm-small-ft/VQA_480.yaml"}
 SERVE_KERNELS = ("patch_embed", "fused_self_attention", "fused_cross_attention",
-                 "flash_attention", "flash_attention_grouped")  # #1, #2, #3, #6, #5
+                 "flash_attention", "flash_attention_grouped",
+                 "fused_ffn")  # #1, #2, #3, #6, #5, the FFN sublayer
 
 
 def free_port() -> int:
@@ -5863,8 +6057,8 @@ def phase_serving(smi: str) -> dict:
 DDP_UNIT = dict(steps=3, world_batch=24, timeout=480, nccl_timeout=120)
 # a multihost_check step: DRIVER_STEP's and, at dropout 0, the student's BERT
 # sublayers on the probs forms too (text 3 + ITM pos / neg fusion 3 + 3 self,
-# 2 x 3 cross): #1 x2, #2p x45, #3p x18
-DDP_STEP = (2, 0, 0, 0, 0, 0, 45, 18, 0)
+# 2 x 3 cross): #1 x2, #2p x45, #3p x18; the teacher's 18 fused FFNs
+DDP_STEP = with_ffn((2, 0, 0, 0, 0, 0, 45, 18, 0), 18)
 DDP_GROUPS = (("params", "params"), ("loga", "loga"), ("lam", "lambda"))
 
 
@@ -6403,12 +6597,15 @@ def hold_parallel(dumps: dict, smi: str, yardstick: float, grad_yardstick: dict,
         check(diff[group] <= bound, f"parallel tp: final {group} {diff[group]:.3e} from one "
                                     f"rank's, above Adam's bound {bound:.3e}")
     report["tp_leaves_diff"] = {g: diff[g] for g in lrs}
-    expected = tuple(steps * n for n in DDP_STEP)
+    # under tensor parallelism the teacher's FFNs take the plain path
+    one = tuple(steps * n for n in DDP_STEP)
+    expected = {"one": one, "tp": one[:FFN_AT] + (0,)}
     for r, d in enumerate(dumps["tp"]):
         rp = d["report"]
         for mode in ("one", "tp"):
             got = tuple(rp[f"{mode}_launches"][k] for k in names)
-            check(got == expected, f"parallel tp ({mode}): launches {got} != {expected}")
+            check(got == expected[mode], f"parallel tp ({mode}): launches {got} != "
+                                         f"{expected[mode]}")
         print(f"parallel tp rank {r}: step ms "
               + " / ".join(f"{x:.1f}" for x in rp["tp_step_ms"]) + " (one rank "
               + " / ".join(f"{x:.1f}" for x in rp["one_step_ms"]) + f"); {smi}")
@@ -6908,6 +7105,7 @@ def main(argv) -> int:
     cases += new_path_flash_cases(Rand(8))
     errs = phase_kernels(cases + device_cases)
     flash_refusals(rnd)
+    ffn_report = phase_ffn(smi)
     p_cases = probs_cases(rnd)
     errs.update(phase_probs(p_cases + gd_probs_cases(rnd) + task_probs_cases(rnd)
                             + nlvr_probs_cases(Rand(6))))
@@ -6962,6 +7160,7 @@ def main(argv) -> int:
           f"by attn_probs, {sum(p['route_attn_core'] for p in paths)} by attn_core")
     check(core_launches == probs_launches > 0, "a probs launch of the main paths missed attn_probs")
     kernels.append(probs_core_times(errs, core_launches, smi))
+    kernels.append(ffn_row(ffn_report, paths))
     print(f"card: {smi}; total {time.perf_counter() - t0:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

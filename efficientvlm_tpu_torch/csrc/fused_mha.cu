@@ -155,17 +155,8 @@ extern "C" int evlm_fused_attention_bank(
                                           d, a, st));
 }
 
-// The device kernels on their own, for the card tests and chip_smoke.py.
-// a [m, k], b [k, n] bf16; bias [n] and row_add [period, n] or null, bf16
-// (vec16) or f32; c [m, n] bf16 or f32 (out_f32).
-extern "C" int evlm_gemm_bias(const void* a, const void* b, const void* bias, const void* row_add,
-                              void* c, int period, int out_f32, int vec16, int m, int n, int k,
-                              void* stream) {
-  return static_cast<int>(evlm::gemm_bias(a, b, bias, row_add, period, vec16 != 0, c,
-                                          out_f32 != 0, m, n, k,
-                                          static_cast<cudaStream_t>(stream)));
-}
-
+// The device kernels on their own, for the card tests and chip_smoke.py
+// (evlm_gemm_bias, with its activations, is in fused_ffn.cu).
 // out[map(row)] = LN(a @ b + bias + row_add[row % period] + residual[row]);
 // a [m, k], b [k, n], residual [m, n] (or null) bf16; bias, row_add, gamma,
 // beta bf16 (vec16) or f32; n a multiple of 128 up to 1024.

@@ -1,7 +1,9 @@
-// gemm_bias: C[M,N] = A[M,K] @ B[K,N] (+ bias[N]) (+ row_add[m % period, N]),
+// gemm_bias: C[M,N] = act(A[M,K] @ B[K,N] (+ bias[N]) (+ row_add[m % period, N])),
 // bf16 operands, f32 accumulation, C written as bf16 or f32; bias and
 // row_add are read as stored, both bf16 or both f32 (the kernel is built for
-// each, so the epilogue's loads carry no type test). One launch may
+// each, so the epilogue's loads carry no type test); act is the identity or
+// BERT's GELU, applied in f32 on the accumulators (an instance of its own
+// each, so the identity's instance is the kernel it was). One launch may
 // serve up to three GEMMs over the same A (the Q, K and V projections of a
 // self-attention sublayer, or K and V of a cross-attention one), each with
 // its own B, bias and C.
@@ -33,7 +35,9 @@
 //     while the other finishes its last tile; a named barrier passes the
 //     turn once a warpgroup has seen its tile's last k-block arrive;
 //   - the epilogue adds bias and row_add in f32 on the accumulator
-//     registers (all loads before any store), writes each 64-row half into
+//     registers (all loads before any store), applies the activation there
+//     (the BERT FFN's first GEMM: the [M, I] intermediate is stored once, as
+//     bf16, already activated), writes each 64-row half into
 //     a swizzled staging buffer of its warpgroup and stores it with TMA,
 //     which writes whole lines, clips the ragged edge and runs on while the
 //     warpgroup goes back to its products.
@@ -58,6 +62,9 @@ constexpr int BM = 128, BN = 128, BK = 64, STAGES = 5;
 constexpr int CONSUMERS = 2;                       // warpgroups, whole tiles in turns
 constexpr int THREADS = CONSUMERS * 128 + 32;      // + one producer warp
 constexpr int MAX_GEMMS = 3;
+// the epilogue's activations (bindings.ACTIVATIONS): the identity, BERT's
+// exact erf GELU
+enum { ACT_NONE = 0, ACT_GELU = 1 };
 constexpr int A_BYTES = BM * BK * 2;               // 16 KB: 128 rows of 128 bytes
 constexpr int B_CHUNK = BK * 64 * 2;               // 8 KB: 64 K-rows of 64 columns
 constexpr int STAGE_BYTES = A_BYTES + (BN / 64) * B_CHUNK;
@@ -192,15 +199,25 @@ __device__ __forceinline__ void wgmma_m64n128k16(float (&d)[64], uint64_t da, ui
 }
 #undef EVLM_ACC8
 
+// the activation of one f32 value, as torch's F.gelu computes it in f32
+template <int ACT>
+__device__ __forceinline__ float activate(float x) {
+  if constexpr (ACT == ACT_GELU) {
+    return 0.5f * x * (1.0f + erff(x * 0.70710678118654752f));
+  } else {
+    return x;
+  }
+}
+
 // bias and row_add into the accumulators of rows [row0, row0 + 64) of a
-// tile (thread tid holds rows r and r + 8 of its warp's 16, columns
+// tile, then the activation (thread tid holds rows r and r + 8 of its warp's 16, columns
 // 8 i + 2 (tid % 4) + {0, 1}), then the 64 rows out through `buf`: written
 // there in the C map's 128-byte swizzled boxes (conflict-free: the 8 rows a
 // store instruction touches land in 8 different 16-byte chunks) and stored
 // by TMA, which writes whole lines and clips the ragged edge. All loads
 // come before the first store, so their latencies overlap. V16: bias and
 // row_add are bf16 (else f32).
-template <bool V16>
+template <bool V16, int ACT>
 __device__ __forceinline__ void epilogue(float (&acc)[64], const Params& p, const void* bias,
                                          const CUtensorMap* map, unsigned char* buf, int row0,
                                          int col0, int wg, int tid) {
@@ -229,6 +246,10 @@ __device__ __forceinline__ void epilogue(float (&acc)[64], const Params& p, cons
         acc[4 * i + 2 * h + 1] += v.y;
       }
     }
+  }
+  if constexpr (ACT != ACT_NONE) {
+#pragma unroll
+    for (int i = 0; i < 64; ++i) acc[i] = activate<ACT>(acc[i]);
   }
   // the TMA store of this warpgroup's previous half tile has read `buf`
   if (tid == 0) asm volatile("cp.async.bulk.wait_group.read 0;\n" ::: "memory");
@@ -265,7 +286,7 @@ __device__ __forceinline__ void epilogue(float (&acc)[64], const Params& p, cons
   }
 }
 
-template <bool V16>
+template <bool V16, int ACT>
 __global__ void __launch_bounds__(THREADS, 1) gemm_bias_kernel(const __grid_constant__ Params p) {
   extern __shared__ unsigned char smem_raw[];
   // 128-byte swizzle atoms must start on 1024-byte boundaries
@@ -369,8 +390,8 @@ __global__ void __launch_bounds__(THREADS, 1) gemm_bias_kernel(const __grid_cons
     const void* bias = g == 0 ? p.bias[0] : (g == 1 ? p.bias[1] : p.bias[2]);
     const CUtensorMap* mc = g == 0 ? &p.c[0] : (g == 1 ? &p.c[1] : &p.c[2]);
     unsigned char* buf = out_buf + wg * OUT_BYTES;
-    epilogue<V16>(lo, p, bias, mc, buf, tm * BM, tn * BN, wg, tid);
-    epilogue<V16>(hi, p, bias, mc, buf, tm * BM + 64, tn * BN, wg, tid);
+    epilogue<V16, ACT>(lo, p, bias, mc, buf, tm * BM, tn * BN, wg, tid);
+    epilogue<V16, ACT>(hi, p, bias, mc, buf, tm * BM + 64, tn * BN, wg, tid);
   }
   // shared memory must outlive the last stores' reads of it
   if (tid == 0) asm volatile("cp.async.bulk.wait_group.read 0;\n" ::: "memory");
@@ -422,12 +443,15 @@ bool encode_map(CUtensorMap* map, const void* ptr, int rows, int cols, int box_r
 
 namespace evlm {
 
-// `count` (1-3) GEMMs over one A: C_g = A @ B_g (+ bias_g) (+ row_add).
+// `count` (1-3) GEMMs over one A: C_g = act(A @ B_g (+ bias_g) (+ row_add)).
 // A [M,K] bf16 row-major, B_g [K,N] bf16 row-major (a dense kernel's [in,
 // out] layout), C_g [M,N] contiguous, bf16 or f32 (out_f32). K and N must be
 // multiples of 8 and every pointer 16-byte aligned (TMA); the caller checks
 // this. bias_g [N] and row_add [period, N] may be null; vec16: they are
-// bf16 (else f32).
+// bf16 (else f32). ACT: gemm_impl::ACT_* (ACT_NONE, the projections'; a
+// translation unit compiles only the instances it names: fused_ffn.cu's
+// gemm_bias_act names both).
+template <int ACT = gemm_impl::ACT_NONE>
 static inline cudaError_t gemm_bias_multi(const void* A, int count, const void* const* B,
                                           const void* const* bias, void* const* C,
                                           const void* row_add, int period, bool vec16,
@@ -449,7 +473,7 @@ static inline cudaError_t gemm_bias_multi(const void* A, int count, const void* 
   p.k = K;
   p.gemms = count;
   p.out_f32 = out_f32;
-  auto kernel = vec16 ? gemm_bias_kernel<true> : gemm_bias_kernel<false>;
+  auto kernel = vec16 ? gemm_bias_kernel<true, ACT> : gemm_bias_kernel<false, ACT>;
   static DeviceCache cache[2];  // per instance of the kernel
   int sms = 0;
   cudaError_t e = once_per_device(cache[vec16], reinterpret_cast<const void*>(kernel),

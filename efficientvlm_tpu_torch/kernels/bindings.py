@@ -8,7 +8,8 @@ raises when the C entry returns a CUDA error. Small parameter vectors
 (biases, LayerNorm scale and shift, positional rows, head gates) are passed
 as stored with one flag per kernel call: all bf16, or all f32, so that no
 call converts params stored in one dtype. The shape rules that choose between device kernels live here too
-(gemm_ln_fits, wgmma_core_fits, patch_gather_fits, probs_tile), and
+(gemm_ln_fits, wgmma_core_fits, patch_gather_fits, probs_tile), the
+activations gemm_bias's epilogue applies (ACTIVATIONS), and
 `probs_routes` counts which core served each call of a probs form.
 """
 
@@ -69,6 +70,11 @@ def _aligned(ptrs: dict, name: str) -> None:
 # --------------------------------------------------------------------------
 
 LN_TILE, LN_MAX_CLUSTER = 128, 8
+
+
+# gemm_bias's epilogue activations by name (ops/basic.ACT2FN's), as
+# csrc/gemm_bias.cuh numbers them: the identity and BERT's exact GELU
+ACTIVATIONS = {"none": 0, "gelu": 1}
 
 
 def gemm_ln_fits(d: int) -> bool:
@@ -363,21 +369,64 @@ def fused_attention_bank(x: torch.Tensor, k_bank: torch.Tensor, v_bank: torch.Te
 
 
 def gemm_bias(a: torch.Tensor, b: torch.Tensor, bias: Optional[torch.Tensor] = None,
-              row_add: Optional[torch.Tensor] = None, *, out_f32: bool = False) -> torch.Tensor:
-    """The projection kernel on its own: a [M, K] bf16 @ b [K, N] bf16
-    (+ bias [N]) (+ row_add[m % period] of [period, N]), vectors bf16 or f32
-    as stored, f32 accumulation -> [M, N] bf16, or f32 with out_f32."""
+              row_add: Optional[torch.Tensor] = None, *, out_f32: bool = False,
+              act: str = "none") -> torch.Tensor:
+    """The projection kernel on its own: act(a [M, K] bf16 @ b [K, N] bf16
+    (+ bias [N]) (+ row_add[m % period] of [period, N])), vectors bf16 or
+    f32 as stored, f32 accumulation and activation (a name of ACTIVATIONS)
+    -> [M, N] bf16, or f32 with out_f32."""
     (m, k), n = a.shape, b.shape[1]
     if k % 8 or n % 8:
         raise ValueError(f"gemm_bias: K={k} and N={n} must be multiples of 8")
+    if act not in ACTIVATIONS:
+        raise ValueError(f"gemm_bias: activation {act!r} is not one of {sorted(ACTIVATIONS)}")
     period = 1 if row_add is None else row_add.shape[0]
     args = [_ptr(a, BF16, "a", (m, k)), _ptr(b, BF16, "b", (k, n))]
     _aligned({"a": args[0], "b": args[1]}, "gemm_bias")
     vecs, vec16 = _vecs([("bias", bias, (n,)), ("row_add", row_add, (period, n))])
     c = torch.empty(m, n, dtype=F32 if out_f32 else BF16, device=a.device)
     _check(library().evlm_gemm_bias(*args, *map(_addr, vecs), c.data_ptr(), period, int(out_f32),
-                                    vec16, m, n, k, _stream(a)), "gemm_bias")
+                                    vec16, m, n, k, ACTIVATIONS[act], _stream(a)), "gemm_bias")
     return c
+
+
+def fused_ffn(x: torch.Tensor, w1: torch.Tensor, b1: Optional[torch.Tensor], w2: torch.Tensor,
+              b2: Optional[torch.Tensor], gamma: torch.Tensor, beta: torch.Tensor, eps: float,
+              *, act: str) -> torch.Tensor:
+    """The FFN sublayer of a post-LN layer, LN(x + act(x @ w1 + b1) @ w2 +
+    b2) * gamma + beta, in two launches: gemm_bias with the activation in
+    its epilogue into a bf16 [M, I] workspace, then gemm_ln with the
+    residual and the LayerNorm in its epilogue. x [M, D] bf16, D a width
+    that fits gemm_ln_fits; w1 [D, I], w2 [I, D] bf16 with I a multiple of
+    8 (ops/fused_ffn pads it); b1 [I], b2 / gamma / beta [D] as stored
+    (bf16 or f32); act a name of ACTIVATIONS other than "none". f32
+    accumulation, activation, residual add and statistics; bf16 out [M, D].
+    The call runs under the span evlm.fused_ffn and counts in
+    `fused_ffn.launches`."""
+    with span("evlm.fused_ffn"):
+        (m, d), i = x.shape, w1.shape[1]
+        if not gemm_ln_fits(d) or i % 8:
+            raise ValueError(f"fused_ffn: widths D={d} (gemm_ln_fits) and I={i} (a multiple "
+                             f"of 8)")
+        if ACTIVATIONS.get(act, 0) == 0:
+            raise ValueError(f"fused_ffn: activation {act!r} is not one of the epilogue's")
+        mats = [_ptr(x, BF16, "x", (m, d)), _ptr(w1, BF16, "w1", (d, i)),
+                _ptr(w2, BF16, "w2", (i, d))]
+        _aligned(dict(zip(("x", "w1", "w2"), mats)), "fused_ffn")
+        (b1v,), vec16_1 = _vecs([("b1", b1, (i,))])
+        (b2v, g, b), vec16_2 = _vecs([("b2", b2, (d,)), ("gamma", gamma, (d,)),
+                                      ("beta", beta, (d,))])
+        inter = torch.empty(m, i, dtype=BF16, device=x.device)
+        out = torch.empty(m, d, dtype=BF16, device=x.device)
+        _check(library().evlm_fused_ffn(
+            mats[0], mats[1], _addr(b1v), mats[2], _addr(b2v), _addr(g), _addr(b),
+            inter.data_ptr(), out.data_ptr(), m, d, i, ACTIVATIONS[act], vec16_1, vec16_2,
+            float(eps), _stream(x)), "fused_ffn")
+        fused_ffn.launches += 1
+        return out
+
+
+fused_ffn.launches = 0
 
 
 def gemm_ln(a: torch.Tensor, b: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor,

@@ -44,8 +44,11 @@ SIGNATURES = {
     # x, wq, bq, wo, bo, k_bank, v_bank, kv_rows, key_bias, gates, ws_q, ws_ctx, out,
     # n, batch, tq, s, d, heads, head_dim, vec16, gates16, stream
     "evlm_fused_attention_bank": [_P] * 13 + [_I] * 9 + [_P],
-    # a, b, bias, row_add, c, period, out_f32, vec16, m, n, k, stream
-    "evlm_gemm_bias": [_P] * 5 + [_I] * 6 + [_P],
+    # a, b, bias, row_add, c, period, out_f32, vec16, m, n, k, act, stream
+    "evlm_gemm_bias": [_P] * 5 + [_I] * 7 + [_P],
+    # x, w1, b1, w2, b2, gamma, beta, ws_inter, out, m, d, i, act, vec16_1, vec16_2,
+    # eps, stream
+    "evlm_fused_ffn": [_P] * 9 + [_I] * 6 + [_F, _P],
     # a, b, bias, row_add, residual, gamma, beta, out, period, group,
     # out_group_stride, out_offset, vec16, m, n, k, eps, stream
     "evlm_gemm_ln": [_P] * 8 + [_I] * 8 + [_F, _P],

@@ -35,6 +35,10 @@ impl="fused" dispatch, per attention sublayer:
   post-LN; a matrix encoder bias has no kernel there and raises.
 A sublayer with int8 projections (ops/quant.py) takes none of the fused
 sublayer kernels: multi_head_attention runs its projections quantized.
+The FFN block is ops/fused_ffn.ffn_sublayer: at inference on the card
+(no FFN gates, no tensor parallelism, bf16) its two GEMMs with the
+activation, the residual and the post-LN in their epilogues; otherwise the
+plain dense -> act -> dense -> add -> layer_norm.
 impl="plain" runs the plain PyTorch path.
 
 Training (train=True with a torch.Generator): dropout after the embeddings,
@@ -77,13 +81,14 @@ from ..ops.basic import (
     ACT2FN, dense, dropout, embedding_lookup, init_dense, init_embedding, init_layer_norm,
     layer_norm, remat,
 )
+from ..ops.fused_ffn import ffn_sublayer
 from ..ops.fused_mha import (
     fused_cross_attention, fused_cross_attention_bank, fused_cross_attention_grouped,
     fused_self_attention, project_kv_rows,
 )
 from ..ops.quant import is_fusable, out_width
 from ..parallel.sharding import (
-    seq_shard, tp_attention, tp_enter, tp_exit, tp_group, tp_row, tp_slice,
+    seq_shard, tp_attention, tp_enter, tp_exit, tp_group, tp_slice,
     vocab_parallel_cross_entropy, vocab_parallel_lookup,
 )
 
@@ -192,7 +197,7 @@ def bert_layer_apply(lp: dict, h: torch.Tensor, cfg: TextConfig, *,
     covers the padded token axis)."""
     eps = cfg.get("layer_norm_eps", 1e-12)
     head_dim = cfg["hidden_size"] // cfg["num_attention_heads"]
-    act = ACT2FN[cfg.get("hidden_act", "gelu")]
+    act = cfg.get("hidden_act", "gelu")
     hdrop = cfg.get("hidden_dropout_prob", 0.0)
     adrop = cfg.get("attention_probs_dropout_prob", 0.0)
     # in training a sublayer fuses only through the kernel's differentiable
@@ -272,11 +277,8 @@ def bert_layer_apply(lp: dict, h: torch.Tensor, cfg: TextConfig, *,
             h = layer_norm(lp["crossattention_ln"], h + x_out, eps=eps)
 
     if lp.get("intermediate") is not None:  # fully-pruned FFN -> identity
-        inter = act(dense(lp["intermediate"], tp_enter(h), dtype=dtype))
-        if mlp_z is not None:
-            inter = inter * tp_slice(mlp_z).to(inter.dtype)
-        out = dropout(tp_exit(dense(tp_row(lp["output"]), inter, dtype=dtype)), hdrop, **drop)
-        h = layer_norm(lp["output_ln"], h + out, eps=eps)
+        h = ffn_sublayer(lp, h, act=act, eps=eps, mlp_z=mlp_z, dropout_rate=hdrop, dtype=dtype,
+                         impl=impl, **drop)
     new_cache = None if cache is None else {**cache, "self": self_cache}
     return h, self_probs, cross_probs, new_cache
 

@@ -49,7 +49,7 @@ from typing import Optional
 import torch
 
 from ..kernels import bindings
-from .basic import recompute_grads
+from .basic import ACT2FN, recompute_grads
 
 NEG = -1e9
 
@@ -105,15 +105,18 @@ def _attention_plain(q, k, v, kb2, gates1, num_heads: int, groups: int = 1,
     return ctx
 
 
-def gemm_bias_plain(a, b, bias=None, row_add=None, out_f32: bool = False):
+def gemm_bias_plain(a, b, bias=None, row_add=None, out_f32: bool = False, act: str = "none"):
     """Plain version of the projection kernel (bindings.gemm_bias): a [M, K]
-    @ b [K, N] in f32 (+ bias [N]) (+ row_add[m % period]), rounded to a's
-    dtype unless out_f32."""
+    @ b [K, N] in f32 (+ bias [N]) (+ row_add[m % period]), then the
+    activation `act` (ops/basic.ACT2FN's, "none" the identity) in f32,
+    rounded to a's dtype unless out_f32."""
     y = a.float() @ b.float()
     if bias is not None:
         y = y + bias.float()
     if row_add is not None:
         y = y + row_add.float()[torch.arange(y.shape[0], device=y.device) % row_add.shape[0]]
+    if act != "none":
+        y = ACT2FN[act](y)
     return y if out_f32 else y.to(a.dtype)
 
 

@@ -109,7 +109,7 @@ def step_noise(step: int, groups: dict) -> dict:
 def launch_counts() -> dict:
     """The kernel wrappers' launch counts (the probs forms apart) and the
     probs forms' calls by the core that served them."""
-    from ..kernels.bindings import probs_routes
+    from ..kernels.bindings import fused_ffn, probs_routes
     from ..ops import flash_attention as FA
     from ..ops import fused_mha as F
     from ..ops.patch_embed import fused_patch_embed
@@ -123,6 +123,7 @@ def launch_counts() -> dict:
             "fused_self_attention_probs": F.fused_self_attention.probs_launches,
             "fused_cross_attention_probs": F.fused_cross_attention.probs_launches,
             "fused_cross_attention_bank": F.fused_cross_attention_bank.launches,
+            "fused_ffn": fused_ffn.launches,
             **{f"route_{r}": n for r, n in probs_routes.items()}}
 
 

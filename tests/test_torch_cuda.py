@@ -1,9 +1,10 @@
 """The port's CUDA kernels against their plain versions, on the card, in
 bf16, at small shapes; each wrapper counts one launch per call. The device
-kernels under the attention sublayers and the patch embedding (gemm_bias,
-gemm_ln, attn_core, attn_wgmma) are also held on their own at the main
-path's shapes and ragged edges, and the shape rules that keep a shape on an
-older route are checked on both sides by the kernels the profiler sees.
+kernels under the attention sublayers, the FFN sublayer and the patch
+embedding (gemm_bias and its GELU, gemm_ln, attn_core, attn_wgmma)
+are also held on their own at the main path's shapes and ragged edges, and
+the shape rules that keep a shape on an older route are checked on both
+sides by the kernels the profiler sees.
 Imports no jax, so it also runs where only PyTorch is installed:
 
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_cuda.py -q
@@ -17,6 +18,7 @@ import torch
 from efficientvlm_tpu_torch.kernels import bindings as K
 from efficientvlm_tpu_torch.ops import attention as A
 from efficientvlm_tpu_torch.ops import flash_attention as FA
+from efficientvlm_tpu_torch.ops import fused_ffn as FF
 from efficientvlm_tpu_torch.ops import fused_mha as F
 from efficientvlm_tpu_torch.ops.patch_embed import fused_patch_embed, patch_embed_plain
 
@@ -1323,3 +1325,134 @@ def test_moe_on_the_card(rnd):
     assert (out.cpu() - want).abs().max().item() <= 1e-4 * want.abs().max().item()
     assert abs(aux.item() - want_aux.item()) <= 1e-5
     assert torch.equal(out.cpu().abs().sum(-1) == 0, want.abs().sum(-1) == 0)
+
+
+# --------------------------------------------------------------------------
+# the FFN sublayer (ops/fused_ffn.py): gemm_bias's activations, then gemm_ln
+# --------------------------------------------------------------------------
+
+
+def _ffn_layer(r, d, i):
+    """One BERT FFN sublayer's params as the export stores them (f32)."""
+    f32 = torch.float32
+    return {"intermediate": {"kernel": r(d, i, std=d ** -0.5, dtype=f32),
+                             "bias": r(i, std=0.5, dtype=f32)},
+            "output": {"kernel": r(i, d, std=i ** -0.5, dtype=f32), "bias": r(d, std=0.5, dtype=f32)},
+            "output_ln": {"scale": r(d, mean=1.0, std=0.1, dtype=f32),
+                          "bias": r(d, std=0.1, dtype=f32)}}
+
+
+def _ffn_twin(lp, h, act="gelu"):
+    """fused_ffn_plain over the op's prepared (padded bf16) weights."""
+    w1, b1, w2 = FF.prepared(lp["intermediate"], lp["output"])
+    ln = lp["output_ln"]
+    return FF.fused_ffn_plain(h.reshape(-1, h.shape[-1]), w1, b1, w2, lp["output"]["bias"],
+                              ln["scale"], ln["bias"], 1e-12, act=act).reshape(h.shape)
+
+
+def _ffn(lp, h, **kw):
+    return FF.ffn_sublayer(lp, h, **{"act": "gelu", "eps": 1e-12, "dtype": torch.bfloat16, **kw})
+
+
+FFN = {
+    # name: (rows, D, I): the rerank chunk's 40,960 rows at the export's
+    # widths (align_intermediate=1), the teacher's aligned width at its b24
+    # step's rows, a caption beam step (48 rows of one token)
+    "rerank_m40960_i2244": (40960, 768, 2244),
+    "rerank_m40960_i2332": (40960, 768, 2332),
+    "teacher_m528_i3072": (528, 768, 3072),
+    "decode_m48_i2244": (48, 768, 2244),
+}
+
+
+@pytest.mark.parametrize("name", sorted(FFN))
+def test_fused_ffn(rnd, name):
+    m, d, i = FFN[name]
+    lp, h = _ffn_layer(rnd, d, i), rnd(1, m, d)
+    before = dict(FF.ffn_calls)
+    out = _ffn(lp, h)
+    assert FF.ffn_calls == {"fused": before["fused"] + 1, "plain": before["plain"]}
+    assert out.shape == h.shape and out.dtype == torch.bfloat16
+    _close(out, _ffn_twin(lp, h))
+
+
+def test_gemm_bias_gelu(rnd):
+    """The GELU instance of gemm_bias against its plain version, at ragged
+    rows and the export's padded width, and against torch's own F.gelu over
+    cuBLAS's product (the layer's plain path); other activations raise."""
+    import torch.nn.functional as Fn
+
+    m, n, k = 1000, 2248, 768
+    a, b = rnd(m, k), rnd(k, n, std=k ** -0.5)
+    bias = rnd(n, std=0.5, dtype=torch.float32)
+    out = K.gemm_bias(a, b, bias, act="gelu")
+    _close(out, F.gemm_bias_plain(a, b, bias, act="gelu"))
+    _close(out, Fn.gelu(torch.addmm(bias.to(torch.bfloat16), a, b)))
+    with pytest.raises(ValueError, match="activation"):
+        K.gemm_bias(a, b, bias, act="relu")
+
+
+def test_fused_ffn_launches_two_kernels_and_no_library_gemm(rnd):
+    """A call that meets the rule: gemm_bias with its GELU and gemm_ln, the
+    port's own kernels only (the f32 vectors are read as stored and the
+    prepared weights are reused), counted as fused."""
+    lp, h = _ffn_layer(rnd, 768, 2244), rnd(2, 40, 768)
+    before, launches = FF.ffn_calls["fused"], K.fused_ffn.launches
+    names = _kernel_names(lambda: _ffn(lp, h))
+    assert FF.ffn_calls["fused"] == before + 2 and K.fused_ffn.launches == launches + 2
+    assert len(names) == 2, names
+    assert any("gemm_bias_kernel" in n for n in names), names
+    assert any("gemm_ln_kernel" in n for n in names), names
+    assert all("evlm" in n for n in names), names
+
+
+@pytest.mark.parametrize("d", [768, 200], ids=["d768_gemm_ln", "d200_plain"])
+def test_fused_ffn_follows_the_width_rule(rnd, d):
+    """Hidden widths that fit gemm_ln_fits normalise in gemm_ln's epilogue;
+    others run the layer's plain path (no kernel of the fused form, counted
+    as plain); both agree with the plain twin."""
+    lp, h = _ffn_layer(rnd, d, 300), rnd(3, 37, d)
+    fits = K.gemm_ln_fits(d)
+    assert fits == (d == 768)
+    before = dict(FF.ffn_calls)
+    names = _kernel_names(lambda: _ffn(lp, h))
+    fused = FF.ffn_calls["fused"] - before["fused"]
+    assert (fused, FF.ffn_calls["plain"] - before["plain"]) == ((2, 0) if fits else (0, 2))
+    assert any("gemm_ln_kernel" in n for n in names) == fits
+    assert any("gemm_bias_kernel" in n for n in names) == fits
+    _close(_ffn(lp, h), _ffn_twin(lp, h))
+
+
+@pytest.mark.parametrize("case", ["train", "mlp_z", "graded"])
+def test_fused_ffn_bypassed_where_it_cannot_serve(rnd, case):
+    """Training, FFN gates and autograd through the call keep the plain
+    path: no kernel of the fused form runs, the calls count as plain."""
+    lp, h = _ffn_layer(rnd, 768, 2244), rnd(2, 40, 768)
+    kw = {}
+    if case == "train":
+        kw["train"] = True
+    elif case == "mlp_z":
+        kw["mlp_z"] = torch.rand(2244, device="cuda")
+    else:
+        lp["output"]["kernel"].requires_grad_(True)
+    before = dict(FF.ffn_calls)
+    names = _kernel_names(lambda: _ffn(lp, h, **kw))
+    assert FF.ffn_calls == {"fused": before["fused"], "plain": before["plain"] + 2}
+    assert not any("gemm_bias_kernel" in n or "gemm_ln_kernel" in n for n in names), names
+
+
+GEMM_BIAS_CASES = {"vit_qkv_m18464_n2304_k768": (18464, 2304, 768, False, torch.float32),
+                   "i2t_out_f32_m40960_n768_k768": (40960, 768, 768, True, torch.float32),
+                   "bf16_bias_m1000_n320_k512": (1000, 320, 512, False, torch.bfloat16)}
+
+
+@pytest.mark.parametrize("case", sorted(GEMM_BIAS_CASES))
+def test_gemm_bias_without_activation(rnd, case):
+    """The projections' instance (no activation, the default) against its
+    plain version: bf16 and f32 out, f32 and bf16 vectors."""
+    m, n, k, out_f32, vdt = GEMM_BIAS_CASES[case]
+    a, b = rnd(m, k), rnd(k, n, std=k ** -0.5)
+    bias = rnd(n, std=0.1, dtype=vdt)
+    out = K.gemm_bias(a, b, bias, out_f32=out_f32)
+    assert out.dtype == (torch.float32 if out_f32 else torch.bfloat16)
+    _close(out, F.gemm_bias_plain(a, b, bias, out_f32=out_f32))

@@ -165,6 +165,29 @@ def test_prune_xvlm_params_matches_jax_leaf_by_leaf(export_case, align):
         np.testing.assert_array_equal(tl[k], np.asarray(jl[k]), err_msg=k)
 
 
+def test_default_export_keeps_the_kept_units_widths(export_case):
+    """prune_xvlm_params' defaults write JAX's widths: each FFN keeps exactly
+    its kept units, however unaligned (the card's padding is the fused FFN
+    op's own, ops/fused_ffn.py), leaf for leaf as JAX's default export."""
+    jmod, jparams, jzs, tmod, tparams, tzs = export_case
+    hd = 64 // 4
+    tpruned = TE.prune_xvlm_params(tparams, tzs, fusion_layer=1, head_dim=hd)
+    jpruned = JE.prune_xvlm_params(jparams, jzs, fusion_layer=1, head_dim=hd)
+    widths = []
+    for i, (tl, jl) in enumerate(zip(tpruned["text"]["layers"], jpruned["text"]["layers"])):
+        z = tzs["text_intermediate_z"][i] if i < 1 else tzs["cross_intermediate_z"][i - 1]
+        kept = int((z > 0).sum())
+        if tl["intermediate"] is None:
+            assert kept == 0 and jl["intermediate"] is None
+            continue
+        for name in ("intermediate", "output"):
+            for leaf, t in tl[name].items():
+                np.testing.assert_array_equal(t.numpy(), np.asarray(jl[name][leaf]))
+        widths.append(tl["intermediate"]["kernel"].shape[1])
+        assert widths[-1] == kept
+    assert any(w % 8 for w in widths), widths
+
+
 def test_pruned_forward_equals_gated_dense_forward(export_case):
     """The export is exact: the pruned student's retrieval forward equals the
     dense student's with the same deterministic gates, and JAX's pruned
